@@ -1,0 +1,19 @@
+"""qst_tpu_torch — the PyTorch/CUDA port of ``qst_tpu``.
+
+A second package beside ``qst_tpu`` with the same layout and module names,
+so each module's counterpart sits at the same path under ``qst_tpu/``. It
+imports ``torch``, ``numpy`` and the standard library only — never ``jax``,
+``flax`` or ``qst_tpu`` — so it runs on a machine without JAX.
+
+Every Pallas kernel of the ported slice is a hand-written CUDA kernel for
+Hopper (``sm_90a``) under ``kernels/csrc/``, built with ``nvcc`` at first use
+(``kernels/build.py``). Each kernel's wrapper keeps a plain PyTorch version
+beside it: CPU tensors take the plain version, CUDA tensors launch the kernel
+or raise.
+
+The ported slice is the serving path: ``SentenceEncoder`` encode through the
+fused layer (K1) and exact search through bucket maxima (K4) and the
+winning-bucket rescore (K5), behind ``Retriever`` and ``RetrievalServer``.
+"""
+
+__version__ = "0.1.0"
