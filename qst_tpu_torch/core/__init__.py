@@ -1,5 +1,5 @@
-"""Core configuration (counterpart of ``qst_tpu/core``)."""
+"""Core configuration and telemetry (counterpart of ``qst_tpu/core``)."""
 
-from qst_tpu_torch.core.config import EncoderConfig
+from qst_tpu_torch.core.config import DataConfig, EncoderConfig, LossConfig, TrainConfig
 
-__all__ = ["EncoderConfig"]
+__all__ = ["DataConfig", "EncoderConfig", "LossConfig", "TrainConfig"]

@@ -1,10 +1,13 @@
 """Build the port's CUDA kernels with ``nvcc`` and load them with ``ctypes``.
 
 All sources under ``kernels/csrc/`` compile into one shared library with a
-plain C interface::
+plain C interface: one ``nvcc -c`` per source, all started together, then
+one link::
 
-    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \\
-         -Xcompiler -fPIC -o _build/libqst_kernels_<hash>.so csrc/*.cu
+    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -Xcompiler -fPIC \\
+         -c csrc/<name>.cu -o _build/<hash>/<name>.o          # each source at once
+    nvcc -gencode arch=compute_90a,code=sm_90a -shared \\
+         -o _build/libqst_kernels_<hash>.so _build/<hash>/*.o
 
 The library is built at first use into ``kernels/_build/`` (listed in
 ``.gitignore``), named by a hash of the sources and flags, so a checkout
@@ -28,8 +31,8 @@ from typing import Dict, Optional, Sequence
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC")
+ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
+NVCC_FLAGS = (*ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC")
 
 # dtype codes of the C entry points (csrc/common.cuh QstDType)
 DTYPE_CODES = {"float32": 0, "bfloat16": 1, "int8": 2}
@@ -66,20 +69,37 @@ def library_path() -> Path:
     return BUILD_DIR / f"libqst_kernels_{h.hexdigest()[:16]}.so"
 
 
+def _run_all(cmds: Sequence[Sequence[str]]) -> None:
+    """Run the commands at once; raise with the first failure's stderr."""
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+             for c in cmds]
+    failed = []
+    for cmd, proc in zip(cmds, procs):
+        _, err = proc.communicate()
+        if proc.returncode != 0:
+            failed.append(f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{err}")
+    if failed:
+        raise RuntimeError("\n".join(failed))
+
+
 def build() -> Path:
     """Compile ``csrc/*.cu`` into the shared library unless it exists."""
     out = library_path()
     if out.is_file():
         return out
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    nvcc = _nvcc()
+    objdir = BUILD_DIR / f"{out.stem}.{os.getpid()}"
+    objdir.mkdir(parents=True, exist_ok=True)
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *[str(s) for s in _sources()]]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
+    try:
+        objs = [objdir / f"{src.stem}.o" for src in _sources()]
+        _run_all([[nvcc, *NVCC_FLAGS, "-c", str(src), "-o", str(obj)]
+                  for src, obj in zip(_sources(), objs)])
+        _run_all([[nvcc, *ARCH, "-shared", "-o", str(tmp), *map(str, objs)]])
+        os.replace(tmp, out)   # atomic: a concurrent build sees all or nothing
+    finally:
+        shutil.rmtree(objdir, ignore_errors=True)
         tmp.unlink(missing_ok=True)
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{proc.stderr}")
-    os.replace(tmp, out)   # atomic: a concurrent build sees all or nothing
     return out
 
 
@@ -94,16 +114,17 @@ def load() -> ctypes.CDLL:
         return _lib
 
 
-def function(name: str, argtypes: Sequence[object]):
+def function(name: str, argtypes: Sequence[object], restype: object = ctypes.c_int):
     """The C entry point ``name`` with its argument types declared
-    (every pointer and the stream as ``c_void_p``) and an ``int`` result."""
+    (every pointer and the stream as ``c_void_p``) and its result type
+    (``int``: a cudaError_t)."""
     lib = load()
     with _lock:
         fn = _functions.get(name)
         if fn is None:
             fn = getattr(lib, name)
             fn.argtypes = list(argtypes)
-            fn.restype = ctypes.c_int
+            fn.restype = restype
             _functions[name] = fn
         return fn
 

@@ -2,15 +2,20 @@
 
 Module and parameter names follow HF ``BertModel`` (``embeddings.*``,
 ``encoder.layer.N.attention.self.query.*``, ...), so a checkpoint's state
-dict loads as it is. The forward keeps the Flax path's semantics
-(deterministic, i.e. no dropout):
+dict loads as it is. The forward keeps the Flax path's semantics:
 
 - params stay f32; every projection runs in ``cfg.dtype`` (inputs, weight
   and bias cast to it, as Flax's ``Dense(dtype=...)`` does);
 - attention logits and probabilities·V accumulate in f32 (operands upcast
   before the product), the softmax is f32, with a −1e9 additive pad bias;
 - both LayerNorms take f32 statistics; the GELU is exact-erf;
-- casts to ``cfg.dtype`` at the same points as the Flax modules.
+- casts to ``cfg.dtype`` at the same points as the Flax modules;
+- dropout at the Flax sites — the embeddings after their LayerNorm, the
+  attention probabilities, the attention output and the FFN output — only
+  in ``train()`` mode and only when the forward is given a
+  ``dropout_generator``, from which every mask is drawn (Flax's
+  ``where(keep, x / keep_prob, 0)``; the bits are the generator's, not
+  JAX's).
 
 ``use_flash_attention`` (a library kernel on the TPU) is not on this path.
 Only ``arch="bert"`` is ported; MPNet and RoBERTa wait for a later slice.
@@ -46,6 +51,17 @@ def _layer_norm_f32(ln: nn.LayerNorm, x: torch.Tensor) -> torch.Tensor:
                         ln.bias.float(), ln.eps)
 
 
+def _dropout(module: nn.Module, x: torch.Tensor, rate: float,
+             gen: Optional[torch.Generator]) -> torch.Tensor:
+    """Flax ``nn.Dropout``: keep with probability 1 − rate and scale the kept
+    values by 1/(1 − rate) in x's dtype; active in train() mode with a
+    generator (drawn on the generator's device)."""
+    if not module.training or gen is None or rate == 0.0:
+        return x
+    keep = torch.rand(x.shape, generator=gen, device=gen.device).to(x.device) < 1.0 - rate
+    return torch.where(keep, x / (1.0 - rate), torch.zeros((), dtype=x.dtype, device=x.device))
+
+
 class BertEmbeddings(nn.Module):
     def __init__(self, cfg: EncoderConfig):
         super().__init__()
@@ -57,25 +73,29 @@ class BertEmbeddings(nn.Module):
         self.LayerNorm = nn.LayerNorm(H, eps=cfg.layer_norm_eps)
 
     def forward(self, input_ids: torch.Tensor, token_type_ids: torch.Tensor,
-                position_ids: torch.Tensor) -> torch.Tensor:
+                position_ids: torch.Tensor,
+                dropout_generator: Optional[torch.Generator] = None) -> torch.Tensor:
         dt = compute_dtype(self.cfg)
         word = self.word_embeddings(input_ids).to(dt)
         pos = self.position_embeddings(position_ids).to(dt)
         typ = self.token_type_embeddings(
             torch.clamp(token_type_ids, max=self.cfg.type_vocab_size - 1)).to(dt)
-        return _layer_norm_f32(self.LayerNorm, word + pos + typ).to(dt)
+        x = _layer_norm_f32(self.LayerNorm, word + pos + typ)
+        return _dropout(self, x, self.cfg.hidden_dropout, dropout_generator).to(dt)
 
 
 class BertSelfAttention(nn.Module):
     def __init__(self, cfg: EncoderConfig):
         super().__init__()
         self.num_heads = cfg.num_heads
+        self.rate = cfg.attention_dropout
         H = cfg.hidden_size
         self.query = _Linear(H, H)
         self.key = _Linear(H, H)
         self.value = _Linear(H, H)
 
-    def forward(self, hidden: torch.Tensor, bias: torch.Tensor) -> torch.Tensor:
+    def forward(self, hidden: torch.Tensor, bias: torch.Tensor,
+                dropout_generator: Optional[torch.Generator] = None) -> torch.Tensor:
         B, S, H = hidden.shape
         nh = self.num_heads
         hd = H // nh
@@ -86,6 +106,7 @@ class BertSelfAttention(nn.Module):
         q, k, v = heads(self.query(hidden)), heads(self.key(hidden)), heads(self.value(hidden))
         logits = torch.einsum("bqhd,bkhd->bhqk", q, k) / math.sqrt(hd)
         probs = torch.softmax(logits + bias, dim=-1).to(hidden.dtype)
+        probs = _dropout(self, probs, self.rate, dropout_generator)
         ctx = torch.einsum("bhqk,bkhd->bqhd", probs.float(), v)
         return ctx.reshape(B, S, H).to(hidden.dtype)
 
@@ -95,9 +116,12 @@ class BertSelfOutput(nn.Module):
         super().__init__()
         self.dense = _Linear(cfg.hidden_size, cfg.hidden_size)
         self.LayerNorm = nn.LayerNorm(cfg.hidden_size, eps=cfg.layer_norm_eps)
+        self.rate = cfg.hidden_dropout
 
-    def forward(self, ctx: torch.Tensor, hidden: torch.Tensor) -> torch.Tensor:
-        return _layer_norm_f32(self.LayerNorm, self.dense(ctx) + hidden).to(hidden.dtype)
+    def forward(self, ctx: torch.Tensor, hidden: torch.Tensor,
+                dropout_generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        out = _dropout(self, self.dense(ctx), self.rate, dropout_generator)
+        return _layer_norm_f32(self.LayerNorm, out + hidden).to(hidden.dtype)
 
 
 class BertAttention(nn.Module):
@@ -106,8 +130,10 @@ class BertAttention(nn.Module):
         self.self = BertSelfAttention(cfg)
         self.output = BertSelfOutput(cfg)
 
-    def forward(self, hidden: torch.Tensor, bias: torch.Tensor) -> torch.Tensor:
-        return self.output(self.self(hidden, bias), hidden)
+    def forward(self, hidden: torch.Tensor, bias: torch.Tensor,
+                dropout_generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        return self.output(self.self(hidden, bias, dropout_generator), hidden,
+                           dropout_generator)
 
 
 class BertIntermediate(nn.Module):
@@ -124,9 +150,12 @@ class BertOutput(nn.Module):
         super().__init__()
         self.dense = _Linear(cfg.intermediate_size, cfg.hidden_size)
         self.LayerNorm = nn.LayerNorm(cfg.hidden_size, eps=cfg.layer_norm_eps)
+        self.rate = cfg.hidden_dropout
 
-    def forward(self, inter: torch.Tensor, hidden: torch.Tensor) -> torch.Tensor:
-        return _layer_norm_f32(self.LayerNorm, self.dense(inter) + hidden).to(hidden.dtype)
+    def forward(self, inter: torch.Tensor, hidden: torch.Tensor,
+                dropout_generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        out = _dropout(self, self.dense(inter), self.rate, dropout_generator)
+        return _layer_norm_f32(self.LayerNorm, out + hidden).to(hidden.dtype)
 
 
 class BertLayer(nn.Module):
@@ -136,9 +165,10 @@ class BertLayer(nn.Module):
         self.intermediate = BertIntermediate(cfg)
         self.output = BertOutput(cfg)
 
-    def forward(self, hidden: torch.Tensor, bias: torch.Tensor) -> torch.Tensor:
-        hidden = self.attention(hidden, bias)
-        return self.output(self.intermediate(hidden), hidden)
+    def forward(self, hidden: torch.Tensor, bias: torch.Tensor,
+                dropout_generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        hidden = self.attention(hidden, bias, dropout_generator)
+        return self.output(self.intermediate(hidden), hidden, dropout_generator)
 
 
 class _LayerStack(nn.Module):
@@ -164,14 +194,18 @@ class BertEncoder(nn.Module):
         self.encoder = _LayerStack(cfg)
 
     def forward(self, input_ids: torch.Tensor, attention_mask: torch.Tensor,
-                token_type_ids: Optional[torch.Tensor] = None) -> torch.Tensor:
+                token_type_ids: Optional[torch.Tensor] = None,
+                dropout_generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        """``dropout_generator``: in train() mode, apply the config's dropout
+        with masks drawn from it (Flax's ``deterministic=False``)."""
         B, S = input_ids.shape
         input_ids = input_ids.long()
         if token_type_ids is None:
             token_type_ids = torch.zeros_like(input_ids)
         position_ids = torch.arange(S, device=input_ids.device)[None, :].expand(B, S)
-        hidden = self.embeddings(input_ids, token_type_ids.long(), position_ids)
+        hidden = self.embeddings(input_ids, token_type_ids.long(), position_ids,
+                                 dropout_generator)
         bias = torch.where(attention_mask[:, None, None, :] > 0, 0.0, MASK_BIAS).float()
         for layer in self.encoder.layer:
-            hidden = layer(hidden, bias)
+            hidden = layer(hidden, bias, dropout_generator)
         return hidden

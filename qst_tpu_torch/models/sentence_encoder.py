@@ -29,9 +29,10 @@ class SentenceEncoderModule(BertEncoder):
     ``BertModel``'s."""
 
     def forward(self, input_ids: torch.Tensor, attention_mask: torch.Tensor,
-                token_type_ids: Optional[torch.Tensor] = None
+                token_type_ids: Optional[torch.Tensor] = None,
+                dropout_generator: Optional[torch.Generator] = None
                 ) -> Dict[str, torch.Tensor]:
-        hidden = super().forward(input_ids, attention_mask, token_type_ids)
+        hidden = super().forward(input_ids, attention_mask, token_type_ids, dropout_generator)
         pooled = POOLERS[self.cfg.pooling](hidden, attention_mask)
         if self.cfg.normalize:
             pooled = l2_normalize(pooled)

@@ -1,5 +1,7 @@
 """Distance / similarity ops — counterpart of ``qst_tpu/ops/distances.py``.
 
+- ``pairwise_distance``: torch ``F.pairwise_distance(x, y, p, eps=1e-6)``,
+  ``||x - y + eps||_p`` with the eps inside the difference.
 - ``cos_sim`` / ``dot_score``: the sentence-transformers score functions.
 - ``euclid_score``: ``1 / (1 + cdist(a, b, p=2))``.
 
@@ -11,6 +13,19 @@ float32 sums, where torch's own bf16 product would round its output to bf16.
 from __future__ import annotations
 
 import torch
+
+_EPS = 1e-6
+
+
+def pairwise_distance(x: torch.Tensor, y: torch.Tensor, p: float = 2.0,
+                      eps: float = _EPS) -> torch.Tensor:
+    """Row-wise Minkowski distance ``||x - y + eps||_p``, shape (...,)."""
+    diff = torch.abs(x.float() - y.float() + eps)
+    if p == 2.0:
+        return torch.sqrt(torch.sum(diff * diff, dim=-1))
+    if p == 1.0:
+        return torch.sum(diff, dim=-1)
+    return torch.pow(torch.sum(torch.pow(diff, p), dim=-1), 1.0 / p)
 
 
 def l2_normalize(x: torch.Tensor, eps: float = 1e-12,

@@ -18,7 +18,9 @@ import sys
 from unittest import mock
 
 _STUBBED = ("jax", "jaxlib", "flax", "optax", "qst_tpu")
-FILES = ("tests/test_torch_fused_layer.py", "tests/test_torch_topk.py")
+FILES = ("tests/test_torch_fused_layer.py", "tests/test_torch_topk.py",
+         "tests/test_torch_fused_layer_bwd.py", "tests/test_torch_quadruplet.py",
+         "tests/test_torch_losses.py", "tests/test_torch_train.py", "tests/test_torch_data.py")
 _ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 

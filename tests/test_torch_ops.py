@@ -47,6 +47,35 @@ def test_encoder_config_presets_match_field_for_field(preset):
     assert over.use_fused_layer and over.dtype == "float32"
 
 
+@pytest.mark.parametrize("name", ["LossConfig", "TrainConfig", "DataConfig"])
+def test_training_configs_match_field_for_field(name):
+    j, t = getattr(jconfig, name)(), getattr(tconfig, name)()
+    assert dataclasses.asdict(t) == dataclasses.asdict(j)
+    assert ([f.name for f in dataclasses.fields(t)]
+            == [f.name for f in dataclasses.fields(j)])
+
+
+def test_config_constants_match_source():
+    for name in ("RANDOM_SEED", "DEFAULT_GAMMA", "NEGATIVE_SIM_THRESHOLD", "CHUNK_DIM",
+                 "KEY_REFERENCE", "KEY_POSITIVE", "KEY_PART_POSITIVE", "KEY_NEGATIVE",
+                 "KEY_INSTANCES", "QUADRUPLET_KEYS", "REDUCTIONS"):
+        assert getattr(tconfig, name) == getattr(jconfig, name), name
+
+
+@pytest.mark.parametrize("kwargs", [
+    dict(kind="bogus"), dict(kind="triplet", use_fused_kernel=True),
+    dict(p=1.0, use_fused_kernel=True), dict(swap=True, use_fused_kernel=True),
+    dict(gamma=1.5), dict(margin_pos_neg=0.0), dict(margin_pos_part=-1.0),
+    dict(margin_part_neg=0.0), dict(p=0.0), dict(lmbd=0.0), dict(reduction="max"),
+])
+def test_loss_config_checks_match_source(kwargs):
+    with pytest.raises(ValueError) as want:
+        jconfig.LossConfig(**kwargs)
+    with pytest.raises(ValueError) as got:
+        tconfig.LossConfig(**kwargs)
+    assert str(got.value).split(" (")[0] == str(want.value).split(" (")[0]
+
+
 def _pair(rng, a_shape, b_shape):
     return (rng.standard_normal(a_shape).astype(np.float32),
             rng.standard_normal(b_shape).astype(np.float32))
