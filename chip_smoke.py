@@ -1,8 +1,9 @@
-"""Drive the PyTorch/CUDA port's serving and training paths on one NVIDIA GPU.
+"""Drive the PyTorch/CUDA port's serving, training and IVF paths on one NVIDIA GPU.
 
     python3 chip_smoke.py                          # every phase, one GPU
     python3 chip_smoke.py --phases build,check     # a new kernel's first, short call
     python3 chip_smoke.py --phases build,check,train
+    python3 chip_smoke.py --phases build,check,ivf
 
 Phases (any failure exits non-zero and prints no result):
 
@@ -13,8 +14,10 @@ Phases (any failure exits non-zero and prints no result):
    K4 (bucket maxima, f32/bf16/int8, N = 65,536 + 77, with and without
    n_real), K5 (winning-bucket rescore), topk_v2 against reference_topk;
    the dropout masks bit for bit, K1 with dropout, K2 (the layer's
-   backward, with and without dropout) at B = 128, S = 128, and K3 (the
-   fused quadruplet loss, forward and backward).
+   backward, with and without dropout) at B = 128, S = 128, K3 (the fused
+   quadruplet loss, forward and backward), and K6 (the IVF probed-cell
+   scorer, f32 and bf16, D = 384, C = 1024, L = 1152 and 1160, P = 8,
+   Q = 1 / 11 / 256), then IVFIndex.search through K6 against the probe scan.
 3. serve  — random-init MiniLM-L6 with use_fused_layer, a bfloat16 Retriever
    over 65,536 synthetic docs (so "auto" search takes K4 + K5), a
    RetrievalServer on port 0 answering concurrent POST /search, POST /encode
@@ -25,10 +28,20 @@ Phases (any failure exits non-zero and prints no result):
    0.1, fused γ loss, AdamW): finite losses, 6 K1 and 6 K2 launches and one
    K3 forward and backward per step; the first step's gradients at dropout
    0 against the plain versions; a falling loss on a repeated batch.
-5. times  — kernel against plain at the main paths' shapes, encode
-   sentences/s at B=256, S=128, search QPS over 1M x 384 bf16, Q=4096, and
-   train steps/s of the kernel path against the nn.Module path.
-6. profile — where the time goes: device time per kernel and the device's
+5. ivf    — qst_tpu_torch.cli.index_main as a user calls it: ``build
+   --index_dtype ivf --use_fused_layer`` over 65,536 synthetic docs, the
+   ``serve`` command's retriever and server on port 0 answering concurrent
+   POST /search (held against the index's probe scan and, at full probe,
+   against an exact index), one POST /docs + DELETE /docs round on a
+   ``serve --updatable`` server, and ``query``; K1's and K6's launch counts
+   must rise, and the only library GEMM in a request is the centroid product.
+6. times  — kernel against plain at the main paths' shapes, each with the
+   least time the card could take (bytes over memory rate or operations over
+   peak rate); encode sentences/s at B=256, S=128; search QPS over 1M x 384
+   bf16, Q=4096; train steps/s of the kernel path against the nn.Module path;
+   K6 and whole IVF searches at Q = 8 / 64 / 256 over a 1M x 384 bf16
+   clustered index beside the exact K4 + K5 search, with recall@10.
+7. profile — where the time goes: device time per kernel and the device's
    busy share for encode, a train step and search, and served req/s with
    p50/p99 latency at 1, 8 and 64 closed-loop clients.
 
@@ -51,7 +64,7 @@ import urllib.request
 
 import numpy as np
 
-PHASES = ("build", "check", "serve", "train", "times", "profile")
+PHASES = ("build", "check", "serve", "ivf", "train", "times", "profile")
 
 
 def fail(msg: str) -> None:
@@ -95,6 +108,22 @@ def cuda_ms(fn, reps: int, warmup: int = 1) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+# Published peaks of one H100 SXM (NVIDIA's data sheet, dense): the yardstick
+# of every kernel's bound, whatever power limit the card runs at.
+HBM_BYTES_PER_S = 3.35e12
+PEAK_OPS_PER_S = {"bfloat16": 989e12, "float32": 67e12, "int8": 1979e12}
+
+
+def bound(nbytes: float, ops: float, dtype: str) -> dict:
+    """The least time the card could take: the larger of the bytes the
+    function must move over the memory rate and its operations over the
+    peak rate of their type."""
+    by_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    by_ops = ops / PEAK_OPS_PER_S[dtype] * 1e3
+    return {"bound_ms": max(by_bytes, by_ops),
+            "bound_by": "bytes" if by_bytes >= by_ops else "operations"}
 
 
 def bf16_ulp(t):
@@ -219,6 +248,7 @@ def check_kernels(report: dict) -> None:
     report["K4"] = {"max_abs_err": k4_err}
     report["K5"] = {"max_abs_err": k5_err}
     check_training_kernels(report)
+    check_ivf(report)
 
 
 def bf16_limits(what: str, out, ref) -> float:
@@ -348,6 +378,418 @@ def check_training_kernels(report: dict) -> None:
     report["K3"] = {"max_abs_err": err}
 
 
+def rows_match_up_to_ties(a, b, true_scores, tol: float) -> bool:
+    """ids_match_up_to_ties for IVF answers (scores (Q, k), positions (Q, k)
+    with -1 and -inf where the probed cells ran out): the tails must sit in
+    the same places, the rest agree row by row."""
+    (s_a, i_a), (s_b, i_b) = ((np.asarray(s), np.asarray(i)) for s, i in (a, b))
+    if s_a.shape != s_b.shape or not np.array_equal(i_a < 0, i_b < 0):
+        return False
+    if not (np.isneginf(s_a[i_a < 0]).all() and np.isneginf(s_b[i_b < 0]).all()):
+        return False
+    for row in range(s_a.shape[0]):
+        n = int((i_a[row] >= 0).sum())
+        if n and not ids_match_up_to_ties(s_a[row:row + 1, :n], i_a[row:row + 1, :n],
+                                          s_b[row:row + 1, :n], i_b[row:row + 1, :n],
+                                          true_scores[row:row + 1], tol):
+            return False
+    return True
+
+
+def clustered_corpus(n: int, n_centers: int, dim: int, seed: int, spread: float = 0.05):
+    """(n, dim) unit-norm f32 rows on the card in ``n_centers`` planted
+    clusters (a unit center + N(0, spread^2) per coordinate, normalized),
+    and the row → center assignment; made from ``seed`` on the card."""
+    import torch
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    unit = torch.nn.functional.normalize
+    centers = unit(torch.randn((n_centers, dim), device="cuda", generator=gen), dim=1)
+    assign = torch.randint(0, n_centers, (n,), device="cuda", generator=gen)
+    rows = torch.empty((n, dim), device="cuda")
+    for lo in range(0, n, 1 << 18):
+        a = assign[lo:lo + (1 << 18)]
+        noise = torch.randn((a.shape[0], dim), device="cuda", generator=gen)
+        rows[lo:lo + a.shape[0]] = unit(centers[a] + spread * noise, dim=1)
+    return rows, centers, assign
+
+
+def check_ivf(report: dict) -> None:
+    """K6 against its plain version at the IVF path's width, then
+    IVFIndex.search through K6 against the probe scan on one index.
+    Tolerance 1e-4 absolute on unit vectors (exact products, f32 sums in
+    another order), K4/K5's."""
+    import torch
+
+    from qst_tpu_torch.ops import ivf as ops_ivf
+    from qst_tpu_torch.retrieval import IVFIndex
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device="cuda").manual_seed(16)
+    unit = torch.nn.functional.normalize
+    C, D, P = 1024, 384, 8
+    k6_err = 0.0
+    for name, budgets in (("float32", (1152, 1160)), ("bfloat16", (1152, 1160))):
+        for L in budgets:
+            cells = unit(torch.randn((C, L, D), device=dev, generator=gen), dim=2).to(
+                getattr(torch, name))
+            for Q in (1, 11, 256):
+                queries = unit(torch.randn((Q, D), device=dev, generator=gen), dim=1)
+                probe = torch.randint(0, C, (Q, P), device=dev, generator=gen, dtype=torch.int32)
+                probe[0, :4] = torch.tensor([0, C - 1, 0, C - 1], dtype=torch.int32)  # repeats
+                out = ops_ivf.ivf_cell_scores(queries, cells, probe)
+                ref = ops_ivf.ivf_cell_scores_plain(queries, cells, probe)
+                torch.cuda.synchronize()
+                if out.shape != (Q, P * L) or not torch.isfinite(out).all():
+                    fail(f"K6 {name} L={L} Q={Q}: shape {tuple(out.shape)} or non-finite scores")
+                err = (out - ref).abs().max().item()
+                log(f"K6 {name:8s} C={C} L={L} P={P} Q={Q:3d}: max|err| {err:.3e} (limit 1e-4)")
+                if not err <= 1e-4:
+                    fail(f"K6 {name} L={L} Q={Q}: max|err| {err} > 1e-4")
+                k6_err = max(k6_err, err)
+            del cells
+    # an id outside [0, C) reads nothing and scores -inf
+    cells = unit(torch.randn((4, 64, D), device=dev, generator=gen), dim=2)
+    probe = torch.tensor([[0, 4, 3, -1]], dtype=torch.int32, device=dev)
+    out = ops_ivf.ivf_cell_scores(queries[:1], cells, probe).reshape(4, 64)
+    if not (torch.isfinite(out[[0, 2]]).all() and torch.isneginf(out[[1, 3]]).all()):
+        fail("K6: out-of-range probe ids must score -inf")
+    report["K6"]["max_abs_err"] = k6_err
+
+    # IVFIndex.search: K6 path against the probe scan, f32 and bf16 cells,
+    # with tails (n_probe = 1 and k = the cell budget leaves -1 / -inf)
+    rows, _, _ = clustered_corpus(65536, 256, D, seed=17)
+    queries = unit(rows[torch.randint(0, 65536, (64,), device=dev, generator=gen)]
+                   + 0.02 * torch.randn((64, D), device=dev, generator=gen), dim=1)
+    for name in ("float32", "bfloat16"):
+        idx = IVFIndex(rows, n_clusters=256, dtype=name, seed=0)
+        stored = torch.from_numpy(idx.reconstruct_rows()).to(dev)
+        true = (queries.to(idx.cells.dtype).float() @ stored.T).cpu().numpy()
+        for n_probe, k in ((8, 10), (1, idx.cell_budget), (256, 10)):
+            got, want = (tuple(t.cpu().numpy() for t in idx._device_search(queries, k, n_probe, b))
+                         for b in ("pallas", "xla"))
+            if not rows_match_up_to_ties(got, want, true, 1e-4):
+                fail(f"IVFIndex.search {name} n_probe={n_probe} k={k}: the K6 path and the "
+                     f"probe scan disagree")
+        near = idx._device_search(queries, 10, 8, "pallas")[1].cpu().tolist()
+        recall = float(np.mean([len(set(a) & set(b)) / 10 for a, b in zip(near, got[1].tolist())]))
+        if not recall >= 0.8:
+            fail(f"IVFIndex {name}: recall@10 {recall} < 0.8 at n_probe 8 of 256 on clustered rows")
+        log(f"IVFIndex.search {name:8s} {idx.n_docs} docs, {idx.centroids.shape[0]} cells, "
+            f"budget {idx.cell_budget}, recall@10 {recall:.4f} at n_probe 8 (limit 0.8), "
+            f"spilled {idx.spilled}: the K6 path matches the probe scan at n_probe 8, 1 "
+            f"(k = the budget, -1 tails in the same places) and 256")
+        del idx, stored
+
+
+def served_ids(answers, n: int, k: int):
+    """(scores (n, k), ids (n, k)) of POST /search answers (one query each)."""
+    return (np.array([[r[1] for r in answers[j]["results"][0]] for j in range(n)]),
+            np.array([[r[0] for r in answers[j]["results"][0]] for j in range(n)]))
+
+
+def ask_concurrently(port: int, queries, k: int) -> dict:
+    answers, errors = {}, []
+
+    def ask(j):
+        try:
+            answers[j] = post(port, "/search", {"queries": [queries[j]], "k": k})
+        except Exception as e:  # reported below
+            errors.append(repr(e))
+
+    threads = [threading.Thread(target=ask, args=(j,)) for j in range(len(queries))]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=300)
+    if errors or len(answers) != len(queries):
+        fail(f"/search failed: {errors}")
+    return answers
+
+
+LIBRARY_KERNEL_MARKS = ("gemm", "gemv", "nvjet", "cutlass", "cublas", "xmma", "flash", "fmha",
+                        "sdpa", "attention")
+
+
+def library_kernels(prof) -> dict:
+    """{name: launches} of the profiled device kernels that are a library's
+    GEMM or attention (none of the port's own, which live in qst::)."""
+    return {e.key: e.count for e in prof.key_averages()
+            if e.device_type.name == "CUDA" and "qst::" not in e.key
+            and any(b in e.key.lower() for b in LIBRARY_KERNEL_MARKS)}
+
+
+def ivf(report: dict) -> None:
+    """The IVF path through the CLI: build, serve (static and updatable)
+    and query over 65,536 synthetic docs with random-init MiniLM-L6."""
+    import io
+    import tempfile
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from qst_tpu_torch.cli import index_main
+    from qst_tpu_torch.ops import fused_layer as fl
+    from qst_tpu_torch.ops import ivf as ops_ivf
+    from qst_tpu_torch.retrieval import ExactIndex, IVFIndex, UpdatableIndex
+
+    docs = synthetic_docs(65536, seed=14)
+    rng = np.random.default_rng(15)
+    queries = [docs[j] for j in rng.integers(0, len(docs), 32)] + synthetic_docs(32, seed=99)
+    k = 10
+    with tempfile.TemporaryDirectory() as tmp:
+        texts, index_dir = f"{tmp}/docs.txt", f"{tmp}/ivf_index"
+        with open(texts, "w") as f:
+            f.write("\n".join(docs) + "\n")
+        encoder_flags = ["--encoder_preset", "minilm-l6", "--use_fused_layer", "--seed", "14"]
+        counts = (fl.fused_bert_layer, ops_ivf.ivf_cell_scores)
+        for fn in counts:
+            fn.launches = 0
+        t0 = time.perf_counter()
+        if index_main.main(["build", "--texts", texts, "--index_dir", index_dir, "--index_dtype",
+                            "ivf", "--ivf_clusters", "256", "--ivf_probe", "8",
+                            *encoder_flags]) != 0:
+            fail("index_main build failed")
+        torch.cuda.synchronize()
+        build_s = time.perf_counter() - t0
+        serve_argv = ["serve", "--index_dir", index_dir, "--index_dtype", "ivf", "--port", "0",
+                      *encoder_flags]
+        args = index_main.build_parser().parse_args(serve_argv)
+        retr = index_main.serving_retriever(args)
+        index = retr.index
+        if not (isinstance(index, IVFIndex) and index.device.type == "cuda"
+                and index.n_docs == len(docs) and index.default_n_probe == 8):
+            fail(f"serve loaded {type(index).__name__} on {getattr(index, 'device', None)}")
+        log(f"index_main build: {len(docs)} docs encoded (K1) and clustered into "
+            f"{index.centroids.shape[0]} cells of "
+            f"budget {index.cell_budget} (f32 cells, {index.cells.numel() * 4 / 1e6:.0f} MB) "
+            f"and saved in {build_s:.1f} s; 'auto' takes K6: {index._pallas_eligible()}")
+        if not index._pallas_eligible():
+            fail("the built index is not eligible for K6 under backend='auto'")
+
+        # record the query embeddings the server computes, so its answers
+        # are held against searches over the very same vectors
+        seen = {}
+        encode = retr.encoder.encode
+
+        def recording_encode(texts, batch_size=256, convert_to_numpy=True):
+            out = encode(texts, batch_size=batch_size, convert_to_numpy=convert_to_numpy)
+            for t, row in zip(texts, out):
+                seen.setdefault(t, row)
+            return out
+
+        retr.encoder.encode = recording_encode
+        server = index_main.serving_server(args, retr)
+        port = server.start()
+        try:
+            answers = ask_concurrently(port, queries, k)
+            with urllib.request.urlopen(f"http://127.0.0.1:{port}/healthz", timeout=60) as r:
+                health = json.loads(r.read())
+        finally:
+            server.stop()
+        retr.encoder.encode = encode
+        if health != {"ok": True, "n_docs": len(docs)}:
+            fail(f"/healthz answered {health}")
+
+        # the query command, as the user runs it, on its own stdout
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            rc = index_main.main(["query", "--index_dir", index_dir, "--index_dtype", "ivf",
+                                  "--k", str(k), "--queries", *queries[:3], *encoder_flags])
+        printed = [json.loads(line) for line in out.getvalue().splitlines() if line.strip()]
+        launches = {n: fn.launches for n, fn in zip(("K1", "K6"), counts)}
+        log(f"launches during index_main build + serve + query: {launches}")
+        for n, c in launches.items():
+            if c <= 0:
+                fail(f"{n} was never launched on the IVF path")
+        report["K1"]["launches"] = report["K1"].get("launches", 0) + launches["K1"]
+        report["K6"]["launches"] = launches["K6"]
+
+        # served answers == the index's probe scan over the same embeddings
+        ss, si = served_ids(answers, len(queries), k)
+        if ss.shape != (len(queries), k):
+            fail(f"served rows have shape {ss.shape}: the probed cells ran out of documents")
+        q_emb = torch.stack([seen[q] for q in queries])
+        stored = torch.from_numpy(index.reconstruct_rows()).cuda()
+        true = (q_emb @ stored.T).cpu().numpy()
+        xs, xi = index.search(q_emb, k=k, n_probe=8, backend="xla")
+        if not ids_match_up_to_ties(ss, si, xs, np.array(xi), true, 1e-4):
+            fail("served IVF answers differ from the index's 'xla' backend")
+        log(f"/search answers ({len(queries)} concurrent requests) match the probe scan "
+            f"('xla' backend) over the same embeddings")
+        if rc != 0 or [p["query"] for p in printed] != queries[:3]:
+            fail(f"index_main query: rc {rc}, printed {len(printed)} rows")
+        for j, p in enumerate(printed):
+            if len(p["hits"]) != k or not np.allclose([h["score"] for h in p["hits"]], ss[j],
+                                                      atol=1e-4 + 5e-5, rtol=0):
+                fail(f"index_main query's hits for query {j} differ from the served ones")
+        log("index_main query: 3 queries, hits equal to the served ones (scores to 1e-4)")
+
+        # recall@10 against an exact index over the same embeddings
+        exact = ExactIndex(stored, device="cuda")
+        es, ei = exact.search(q_emb, k=k, score="dot_score", backend="xla")
+        recall = float(np.mean([len(set(a) & set(b)) / k for a, b in zip(si.tolist(),
+                                                                          ei.tolist())]))
+        fs, fi = index.search(q_emb, k=k, n_probe=256, backend="pallas")
+        full_ok = ids_match_up_to_ties(fs, np.array(fi), es, ei, true, 1e-4)
+        # no bar on this corpus: random words through a random-init encoder
+        # have no cluster structure for k-means to find (the 0.8 bar is held
+        # on the clustered indexes of `check` and `times`)
+        log(f"IVF recall@10 against ExactIndex over the same embeddings: {recall:.4f} at "
+            f"n_probe 8 of {index.centroids.shape[0]} (reported; the corpus is unclustered); "
+            f"full probe through K6 equals the exact search: {full_ok}")
+        report["ivf"] = {"build_s": build_s, "recall_at_10": recall,
+                         "cell_budget": index.cell_budget}
+        if not full_ok:
+            fail("the full-probe IVF search differs from the exact search")
+
+        # one request under the profiler: the centroid product is the only
+        # library GEMM (it is a plain matmul in the JAX package too)
+        qn = torch.nn.functional.normalize(q_emb[:4].float(), dim=1)
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(3):   # the trace may miss the first kernel after it starts
+                qn @ index.centroids.T
+            torch.cuda.synchronize()
+        centroid_kernels = set(library_kernels(prof))
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            retr.search(queries[:4], k=k)
+            torch.cuda.synchronize()
+        names = [e.key for e in prof.key_averages() if e.device_type.name == "CUDA"]
+        lib = library_kernels(prof)
+        log(f"profiled IVF request: {len(names)} distinct device kernels; K6 among them: "
+            f"{any('ivf_cell_scores_kernel' in n for n in names)}; library GEMM/attention "
+            f"kernels: {lib}; the centroid product alone runs {sorted(centroid_kernels)}")
+        if not any("ivf_cell_scores_kernel" in n for n in names):
+            fail("the profiler did not see K6 in an IVF request")
+        if not lib or set(lib) - centroid_kernels or set(lib.values()) != {1}:
+            fail(f"library kernels on the IVF path other than one centroid product: {lib}")
+
+        # serve --updatable: one POST /docs + DELETE /docs round
+        args = index_main.build_parser().parse_args(serve_argv + ["--updatable"])
+        retr_u = index_main.serving_retriever(args)
+        if not isinstance(retr_u.index, UpdatableIndex) or retr_u.index.device.type != "cuda":
+            fail("serve --updatable did not convert the IVF index to an UpdatableIndex")
+        server = index_main.serving_server(args, retr_u)
+        port = server.start()
+        new_doc = "w4242 w17 an entirely new document w9 w9 w9"
+        try:
+            before = post(port, "/search", {"queries": [queries[0]], "k": k})["results"][0]
+            added = post(port, "/docs", {"texts": [new_doc], "ids": ["new-doc"]})
+            hit = post(port, "/search", {"queries": [new_doc], "k": 1,
+                                         "return_texts": True})["results"][0][0]
+            req = urllib.request.Request(f"http://127.0.0.1:{port}/docs", method="DELETE",
+                                         data=json.dumps({"ids": ["new-doc"]}).encode(),
+                                         headers={"Content-Type": "application/json"})
+            with urllib.request.urlopen(req, timeout=120) as r:
+                removed = json.loads(r.read())
+            after = post(port, "/search", {"queries": [new_doc], "k": k})["results"][0]
+            with urllib.request.urlopen(f"http://127.0.0.1:{port}/healthz", timeout=60) as r:
+                health = json.loads(r.read())
+        finally:
+            server.stop()
+        if (added != {"ids": ["new-doc"]} or hit[0] != "new-doc" or hit[2] != new_doc
+                or abs(hit[1] - 1.0) > 1e-3 or removed != {"removed": 1}
+                or "new-doc" in [r[0] for r in after] or len(after) != k
+                or health != {"ok": True, "n_docs": len(docs)}):
+            fail(f"updatable round: added {added}, hit {hit}, removed {removed}, health {health}")
+        # the exact buffer holds the IVF cells' rows: its answers are the
+        # exact index's (scores 1e-4; the query rides in another batch)
+        if not np.allclose([r[1] for r in before], es[0], atol=1e-4, rtol=0):
+            fail("the updatable server's answers differ from the exact search")
+        log(f"serve --updatable: capacity {retr_u.index.capacity}, POST /docs added 'new-doc' "
+            f"(found at score {hit[1]:.4f}), DELETE /docs removed it, {health['n_docs']} docs "
+            f"after")
+
+
+def times_ivf(report: dict) -> None:
+    """K6 and whole IVF searches over a 1M x 384 bf16 clustered index
+    (1,024 cells) beside the exact K4 + K5 search over the same rows."""
+    import torch
+
+    from qst_tpu_torch.ops import ivf as ops_ivf
+    from qst_tpu_torch.ops import topk
+    from qst_tpu_torch.retrieval import IVFIndex
+    from qst_tpu_torch.retrieval.ivf import _probe
+
+    dev = torch.device("cuda")
+    N, C, D, P, k = 1 << 20, 1024, 384, 8, 10
+    rows, _, _ = clustered_corpus(N, C, D, seed=21)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    idx = IVFIndex(rows, n_clusters=C, dtype="bfloat16", seed=0)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    corpus = rows.to(torch.bfloat16)
+    L = idx.cell_budget
+    log(f"IVF index over {N} x {D} clustered rows: {C} cells of budget {L}, bf16 cells "
+        f"{idx.cells.numel() * 2 / 1e9:.2f} GB, {idx.spilled} docs spilled, built in "
+        f"{build_s:.1f} s")
+    gen = torch.Generator(device="cuda").manual_seed(22)
+    unit = torch.nn.functional.normalize
+    out = {"build_s": build_s, "cell_budget": L, "cells_gb": idx.cells.numel() * 2 / 1e9}
+    for Q in (8, 64, 256):
+        # eight query batches in turn, so a launch does not find the last
+        # one's cells in the 50 MB L2
+        batches = []
+        for _ in range(8):
+            pick = torch.randint(0, N, (Q,), device=dev, generator=gen)
+            batches.append(unit(rows[pick] + 0.02 * torch.randn((Q, D), device=dev, generator=gen),
+                                dim=1))
+        probes = [(qf, pr.to(torch.int32)) for qf, pr in (_probe(q, idx.centroids, P)
+                                                          for q in batches)]
+        turn = [0]
+
+        def each(fn):
+            def run():
+                turn[0] = (turn[0] + 1) % len(batches)
+                return fn(turn[0])
+            return run
+
+        k6_ms = cuda_ms(each(lambda j: ops_ivf.ivf_cell_scores(
+            probes[j][0], idx.cells, probes[j][1])), 16, warmup=2)
+        plain_ms = cuda_ms(each(lambda j: ops_ivf.ivf_cell_scores_plain(
+            probes[j][0], idx.cells, probes[j][1])), 8, warmup=1)
+        # whole searches are host-bound at small Q, and the first twenty or
+        # so calls after a build run about twice slower than the rest (0.93
+        # against 0.48 ms at Q = 8; not investigated): a long warm-up
+        pallas_ms = cuda_ms(each(lambda j: idx._device_search(batches[j], k, P, "pallas")), 48,
+                            warmup=24)
+        xla_ms = cuda_ms(each(lambda j: idx._device_search(batches[j], k, P, "xla")), 8, warmup=2)
+        exact_ms = cuda_ms(each(lambda j: topk.topk_v2(batches[j].to(torch.bfloat16), corpus, k)),
+                           48, warmup=24)
+        # recall@10 of the IVF answers against the exact ones, first batch
+        _, ivf_ids = idx._device_search(batches[0], k, P, "pallas")
+        _, exact_ids = topk.topk_v2(batches[0].to(torch.bfloat16), corpus, k)
+        recall = float(np.mean([len(set(a) & set(b)) / k for a, b in zip(
+            ivf_ids.cpu().tolist(), exact_ids.cpu().tolist())]))
+        # the bound, from this run's probes: each probed cell read once
+        # (the gather's whole volume beside it), the output written once
+        unique_cells = float(np.mean([p[1].unique().numel() for p in probes]))
+        gather_bytes = Q * P * L * D * 2
+        b = bound(unique_cells * L * D * 2 + Q * D * 2 + Q * P * 4 + Q * P * L * 4,
+                  2.0 * Q * P * L * D, "bfloat16")
+        out[f"Q{Q}"] = {"k6_ms": k6_ms, "k6_plain_ms": plain_ms, **b,
+                        "gather_ms": gather_bytes / HBM_BYTES_PER_S * 1e3,
+                        "unique_cells": unique_cells,
+                        "ivf_pallas_ms": pallas_ms, "ivf_pallas_qps": Q / pallas_ms * 1e3,
+                        "ivf_xla_ms": xla_ms, "ivf_xla_qps": Q / xla_ms * 1e3,
+                        "exact_ms": exact_ms, "exact_qps": Q / exact_ms * 1e3,
+                        "recall_at_10": recall}
+        log(f"IVF Q={Q:3d} P={P} over {N} x {D} bf16: K6 {k6_ms:.3f} ms (plain {plain_ms:.3f}; "
+            f"bound {b['bound_ms']:.4f} ms by {b['bound_by']}, {unique_cells:.0f} distinct "
+            f"cells; the whole gather's {gather_bytes / 1e6:.0f} MB would take "
+            f"{gather_bytes / HBM_BYTES_PER_S * 1e3:.4f} ms); search through K6 "
+            f"{pallas_ms:.3f} ms = {Q / pallas_ms * 1e3:.0f} QPS, probe scan {xla_ms:.3f} ms, "
+            f"exact K4 + K5 {exact_ms:.3f} ms = {Q / exact_ms * 1e3:.0f} QPS; recall@10 "
+            f"{recall:.4f}")
+        if not recall >= 0.8:
+            fail(f"IVF recall@10 {recall} < 0.8 on the clustered index at Q={Q}")
+    report["ivf_times"] = out
+    big = out["Q256"]
+    report["K6"].update(ms=big["k6_ms"], plain_ms=big["k6_plain_ms"],
+                        bound_ms=big["bound_ms"], bound_by=big["bound_by"])
+
+
 def synthetic_docs(n: int, seed: int):
     rng = np.random.default_rng(seed)
     words = [f"w{i}" for i in range(5000)]
@@ -425,21 +867,7 @@ def serve(report: dict) -> None:
     server = RetrievalServer(retr, port=0)
     port = server.start()
     try:
-        answers, errors = {}, []
-
-        def ask(j):
-            try:
-                answers[j] = post(port, "/search", {"queries": [queries[j]], "k": 10})
-            except Exception as e:  # reported below
-                errors.append(repr(e))
-
-        threads = [threading.Thread(target=ask, args=(j,)) for j in range(len(queries))]
-        for t in threads:
-            t.start()
-        for t in threads:
-            t.join(timeout=300)
-        if errors or len(answers) != len(queries):
-            fail(f"/search failed: {errors}")
+        answers = ask_concurrently(port, queries, 10)
         enc_resp = post(port, "/encode", {"texts": queries[:3]})
         with urllib.request.urlopen(f"http://127.0.0.1:{port}/healthz", timeout=60) as r:
             health = json.loads(r.read())
@@ -460,8 +888,7 @@ def serve(report: dict) -> None:
     q_emb = torch.stack([seen[q] for q in queries])
     ps, pi = retr.index.search(q_emb, k=10, backend="xla")
     true = (q_emb.to(torch.bfloat16).float() @ retr.index.embeddings.float().T).cpu().numpy()
-    ss = np.array([[r[1] for r in answers[j]["results"][0]] for j in range(len(queries))])
-    si = np.array([[r[0] for r in answers[j]["results"][0]] for j in range(len(queries))])
+    ss, si = served_ids(answers, len(queries), 10)
     if not ids_match_up_to_ties(ss, si, ps, pi, true, 1e-4):
         fail("server /search answers differ from the plain path")
     log(f"/search answers ({len(queries)} concurrent requests) match the plain scan")
@@ -486,9 +913,7 @@ def serve(report: dict) -> None:
     names = [e.key for e in prof.key_averages() if e.device_type.name == "CUDA"]
     if not names:
         fail("the profiler saw no device kernels in a served request")
-    banned = [n for n in names if "qst::" not in n and any(b in n.lower() for b in (
-        "gemm", "gemv", "nvjet", "cutlass", "cublas", "xmma", "flash", "fmha", "sdpa",
-        "attention"))]
+    banned = sorted(library_kernels(prof))
     log(f"profiled request: {len(names)} distinct device kernels; library GEMM/attention: {banned}")
     if banned:
         fail(f"library kernels on the serving path: {banned}")
@@ -693,6 +1118,12 @@ def times(report: dict) -> None:
     report["K1"]["ms"] = cuda_ms(lambda: fl.fused_bert_layer(x, bias, w, num_heads=12), 20)
     report["K1"]["plain_ms"] = cuda_ms(
         lambda: fl.fused_bert_layer_plain(x, bias, w, num_heads=12), 5)
+    # bounds: the layer's products (QKV, out, FFN: 2·M·(4H² + 2HF); attention:
+    # 2 products of 2·B·S²·H) against x in, y out and the weights once
+    M = B * S
+    layer_ops = 2.0 * M * (4 * H * H + 2 * H * F) + 4.0 * B * S * S * H
+    weight_bytes = 2 * (4 * H * H + 2 * H * F) + 4 * (9 * H + F)
+    report["K1"].update(bound(2 * M * H * 2 + weight_bytes + B * S * 4, layer_ops, "bfloat16"))
 
     # the training path's layer: B = 4 x 32 = 128, S = 128, bf16, dropout
     # 0.1 — K1 with and without dropout, K2 against its plain version
@@ -707,6 +1138,13 @@ def times(report: dict) -> None:
     report["K2"]["ms"] = cuda_ms(lambda: fl.fused_bert_layer_bwd(xt, bt, w, gt, **drop), 10)
     report["K2"]["plain_ms"] = cuda_ms(
         lambda: fl.fused_bert_layer_bwd_plain(xt, bt, w, gt, **drop), 3)
+    # the backward from x alone: the forward's products once more (remat),
+    # then dX and dW of each (2x), and 4 attention products beside the
+    # forward's 2; x and dy in, dx out, weights in, 16 f32 gradients out
+    Mt = 128 * S
+    k2_ops = 3 * 2.0 * Mt * (4 * H * H + 2 * H * F) + 6 * 2.0 * 128 * S * S * H
+    grad_bytes = 4 * (4 * H * H + 2 * H * F + 9 * H + F)
+    report["K2"].update(bound(3 * Mt * H * 2 + weight_bytes + grad_bytes, k2_ops, "bfloat16"))
     # K3, forward + backward, B = 32 quadruplets, D = 384
     emb = [torch.nn.functional.normalize(torch.randn((32, 384), generator=gen), dim=1).to(dev)
            for _ in range(4)]
@@ -721,6 +1159,10 @@ def times(report: dict) -> None:
                                             qd.fused_gamma_quadruplet_loss_bwd), 200)
     report["K3"]["plain_ms"] = cuda_ms(lambda: k3(qd.fused_gamma_quadruplet_loss_plain,
                                                   qd.fused_gamma_quadruplet_loss_bwd_plain), 50)
+    # 4 embeddings read by each pass, distances and 4 gradients written;
+    # ~10 operations per element of each pass
+    report["K3"].update(bound(4 * 32 * 384 * 4 * 3 + 32 * 4 * 4, 2 * 10.0 * 4 * 32 * 384,
+                              "float32"))
     k3_dev = device_ms(lambda: k3(qd.fused_gamma_quadruplet_loss_fwd,
                                   qd.fused_gamma_quadruplet_loss_bwd), 20)
     log(f"K3 forward + backward: {1e3 * report['K3']['ms']:.1f} us per call on CUDA events, "
@@ -740,6 +1182,14 @@ def times(report: dict) -> None:
     fused, plain = embed_fn(cfg), embed_fn(EncoderConfig.minilm_l6())
     enc_ms = cuda_ms(lambda: fused(model, ids, mask), 10)
     mod_ms = cuda_ms(lambda: plain(model, ids, mask), 10)
+    # one layer of the nn.Module path (a chain of cuBLAS and elementwise
+    # calls, so no single library call): K1's yardstick in PERF.md
+    with torch.no_grad():
+        pos = torch.arange(S, device=dev)[None, :].expand(B, S)
+        hid = model.embeddings(ids, torch.zeros_like(ids), pos, None)
+        zero_bias = torch.zeros((B, 1, 1, S), device=dev)
+        report["K1"]["module_layer_ms"] = cuda_ms(
+            lambda: model.encoder.layer[0](hid, zero_bias), 20)
     report["encode"] = {"sentences_per_s": B / enc_ms * 1e3,
                         "module_path_sentences_per_s": B / mod_ms * 1e3}
 
@@ -751,14 +1201,24 @@ def times(report: dict) -> None:
     report["K4"]["ms"] = cuda_ms(lambda: topk.bucket_maxima(queries, corpus), 5)
     report["K4"]["plain_ms"] = cuda_ms(lambda: [
         topk.bucket_maxima_plain(queries[lo:lo + 512], corpus) for lo in range(0, Q, 512)], 2)
+    report["K4"].update(bound(N * D * 2 + Q * D * 2 + Q * (N // 128) * 4, 2.0 * Q * N * D,
+                              "bfloat16"))
     bm = topk.bucket_maxima(queries, corpus)
     bids = topk._hierarchical_top_buckets(bm, k)
     report["K5"]["ms"] = cuda_ms(lambda: topk.rescore_buckets(queries, corpus, bids, k), 10)
     report["K5"]["plain_ms"] = cuda_ms(
         lambda: topk.rescore_buckets_plain(queries, corpus, bids, k), 2)
+    # each distinct winning bucket read once (the gather's whole volume,
+    # Q·k buckets, is gather_ms), the (Q, k·128) f32 scores written once
+    report["K5"].update(bound(bids.unique().numel() * 128 * D * 2 + Q * D * 2 + Q * k * 4
+                              + Q * k * 128 * 4, 2.0 * Q * k * 128 * D, "bfloat16"))
+    report["K5"]["gather_ms"] = Q * k * 128 * D * 2 / HBM_BYTES_PER_S * 1e3
     v2_ms = cuda_ms(lambda: topk.topk_v2(queries, corpus, k), 5)
     scan_ms = cuda_ms(lambda: exact_topk(queries.float(), corpus, k, "dot_score"), 2)
     report["search"] = {"qps": Q / v2_ms * 1e3, "plain_scan_qps": Q / scan_ms * 1e3}
+    del corpus, queries, bm, bids, model
+    torch.cuda.empty_cache()
+    times_ivf(report)
 
 
 def train_setup(enc_cfg, loss_cfg, gen, device):
@@ -936,6 +1396,25 @@ def profile_phase(report: dict) -> None:
                 ("K4", ("bucket_max",)), ("K5", ("rescore_kernel",)))))
     del corpus
 
+    # the IVF search through K6 over the clustered 1M-row index of `times`
+    from qst_tpu_torch.retrieval import IVFIndex
+
+    rows, _, _ = clustered_corpus(N, 1024, D, seed=21)
+    idx = IVFIndex(rows, n_clusters=1024, dtype="bfloat16", seed=0)
+    for Q in (8, 64, 256):
+        queries = unit(rows[torch.randint(0, N, (Q,), device=dev)]
+                       + 0.02 * torch.randn((Q, D), device=dev), dim=1)
+        wall = cuda_ms(lambda: idx._device_search(queries, 10, 8, "pallas"), 48, warmup=24)
+        k = device_ms(lambda: idx._device_search(queries, 10, 8, "pallas"), 5)
+        log(f"profile IVF search Q={Q} over 1M x 384 bf16 in 1,024 cells of budget "
+            f"{idx.cell_budget}, n_probe 8, k=10: {wall:.3f} ms per call, {len(k)} distinct "
+            f"kernels, device busy {100 * sum(k.values()) / wall:.1f}%: " + shares(k, (
+                ("K6", ("ivf_cell_scores_kernel",)),
+                ("centroid product", ("gemm", "splitKreduce", "gemv")),
+                ("top-k", ("topk", "TopK", "sort", "Sort", "radix")),
+                ("gathers", ("gather", "index"))), name_other=3))
+    del rows, idx
+
     docs = synthetic_docs(65536, seed=14)
     retr = Retriever(enc, score="dot_score", index_dtype="bfloat16").build(docs)
     server = RetrievalServer(retr, port=0)
@@ -1011,17 +1490,19 @@ def main() -> None:
     t0 = time.perf_counter()
     build.load()
     log(f"build: {time.perf_counter() - t0:.1f} s")
-    report = {n: {} for n in ("K1", "K2", "K3", "K4", "K5")}
-    for phase, fn in (("check", check_kernels), ("serve", serve), ("train", train),
+    report = {n: {} for n in ("K1", "K2", "K3", "K4", "K5", "K6")}
+    for phase, fn in (("check", check_kernels), ("serve", serve), ("ivf", ivf), ("train", train),
                       ("times", times), ("profile", profile_phase)):
         if phase in phases:
             t0 = time.perf_counter()
             fn(report)
             log(f"phase {phase}: {time.perf_counter() - t0:.1f} s")
     log(json.dumps({k: v for k, v in report.items()
-                    if k in ("encode", "search", "train", "train_steps_per_s")}))
+                    if k in ("encode", "search", "train", "train_steps_per_s", "ivf",
+                             "ivf_times")}))
     log(json.dumps({"K1_training_layer": {k: report["K1"].get(k) for k in (
-        "train_ms", "train_no_dropout_ms", "dropout_max_abs_err")}}))
+        "train_ms", "train_no_dropout_ms", "dropout_max_abs_err", "module_layer_ms")},
+        "K5_gather_ms": report["K5"].get("gather_ms")}))
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True)
@@ -1039,11 +1520,18 @@ def main() -> None:
             ("K4 bucket_maxima", "qst_tpu_torch/kernels/csrc/topk.cu",
              "qst_tpu/ops/topk_pallas.py:92"),
             ("K5 rescore_buckets", "qst_tpu_torch/kernels/csrc/topk.cu",
-             "qst_tpu/ops/topk_pallas.py:251")):
+             "qst_tpu/ops/topk_pallas.py:251"),
+            ("K6 ivf_cell_scores", "qst_tpu_torch/kernels/csrc/ivf.cu",
+             "qst_tpu/ops/ivf_pallas.py:34")):
         r = report[name[:2]]
+        # library_ms: no single PyTorch call computes any of these functions
+        # (a layer, its backward, the quadruplet loss, a product fused with
+        # bucket maxima, two gathers fused with a product), so none is timed
         rows.append({"name": name, "route": "cuda", "source": src, "replaces": replaces,
                      "launches": r.get("launches"), "max_abs_err": r.get("max_abs_err"),
-                     "ms": r.get("ms"), "plain_ms": r.get("plain_ms")})
+                     "ms": r.get("ms"), "plain_ms": r.get("plain_ms"),
+                     "bound_ms": r.get("bound_ms"), "bound_by": r.get("bound_by"),
+                     "library_ms": None})
     log(json.dumps({"kernels": rows}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu",
                                            "kind": torch.cuda.get_device_name(0),

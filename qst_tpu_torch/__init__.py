@@ -11,9 +11,13 @@ Hopper (``sm_90a``) under ``kernels/csrc/``, built with ``nvcc`` at first use
 beside it: CPU tensors take the plain version, CUDA tensors launch the kernel
 or raise.
 
-The ported slice is the serving path: ``SentenceEncoder`` encode through the
-fused layer (K1) and exact search through bucket maxima (K4) and the
-winning-bucket rescore (K5), behind ``Retriever`` and ``RetrievalServer``.
+Ported so far: serving (``SentenceEncoder`` encode through the fused layer,
+K1; exact search through bucket maxima, K4, and the winning-bucket rescore,
+K5; ``Retriever`` and ``RetrievalServer``), training (``Trainer`` through K1
+with dropout, the layer backward K2 and the fused loss K3) and IVF retrieval
+(``IVFIndex`` through the probed-cell scorer K6, ``UpdatableIndex``, and the
+``cli.index_main`` entry point). Entry points run on the GPU unless given
+another ``device`` (``core/device.py``).
 """
 
 __version__ = "0.1.0"

@@ -52,6 +52,62 @@ __device__ __forceinline__ int warp_sum_int(int v) {
 }
 
 // ---------------------------------------------------------------------------
+// Dot product of two 16-byte chunks, accumulated per lane and reduced across
+// the warp: the inner step of the row scorers (K5 in topk.cu, K6 in ivf.cu).
+// bf16 and int8 products are exact in f32 / int32; sums are f32 / int32.
+// ---------------------------------------------------------------------------
+namespace qst {
+
+template <typename T>
+struct Dot16;  // dot product of two 16-byte chunks
+
+template <>
+struct Dot16<float> {
+  using Acc = float;
+  __device__ static Acc dot(uint4 a, uint4 b, Acc c) {
+    c = fmaf(__uint_as_float(a.x), __uint_as_float(b.x), c);
+    c = fmaf(__uint_as_float(a.y), __uint_as_float(b.y), c);
+    c = fmaf(__uint_as_float(a.z), __uint_as_float(b.z), c);
+    return fmaf(__uint_as_float(a.w), __uint_as_float(b.w), c);
+  }
+  __device__ static float reduce(Acc v) { return warp_sum(v); }
+};
+
+template <>
+struct Dot16<bf16> {
+  using Acc = float;
+  __device__ static float2 f2(unsigned int u) {
+    __nv_bfloat162 h = *reinterpret_cast<__nv_bfloat162*>(&u);
+    return __bfloat1622float2(h);
+  }
+  __device__ static Acc dot(uint4 a, uint4 b, Acc c) {
+    const unsigned int av[4] = {a.x, a.y, a.z, a.w}, bv[4] = {b.x, b.y, b.z, b.w};
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      float2 x = f2(av[i]), y = f2(bv[i]);
+      c = fmaf(x.x, y.x, c);
+      c = fmaf(x.y, y.y, c);
+    }
+    return c;
+  }
+  __device__ static float reduce(Acc v) { return warp_sum(v); }
+};
+
+template <>
+struct Dot16<int8_t> {
+  using Acc = int;
+  __device__ static Acc dot(uint4 a, uint4 b, Acc c) {
+    c = __dp4a((int)a.x, (int)b.x, c);
+    c = __dp4a((int)a.y, (int)b.y, c);
+    c = __dp4a((int)a.z, (int)b.z, c);
+    return __dp4a((int)a.w, (int)b.w, c);
+  }
+  __device__ static float reduce(Acc v) { return (float)warp_sum_int(v); }
+};
+
+}  // namespace qst
+
+// ---------------------------------------------------------------------------
 // Counter-based dropout, bit for bit the TPU kernel's `_drop_mask`
 // (qst_tpu/ops/fused_layer_pallas.py:82-108): murmur3-fmix32 of
 // (element index ^ (seed + tag * 0x9E3779B9)), 31 uniform bits kept below

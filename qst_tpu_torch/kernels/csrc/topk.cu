@@ -211,55 +211,9 @@ bucket_max_simt_kernel(const typename Tr::In* __restrict__ queries,
 // ---------------------------------------------------------------------------
 // K5. Block (slot, query): the query row sits in shared memory in its own
 // dtype; each of 8 warps scores 16 rows of the bucket, one row at a time,
-// lanes striding over 16-byte chunks. Needs D·sizeof(T) % 16 == 0.
+// lanes striding over 16-byte chunks (Dot16, common.cuh). Needs
+// D·sizeof(T) % 16 == 0.
 // ---------------------------------------------------------------------------
-template <typename T>
-struct Dot16;  // dot product of two 16-byte chunks
-
-template <>
-struct Dot16<float> {
-  using Acc = float;
-  __device__ static Acc dot(uint4 a, uint4 b, Acc c) {
-    c = fmaf(__uint_as_float(a.x), __uint_as_float(b.x), c);
-    c = fmaf(__uint_as_float(a.y), __uint_as_float(b.y), c);
-    c = fmaf(__uint_as_float(a.z), __uint_as_float(b.z), c);
-    return fmaf(__uint_as_float(a.w), __uint_as_float(b.w), c);
-  }
-  __device__ static float reduce(Acc v) { return warp_sum(v); }
-};
-
-template <>
-struct Dot16<bf16> {
-  using Acc = float;
-  __device__ static float2 f2(unsigned int u) {
-    __nv_bfloat162 h = *reinterpret_cast<__nv_bfloat162*>(&u);
-    return __bfloat1622float2(h);
-  }
-  __device__ static Acc dot(uint4 a, uint4 b, Acc c) {
-    const unsigned int av[4] = {a.x, a.y, a.z, a.w}, bv[4] = {b.x, b.y, b.z, b.w};
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      float2 x = f2(av[i]), y = f2(bv[i]);
-      c = fmaf(x.x, y.x, c);
-      c = fmaf(x.y, y.y, c);
-    }
-    return c;
-  }
-  __device__ static float reduce(Acc v) { return warp_sum(v); }
-};
-
-template <>
-struct Dot16<int8_t> {
-  using Acc = int;
-  __device__ static Acc dot(uint4 a, uint4 b, Acc c) {
-    c = __dp4a((int)a.x, (int)b.x, c);
-    c = __dp4a((int)a.y, (int)b.y, c);
-    c = __dp4a((int)a.z, (int)b.z, c);
-    return __dp4a((int)a.w, (int)b.w, c);
-  }
-  __device__ static float reduce(Acc v) { return (float)warp_sum_int(v); }
-};
-
 template <typename T>
 __global__ void __launch_bounds__(256)
 rescore_kernel(const T* __restrict__ queries, const T* __restrict__ corpus,

@@ -16,6 +16,8 @@ import numpy as np
 import torch
 from torch import nn
 
+from qst_tpu_torch.core.device import resolve_device
+
 
 class PairDiscriminator(nn.Module):
     def __init__(self, embed_dim: int, hidden_sizes: Sequence[int] = ()):
@@ -32,11 +34,12 @@ class PairDiscriminator(nn.Module):
 
 
 def init_discriminator(embed_dim: int, generator: torch.Generator,
-                       hidden_sizes: Sequence[int] = (), device: Any = "cpu"
+                       hidden_sizes: Sequence[int] = (), device: Any = None
                        ) -> PairDiscriminator:
     """A discriminator with Flax ``Dense``'s initialisation: LeCun-normal
     kernels (truncated at two standard deviations) and zero biases, drawn
-    from ``generator`` (a CPU generator)."""
+    from ``generator`` (a CPU generator); on ``device`` (default: the GPU)."""
+    device = resolve_device(device)
     model = PairDiscriminator(embed_dim, hidden_sizes)
     with torch.no_grad():
         for lin in [*model.hidden, model.logit]:

@@ -18,6 +18,7 @@ import numpy as np
 import torch
 
 from qst_tpu_torch.core.config import EncoderConfig
+from qst_tpu_torch.core.device import resolve_device
 from qst_tpu_torch.models.bert import BertEncoder
 from qst_tpu_torch.ops.distances import l2_normalize
 from qst_tpu_torch.ops.pooling import POOLERS
@@ -40,10 +41,12 @@ class SentenceEncoderModule(BertEncoder):
 
 
 def init_params(cfg: EncoderConfig, generator: torch.Generator,
-                device: Any = "cpu") -> Dict[str, torch.Tensor]:
+                device: Any = None) -> Dict[str, torch.Tensor]:
     """Random weights from ``generator`` (a CPU generator), as a state dict
-    on ``device``: HF ``BertModel``'s initialisation — normal(0, 0.02)
-    matrices and embeddings, zero biases, unit LayerNorm scales."""
+    on ``device`` (default: the GPU, ``core/device.py``): HF ``BertModel``'s
+    initialisation — normal(0, 0.02) matrices and embeddings, zero biases,
+    unit LayerNorm scales."""
+    device = resolve_device(device)
     model = SentenceEncoderModule(cfg)
     sd = {}
     for name, p in model.state_dict().items():

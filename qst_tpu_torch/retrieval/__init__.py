@@ -1,6 +1,9 @@
-"""Exact retrieval (counterpart of ``qst_tpu/retrieval``)."""
+"""Exact, IVF and updatable retrieval (counterpart of ``qst_tpu/retrieval``)."""
 
 from qst_tpu_torch.retrieval.index import ExactIndex, exact_topk
+from qst_tpu_torch.retrieval.ivf import IVFIndex, kmeans
 from qst_tpu_torch.retrieval.retriever import Retriever, load_index, save_index
+from qst_tpu_torch.retrieval.updatable import UpdatableIndex
 
-__all__ = ["ExactIndex", "Retriever", "exact_topk", "load_index", "save_index"]
+__all__ = ["ExactIndex", "IVFIndex", "Retriever", "UpdatableIndex", "exact_topk", "kmeans",
+           "load_index", "save_index"]

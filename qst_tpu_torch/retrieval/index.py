@@ -21,6 +21,7 @@ from typing import Any, Optional, Tuple
 import numpy as np
 import torch
 
+from qst_tpu_torch.core.device import device_of
 from qst_tpu_torch.ops.distances import SCORE_FUNCTIONS, l2_normalize
 
 BUCKET = 128
@@ -88,6 +89,21 @@ def exact_topk(queries: torch.Tensor, corpus: torch.Tensor, k: int,
     return top_s, bucket_id * BUCKET + flat_pos % BUCKET
 
 
+def _local_topk(s: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Exact top-k over a (Q, W) score block. For wide W, go through
+    128-bucket maxima: the top-k bucket maxima cover the top-k elements, so
+    no wide top-k runs."""
+    Q, W = s.shape
+    if W <= max(4096, 4 * k * BUCKET) or W % BUCKET != 0:
+        return torch.topk(s, k, dim=1)
+    rows = s.reshape(Q, W // BUCKET, BUCKET)
+    b_idx = torch.topk(rows.amax(dim=2), k, dim=1).indices     # (Q, k) buckets
+    cand = torch.gather(rows, 1, b_idx[:, :, None].expand(Q, k, BUCKET))
+    top_s, pos = torch.topk(cand.reshape(Q, k * BUCKET), k, dim=1)
+    bucket = torch.gather(b_idx, 1, pos // BUCKET)
+    return top_s, bucket * BUCKET + pos % BUCKET
+
+
 class ExactIndex:
     """Single-device exact index over an embedding matrix. Use
     :meth:`search` for top-k ids + scores."""
@@ -99,7 +115,7 @@ class ExactIndex:
                  dtype: str = "float32", int8_scale: Optional[float] = None,
                  cache_cos_corpus: bool = False, device: Any = None):
         """embeddings: (N, D) tensor or array; the index lives on ``device``
-        (default: the tensor's device, else the CPU).
+        (default: a tensor's own device; host arrays go to the GPU).
 
         dtype="bfloat16" stores the corpus in bf16 (ranking exact w.r.t.
         bf16-input scores); dtype="int8" stores a unit-normalized,
@@ -110,9 +126,7 @@ class ExactIndex:
         non-normalized index."""
         if mesh is not None:
             raise NotImplementedError("sharded ExactIndex (mesh=) is not ported")
-        if device is None:
-            device = embeddings.device if isinstance(embeddings, torch.Tensor) else "cpu"
-        self.device = torch.device(device)
+        self.device = device_of(embeddings, device)
         pre_quantized = (dtype == "int8" and int8_scale is not None
                          and str(getattr(embeddings, "dtype", "")).endswith("int8"))
         if pre_quantized:

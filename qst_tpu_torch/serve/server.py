@@ -9,8 +9,9 @@ Stdlib-only threading HTTP server:
 - ``GET  /healthz``  → ``{"ok": true, "n_docs": N}``
 - ``GET  /stats``    → uptime, per-endpoint request counts, request
   latency p50/p95/p99 (ms, sliding window), and per-batcher counters
-- ``POST /docs`` / ``DELETE /docs`` answer 400: the updatable index is not
-  ported yet
+- ``POST /docs``     ``{"texts": [...], "ids": [...]}`` → ``{"ids": [...]}``
+  and ``DELETE /docs`` ``{"ids": [...]}`` → ``{"removed": n}``, on a
+  retriever backed by an ``UpdatableIndex`` (400 on a static index)
 
 Concurrent requests are funneled through a :class:`DynamicBatcher` per
 endpoint, so many small clients share one batched device call. What differs

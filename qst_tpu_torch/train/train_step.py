@@ -25,6 +25,7 @@ import numpy as np
 import torch
 
 from qst_tpu_torch.core.config import EncoderConfig, LossConfig, TrainConfig
+from qst_tpu_torch.core.device import resolve_device
 from qst_tpu_torch.models.discriminator import PairDiscriminator, init_discriminator
 from qst_tpu_torch.models.sentence_encoder import SentenceEncoderModule, init_params
 from qst_tpu_torch.ops.losses import (
@@ -214,14 +215,16 @@ def create_train_state(
     total_steps: int,
     loss_cfg: Optional[LossConfig] = None,
     initial_params: Optional[Dict[str, torch.Tensor]] = None,
-    device: Any = "cpu",
+    device: Any = None,
 ) -> Tuple[TrainState, ClippedAdamW]:
-    """→ (state, optimizer). ``initial_params``: a state dict to start from
-    (e.g. an imported checkpoint) instead of random weights from
-    ``generator``, copied, never aliased."""
+    """→ (state, optimizer), on ``device`` (default: the GPU).
+    ``initial_params``: a state dict to start from (e.g. an imported
+    checkpoint) instead of random weights from ``generator``, copied, never
+    aliased."""
+    device = resolve_device(device)
     model = SentenceEncoderModule(encoder_cfg).to(device)
     params = initial_params if initial_params is not None else init_params(
-        encoder_cfg, generator)
+        encoder_cfg, generator, device=device)
     model.load_state_dict({k: v.detach().clone() for k, v in params.items()})
     discriminator = None
     trainable = list(model.parameters())

@@ -26,6 +26,7 @@ import numpy as np
 import torch
 
 from qst_tpu_torch.core.config import EncoderConfig, LossConfig, TrainConfig, save_config
+from qst_tpu_torch.core.device import resolve_device
 from qst_tpu_torch.core.telemetry import JsonLogSink, StepTimer
 from qst_tpu_torch.data.collate import QuadrupletCollator
 from qst_tpu_torch.data.prefetch import PrefetchIterator
@@ -59,7 +60,7 @@ class Trainer:
 
     evaluator: optional callable ``(model, epoch, steps) -> float`` whose
     score drives early stopping and best-model saving. ``device``: where the
-    model trains."""
+    model trains (default: the GPU)."""
 
     def __init__(
         self,
@@ -76,7 +77,7 @@ class Trainer:
         pp_stages: int = 1,
         pp_microbatches: int = 0,
         pp_rounds: int = 1,
-        device: Any = "cpu",
+        device: Any = None,
     ):
         """``initial_params``: start from this state dict (an imported
         checkpoint) instead of random weights; ``resume`` restores over it."""
@@ -94,7 +95,7 @@ class Trainer:
         self.collator = collator
         self.evaluator = evaluator
         self.initial_params = initial_params
-        self.device = torch.device(device)
+        self.device = resolve_device(device)
         self.steps_per_epoch = steps_per_epoch or max(
             1, len(dataset) // train_cfg.batch_size)
         self.total_steps = self.steps_per_epoch * train_cfg.epochs

@@ -1,0 +1,228 @@
+"""The port's ``index_main`` CLI and ``cli/common.py`` against qst_tpu's.
+
+The two packages draw different random weights from one seed, so the
+encoder's weights are carried across: qst_tpu's ``init_params`` go through
+``state_dict_from_flax_params`` into a ``torch.save`` best checkpoint that
+the port's ``--model_path`` loads. The float32 index's answers are then held
+to the JAX ``Retriever``'s over the same weights (scores to 1e-5: the two
+encoders' embeddings agree to 1e-5; ids up to ties), and the IVF index's
+answers at full probe to the exact ones. Every command runs with
+``--device cpu``.
+"""
+
+import argparse
+import dataclasses
+import json
+import os
+import urllib.request
+
+import jax
+import numpy as np
+import pytest
+import torch
+
+from qst_tpu.cli import common as jcommon
+from qst_tpu.cli import index_main as jmain
+from qst_tpu.core.config import EncoderConfig as JaxConfig
+from qst_tpu.models.sentence_encoder import SentenceEncoder as JaxSentenceEncoder
+from qst_tpu.models.sentence_encoder import init_params as jax_init_params
+from qst_tpu.models.tokenizer import HashTokenizer as JaxHashTokenizer
+from qst_tpu.retrieval import Retriever as JaxRetriever
+from qst_tpu_torch.cli import common as tcommon
+from qst_tpu_torch.cli import index_main as tmain
+from qst_tpu_torch.core.config import EncoderConfig
+from qst_tpu_torch.models.hf_import import state_dict_from_flax_params
+from qst_tpu_torch.models.tokenizer import HashTokenizer
+from qst_tpu_torch.train.checkpoints import _save
+
+TOPICS = ["cat", "dog", "pasta", "plane", "river"]
+DOCS = [f"{TOPICS[i % 5]} doc number {i}" for i in range(400)]
+QUERIES = ["a cat on a rug", "river doc number 9", "pasta plane"]
+
+
+@pytest.fixture(scope="module")
+def workdir(tmp_path_factory):
+    """A docs file, and an experiment dir holding qst_tpu's tiny-preset
+    weights as the port's best checkpoint."""
+    root = tmp_path_factory.mktemp("cli")
+    texts = str(root / "docs.txt")
+    with open(texts, "w") as f:
+        f.write("\n".join(DOCS) + "\n\n")            # a blank line is skipped
+    jcfg = JaxConfig.tiny()
+    params = jax.tree.map(np.asarray, jax_init_params(jcfg, jax.random.key(5)))
+    cfg = EncoderConfig(**dataclasses.asdict(jcfg))
+    exp = str(root / "exp")
+    _save(state_dict_from_flax_params(params, cfg),
+          os.path.join(exp, "checkpoints", "best", "params.pt"))
+    jenc = JaxSentenceEncoder(jcfg, params, JaxHashTokenizer(jcfg.vocab_size))
+    return root, texts, exp, jenc
+
+
+def _run(argv, capsys):
+    assert tmain.main([*argv, "--encoder_preset", "tiny", "--device", "cpu"]) == 0
+    return [json.loads(line) for line in capsys.readouterr().out.strip().splitlines()
+            if line.startswith("{")]
+
+
+@pytest.fixture(scope="module")
+def built(workdir):
+    """Both index kinds built by the CLI from the carried weights."""
+    root, texts, exp, _ = workdir
+    dirs = {}
+    for kind in ("float32", "ivf"):
+        dirs[kind] = str(root / f"idx_{kind}")
+        assert tmain.main(["build", "--texts", texts, "--index_dir", dirs[kind],
+                           "--encoder_preset", "tiny", "--model_path", exp, "--index_dtype", kind,
+                           "--ivf_clusters", "16", "--ivf_probe", "16", "--device", "cpu"]) == 0
+    return dirs
+
+
+@pytest.mark.parametrize("kind", ["float32", "ivf"])
+def test_index_cli_build_and_query(workdir, built, kind, capsys):
+    _, _, exp, jenc = workdir
+    with open(os.path.join(built[kind], "index_meta.json")) as f:
+        meta = json.load(f)
+    assert meta["n_docs"] == 400 and meta.get("dtype", "float32") == kind
+    if kind == "ivf":
+        assert meta["n_probe"] == 16 and os.path.isfile(os.path.join(built[kind], "ivf_cells.npy"))
+    with open(os.path.join(built[kind], "command_line_args.json")) as f:
+        dumped = json.load(f)
+    assert dumped["index_dtype"] == kind and dumped["device"] == "cpu"
+    assert dumped["manual_notes"] == "" and dumped["ivf_clusters"] == 16
+
+    out = _run(["query", "--index_dir", built[kind], "--model_path", exp, "--index_dtype", kind,
+                "--k", "4", "--queries", *QUERIES], capsys)
+    assert [o["query"] for o in out] == QUERIES and all(len(o["hits"]) == 4 for o in out)
+    # the JAX Retriever over the same weights: an exact search, which the
+    # IVF index reproduces at full probe (16 of 16 cells)
+    want = JaxRetriever(jenc).build(DOCS).search(QUERIES, k=4, return_texts=True)
+    for o, row in zip(out, want):
+        np.testing.assert_allclose([h["score"] for h in o["hits"]], [r[1] for r in row],
+                                   rtol=0, atol=1e-5 + 5e-5)      # scores print at 4 decimals
+        assert all(h["text"] == DOCS[h["id"]] for h in o["hits"])
+        kth = row[-1][1]
+        sure = {r[0] for r in row if r[1] > kth + 1e-4}
+        assert sure <= {h["id"] for h in o["hits"]}
+
+
+def test_index_cli_default_ivf_probe_and_random_init(workdir, capsys):
+    """Without --model_path the encoder is random from --seed (default 14),
+    and the default probe count (8) persists in the metadata."""
+    root, texts, _, _ = workdir
+    idx = str(root / "idx_seeded")
+    _run(["build", "--texts", texts, "--index_dir", idx, "--index_dtype", "ivf",
+          "--ivf_clusters", "16"], capsys)
+    with open(os.path.join(idx, "index_meta.json")) as f:
+        assert json.load(f)["n_probe"] == 8
+    a = _run(["query", "--index_dir", idx, "--index_dtype", "ivf", "--k", "2",
+              "--queries", "a cat on a rug"], capsys)
+    b = _run(["query", "--index_dir", idx, "--index_dtype", "ivf", "--k", "2",
+              "--queries", "a cat on a rug", "--seed", "14"], capsys)
+    assert a == b and len(a[0]["hits"]) == 2
+
+
+def test_index_cli_input_errors(workdir):
+    root, texts, _, _ = workdir
+    base = ["--index_dir", str(root / "nope"), "--encoder_preset", "tiny", "--device", "cpu"]
+    with pytest.raises(SystemExit, match="exactly one"):
+        tmain.main(["build", *base])
+    with pytest.raises(SystemExit, match="exactly one"):
+        tmain.main(["build", "--texts", texts, "--dataset_root", "x", *base])
+    empty = str(root / "empty.txt")
+    open(empty, "w").close()
+    with pytest.raises(SystemExit, match="no documents"):
+        tmain.main(["build", "--texts", empty, *base])
+
+
+@pytest.mark.parametrize("command", ["build", "serve", "query"])
+@pytest.mark.parametrize("kind", ["pq", "ivfpq", "streaming"])
+def test_unported_index_kinds_exit_with_a_message(workdir, command, kind):
+    root, texts, _, _ = workdir
+    argv = [command, "--index_dir", str(root / "nope"), "--index_dtype", kind, "--device", "cpu"]
+    argv += {"build": ["--texts", texts], "query": ["--queries", "q"], "serve": []}[command]
+    with pytest.raises(SystemExit, match=f"{kind} is not ported"):
+        tmain.main(argv)
+    assert not os.path.exists(root / "nope")
+
+
+def _flags(parser):
+    sub = next(a for a in parser._actions if isinstance(a, argparse._SubParsersAction))
+    return {cmd: {a.dest: (a.default, a.type, tuple(a.choices) if a.choices else None,
+                           tuple(a.option_strings))
+                  for a in p._actions if a.dest != "help"}
+            for cmd, p in sub.choices.items()}
+
+
+def test_parser_keeps_the_source_flags_and_defaults():
+    """Every flag of qst_tpu's index_main, with its default, type and
+    choices; the port adds --device alone."""
+    want, got = _flags(jmain.build_parser()), _flags(tmain.build_parser())
+    assert set(got) == set(want) == {"build", "serve", "query"}
+    for cmd in want:
+        assert got[cmd].pop("device") == (None, None, None, ("--device",))
+        assert got[cmd] == want[cmd], cmd
+
+
+def _request(port, path, obj, method="POST"):
+    req = urllib.request.Request(f"http://127.0.0.1:{port}{path}", data=json.dumps(obj).encode(),
+                                 headers={"Content-Type": "application/json"}, method=method)
+    with urllib.request.urlopen(req, timeout=60) as r:
+        return json.loads(r.read())
+
+
+@pytest.mark.parametrize("updatable", [False, True])
+def test_serve_command_construction(workdir, built, updatable):
+    """What ``serve`` builds before it blocks: the loaded retriever
+    (converted with --updatable) behind a RetrievalServer."""
+    _, _, exp, _ = workdir
+    argv = ["serve", "--index_dir", built["ivf"], "--index_dtype", "ivf", "--port", "0",
+            "--model_path", exp, "--encoder_preset", "tiny", "--device", "cpu",
+            "--max_wait_ms", "10", "--capacity", "512"]
+    args = tmain.build_parser().parse_args(argv + (["--updatable"] if updatable else []))
+    retriever = tmain.serving_retriever(args)
+    assert retriever._is_updatable() == updatable
+    if updatable:
+        assert retriever.index.capacity == 512
+    server = tmain.serving_server(args, retriever)
+    port = server.start()
+    try:
+        rows = _request(port, "/search", {"queries": QUERIES[:2], "k": 3,
+                                          "return_texts": True})["results"]
+        assert [len(r) for r in rows] == [3, 3]
+        assert all(text == DOCS[doc_id] for row in rows for doc_id, _, text in row)
+        if updatable:
+            assert _request(port, "/docs", {"texts": ["a brand new zebra"],
+                                            "ids": ["z"]}) == {"ids": ["z"]}
+            hit = _request(port, "/search", {"queries": ["a brand new zebra"], "k": 1})
+            assert hit["results"][0][0][0] == "z"
+            assert _request(port, "/docs", {"ids": ["z"]}, method="DELETE") == {"removed": 1}
+    finally:
+        server.stop()
+
+
+# ------------------------------------------------------------ cli/common.py
+@pytest.mark.parametrize("preset", sorted(jcommon.ENCODER_PRESETS))
+def test_encoder_from_args_matches_source(preset):
+    kw = dict(max_seq_length=64, dtype="float32", use_fused_layer=True)
+    for kwargs in ({}, kw):
+        assert (dataclasses.asdict(tcommon.encoder_from_args(preset, **kwargs))
+                == dataclasses.asdict(jcommon.encoder_from_args(preset, **kwargs)))
+    assert sorted(tcommon.ENCODER_PRESETS) == sorted(jcommon.ENCODER_PRESETS)
+
+
+def test_common_helpers(tmp_path, workdir):
+    with pytest.raises(ValueError, match="unknown encoder preset"):
+        tcommon.encoder_from_args("bert-huge")
+    assert isinstance(tcommon.tokenizer_from_args(None, 512), HashTokenizer)
+    p = argparse.ArgumentParser()
+    tcommon.add_bool_flag(p, "fast", True, help="h")
+    tcommon.add_device_flag(p)
+    args = p.parse_args(["--no-fast", "--device", "cpu"])
+    assert args.fast is False and args.device == "cpu" and p.parse_args([]).device is None
+    path = tcommon.dump_args(args, str(tmp_path / "out"), manual_notes="n")
+    with open(path) as f:
+        assert json.load(f) == {"fast": False, "device": "cpu", "manual_notes": "n"}
+    with pytest.raises(FileNotFoundError, match="no best checkpoint"):
+        tcommon.load_best_params(str(tmp_path / "no_exp"))
+    sd = tcommon.load_best_params(workdir[2])
+    assert all(isinstance(v, torch.Tensor) and v.device.type == "cpu" for v in sd.values())

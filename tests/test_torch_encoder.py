@@ -103,8 +103,8 @@ def test_state_dict_names_are_hf_bert_model_names(weights):
 
 def test_init_params_is_seeded_and_device_bound():
     cfg = EncoderConfig.tiny()
-    a = tse.init_params(cfg, torch.Generator().manual_seed(1))
-    b = tse.init_params(cfg, torch.Generator().manual_seed(1))
+    a = tse.init_params(cfg, torch.Generator().manual_seed(1), device="cpu")
+    b = tse.init_params(cfg, torch.Generator().manual_seed(1), device="cpu")
     assert a.keys() == tse.SentenceEncoderModule(cfg).state_dict().keys()
     assert all(torch.equal(a[k], b[k]) for k in a)
     assert torch.equal(a["embeddings.LayerNorm.weight"], torch.ones(cfg.hidden_size))

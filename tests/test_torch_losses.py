@@ -130,7 +130,7 @@ def test_d_regularized_loss_with_given_logits_matches_jax():
 def test_discriminator_init_is_flax_dense_init():
     """LeCun-normal kernels truncated at two standard deviations, zero
     biases: the statistics of Flax's ``Dense`` init (the bits differ)."""
-    d = tdisc.init_discriminator(192, torch.Generator().manual_seed(0), (64,))
+    d = tdisc.init_discriminator(192, torch.Generator().manual_seed(0), (64,), device="cpu")
     w = d.hidden[0].weight
     std = (1.0 / 384) ** 0.5
     assert w.shape == (64, 384) and d.logit.weight.shape == (1, 64)

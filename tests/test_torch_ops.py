@@ -204,7 +204,11 @@ def test_port_imports_no_jax_flax_or_qst_tpu():
         bad = sorted(m for m in sys.modules
                      if m.split(".")[0] in ("jax", "jaxlib", "flax", "qst_tpu"))
         print(len(names), bad)
-        sys.exit(1 if bad or len(names) < 15 else 0)
+        new = {"core.device", "ops.ivf", "retrieval.ivf", "retrieval.updatable", "cli.common",
+               "cli.index_main"}
+        missing = sorted(n for n in new if "qst_tpu_torch." + n not in names)
+        print(missing)
+        sys.exit(1 if bad or missing or len(names) < 15 else 0)
     """)
     import os
 

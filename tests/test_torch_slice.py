@@ -80,7 +80,7 @@ def test_exact_index_search_matches_jax(corpus, dtype, score):
 def test_exact_index_search_ids_stream_and_errors(corpus):
     emb, queries = corpus
     ids = [f"doc{i}" for i in range(len(emb))]
-    idx = ExactIndex(emb, ids=ids, dtype="bfloat16")
+    idx = ExactIndex(emb, ids=ids, dtype="bfloat16", device="cpu")
     s, names = idx.search_ids(queries, k=3)
     assert names[0][0] in ("doc7", "doc100")
     batches = [queries[:3], queries[3:]]
@@ -90,11 +90,11 @@ def test_exact_index_search_ids_stream_and_errors(corpus):
         np.testing.assert_array_equal(ss, s1)
         np.testing.assert_array_equal(ii, i1)
     with pytest.raises(NotImplementedError):
-        ExactIndex(emb, mesh=object())
+        ExactIndex(emb, mesh=object(), device="cpu")
     with pytest.raises(ValueError, match="unknown backend"):
         idx.search(queries, backend="tpu")
     with pytest.raises(ValueError):
-        ExactIndex(emb, dtype="int8").search(queries, score="euclid_score")
+        ExactIndex(emb, dtype="int8", device="cpu").search(queries, score="euclid_score")
 
 
 @pytest.fixture(scope="module")
@@ -161,13 +161,13 @@ def test_retriever_paths_agree_and_persist_across_packages(stacks, tmp_path):
     again = Retriever(tenc, index_dtype="int8").load(str(tmp_path / "idx"))
     assert again.search(QUERIES, k=4) == rows
     JaxRetriever(jenc, index_dtype="bfloat16").build(docs).save(str(tmp_path / "jidx"))
-    tidx, meta = load_index(str(tmp_path / "jidx"))      # and the other way round
+    tidx, meta = load_index(str(tmp_path / "jidx"), device="cpu")      # and the other way round
     assert tidx.embeddings.dtype == torch.bfloat16 and tidx.n_docs == len(docs)
 
 
 def test_unported_retriever_options_raise(stacks):
     _, tenc, _ = stacks
-    for kind in ("pq", "ivf", "ivfpq", "streaming"):
+    for kind in ("pq", "ivfpq", "streaming"):
         with pytest.raises(NotImplementedError):
             Retriever(tenc, index_dtype=kind)
     with pytest.raises(NotImplementedError):

@@ -179,7 +179,8 @@ def test_train_steps_match_jax_make_train_step(fused, nsteps):
     sj, tx = jts.create_train_state(jcfg, jt, jax.random.key(0), 10, jl, initial_params=params)
     step_j = jts.make_train_step(jcfg, jl, tx)
     st, _ = tts.create_train_state(tcfg, tt, torch.Generator().manual_seed(0), 10, tl,
-                                   initial_params=state_dict_from_flax_params(params, tcfg))
+                                   initial_params=state_dict_from_flax_params(params, tcfg),
+                                   device="cpu")
     step_t = tts.make_train_step(tcfg, tl)
     for i in range(nsteps):
         ids, mask = _batch(jcfg.max_seq_length, i)
@@ -209,7 +210,8 @@ def test_gradients_match_jax(fused):
     grads_j = state_dict_from_flax_params(
         jax.tree.map(lambda a, b: np.asarray(a) - np.asarray(b), params, new.params), tcfg)
     st, _ = tts.create_train_state(tcfg, tt, torch.Generator(), 10, tl,
-                                   initial_params=state_dict_from_flax_params(params, tcfg))
+                                   initial_params=state_dict_from_flax_params(params, tcfg),
+                                   device="cpu")
     emb = tts.encoder_apply_fn(tcfg)(st.model, torch.from_numpy(ids.reshape(4 * B, -1)),
                                      torch.from_numpy(mask.reshape(4 * B, -1)), None)
     loss = tts.loss_from_config(tl)(*emb.reshape(4, B, -1))
@@ -223,7 +225,8 @@ def test_gradients_match_jax(fused):
 def test_d_regularized_step_trains_the_discriminator():
     (jcfg, _, jt), (tcfg, _, tt) = _configs(False)
     tl = tc.LossConfig(kind="d_regularized", lmbd=0.1)
-    st, _ = tts.create_train_state(tcfg, tt, torch.Generator().manual_seed(0), 10, tl)
+    st, _ = tts.create_train_state(tcfg, tt, torch.Generator().manual_seed(0), 10, tl,
+                                   device="cpu")
     before = {k: v.clone() for k, v in st.discriminator.state_dict().items()}
     st, loss = tts.make_train_step(tcfg, tl)(st, *_batch(tcfg.max_seq_length), None)
     assert np.isfinite(loss.item())
@@ -240,7 +243,8 @@ def test_eval_loss_is_deterministic_and_matches_jax():
     ids, mask = _batch(jcfg.max_seq_length, 5)
     want = float(jts.make_eval_loss_fn(jcfg, jl)(params, jnp.asarray(ids), jnp.asarray(mask)))
     st, _ = tts.create_train_state(tcfg, tt, torch.Generator(), 10, tl,
-                                   initial_params=state_dict_from_flax_params(params, tcfg))
+                                   initial_params=state_dict_from_flax_params(params, tcfg),
+                                   device="cpu")
     got = tts.make_eval_loss_fn(tcfg, tl)(st.model.train(), ids, mask)
     np.testing.assert_allclose(got.item(), want, rtol=1e-5)
 
@@ -250,7 +254,8 @@ def test_dropout_follows_the_generator(fused):
     """In train() mode with a generator both paths drop: the same generator
     seed gives the same loss, another seed another loss, no generator none."""
     cfg = tc.EncoderConfig.tiny(use_fused_layer=fused)
-    st, _ = tts.create_train_state(cfg, tc.TrainConfig(), torch.Generator().manual_seed(0), 10)
+    st, _ = tts.create_train_state(cfg, tc.TrainConfig(), torch.Generator().manual_seed(0), 10,
+                                   device="cpu")
     enc = tts.encoder_apply_fn(cfg)
     ids, mask = (torch.from_numpy(a.reshape(4 * B, -1)) for a in _batch(cfg.max_seq_length))
     st.model.train()
@@ -278,7 +283,8 @@ def test_early_stopping_is_the_source_code():
 
 def test_checkpoint_roundtrip_and_retention(tmp_path):
     _, (tcfg, tl, tt) = _configs(False)
-    state, _ = tts.create_train_state(tcfg, tt, torch.Generator().manual_seed(0), 10, tl)
+    state, _ = tts.create_train_state(tcfg, tt, torch.Generator().manual_seed(0), 10, tl,
+                                      device="cpu")
     mgr = CheckpointManager(str(tmp_path / "ckpt"), save_steps=2, total_limit=2)
     assert not mgr.maybe_save(state, 1)
     for step in (2, 4, 6):
@@ -287,7 +293,8 @@ def test_checkpoint_roundtrip_and_retention(tmp_path):
     assert mgr.update_best(state, 0.5) and not mgr.update_best(state, 0.4)
     state.step = 9
     mgr.save_now(state, 9)
-    other, _ = tts.create_train_state(tcfg, tt, torch.Generator().manual_seed(7), 10, tl)
+    other, _ = tts.create_train_state(tcfg, tt, torch.Generator().manual_seed(7), 10, tl,
+                                      device="cpu")
     restored = CheckpointManager(str(tmp_path / "ckpt")).restore_latest(other)
     assert restored is other and other.step == 9
     for (k, a), b in zip(state.model.state_dict().items(), other.model.state_dict().values()):
@@ -307,7 +314,7 @@ def _trainer(root, exp, fused=False, n_examples=2, **over):
         evaluation_steps=0, checkpoint_save_steps=5, checkpoint_save_total_limit=10,
         save_best_model=False, experiment_dir=exp), **over})
     loss = tc.LossConfig(margin_pos_part=0.5, margin_part_neg=0.5, use_fused_kernel=fused)
-    return Trainer(cfg, loss, tcfg, ds, collator), tcfg
+    return Trainer(cfg, loss, tcfg, ds, collator, device="cpu"), tcfg
 
 
 def test_resume_matches_uninterrupted(tmp_path):
@@ -383,7 +390,8 @@ def test_initial_params_reach_training(tmp_path):
                           scheduler="constantlr", checkpoint_save_steps=0)
     from qst_tpu_torch.models.sentence_encoder import init_params
 
-    custom = init_params(trainer.encoder_cfg, torch.Generator().manual_seed(99))
+    custom = init_params(trainer.encoder_cfg, torch.Generator().manual_seed(99),
+                         device="cpu")
     trainer.initial_params = custom
     result = trainer.train()
     for k, v in custom.items():
