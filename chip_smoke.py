@@ -17,7 +17,11 @@ Phases (any failure exits non-zero and prints no result):
    backward, with and without dropout) at B = 128, S = 128, K3 (the fused
    quadruplet loss, forward and backward), and K6 (the IVF probed-cell
    scorer, f32 and bf16, D = 384, C = 1024, L = 1152 and 1160, P = 8,
-   Q = 1 / 11 / 256), then IVFIndex.search through K6 against the probe scan.
+   Q = 1 / 11 / 256), then IVFIndex.search through K6 against the probe scan;
+   the bf16 GEMM behind K1 and K2 alone in its four operand layouts (ragged
+   M, every N the layer uses, split-K), K1 and K2 at sequence lengths that
+   are no multiple of 16 and at head widths 32 and 64, and K2's 16 gradients
+   bit-equal between two calls.
 3. serve  — random-init MiniLM-L6 with use_fused_layer, a bfloat16 Retriever
    over 65,536 synthetic docs (so "auto" search takes K4 + K5), a
    RetrievalServer on port 0 answering concurrent POST /search, POST /encode
@@ -40,10 +44,12 @@ Phases (any failure exits non-zero and prints no result):
    peak rate); encode sentences/s at B=256, S=128; search QPS over 1M x 384
    bf16, Q=4096; train steps/s of the kernel path against the nn.Module path;
    K6 and whole IVF searches at Q = 8 / 64 / 256 over a 1M x 384 bf16
-   clustered index beside the exact K4 + K5 search, with recall@10.
+   clustered index beside the exact K4 + K5 search, with recall@10; K1's and
+   K2's device time by piece (GEMMs, attention, LayerNorm).
 7. profile — where the time goes: device time per kernel and the device's
-   busy share for encode, a train step and search, and served req/s with
-   p50/p99 latency at 1, 8 and 64 closed-loop clients.
+   busy share for encode, a train step and search (no library GEMM or
+   attention kernel may run on the fused encode and train paths), and served
+   req/s with p50/p99 latency at 1, 8 and 64 closed-loop clients.
 
 The last lines are the card's name and power limit (nvidia-smi), one JSON
 object with a row per kernel, and {"ok": true, "device": {...}}.
@@ -248,6 +254,7 @@ def check_kernels(report: dict) -> None:
     report["K4"] = {"max_abs_err": k4_err}
     report["K5"] = {"max_abs_err": k5_err}
     check_training_kernels(report)
+    check_layer_edges(report)
     check_ivf(report)
 
 
@@ -376,6 +383,100 @@ def check_training_kernels(report: dict) -> None:
     if not err <= 1e-5:
         fail(f"K3: max|err| {err} > 1e-5")
     report["K3"] = {"max_abs_err": err}
+
+
+def masked_batch(B, S, H, dtype, gen, dev):
+    """x (B, S, H), the mask bias of random lengths with the last sequence
+    fully padded, and an upstream gradient, from ``gen``."""
+    import torch
+
+    from qst_tpu_torch.ops import fused_layer as fl
+
+    x = torch.randn((B, S, H), generator=gen).to(dev, dtype)
+    lens = torch.randint(1, S + 1, (B,), generator=gen)
+    mask = torch.arange(S)[None, :] < lens[:, None]
+    mask[-1] = False
+    bias = torch.where(mask, 0.0, fl.MASK_BIAS).float().to(dev)
+    g = torch.randn((B, S, H), generator=gen).to(dev, dtype)
+    return x, bias, g
+
+
+def check_layer_edges(report: dict) -> None:
+    """The bf16 GEMM behind K1 and K2 alone, then the two kernels at the
+    edges of their tensor-core attention, then K2's determinism."""
+    import torch
+
+    from qst_tpu_torch.ops import fused_layer as fl
+
+    dev = torch.device("cuda")
+    gen = torch.Generator().manual_seed(18)
+
+    def rnd(*shape):
+        return (torch.randn(shape, generator=gen) * 0.5).to(dev, torch.bfloat16)
+
+    # each operand layout against the plain product: bf16 products are exact
+    # in f32, so only the order of the f32 sums differs — 2e-5 of max|ref|
+    # (7e-6 measured at K = 5,000); a wrong shared-memory descriptor or
+    # swizzle gives errors of the size of the result. Ragged M, every N the
+    # layer uses, K = H, F and a token count cut by split-K
+    worst = 0.0
+    shapes = [(1000, n, 384) for n in (128, 256, 384, 1152, 1536)] + [
+        (520, 384, 1536), (384, 1536, 5000)]
+    for M, N, K in shapes:
+        for ta in (False, True):
+            for tb in (False, True):
+                a = rnd(K, M) if ta else rnd(M, K)
+                b = rnd(N, K) if tb else rnd(K, N)
+                ref = fl.layer_gemm_plain(a, b, trans_a=ta, trans_b=tb)
+                for splits in (1, 3):
+                    out = fl.layer_gemm(a, b, trans_a=ta, trans_b=tb, splits=splits)
+                    torch.cuda.synchronize()
+                    rel = ((out - ref).abs().max() / ref.abs().max()).item()
+                    worst = max(worst, rel)
+                    if not rel <= 2e-5:
+                        fail(f"layer_gemm M={M} N={N} K={K} trans_a={ta} trans_b={tb} "
+                             f"splits={splits}: max|err|/max|ref| {rel} > 2e-5")
+    log(f"layer_gemm bf16, 4 operand layouts x {len(shapes)} shapes x splits 1 and 3: worst "
+        f"max|err|/max|ref| {worst:.3e} (limit 2e-5)")
+    report["K1"]["gemm_max_rel_err"] = worst
+
+    # K1 and K2 where the attention pads: S no multiple of 16, head widths 32
+    # and 64, a fully padded sequence, dropout on; K1's and K2's own limits
+    for B, S, H, F, NH in ((5, 24, 128, 256, 4), (3, 40, 128, 256, 2), (9, 77, 384, 1536, 12),
+                           (4, 128, 768, 3072, 12)):
+        w = random_layer(H, F, torch.bfloat16, gen, dev)
+        x, bias, g = masked_batch(B, S, H, torch.bfloat16, gen, dev)
+        kw = dict(num_heads=NH, attn_dropout=0.1, hidden_dropout=0.1, nb=8,
+                  seed=torch.tensor([24681357], dtype=torch.int32, device=dev))
+        what = f"B={B} S={S} H={H} F={F} head width {H // NH} dropout 0.1"
+        out = fl.fused_bert_layer(x, bias, w, **kw).float()
+        if not torch.isfinite(out).all():
+            fail(f"K1 bf16 {what}: non-finite output")
+        bf16_limits(f"K1 bf16 {what}", out, fl.fused_bert_layer_plain(x, bias, w, **kw).float())
+        dx, dw = fl.fused_bert_layer_bwd(x, bias, w, g, **kw)
+        rdx, rdw = fl.fused_bert_layer_bwd_plain(x, bias, w, g, **kw)
+        torch.cuda.synchronize()
+        (mx, mx_n), (mean, mean_n), _ = grad_errors(dict(dw, dx=dx), dict(rdw, dx=rdx))
+        log(f"K2 bf16 {what}: worst max|err|/max|ref| {mx:.3e} ({mx_n}; limit 2e-2), worst "
+            f"mean|err|/mean|ref| {mean:.3e} ({mean_n}; limit {2.0 ** -7:.2e})")
+        if not (mx <= 2e-2 and mean <= 2.0 ** -7):
+            fail(f"K2 bf16 {what}: outside the limits")
+
+    # no atomics: two calls give the same bits (training shape, dropout 0.1)
+    B, S, H, F, NH = 128, 128, 384, 1536, 12
+    w = random_layer(H, F, torch.bfloat16, gen, dev)
+    x, bias, g = masked_batch(B, S, H, torch.bfloat16, gen, dev)
+    kw = dict(num_heads=NH, attn_dropout=0.1, hidden_dropout=0.1, nb=8,
+              seed=torch.tensor([5], dtype=torch.int32, device=dev))
+    runs = []
+    for _ in range(2):
+        dx, dw = fl.fused_bert_layer_bwd(x, bias, w, g, **kw)
+        torch.cuda.synchronize()
+        runs.append(dict(dw, dx=dx))
+    differ = [n for n in runs[0] if not torch.equal(runs[0][n], runs[1][n])]
+    if differ:
+        fail(f"K2 is not deterministic: {differ} differ between two calls")
+    log(f"K2 bf16 B={B} S={S}: dx and the 16 weight gradients are bit-equal between two calls")
 
 
 def rows_match_up_to_ties(a, b, true_scores, tol: float) -> bool:
@@ -1145,6 +1246,36 @@ def times(report: dict) -> None:
     k2_ops = 3 * 2.0 * Mt * (4 * H * H + 2 * H * F) + 6 * 2.0 * 128 * S * S * H
     grad_bytes = 4 * (4 * H * H + 2 * H * F + 9 * H + F)
     report["K2"].update(bound(3 * Mt * H * 2 + weight_bytes + grad_bytes, k2_ops, "bfloat16"))
+    # where K1's and K2's device time goes, by piece
+    for name, fn in (("K1", lambda: fl.fused_bert_layer(x, bias, w, num_heads=12)),
+                     ("K2", lambda: fl.fused_bert_layer_bwd(xt, bt, w, gt, **drop))):
+        k = device_ms(fn, 10)
+        report[name]["pieces_ms"] = layer_pieces(k)
+        log(f"{name} device time by piece ({'B=256' if name == 'K1' else 'B=128, dropout 0.1'}, "
+            f"S=128, bf16): " + ", ".join(f"{p} {ms:.3f} ms" for p, ms in
+                                          report[name]["pieces_ms"].items()))
+        ban_library_kernels(k, f"{name} alone")
+    # the GEMMs' rates: K1's products from its profile, and the GEMM alone on
+    # a deep product of the same tile (f32 out, device time of the GEMM
+    # kernel only), which shows what ring fill and epilogue cost at K = 384
+    k1 = device_ms(lambda: fl.fused_bert_layer(x, bias, w, num_heads=12), 10)
+    rates = {}
+    for label, mark, ops in (("QKV (N=3H, K=H)", "gemm_bf16_kernel<0,", 2.0 * M * H * 3 * H),
+                             ("FFN-up + GELU (N=F, K=H)", "gemm_bf16_kernel<1,", 2.0 * M * H * F),
+                             ("out-proj + FFN-down, residual (N=H, K=H and F)",
+                              "gemm_bf16_kernel<2,", 2.0 * M * H * (H + F))):
+        ms = sum(v for n, v in k1.items() if mark in n)
+        rates[label] = {"ms": ms, "tflops": ops / ms / 1e9}
+    Mg = Ng = Kg = 8192
+    a = torch.randn((Mg, Kg), device=dev).to(torch.bfloat16)
+    b = torch.randn((Kg, Ng), device=dev).to(torch.bfloat16)
+    ms = sum(v for n, v in device_ms(lambda: fl.layer_gemm(a, b), 5).items()
+             if "gemm_bf16_kernel" in n)
+    rates[f"alone, M=N=K={Kg}"] = {"ms": ms, "tflops": 2.0 * Mg * Ng * Kg / ms / 1e9}
+    del a, b
+    report["layer_gemm"] = rates
+    log("bf16 GEMM device time: " + ", ".join(
+        f"{n} {r['ms']:.3f} ms = {r['tflops']:.0f} TFLOP/s" for n, r in rates.items()))
     # K3, forward + backward, B = 32 quadruplets, D = 384
     emb = [torch.nn.functional.normalize(torch.randn((32, 384), generator=gen), dim=1).to(dev)
            for _ in range(4)]
@@ -1295,6 +1426,29 @@ def device_ms(fn, reps: int) -> dict:
     return out
 
 
+LAYER_PIECES = (("GEMMs", ("gemm_bf16_kernel", "gemm_f32_kernel")),
+                ("attention forward", ("attention_mma_kernel", "attention_kernel")),
+                ("attention backward", ("attention_bwd_mma_kernel", "attention_bwd_kernel")),
+                ("LayerNorm", ("layernorm_kernel", "layernorm_bwd_kernel")),
+                ("ordered sums", ("sum_rows_kernel",)))
+
+
+def layer_pieces(kernels: dict) -> dict:
+    """{piece: device ms} of a fused layer's kernels (``device_ms``'s names)."""
+    out = {label: sum(ms for n, ms in kernels.items() if any(k in n for k in keys))
+           for label, keys in LAYER_PIECES}
+    out["other"] = sum(kernels.values()) - sum(out.values())
+    return out
+
+
+def ban_library_kernels(kernels: dict, what: str) -> None:
+    """Fail if a library's GEMM or attention kernel ran (``device_ms``'s names)."""
+    banned = sorted(n for n in kernels if "qst::" not in n
+                    and any(b in n.lower() for b in LIBRARY_KERNEL_MARKS))
+    if banned:
+        fail(f"library kernels on the path of {what}: {banned}")
+
+
 def shares(kernels: dict, groups, name_other: int = 0) -> str:
     """'label ms (share%)' for each (label, name substrings) group of
     kernels, then the rest, as a share of all device time; with
@@ -1342,9 +1496,11 @@ def profile_phase(report: dict) -> None:
                       ("nn.Module", embed_fn(EncoderConfig.minilm_l6()))):
         wall = cuda_ms(lambda: fwd(enc.model, ids, mask), 10)
         k = device_ms(lambda: fwd(enc.model, ids, mask), 5)
+        if name.startswith("fused"):
+            ban_library_kernels(k, "the fused encode")
         log(f"profile encode {name} B={B} S={S}: {wall:.3f} ms per call, device busy "
             f"{100 * sum(k.values()) / wall:.1f}%: " + shares(k, (
-                ("attention", ("attention_kernel",)),
+                ("attention", ("attention_mma_kernel",)),
                 ("QKV GEMM", ("gemm_bf16_kernel<0,",)),
                 ("FFN-up GELU GEMM", ("gemm_bf16_kernel<1,",)),
                 ("out-proj/FFN-down residual GEMMs", ("gemm_bf16_kernel<2,",)),
@@ -1368,12 +1524,13 @@ def profile_phase(report: dict) -> None:
     torch.cuda.synchronize()
     wall = (time.perf_counter() - t0) / 5 * 1e3
     k = device_ms(lambda: step(state, tids, tmask, tgen), 3)
+    ban_library_kernels(k, "the kernel-path train step")
     log(f"profile train step, batch 32 quadruplets, S=128, bf16, dropout 0.1: {wall:.3f} ms "
         f"per step, device busy {100 * sum(k.values()) / wall:.1f}%: " + shares(k, (
-            ("attention forward (K1 + K2 recompute)", ("attention_kernel",)),
+            ("attention forward (K1 + K2 recompute)", ("attention_mma_kernel",)),
             ("forward GEMMs (K1 + K2 recompute)", tuple(f"gemm_bf16_kernel<{e}," for e in
                                                         range(4))),
-            ("attention backward (K2)", ("attention_bwd_kernel",)),
+            ("attention backward (K2)", ("attention_bwd_mma_kernel",)),
             ("backward GEMMs (K2: dX and split-K dW)", tuple(f"gemm_bf16_kernel<{e}," for e in
                                                              range(4, 9))),
             ("LayerNorm forward and backward, ordered sums", ("layernorm_kernel",
@@ -1499,9 +1656,12 @@ def main() -> None:
             log(f"phase {phase}: {time.perf_counter() - t0:.1f} s")
     log(json.dumps({k: v for k, v in report.items()
                     if k in ("encode", "search", "train", "train_steps_per_s", "ivf",
-                             "ivf_times")}))
+                             "ivf_times", "layer_gemm")}))
     log(json.dumps({"K1_training_layer": {k: report["K1"].get(k) for k in (
         "train_ms", "train_no_dropout_ms", "dropout_max_abs_err", "module_layer_ms")},
+        "K1_pieces_ms": report["K1"].get("pieces_ms"),
+        "K2_pieces_ms": report["K2"].get("pieces_ms"),
+        "layer_gemm_max_rel_err": report["K1"].get("gemm_max_rel_err"),
         "K5_gather_ms": report["K5"].get("gather_ms")}))
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",

@@ -7,7 +7,7 @@ one link::
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -Xcompiler -fPIC \\
          -c csrc/<name>.cu -o _build/<hash>/<name>.o          # each source at once
     nvcc -gencode arch=compute_90a,code=sm_90a -shared \\
-         -o _build/libqst_kernels_<hash>.so _build/<hash>/*.o
+         -o _build/libqst_kernels_<hash>.so _build/<hash>/*.o -ldl
 
 The library is built at first use into ``kernels/_build/`` (listed in
 ``.gitignore``), named by a hash of the sources and flags, so a checkout
@@ -95,7 +95,7 @@ def build() -> Path:
         objs = [objdir / f"{src.stem}.o" for src in _sources()]
         _run_all([[nvcc, *NVCC_FLAGS, "-c", str(src), "-o", str(obj)]
                   for src, obj in zip(_sources(), objs)])
-        _run_all([[nvcc, *ARCH, "-shared", "-o", str(tmp), *map(str, objs)]])
+        _run_all([[nvcc, *ARCH, "-shared", "-o", str(tmp), *map(str, objs), "-ldl"]])
         os.replace(tmp, out)   # atomic: a concurrent build sees all or nothing
     finally:
         shutil.rmtree(objdir, ignore_errors=True)

@@ -12,20 +12,30 @@
 // card's ~295 FLOP/byte bf16 ridge, so the tensor cores are the limit.
 // Attention is small (S ≤ 128) and its probabilities must stay on chip.
 //
-// What this design does about it (a first, simple form):
-// - projections run as a tiled GEMM on the tensor cores (nvcuda::wmma bf16
-//   16x16x16, f32 accumulation) with the bias, erf-GELU or residual fused
-//   into the epilogue; the f32 path (for comparisons) is a SIMT FMA GEMM;
-//   Q, K and V are one GEMM over the concatenated (H, 3H) weight, so a layer
-//   is seven launches;
-// - attention runs one block per (sequence, head): Q, K, V and the (S, S)
-//   f32 scores sit in shared memory, so the probabilities never reach device
-//   memory, as in the TPU kernel;
+// What this design does about it (bf16; layer_common.cuh has the details):
+// - the projections run as one persistent, warp-specialised GEMM: 128x128
+//   output tiles, a 4-stage ring of 64-deep k-steps filled by TMA (128-byte
+//   swizzle, mbarriers, one producer thread), two consumer warpgroups that
+//   take the block's tiles in turns on wgmma.m64n128k16 with f32
+//   accumulators in registers, so one's epilogue runs under the other's
+//   products; each consumer warp passes its accumulators through a slab of
+//   its own in shared memory so that the bias, erf-GELU (the TPU kernel's
+//   rational erf), dropout and residual are applied, loaded and stored row
+//   by row as 8- and 16-byte vectors; Q, K and V are one GEMM over the
+//   concatenated (H, 3H) weight, so a layer is seven launches;
+// - attention runs one block per (sequence, head) on mma.sync.m16n8k16:
+//   Q, K and V as bf16 tiles in shared memory (cp.async), a warp per 16
+//   query rows with the whole score row in registers, the exact two-pass
+//   softmax there, and the probabilities handed to P·V as register
+//   fragments — they reach neither shared nor device memory;
 // - residual + LayerNorm with f32 statistics runs one warp per row.
+// The f32 path (a SIMT FMA GEMM and a SIMT attention with f32 scores in
+// shared memory) is kept as the comparison path that holds 1e-4.
 // bf16 rounding happens where the TPU kernel rounds: q, k, v after the bias;
 // the probabilities before P·V; ctx; the LN1 output; the GELU output; the
-// layer output. Not yet: cp.async/TMA pipelining, wgmma, one persistent
-// kernel per layer — later work, measured against this one.
+// layer output. Not yet: one kernel per layer (each activation of the chain
+// still crosses device memory); clusters with TMA multicast or wider tiles
+// (a 128x128 tile moves 32 KB from L2 into shared memory per 2 MFLOP).
 //
 // Training dropout runs in the kernels as the TPU kernel runs it
 // (`_drop_mask`, :82-108, hashed in common.cuh): the attention

@@ -12,28 +12,32 @@
 // backward (dX = dY·Wᵀ and dW = Xᵀ·dY for each of the five products) plus
 // the recomputed forward — about 3 × 2·M·(4H² + 2HF) ≈ 174 GFLOP per layer
 // at M = B·S = 16,384 and MiniLM widths — over a few hundred MB of f32 and
-// bf16 activations: the tensor cores are the limit, then the SIMT attention.
+// bf16 activations: the tensor cores are the limit.
 //
-// What this design does about it (a first, simple form):
+// What this design does about it (bf16):
 // - the forward recompute reuses K1's kernels (layer_common.cuh), keeping
 //   the f32 residual sums, the f32 GELU pre-activation and the bf16
 //   activations the backward reads: only the layer input is saved between
 //   forward and backward, as on the TPU;
-// - dX = dY·Wᵀ runs as K1's wmma GEMM with B read transposed (col_major
-//   fragments), with the GELU derivative or the residual gradient fused
-//   into its epilogue; dW = Xᵀ·dY runs with A read transposed, split over
-//   the 16,384 token rows into f32 partials;
+// - all 15 products run on K1's TMA + wgmma GEMM: dX = dY·Wᵀ reads W as it is
+//   stored, (N, K), as a K-major operand, with the GELU derivative or the
+//   residual gradient fused into the epilogue; dW = Xᵀ·dY reads X as
+//   it is stored, (K, M), through wgmma's transpose bit, split over the
+//   16,384 token rows into f32 partials;
 // - every reduction over token rows (weight, bias and LayerNorm gradients)
 //   writes f32 partials that a second pass sums in a fixed order: blocks of
 //   a GPU grid run at once, so the TPU's add-into-one-block would race, and
 //   atomics would make the gradient differ from run to run;
 // - LayerNorm backward runs one warp per row; attention backward one block
-//   per (sequence, head), with P, dP and dS in shared memory, regenerating
-//   P and the dropout mask from the seed as K1 made them.
+//   per (sequence, head) on mma.sync.m16n8k16, with P, dP and dS in
+//   registers and the two (S, S) tiles its transposed products need in
+//   shared memory as bf16, regenerating P and the dropout mask from the seed
+//   as K1 made them (see attention_bwd_mma_kernel).
+// The f32 path keeps the SIMT GEMM and the SIMT attention backward: it is
+// the comparison path that holds 1e-4.
 // bf16 rounding happens where the TPU kernel rounds: df, dipre, da, dctx,
 // the dropped probabilities, dS·scale and dq/dk/dv before their products;
-// bias gradients sum the f32 values. Not yet: a fused attention backward on
-// the tensor cores, pipelined or wgmma GEMMs.
+// bias gradients sum the f32 values.
 #include "layer_common.cuh"
 
 namespace qst {
@@ -145,7 +149,7 @@ int launch_layernorm_bwd(const float* r, const TD* dy, const float* gamma, int M
 }
 
 // ---------------------------------------------------------------------------
-// Attention backward: one block per (head, sequence), blockDim 256, which
+// f32 attention backward (SIMT): one block per (head, sequence), blockDim 256, which
 // hd (32 or 64) divides, so each thread keeps one column d = tid % hd of
 // every (S, hd) output and sums it for the bias gradient. Shared memory:
 // X and Y (S x (hd+1) each: Q and K, then V and dC, then Q and K again),
@@ -290,19 +294,266 @@ attention_bwd_kernel(const T* __restrict__ qkv, const T* __restrict__ dctx,
   block_colsum(cs, red, hd, part + H);
 }
 
+// ---------------------------------------------------------------------------
+// bf16 attention backward on the tensor cores: one block per (head,
+// sequence), eight warps. Q, K, V and dC are loaded once into shared memory
+// as bf16 rows of HD + 8 values (as in the forward). Each warp first owns 16
+// query rows: it recomputes the f32 probabilities P in registers exactly as
+// the forward made them (attention_probs, then the same dropout mask, kept
+// as 64 bits a thread), writes D (the dropped, rounded P that P·V used) to a
+// bf16 (S, S) tile in shared memory, takes dP = dC·Vᵀ twice through the
+// tensor cores — once for the row term Σ dP·P (quad shuffles), once more
+// for dS = P·(dP − Σ)·scale, which costs less than holding dP's 64
+// registers — rounds dS to bf16 into a second (S, S) tile and, from the same
+// registers, accumulates dQ = dS·K. After one barrier each warp owns 16 key
+// rows and reads the two tiles transposed (ldmatrix.trans) for dV = Dᵀ·dC
+// and dK = dSᵀ·Q. The tiles' rows are S_pad + 8 values, again for the banks:
+// 111 KB a block at S = 128, HD = 32, so two blocks fit an SM.
+// The bias gradients — column sums of the f32 dQ, dK and dV — go lanes →
+// warps (shared memory) → one row of dbias_part per (sequence, head), in a
+// fixed order; launch_sum_rows adds the sequences.
+// ---------------------------------------------------------------------------
+inline size_t attention_bwd_mma_smem_bytes(int S, int hd) {
+  const int S_pad = (S + 15) & ~15;
+  return (size_t)4 * S_pad * (hd + ATT_PAD) * sizeof(bf16) +
+         (size_t)2 * S_pad * (S_pad + ATT_PAD) * sizeof(bf16) + S_pad * sizeof(float) +
+         8 * 3 * hd * sizeof(float);
+}
+
+// the column sums of the warp's 16 x HD accumulators → out[0 .. HD-1]
+template <int HD>
+__device__ __forceinline__ void warp_colsum(const float (&acc)[HD / 8][4], float* out, int lane) {
+#pragma unroll
+  for (int nb = 0; nb < HD / 8; ++nb) {
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      float s = acc[nb][e] + acc[nb][2 + e];
+      s += __shfl_xor_sync(0xffffffffu, s, 4);
+      s += __shfl_xor_sync(0xffffffffu, s, 8);
+      s += __shfl_xor_sync(0xffffffffu, s, 16);
+      if (lane < 4) out[nb * 8 + lane * 2 + e] = s;
+    }
+  }
+}
+
+// dP of keys 16·nb2 .. + 15 for the warp's 16 query rows: dC (A operand ca)
+// · Vᵀ, through the dropout mask (`keep` bit 4nb + i, `kept` = 1 / (1 - rate))
+template <int HD>
+__device__ __forceinline__ void dp_block(float (&dp)[2][4], const uint32_t (&ca)[HD / 16][4],
+                                         const bf16* Vs, int nb2, uint64_t keep, float kept,
+                                         int lane) {
+  constexpr int LD = HD + ATT_PAD;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) dp[0][i] = dp[1][i] = 0.0f;
+#pragma unroll
+  for (int kk = 0; kk < HD / 16; ++kk) {
+    uint32_t vb[4];
+    ldmatrix_x4(vb, Vs + (nb2 * 16 + ((lane >> 4) << 3) + (lane & 7)) * LD + kk * 16 +
+                        ((lane >> 3) & 1) * 8);
+    mma_m16n8k16(dp[0], ca[kk], vb[0], vb[1]);
+    mma_m16n8k16(dp[1], ca[kk], vb[2], vb[3]);
+  }
+#pragma unroll
+  for (int j = 0; j < 2; ++j)
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+      dp[j][i] = (keep >> (4 * (2 * nb2 + j) + i)) & 1ull ? dp[j][i] * kept : 0.0f;
+}
+
+template <int HD>
+__global__ void __launch_bounds__(256)
+attention_bwd_mma_kernel(const bf16* __restrict__ qkv, const bf16* __restrict__ dctx,
+                         const float* __restrict__ mask_bias, bf16* __restrict__ dqkv,
+                         float* __restrict__ dbias_part, int S, int H, float scale,
+                         DropSite ad) {
+  extern __shared__ __align__(16) unsigned char att_smem[];
+  constexpr int LD = HD + ATT_PAD;
+  const int h = blockIdx.x, b = blockIdx.y, nh = gridDim.x;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int S_pad = (S + 15) & ~15, LP = S_pad + ATT_PAD;
+  bf16* Qs = reinterpret_cast<bf16*>(att_smem);
+  bf16* Ks = Qs + S_pad * LD;
+  bf16* Vs = Ks + S_pad * LD;
+  bf16* Cs = Vs + S_pad * LD;   // dC
+  bf16* Ds = Cs + S_pad * LD;   // D: dropped, rounded probabilities
+  bf16* Gs = Ds + S_pad * LP;   // dS·scale, rounded
+  float* bias_s = reinterpret_cast<float*>(Gs + S_pad * LP);
+  float* red = bias_s + S_pad;  // [8 warps][dQ | dK | dV][HD]
+
+  const size_t row0 = (size_t)b * S;
+  const bf16* base = qkv + row0 * 3 * H + h * HD;
+  bf16* dbase = dqkv + row0 * 3 * H + h * HD;
+  load_head_async<HD>(Qs, base, 3 * H, S, S_pad);
+  load_head_async<HD>(Ks, base + H, 3 * H, S, S_pad);
+  load_head_async<HD>(Vs, base + 2 * H, 3 * H, S, S_pad);
+  load_head_async<HD>(Cs, dctx + row0 * H + h * HD, H, S, S_pad);
+  for (int j = tid; j < S; j += 256) bias_s[j] = mask_bias[row0 + j];
+  cp_async_wait_all();
+  __syncthreads();
+
+  const int r0 = warp * 16;              // this warp's query rows, then key rows
+  const bool active = r0 < S_pad;
+  const int g = lane >> 2, t2 = (lane & 3) * 2;
+  float* my_red = red + warp * 3 * HD;
+  if (active) {
+    float p[16][4];
+    attention_probs<HD>(p, Qs, Ks, bias_s, r0, S, S_pad, scale, lane);
+    // the dropout mask of this thread's 64 probabilities, bit 4nb + i
+    uint64_t keep = ~0ull;
+    if (ad.on) {
+      const uint32_t seed = drop_step_seed(ad, b / ad.nb);
+      const uint32_t tag = 16u + (uint32_t)((b % ad.nb) * nh + h);
+      const uint32_t i0 = (uint32_t)((r0 + g) * S + t2);
+      keep = 0ull;
+#pragma unroll
+      for (int nb = 0; nb < 16; ++nb) {
+        if (nb * 8 < S_pad) {
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            if (drop_hash(i0 + nb * 8 + e, seed, tag) < ad.thr) keep |= 1ull << (4 * nb + e);
+            if (drop_hash(i0 + 8 * S + nb * 8 + e, seed, tag) < ad.thr)
+              keep |= 1ull << (4 * nb + 2 + e);
+          }
+        }
+      }
+    }
+    const float kept = ad.on ? ad.scale : 1.0f;
+    const bool row_a = r0 + g < S, row_b = r0 + g + 8 < S;  // real query rows
+    // D → shared memory (zeros in the rows past S)
+#pragma unroll
+    for (int nb = 0; nb < 16; ++nb) {
+      if (nb * 8 < S_pad) {
+        float v[4];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) v[i] = (keep >> (4 * nb + i)) & 1ull ? p[nb][i] * kept : 0.0f;
+        *reinterpret_cast<uint32_t*>(Ds + (r0 + g) * LP + nb * 8 + t2) =
+            row_a ? pack_bf16(v[0], v[1]) : 0u;
+        *reinterpret_cast<uint32_t*>(Ds + (r0 + g + 8) * LP + nb * 8 + t2) =
+            row_b ? pack_bf16(v[2], v[3]) : 0u;
+      }
+    }
+    // dP of 16 keys: dC (this warp's rows) · Vᵀ, through the dropout mask
+    uint32_t ca[HD / 16][4];
+#pragma unroll
+    for (int kk = 0; kk < HD / 16; ++kk)
+      ldmatrix_x4(ca[kk], Cs + (r0 + (lane & 15)) * LD + kk * 16 + (lane >> 4) * 8);
+    float sum_a = 0.0f, sum_b = 0.0f;  // Σ dP·P of rows r0 + g and eight below
+#pragma unroll
+    for (int nb2 = 0; nb2 < 8; ++nb2) {
+      if (nb2 * 16 < S_pad) {
+        float dp[2][4];
+        dp_block<HD>(dp, ca, Vs, nb2, keep, kept, lane);
+#pragma unroll
+        for (int j = 0; j < 2; ++j) {
+          sum_a += dp[j][0] * p[2 * nb2 + j][0] + dp[j][1] * p[2 * nb2 + j][1];
+          sum_b += dp[j][2] * p[2 * nb2 + j][2] + dp[j][3] * p[2 * nb2 + j][3];
+        }
+      }
+    }
+    sum_a += __shfl_xor_sync(0xffffffffu, sum_a, 1);
+    sum_a += __shfl_xor_sync(0xffffffffu, sum_a, 2);
+    sum_b += __shfl_xor_sync(0xffffffffu, sum_b, 1);
+    sum_b += __shfl_xor_sync(0xffffffffu, sum_b, 2);
+    // dS → shared memory and, from the same registers, dQ = dS·K
+    float dq[HD / 8][4];
+#pragma unroll
+    for (int nb = 0; nb < HD / 8; ++nb)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) dq[nb][i] = 0.0f;
+#pragma unroll
+    for (int nb2 = 0; nb2 < 8; ++nb2) {
+      if (nb2 * 16 < S_pad) {
+        float dp[2][4];
+        dp_block<HD>(dp, ca, Vs, nb2, keep, kept, lane);
+        uint32_t a[4];
+#pragma unroll
+        for (int j = 0; j < 2; ++j) {
+          const int nb = 2 * nb2 + j;
+          const float s0 = row_a ? p[nb][0] * (dp[j][0] - sum_a) * scale : 0.0f;
+          const float s1 = row_a ? p[nb][1] * (dp[j][1] - sum_a) * scale : 0.0f;
+          const float s2 = row_b ? p[nb][2] * (dp[j][2] - sum_b) * scale : 0.0f;
+          const float s3 = row_b ? p[nb][3] * (dp[j][3] - sum_b) * scale : 0.0f;
+          a[2 * j] = pack_bf16(s0, s1);
+          a[2 * j + 1] = pack_bf16(s2, s3);
+          *reinterpret_cast<uint32_t*>(Gs + (r0 + g) * LP + nb * 8 + t2) = a[2 * j];
+          *reinterpret_cast<uint32_t*>(Gs + (r0 + g + 8) * LP + nb * 8 + t2) = a[2 * j + 1];
+        }
+        mma_rows_trans<HD>(dq, a, Ks + nb2 * 16 * LD, LD, lane);
+      }
+    }
+    store_rows_bf16<HD>(dbase, 3 * H, dq, r0, S, lane);
+    warp_colsum<HD>(dq, my_red, lane);
+  } else if (lane < 4) {
+    for (int i = lane; i < 3 * HD; i += 4) my_red[i] = 0.0f;
+  }
+  __syncthreads();
+
+  if (active) {  // key rows r0 .. r0 + 15: dV = Dᵀ·dC, dK = dSᵀ·Q
+    float dv[HD / 8][4], dk[HD / 8][4];
+#pragma unroll
+    for (int nb = 0; nb < HD / 8; ++nb)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) dv[nb][i] = dk[nb][i] = 0.0f;
+#pragma unroll 1
+    for (int qt = 0; qt < S_pad; qt += 16) {
+      // Aᵀ from the (query, key) tiles: lanes 8i..8i+7 address eight query
+      // lines of matrix i = (queries + 8·(i/2), keys + 8·(i%2))
+      const int off = (qt + ((lane >> 4) << 3) + (lane & 7)) * LP + r0 + ((lane >> 3) & 1) * 8;
+      uint32_t a[4];
+      ldmatrix_x4_trans(a, Ds + off);
+      mma_rows_trans<HD>(dv, a, Cs + qt * LD, LD, lane);
+      ldmatrix_x4_trans(a, Gs + off);
+      mma_rows_trans<HD>(dk, a, Qs + qt * LD, LD, lane);
+    }
+    store_rows_bf16<HD>(dbase + H, 3 * H, dk, r0, S, lane);
+    store_rows_bf16<HD>(dbase + 2 * H, 3 * H, dv, r0, S, lane);
+    warp_colsum<HD>(dk, my_red + HD, lane);
+    warp_colsum<HD>(dv, my_red + 2 * HD, lane);
+  }
+  __syncthreads();
+  if (tid < 3 * HD) {
+    float s = 0.0f;
+#pragma unroll
+    for (int w = 0; w < 8; ++w) s += red[w * 3 * HD + tid];
+    dbias_part[(size_t)b * 3 * H + (tid / HD) * H + h * HD + tid % HD] = s;
+  }
+}
+
+template <int HD>
+int launch_attention_bwd_mma(const bf16* qkv, const bf16* dctx, const float* mask_bias,
+                             bf16* dqkv, float* part, int B, int S, int H, int nh,
+                             const DropSite& ad, cudaStream_t st) {
+  static std::atomic<uint64_t> done{0};
+  cudaError_t e = allow_smem(attention_bwd_mma_kernel<HD>,
+                             attention_bwd_mma_smem_bytes(kMaxSeq, HD), done);
+  if (e != cudaSuccess) return (int)e;
+  attention_bwd_mma_kernel<HD><<<dim3(nh, B), 256, attention_bwd_mma_smem_bytes(S, HD), st>>>(
+      qkv, dctx, mask_bias, dqkv, part, S, H, 1.0f / sqrtf((float)HD), ad);
+  QST_RETURN_IF_LAUNCH_FAILED();
+  return 0;
+}
+
 template <typename T>
 int launch_attention_bwd(const T* qkv, const T* dctx, const float* mask_bias, T* dqkv,
                          float* part, int B, int S, int H, int nh, const DropSite& ad,
                          cudaStream_t st) {
-  static std::atomic<uint64_t> done{0};
   const int hd = H / nh;
-  cudaError_t e = allow_smem(attention_bwd_kernel<T>,
-                             attention_bwd_smem_bytes(kMaxSeq, kMaxHeadDim), done);
-  if (e != cudaSuccess) return (int)e;
-  attention_bwd_kernel<T><<<dim3(nh, B), 256, attention_bwd_smem_bytes(S, hd), st>>>(
-      qkv, dctx, mask_bias, dqkv, part, S, H, hd, 1.0f / sqrtf((float)hd), ad);
-  QST_RETURN_IF_LAUNCH_FAILED();
-  return 0;
+  if constexpr (std::is_same<T, bf16>::value) {
+    if (hd == 32)
+      return launch_attention_bwd_mma<32>(qkv, dctx, mask_bias, dqkv, part, B, S, H, nh, ad, st);
+    if (hd == 64)
+      return launch_attention_bwd_mma<64>(qkv, dctx, mask_bias, dqkv, part, B, S, H, nh, ad, st);
+    return (int)cudaErrorInvalidValue;
+  } else {
+    static std::atomic<uint64_t> done{0};
+    cudaError_t e = allow_smem(attention_bwd_kernel<T>,
+                               attention_bwd_smem_bytes(kMaxSeq, kMaxHeadDim), done);
+    if (e != cudaSuccess) return (int)e;
+    attention_bwd_kernel<T><<<dim3(nh, B), 256, attention_bwd_smem_bytes(S, hd), st>>>(
+        qkv, dctx, mask_bias, dqkv, part, S, H, hd, 1.0f / sqrtf((float)hd), ad);
+    QST_RETURN_IF_LAUNCH_FAILED();
+    return 0;
+  }
 }
 
 // ---------------------------------------------------------------------------
@@ -473,4 +724,28 @@ extern "C" int qst_fused_layer_backward(
 #undef QST_BWD
 #undef QST_F
   return (int)cudaErrorInvalidValue;
+}
+
+// The bf16 GEMM alone: C (M, N) f32 = op(A)·op(B), split-K partials in ws
+// ((splits, M, N) f32) summed in order — for holding each operand layout
+// (ta: A stored (K, M); tb: B stored (N, K)) against a plain product.
+extern "C" int qst_layer_gemm_bf16(const void* A, const void* B, void* C, void* ws, int M, int N,
+                                   int K, int ta, int tb, int splits, void* stream) {
+  cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
+  const bf16* a = reinterpret_cast<const bf16*>(A);
+  const bf16* b = reinterpret_cast<const bf16*>(B);
+  if (splits < 1 || N % 4) return (int)cudaErrorInvalidValue;
+  const EpiArgs ep{};
+  int err;
+  if (ta && tb)
+    err = launch_gemm<bf16, EPI_PARTIAL, true, true>(a, b, ws, M, N, K, ep, st, splits);
+  else if (ta)
+    err = launch_gemm<bf16, EPI_PARTIAL, true, false>(a, b, ws, M, N, K, ep, st, splits);
+  else if (tb)
+    err = launch_gemm<bf16, EPI_PARTIAL, false, true>(a, b, ws, M, N, K, ep, st, splits);
+  else
+    err = launch_gemm<bf16, EPI_PARTIAL, false, false>(a, b, ws, M, N, K, ep, st, splits);
+  if (err) return err;
+  return launch_sum_rows(reinterpret_cast<const float*>(ws), splits, M * N,
+                         reinterpret_cast<float*>(C), st);
 }

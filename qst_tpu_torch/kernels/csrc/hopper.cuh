@@ -1,0 +1,249 @@
+// Hopper (sm_90a) building blocks as inline PTX, shared by the bf16 kernels
+// of K1 and K2: mbarriers, TMA tile loads with their host-side tensor maps,
+// wgmma (m64n128k16, bf16 in, f32 out, both operands from 128-byte-swizzled
+// shared memory), and the warp-level ldmatrix / mma.sync.m16n8k16 pair the
+// attention kernels use.
+#pragma once
+
+#include <cuda.h>  // CUtensorMap and its enums (types only: nothing links against libcuda)
+#include <dlfcn.h>
+
+#include "common.cuh"
+
+namespace qst {
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// ---------------------------------------------------------------------------
+// mbarrier: `count` arrivals (plus the bytes a TMA load announces) complete
+// one phase. wait(parity) returns once the phase of that parity is complete;
+// a fresh barrier counts as having completed a phase of parity 1.
+// ---------------------------------------------------------------------------
+__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(bar), "r"(count) : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(bar), "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(bar) : "memory");
+}
+
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done;
+  do {
+    asm volatile(
+        "{\n"
+        ".reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n"
+        "}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+
+// ---------------------------------------------------------------------------
+// TMA. The tensor map of a row-major (rows, cols) bf16 matrix, cut into
+// boxes of box_rows x 64 columns (128 bytes, the swizzle width). A box that
+// reaches past the matrix is filled with zeros, which is what masks the
+// ragged edges of every GEMM operand.
+// ---------------------------------------------------------------------------
+typedef CUresult (*TensorMapEncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                         const cuuint64_t*, const cuuint64_t*,
+                                         const cuuint32_t*, const cuuint32_t*,
+                                         CUtensorMapInterleave, CUtensorMapSwizzle,
+                                         CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled, looked up in the libcuda the process already has loaded
+inline TensorMapEncodeTiled tensor_map_encoder() {
+  static const TensorMapEncodeTiled fn = [] {
+    void* lib = dlopen("libcuda.so.1", RTLD_NOW | RTLD_GLOBAL);
+    return lib ? reinterpret_cast<TensorMapEncodeTiled>(dlsym(lib, "cuTensorMapEncodeTiled"))
+               : nullptr;
+  }();
+  return fn;
+}
+
+inline bool make_tensor_map(CUtensorMap* map, const void* base, int rows, int cols,
+                            int box_rows) {
+  const TensorMapEncodeTiled encode = tensor_map_encoder();
+  if (encode == nullptr) return false;
+  const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
+  const cuuint64_t strides[1] = {(cuuint64_t)cols * sizeof(bf16)};
+  const cuuint32_t box[2] = {64u, (cuuint32_t)box_rows};
+  const cuuint32_t elem[2] = {1u, 1u};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(base), dims,
+                strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// one box, at (column col, row row) of the matrix, into shared memory at
+// dst; its bytes complete on `bar`
+__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map, uint32_t bar,
+                                         int col, int row) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4}], [%2];"
+      ::"r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(col), "r"(row)
+      : "memory");
+}
+
+// ---------------------------------------------------------------------------
+// wgmma. A shared-memory operand is described by its start address, a
+// "leading" and a "stride" byte offset and the swizzle mode (1 = 128 bytes):
+//  - K-major (the k index runs along a 128-byte line of 64 values): rows
+//    are 128 bytes apart, groups of 8 rows `sbo` = 1024 bytes apart; the
+//    leading offset is unused; 16 further k are 32 further bytes.
+//  - MN-major (the m or n index runs along the line, k over lines; wgmma's
+//    transpose bit): groups of 8 k-lines are `sbo` = 1024
+//    bytes apart, 64-wide chunks of m/n `lbo` bytes apart; 16 further k are
+//    2048 further bytes.
+// ---------------------------------------------------------------------------
+__device__ __forceinline__ uint64_t wgmma_desc(uint32_t addr, uint32_t lbo, uint32_t sbo) {
+  return (uint64_t)((addr & 0x3FFFFu) >> 4) | ((uint64_t)(lbo >> 4) << 16) |
+         ((uint64_t)(sbo >> 4) << 32) | (1ull << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;" ::"n"(N) : "memory");
+}
+
+// d (64 x 128 over the warpgroup, 64 f32 a thread) = a · b (+ d if accumulate).
+// Thread t of the warpgroup holds, for j = 0..15, d[4j], d[4j+1] at row
+// 16·(t/32) + (t%32)/4, columns 8j + 2·(t%4) + {0, 1}, and d[4j+2], d[4j+3]
+// eight rows below.
+template <int TRANS_A, int TRANS_B>
+__device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64], uint64_t a, uint64_t b,
+                                                 int accumulate) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "%64, %65, p, 1, 1, %67, %68;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]),
+        "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]),
+        "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),
+        "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]),
+        "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]),
+        "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]),
+        "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]),
+        "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(a), "l"(b), "r"(accumulate), "n"(TRANS_A), "n"(TRANS_B));
+}
+
+// Named barrier `id` (1..15; 0 is __syncthreads) over `threads` threads:
+// named_barrier waits until that many have arrived at it, counting those
+// that only announced themselves with named_barrier_arrive and went on.
+__device__ __forceinline__ void named_barrier(int id, int threads) {
+  asm volatile("bar.sync %0, %1;" ::"r"(id), "r"(threads) : "memory");
+}
+
+__device__ __forceinline__ void named_barrier_arrive(int id, int threads) {
+  asm volatile("bar.arrive %0, %1;" ::"r"(id), "r"(threads) : "memory");
+}
+
+// ---------------------------------------------------------------------------
+// Warp-level tensor-core pieces: cp.async, ldmatrix, mma.sync.m16n8k16.
+// Lane l of a warp holds, of a 16 x 8 f32 accumulator, c[0], c[1] at row
+// l/4, columns 2·(l%4) + {0, 1}, and c[2], c[3] eight rows below; of the
+// 16 x 16 bf16 A operand, a[0] (row l/4, k 2·(l%4) + {0, 1}), a[1] (eight
+// rows below), a[2], a[3] (the same, k + 8) — so two neighbouring
+// accumulators, rounded to bf16, are the next product's A operand as they
+// lie; of the 16 x 8 B operand, b0 (k 2·(l%4) + {0, 1}, column l/4) and b1
+// (k + 8).
+// ---------------------------------------------------------------------------
+__device__ __forceinline__ void cp_async16(void* smem_dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;" ::"r"(smem_u32(smem_dst)), "l"(src)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.commit_group;\ncp.async.wait_group 0;" ::: "memory");
+}
+
+// four 8 x 8 bf16 matrices; lanes 8i..8i+7 give the row addresses of matrix
+// i, and r[i] is its fragment: lane l holds row l/4, columns 2·(l%4) + {0, 1}
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* row) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_u32(row)));
+}
+
+// the same, each matrix transposed: lane l holds rows 2·(l%4) + {0, 1} of
+// column l/4
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], const void* row) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_u32(row)));
+}
+
+__device__ __forceinline__ void mma_m16n8k16(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
+                                             uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// two f32 rounded to bf16 (nearest even), `lo` in the low half
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// An accumulator fragment (c0, c1 at row g, c2, c3 at row g + 8, two
+// columns each) regrouped within lane pairs so that every lane holds four
+// neighbouring columns of one row, for 8- and 16-byte stores: an even lane
+// gets row g, an odd lane row g + 8, columns 4·((l%4)/2) .. +3 of the
+// fragment's eight.
+__device__ __forceinline__ void quad_regroup(float c0, float c1, float c2, float c3, int lane,
+                                             float (&e)[4]) {
+  const bool odd = lane & 1;
+  const float r0 = __shfl_xor_sync(0xffffffffu, odd ? c0 : c2, 1);
+  const float r1 = __shfl_xor_sync(0xffffffffu, odd ? c1 : c3, 1);
+  if (odd) {
+    e[0] = r0, e[1] = r1, e[2] = c2, e[3] = c3;
+  } else {
+    e[0] = c0, e[1] = c1, e[2] = r0, e[3] = r1;
+  }
+}
+
+__device__ __forceinline__ void store_bf16x4(bf16* dst, const float (&e)[4]) {
+  *reinterpret_cast<uint2*>(dst) = make_uint2(pack_bf16(e[0], e[1]), pack_bf16(e[2], e[3]));
+}
+
+__device__ __forceinline__ void load_bf16x4(const bf16* src, float (&e)[4]) {
+  const uint2 v = *reinterpret_cast<const uint2*>(src);
+  const float2 lo = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&v.x));
+  const float2 hi = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&v.y));
+  e[0] = lo.x, e[1] = lo.y, e[2] = hi.x, e[3] = hi.y;
+}
+
+}  // namespace qst

@@ -5,11 +5,13 @@ K1 replaces the TPU kernel ``_layer_kernel`` (``fused_layer_pallas.py:111``)
 behind ``fused_bert_layer`` (``:189``); K2 replaces ``_layer_bwd_kernel``
 (``:345``) behind ``_fused_layer_bwd`` (``:520``). On the H100 each is a
 chain of hand-written kernels (``kernels/csrc/fused_layer.cu`` and
-``fused_layer_bwd.cu``, sharing ``layer_common.cuh``): tensor-core GEMMs
-with the bias, erf-GELU, dropout or residual fused into their epilogues,
-one attention block per (sequence, head) whose (S, S) probabilities stay in
-shared memory, and warp-per-row LayerNorm with f32 statistics. What bounds
-them and what the design does about it is in those files' headers.
+``fused_layer_bwd.cu``, sharing ``layer_common.cuh`` and ``hopper.cuh``): in
+bfloat16 one persistent TMA + ``wgmma`` GEMM with the bias, erf-GELU,
+dropout or residual applied in its epilogue (``layer_gemm`` runs it alone),
+one ``mma.sync`` attention block per (sequence, head) whose (S, S)
+probabilities stay in registers, and warp-per-row LayerNorm with f32
+statistics; in float32 SIMT kernels, the path comparisons are held on. What
+bounds them and what the design does about it is in those files' headers.
 
 Training dropout is the TPU kernel's own: ``drop_mask_plain`` gives the bits
 of ``_drop_mask`` (``:82-103``), a hash of (element, seed folded with the
@@ -396,6 +398,59 @@ def drop_mask(shape: Tuple[int, int], seed, rate: float, tag: int,
 
 
 drop_mask.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# The layer's bf16 GEMM alone
+# ---------------------------------------------------------------------------
+def layer_gemm_plain(a: torch.Tensor, b: torch.Tensor, *, trans_a: bool = False,
+                     trans_b: bool = False) -> torch.Tensor:
+    """Plain version of ``layer_gemm``: op(a) @ op(b) in f32 of the same
+    operands (bf16 products are exact in f32; the sums are f32)."""
+    a, b = a.float(), b.float()
+    return (a.T if trans_a else a) @ (b.T if trans_b else b)
+
+
+def layer_gemm(a: torch.Tensor, b: torch.Tensor, *, trans_a: bool = False,
+               trans_b: bool = False, splits: int = 1) -> torch.Tensor:
+    """The one GEMM behind all of K1's and K2's products, alone: (M, N) f32
+    = op(a) @ op(b) for bf16 ``a`` stored (M, K), or (K, M) with
+    ``trans_a`` (a weight gradient's xᵀ·dy), and ``b`` stored (K, N), or
+    (N, K) with ``trans_b`` (an input gradient's dy·Wᵀ); ``splits`` > 1 cuts
+    K into f32 partials summed in a fixed order. It exists so each operand
+    layout can be held against a plain product by itself.
+
+    A CPU tensor takes ``layer_gemm_plain``; a CUDA tensor launches the
+    kernel or raises."""
+    if a.device.type == "cpu":
+        return layer_gemm_plain(a, b, trans_a=trans_a, trans_b=trans_b)
+    if a.device.type != "cuda":
+        raise ValueError(f"layer_gemm runs on cpu or cuda tensors, got {a.device}")
+    for t in (a, b):
+        if (t.dtype != torch.bfloat16 or t.dim() != 2 or not t.is_contiguous()
+                or t.device != a.device or t.shape[1] % 8):
+            raise ValueError("layer_gemm takes contiguous 2-d bfloat16 tensors on one device "
+                             "whose rows are a multiple of 8 values")
+    K, M = a.shape if trans_a else a.shape[::-1]
+    N, Kb = b.shape if trans_b else b.shape[::-1]
+    if K != Kb or splits < 1:
+        raise ValueError(f"layer_gemm: inner sizes {K} and {Kb}, splits {splits}")
+    from qst_tpu_torch.kernels import build
+
+    ws = torch.empty((splits, M, N), dtype=torch.float32, device=a.device)
+    out = torch.empty((M, N), dtype=torch.float32, device=a.device)
+    fn = build.function("qst_layer_gemm_bf16", [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6
+                        + [ctypes.c_void_p])
+    with torch.cuda.device(a.device):
+        code = fn(a.data_ptr(), b.data_ptr(), out.data_ptr(), ws.data_ptr(), M, N, K,
+                  int(trans_a), int(trans_b), splits,
+                  torch.cuda.current_stream(a.device).cuda_stream)
+    layer_gemm.launches += 1
+    build.check(code, "layer_gemm")
+    return out
+
+
+layer_gemm.launches = 0
 
 
 # ---------------------------------------------------------------------------

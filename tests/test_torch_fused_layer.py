@@ -78,6 +78,69 @@ def test_plain_matches_tpu_kernel_interpret(setup, layer):
     np.testing.assert_allclose(got, want, rtol=0, atol=ATOL)
 
 
+def _random_case(S, num_heads, seed, B=4, H=64, F=128):
+    """Numpy-seeded weights (tiny widths) and a batch whose last sequence is
+    fully padded and whose second is half padded."""
+    rng = np.random.default_rng(seed)
+
+    def mat(r, c):
+        return (rng.standard_normal((r, c)) * 0.05).astype(np.float32)
+
+    def vec(n, base=0.0):
+        return (base + rng.standard_normal((1, n)) * 0.05).astype(np.float32)
+
+    w = dict(wq=mat(H, H), bq=vec(H), wk=mat(H, H), bk=vec(H), wv=mat(H, H), bv=vec(H),
+             wo=mat(H, H), bo=vec(H), ln1_g=vec(H, 1.0), ln1_b=vec(H), w1=mat(H, F),
+             b1=vec(F), w2=mat(F, H), b2=vec(H), ln2_g=vec(H, 1.0), ln2_b=vec(H))
+    x = rng.standard_normal((B, S, H)).astype(np.float32)
+    mask = np.ones((B, S), np.int32)
+    mask[1, S // 2:] = 0
+    mask[-1, :] = 0
+    bias = np.where(mask > 0, 0.0, fl.MASK_BIAS).astype(np.float32)
+    return w, x, bias
+
+
+@pytest.mark.parametrize("S", [24, 40])
+@pytest.mark.parametrize("num_heads", [2, 1])   # head widths 32 and 64
+def test_plain_matches_tpu_kernel_interpret_at_the_attention_edges(S, num_heads):
+    """Sequence lengths that are no multiple of 16, both head widths the CUDA
+    attention takes, a fully padded sequence: the shapes at which the
+    tensor-core attention pads its key columns."""
+    w, x, bias = _random_case(S, num_heads, seed=31 + S + num_heads)
+    want = np.asarray(jax_fused_bert_layer(
+        jnp.asarray(x), jnp.asarray(bias), {k: jnp.asarray(v) for k, v in w.items()},
+        num_heads=num_heads, nb=2, interpret=True))
+    got = fl.fused_bert_layer_plain(torch.from_numpy(x), torch.from_numpy(bias),
+                                    {k: torch.from_numpy(v) for k, v in w.items()},
+                                    num_heads=num_heads).numpy()
+    assert np.isfinite(got).all()
+    np.testing.assert_allclose(got, want, rtol=0, atol=ATOL)
+
+
+@pytest.mark.parametrize("trans_a", [False, True])
+@pytest.mark.parametrize("trans_b", [False, True])
+def test_layer_gemm_plain_matches_jax_product(trans_a, trans_b):
+    """The layer's GEMM alone, in its four operand layouts, against the JAX
+    product of the same bf16 numpy operands in f32 (exact products, f32
+    sums: 1e-5 of the largest output for the order of the sums). On the CPU
+    the wrapper is the plain version and launches nothing."""
+    rng = np.random.default_rng(7)
+    M, N, K = 40, 64, 72
+    a = torch.from_numpy(rng.standard_normal((K, M) if trans_a else (M, K)).astype(np.float32))
+    b = torch.from_numpy(rng.standard_normal((N, K) if trans_b else (K, N)).astype(np.float32))
+    a, b = a.bfloat16(), b.bfloat16()
+    ja, jb = jnp.asarray(a.float().numpy()), jnp.asarray(b.float().numpy())
+    want = np.asarray(jnp.dot(ja.T if trans_a else ja, jb.T if trans_b else jb,
+                              precision=jax.lax.Precision.HIGHEST))
+    before = fl.layer_gemm.launches
+    got = fl.layer_gemm(a, b, trans_a=trans_a, trans_b=trans_b, splits=3)
+    assert fl.layer_gemm.launches == before
+    assert got.dtype == torch.float32 and got.shape == (M, N)
+    np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=1e-5 * np.abs(want).max())
+    np.testing.assert_array_equal(
+        got.numpy(), fl.layer_gemm_plain(a, b, trans_a=trans_a, trans_b=trans_b).numpy())
+
+
 def test_plain_and_module_match_flax_bert_layer(setup):
     flax_layer = FlaxBertLayer(setup["jcfg"])
     p = setup["params"]["encoder"]["layer_0"]
@@ -133,6 +196,18 @@ def cuda_device():
     return torch.device("cuda")
 
 
+def _bf16_limits(out, ref):
+    """bf16 K1 against its plain version: summation order flips roundings at
+    the cast points. Bounds as in chip_smoke.py: max, per element (two bf16
+    ulps, floor one ulp at 1) and mean (a dropped rounding point raises it
+    about tenfold)."""
+    diff = (out - ref).abs()
+    ulp = torch.exp2(torch.floor(torch.log2(ref.abs().clamp_min(2.0 ** -126))) - 7)
+    assert diff.max().item() <= 2e-2 * ref.abs().max().item()
+    assert (diff <= 2 * (ulp + 2.0 ** -7)).all()
+    assert diff.mean().item() <= 2.0 ** -10 * ref.abs().mean().item()
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_cuda_kernel_matches_plain(cuda_device, dtype):
@@ -156,14 +231,48 @@ def test_cuda_kernel_matches_plain(cuda_device, dtype):
     out = fl.fused_bert_layer(x, bias, w, num_heads=nh).float()
     ref = fl.fused_bert_layer_plain(x, bias, w, num_heads=nh).float()
     assert torch.isfinite(out).all()
-    diff = (out - ref).abs()
     if dtype == torch.float32:
-        assert diff.max().item() <= 1e-4
-        return
-    # bf16: summation order flips roundings at the cast points. Bounds as in
-    # chip_smoke.py: max, per element (two bf16 ulps, floor one ulp at 1) and
-    # mean (a dropped rounding point raises it about tenfold)
-    ulp = torch.exp2(torch.floor(torch.log2(ref.abs().clamp_min(2.0 ** -126))) - 7)
-    assert diff.max().item() <= 2e-2 * ref.abs().max().item()
-    assert (diff <= 2 * (ulp + 2.0 ** -7)).all()
-    assert diff.mean().item() <= 2.0 ** -10 * ref.abs().mean().item()
+        assert (out - ref).abs().max().item() <= 1e-4
+    else:
+        _bf16_limits(out, ref)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("S", [24, 40, 77])
+@pytest.mark.parametrize("num_heads", [4, 2])   # head widths 32 and 64 at H = 128
+def test_cuda_kernel_matches_plain_at_the_attention_edges(cuda_device, S, num_heads):
+    """bf16 K1 where its tensor-core attention pads: S no multiple of 16,
+    both head widths, a fully padded and a half padded sequence."""
+    w, x, bias = _random_case(S, num_heads, seed=S + num_heads, B=5, H=128, F=256)
+    w = {k: torch.from_numpy(v).to(cuda_device, torch.bfloat16 if v.shape[0] > 1
+                                   else torch.float32) for k, v in w.items()}
+    x = torch.from_numpy(x).to(cuda_device, torch.bfloat16)
+    bias = torch.from_numpy(bias).to(cuda_device)
+    out = fl.fused_bert_layer(x, bias, w, num_heads=num_heads).float()
+    assert torch.isfinite(out).all()
+    _bf16_limits(out, fl.fused_bert_layer_plain(x, bias, w, num_heads=num_heads).float())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("N", [128, 256, 384, 1152, 1536])
+@pytest.mark.parametrize("trans_a,trans_b", [(False, False), (False, True), (True, False),
+                                             (True, True)])
+def test_cuda_layer_gemm_matches_plain(cuda_device, N, trans_a, trans_b):
+    """The bf16 GEMM alone: M no multiple of its 128-row tile, every N the
+    layer uses, each operand layout, with and without split-K. bf16
+    products are exact in f32, so only the order of the f32 sums differs:
+    2e-5 of max|ref| (chip_smoke.py's limit)."""
+    gen = torch.Generator().manual_seed(N + 2 * trans_a + trans_b)
+    M, K = 1000, 384
+
+    def rnd(*shape):
+        return (torch.randn(shape, generator=gen) * 0.5).to(cuda_device, torch.bfloat16)
+
+    a = rnd(K, M) if trans_a else rnd(M, K)
+    b = rnd(N, K) if trans_b else rnd(K, N)
+    ref = fl.layer_gemm_plain(a, b, trans_a=trans_a, trans_b=trans_b)
+    for splits in (1, 3):
+        before = fl.layer_gemm.launches
+        out = fl.layer_gemm(a, b, trans_a=trans_a, trans_b=trans_b, splits=splits)
+        assert fl.layer_gemm.launches == before + 1
+        assert ((out - ref).abs().max() / ref.abs().max()).item() <= 2e-5

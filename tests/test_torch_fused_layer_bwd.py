@@ -119,6 +119,43 @@ def test_plain_backward_matches_tpu_kernel_interpret(layer, attn, hid):
         np.testing.assert_allclose(tdw[n].numpy(), np.asarray(dw[n]), err_msg=n, **TOL)
 
 
+@pytest.mark.parametrize("S", [24, 40])
+@pytest.mark.parametrize("num_heads", [2, 1])   # head widths 32 and 64
+def test_plain_backward_matches_tpu_kernel_interpret_at_the_attention_edges(S, num_heads):
+    """Sequence lengths that are no multiple of 16, both head widths the CUDA
+    attention backward takes, a fully padded sequence, dropout on."""
+    rng = np.random.default_rng(50 + S + num_heads)
+
+    def mat(r, c):
+        return (rng.standard_normal((r, c)) * 0.05).astype(np.float32)
+
+    def vec(n, base=0.0):
+        return (base + rng.standard_normal((1, n)) * 0.05).astype(np.float32)
+
+    w = dict(wq=mat(H, H), bq=vec(H), wk=mat(H, H), bk=vec(H), wv=mat(H, H), bv=vec(H),
+             wo=mat(H, H), bo=vec(H), ln1_g=vec(H, 1.0), ln1_b=vec(H), w1=mat(H, F),
+             b1=vec(F), w2=mat(F, H), b2=vec(H), ln2_g=vec(H, 1.0), ln2_b=vec(H))
+    Bc, seed = 4, 1357
+    x = rng.standard_normal((Bc, S, H)).astype(np.float32)
+    mask = np.ones((Bc, S), np.int32)
+    mask[1, S // 2:] = 0
+    mask[-1, :] = 0
+    bias = np.where(mask > 0, 0.0, fl.MASK_BIAS).astype(np.float32)
+    g = rng.standard_normal((Bc, S, H)).astype(np.float32)
+    dx, dw, _ = J._fused_layer_bwd(
+        jnp.asarray(x.reshape(Bc * S, H)), jnp.asarray(bias),
+        {k: jnp.asarray(v) for k, v in w.items()}, None, jnp.asarray(g.reshape(Bc * S, H)),
+        num_heads=num_heads, nb=2, eps=1e-12, interpret=True, attn_dropout=0.1,
+        hidden_dropout=0.1, seed=jnp.asarray([seed], jnp.int32))
+    tdx, tdw = fl.fused_bert_layer_bwd_plain(
+        torch.from_numpy(x), torch.from_numpy(bias),
+        {k: torch.from_numpy(v) for k, v in w.items()}, torch.from_numpy(g),
+        num_heads=num_heads, attn_dropout=0.1, hidden_dropout=0.1, seed=seed, nb=2)
+    np.testing.assert_allclose(tdx.numpy(), np.asarray(dx).reshape(Bc, S, H), **TOL)
+    for n in fl.WEIGHT_NAMES:
+        np.testing.assert_allclose(tdw[n].numpy(), np.asarray(dw[n]), err_msg=n, **TOL)
+
+
 def test_plain_backward_is_the_autograd_gradient_of_the_plain_forward(layer):
     """Without bf16 rounding the plain backward is the exact gradient of the
     plain forward: autograd through ``fused_bert_layer_plain`` agrees."""
@@ -220,3 +257,47 @@ def test_cuda_k1_dropout_and_k2_match_plain(cuda_device, dtype, rate):
         scale = (rdw["bq"] if n == "bk" else b).float().abs()
         assert d.max().item() <= lim_max * scale.max().item(), n
         assert d.mean().item() <= lim_mean * scale.mean().item(), n
+
+
+def _edge_case(dev, S, num_heads):
+    gen = torch.Generator().manual_seed(100 + S + num_heads)
+    w = _cuda_layer(dev, torch.bfloat16, gen)
+    Bc = 5
+    x = torch.randn((Bc, S, 128), generator=gen).to(dev, torch.bfloat16)
+    bias = torch.zeros((Bc, S))
+    bias[-1] = fl.MASK_BIAS
+    bias[1, S // 2:] = fl.MASK_BIAS
+    g = torch.randn((Bc, S, 128), generator=gen).to(dev, torch.bfloat16)
+    kw = dict(num_heads=num_heads, attn_dropout=0.1, hidden_dropout=0.1, seed=29, nb=2)
+    return w, x, bias.to(dev), g, kw
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("S", [24, 40, 77])
+@pytest.mark.parametrize("num_heads", [4, 2])   # head widths 32 and 64 at H = 128
+def test_cuda_k2_matches_plain_at_the_attention_edges(cuda_device, S, num_heads):
+    """bf16 K2 where its tensor-core attention pads: S no multiple of 16,
+    both head widths, a fully padded sequence, dropout 0.1. Per gradient
+    max|err| <= 2e-2 max|ref| and mean|err| <= 2^-7 mean|ref|."""
+    w, x, bias, g, kw = _edge_case(cuda_device, S, num_heads)
+    dx, dw = fl.fused_bert_layer_bwd(x, bias, w, g, **kw)
+    rdx, rdw = fl.fused_bert_layer_bwd_plain(x, bias, w, g, **kw)
+    for n, (a, b) in dict(dx=(dx, rdx), **{k: (dw[k], rdw[k]) for k in dw}).items():
+        assert torch.isfinite(a).all(), n
+        d = (a.float() - b.float()).abs()
+        scale = (rdw["bq"] if n == "bk" else b).float().abs()
+        assert d.max().item() <= 2e-2 * scale.max().item(), n
+        assert d.mean().item() <= 2.0 ** -7 * scale.mean().item(), n
+
+
+@pytest.mark.cuda
+def test_cuda_k2_is_bit_equal_between_two_calls(cuda_device):
+    """No atomics: every reduction sums in a fixed order."""
+    w, x, bias, g, kw = _edge_case(cuda_device, 77, 4)
+    runs = []
+    for _ in range(2):
+        dx, dw = fl.fused_bert_layer_bwd(x, bias, w, g, **kw)
+        torch.cuda.synchronize()
+        runs.append(dict(dw, dx=dx))
+    for n in runs[0]:
+        assert torch.equal(runs[0][n], runs[1][n]), n
