@@ -12,7 +12,10 @@ Phases (any failure exits non-zero and prints no result):
 2. check  — each kernel against its plain PyTorch version on the card at the
    main paths' shapes: K1 (fused BERT layer, MiniLM width, f32 and bf16),
    K4 (bucket maxima, f32/bf16/int8, N = 65,536 + 77, with and without
-   n_real), K5 (winning-bucket rescore), topk_v2 against reference_topk;
+   n_real), K5 (winning-bucket rescore, pairs grouped by bucket and each
+   pair its own block), topk_v2 against reference_topk, then both kernels'
+   edges (Q = 3,000, 300 and 8, D = 64 and 768, a ragged last bucket, all
+   scores negative, shared and out-of-range bucket ids);
    the dropout masks bit for bit, K1 with dropout, K2 (the layer's
    backward, with and without dropout) at B = 128, S = 128, K3 (the fused
    quadruplet loss, forward and backward), and K6 (the IVF probed-cell
@@ -42,13 +45,17 @@ Phases (any failure exits non-zero and prints no result):
 6. times  — kernel against plain at the main paths' shapes, each with the
    least time the card could take (bytes over memory rate or operations over
    peak rate); encode sentences/s at B=256, S=128; search QPS over 1M x 384
-   bf16, Q=4096; train steps/s of the kernel path against the nn.Module path;
+   bf16 at Q=4096 and Q=256, with K4 on int8, the product alone through
+   torch.matmul as K4's yardstick, and K5's two forms around the pair count
+   where the wrapper changes over; train steps/s of the kernel path against
+   the nn.Module path;
    K6 and whole IVF searches at Q = 8 / 64 / 256 over a 1M x 384 bf16
    clustered index beside the exact K4 + K5 search, with recall@10; K1's and
    K2's device time by piece (GEMMs, attention, LayerNorm).
 7. profile — where the time goes: device time per kernel and the device's
    busy share for encode, a train step and search (no library GEMM or
-   attention kernel may run on the fused encode and train paths), and served
+   attention kernel may run on the fused encode and train paths or in
+   topk_v2), and served
    req/s with p50/p99 latency at 1, 8 and 64 closed-loop clients.
 
 The last lines are the card's name and power limit (nvidia-smi), one JSON
@@ -116,6 +123,34 @@ def cuda_ms(fn, reps: int, warmup: int = 1) -> float:
     return start.elapsed_time(end) / reps
 
 
+def clocks_under(fn, launches: int) -> dict:
+    """The card's SM clock and power draw (nvidia-smi, sampled every 50 ms)
+    while ``fn`` is launched ``launches`` times back to back."""
+    import torch
+
+    samples, stop = [], threading.Event()
+
+    def sample():
+        while not stop.is_set():
+            r = subprocess.run(["nvidia-smi", "--query-gpu=clocks.sm,power.draw",
+                                "--format=csv,noheader,nounits"], capture_output=True, text=True)
+            if r.returncode == 0:
+                samples.append([float(x) for x in r.stdout.strip().splitlines()[0].split(",")])
+            time.sleep(0.05)
+
+    torch.cuda.synchronize()
+    thread = threading.Thread(target=sample)
+    thread.start()
+    time.sleep(1.0)                           # the card at rest first
+    n_idle = len(samples)
+    ms = cuda_ms(fn, launches, warmup=0)
+    stop.set()
+    thread.join()
+    idle, busy = samples[:n_idle] or [[None, None]], samples[n_idle:] or [[None, None]]
+    return {"ms": ms, "rest_sm_mhz": idle[-1][0], "rest_watts": idle[-1][1],
+            "min_sm_mhz": min(b[0] for b in busy), "max_watts": max(b[1] for b in busy)}
+
+
 # Published peaks of one H100 SXM (NVIDIA's data sheet, dense): the yardstick
 # of every kernel's bound, whatever power limit the card runs at.
 HBM_BYTES_PER_S = 3.35e12
@@ -152,6 +187,71 @@ def random_layer(H, F, dtype, gen, device):
                 bv=vec(H), wo=mat(H, H), bo=vec(H), ln1_g=vec(H, 1.0), ln1_b=vec(H),
                 w1=mat(H, F), b1=vec(F), w2=mat(F, H), b2=vec(H), ln2_g=vec(H, 1.0),
                 ln2_b=vec(H))
+
+
+def check_topk_shape(name: str, base, qbase, k: int, n_real, negative: bool):
+    """K4, K5 (pairs grouped by bucket, and each pair its own block) and
+    topk_v2 against their plain versions for one dtype on unit-norm rows
+    ``base`` (N, D) and ``qbase`` (Q, D) → (K4's, K5's max|err|)."""
+    import torch
+
+    from qst_tpu_torch.ops import topk
+
+    dev = torch.device("cuda")
+    (N, D), Q = base.shape, qbase.shape[0]
+    if name == "int8":
+        corpus = torch.round(base * 127).to(torch.int8).to(dev)
+        queries = torch.round(qbase * 127).to(torch.int8).to(dev)
+        tol = 0.0
+    else:
+        dt = getattr(torch, name)
+        corpus, queries = base.to(dev, dt), qbase.to(dev, dt)
+        tol = 1e-4
+    what = f"{name:8s} N={N} D={D} Q={Q}" + (" all scores < 0" if negative else "")
+    k4_err = 0.0
+    for nr in dict.fromkeys((None, n_real)):
+        bm = topk.bucket_maxima(queries, corpus, nr)
+        torch.cuda.synchronize()
+        bm_ref = topk.bucket_maxima_plain(queries, corpus, nr)
+        fin = torch.isfinite(bm_ref)
+        if not torch.equal(torch.isfinite(bm), fin):
+            fail(f"K4 {what} n_real={nr}: -inf pattern differs")
+        err = (bm[fin] - bm_ref[fin]).abs().max().item()
+        log(f"K4 {what} n_real={nr}: max|err| {err:.3e} (limit {tol:.0e})")
+        if not err <= tol:
+            fail(f"K4 {what}: max|err| {err} > {tol}")
+        k4_err = max(k4_err, err)
+    # the winners of the last maxima; half the queries on one bucket, one id
+    # past the end and one negative: both must read -inf
+    ids = topk._hierarchical_top_buckets(bm_ref, k)
+    ids[: Q // 2, 0] = ids[0, 0]
+    ids[:, -1] = bm_ref.shape[1] + 3
+    ids[0, -1] = -2
+    rs_ref = topk.rescore_buckets_plain(queries, corpus, ids, k)
+    fin = torch.isfinite(rs_ref)
+    k5_err = 0.0
+    group_from = topk._GROUP_MIN_PAIRS
+    try:
+        for form, min_pairs in (("grouped", 0), ("a block a pair", Q * k + 1)):
+            topk._GROUP_MIN_PAIRS = min_pairs
+            rs = topk.rescore_buckets(queries, corpus, ids, k)
+            torch.cuda.synchronize()
+            if not torch.equal(torch.isfinite(rs), fin):
+                fail(f"K5 {what} {form}: -inf pattern differs")
+            err = (rs[fin] - rs_ref[fin]).abs().max().item()
+            log(f"K5 {what} k={k} {form}: max|err| {err:.3e} (limit {tol:.0e})")
+            if not err <= tol:
+                fail(f"K5 {what} {form}: max|err| {err} > {tol}")
+            k5_err = max(k5_err, err)
+    finally:
+        topk._GROUP_MIN_PAIRS = group_from
+    s, i = topk.topk_v2(queries, corpus, k)
+    gs, gi = topk.reference_topk(queries, corpus, k)
+    true = (queries.float() @ corpus.float().T).cpu().numpy()
+    if not ids_match_up_to_ties(s.cpu(), i.cpu(), gs.cpu(), gi.cpu(), true, max(tol, 1e-6)):
+        fail(f"topk_v2 {what}: answers differ from reference_topk")
+    log(f"topk_v2 {what}: matches reference_topk (ids up to ties)")
+    return k4_err, k5_err
 
 
 def check_kernels(report: dict) -> None:
@@ -206,51 +306,30 @@ def check_kernels(report: dict) -> None:
     report["K1"] = {"max_abs_err": k1_err}
 
     # K4 / K5 / topk_v2 — tolerances: f32 and bf16 1e-4 absolute on unit-norm
-    # vectors (exact products, f32 sums in another order); int8 exactly equal
-    N, D, Q, k = 65536 + 77, 384, 256, 10
-    base = torch.nn.functional.normalize(torch.randn((N, D), generator=gen), dim=1)
-    qbase = torch.nn.functional.normalize(torch.randn((Q, D), generator=gen), dim=1)
+    # vectors (exact products, f32 sums in another order); int8 exactly equal.
+    # First the serving shape, then the edges of the tensor-core K4 and the
+    # grouped K5: Q = 3,000 (24 query tiles, which K4 walks in two passes of 12
+    # and K5 groups by bucket without being told), D = 64 and 768 beside 384,
+    # Q = 8 and Q no multiple of 128, a ragged last bucket, n_real inside a
+    # bucket, and the small ones once more with every score negative, where a
+    # zero-filled row would win a maximum
     k4_err = k5_err = 0.0
-    for name in ("float32", "bfloat16", "int8"):
-        if name == "int8":
-            corpus = torch.round(base * 127).to(torch.int8).to(dev)
-            queries = torch.round(qbase * 127).to(torch.int8).to(dev)
-            tol = 0.0
-        else:
-            dt = getattr(torch, name)
-            corpus, queries = base.to(dev, dt), qbase.to(dev, dt)
-            tol = 1e-4
-        for n_real in (None, N - 300):
-            bm = topk.bucket_maxima(queries, corpus, n_real)
-            bm_ref = topk.bucket_maxima_plain(queries, corpus, n_real)
-            fin = torch.isfinite(bm_ref)
-            if not torch.equal(torch.isfinite(bm), fin):
-                fail(f"K4 {name} n_real={n_real}: -inf pattern differs")
-            err = (bm[fin] - bm_ref[fin]).abs().max().item()
-            log(f"K4 {name:8s} n_real={n_real}: max|err| {err:.3e} (limit {tol:.0e})")
-            if not err <= tol:
-                fail(f"K4 {name}: max|err| {err} > {tol}")
-            if name == "bfloat16":
-                k4_err = max(k4_err, err)
-        ids = topk._hierarchical_top_buckets(bm_ref, k)
-        ids[:, -1] = bm_ref.shape[1] + 3          # out of range: must read -inf
-        rs = topk.rescore_buckets(queries, corpus, ids, k)
-        rs_ref = topk.rescore_buckets_plain(queries, corpus, ids, k)
-        fin = torch.isfinite(rs_ref)
-        if not torch.equal(torch.isfinite(rs), fin):
-            fail(f"K5 {name}: -inf pattern differs")
-        err = (rs[fin] - rs_ref[fin]).abs().max().item()
-        log(f"K5 {name:8s} k={k}: max|err| {err:.3e} (limit {tol:.0e})")
-        if not err <= tol:
-            fail(f"K5 {name}: max|err| {err} > {tol}")
-        if name == "bfloat16":
-            k5_err = max(k5_err, err)
-        s, i = topk.topk_v2(queries, corpus, k)
-        gs, gi = topk.reference_topk(queries, corpus, k)
-        true = (queries.float() @ corpus.float().T).cpu().numpy()
-        if not ids_match_up_to_ties(s.cpu(), i.cpu(), gs.cpu(), gi.cpu(), true, max(tol, 1e-6)):
-            fail(f"topk_v2 {name}: answers differ from reference_topk")
-        log(f"topk_v2 {name:8s}: matches reference_topk (ids up to ties)")
+    for N, D, Q, k, n_real in ((65536 + 77, 384, 256, 10, 65536 + 77 - 300),
+                               (65536 + 77, 384, 3000, 10, 65536 + 77 - 300),
+                               (128 * 300 + 5, 64, 300, 10, 128 * 300 - 195),
+                               (128 * 8 + 13, 768, 200, 5, 987),
+                               (128 * 40 + 1, 384, 8, 10, None)):
+        for negative in (False, True):
+            if negative and N > 65536:
+                continue
+            base = torch.nn.functional.normalize(torch.randn((N, D), generator=gen), dim=1)
+            qbase = torch.nn.functional.normalize(torch.randn((Q, D), generator=gen), dim=1)
+            if negative:
+                base, qbase = base.abs(), -qbase.abs()
+            for name in ("float32", "bfloat16", "int8"):
+                e4, e5 = check_topk_shape(name, base, qbase, k, n_real, negative)
+                if name == "bfloat16":
+                    k4_err, k5_err = max(k4_err, e4), max(k5_err, e5)
     report["K4"] = {"max_abs_err": k4_err}
     report["K5"] = {"max_abs_err": k5_err}
     check_training_kernels(report)
@@ -1324,29 +1403,94 @@ def times(report: dict) -> None:
     report["encode"] = {"sentences_per_s": B / enc_ms * 1e3,
                         "module_path_sentences_per_s": B / mod_ms * 1e3}
 
-    # search over 1M x 384 bf16, Q = 4096, k = 10
-    N, D, Q, k = 1 << 20, 384, 4096, 10
+    # search over 1M x 384 bf16, k = 10: Q = 4096 (a search chunk: the kernels'
+    # rows in the last lines) and Q = 256 (the server's largest batch)
+    N, D, k = 1 << 20, 384, 10
     unit = torch.nn.functional.normalize
     corpus = unit(torch.randn((N, D), device=dev), dim=1).to(torch.bfloat16)
-    queries = unit(torch.randn((Q, D), device=dev), dim=1).to(torch.bfloat16)
-    report["K4"]["ms"] = cuda_ms(lambda: topk.bucket_maxima(queries, corpus), 5)
-    report["K4"]["plain_ms"] = cuda_ms(lambda: [
-        topk.bucket_maxima_plain(queries[lo:lo + 512], corpus) for lo in range(0, Q, 512)], 2)
-    report["K4"].update(bound(N * D * 2 + Q * D * 2 + Q * (N // 128) * 4, 2.0 * Q * N * D,
-                              "bfloat16"))
-    bm = topk.bucket_maxima(queries, corpus)
-    bids = topk._hierarchical_top_buckets(bm, k)
-    report["K5"]["ms"] = cuda_ms(lambda: topk.rescore_buckets(queries, corpus, bids, k), 10)
-    report["K5"]["plain_ms"] = cuda_ms(
-        lambda: topk.rescore_buckets_plain(queries, corpus, bids, k), 2)
-    # each distinct winning bucket read once (the gather's whole volume,
-    # Q·k buckets, is gather_ms), the (Q, k·128) f32 scores written once
-    report["K5"].update(bound(bids.unique().numel() * 128 * D * 2 + Q * D * 2 + Q * k * 4
-                              + Q * k * 128 * 4, 2.0 * Q * k * 128 * D, "bfloat16"))
-    report["K5"]["gather_ms"] = Q * k * 128 * D * 2 / HBM_BYTES_PER_S * 1e3
-    v2_ms = cuda_ms(lambda: topk.topk_v2(queries, corpus, k), 5)
-    scan_ms = cuda_ms(lambda: exact_topk(queries.float(), corpus, k, "dot_score"), 2)
-    report["search"] = {"qps": Q / v2_ms * 1e3, "plain_scan_qps": Q / scan_ms * 1e3}
+    for Q in (4096, 256):
+        queries = unit(torch.randn((Q, D), device=dev), dim=1).to(torch.bfloat16)
+        k4 = {"ms": cuda_ms(lambda: topk.bucket_maxima(queries, corpus), 10)}
+        k4.update(bound(N * D * 2 + Q * D * 2 + Q * (N // 128) * 4, 2.0 * Q * N * D, "bfloat16"))
+        bm = topk.bucket_maxima(queries, corpus)
+        bids = topk._hierarchical_top_buckets(bm, k)
+        # K5 with the sort of its pairs. Bound: each distinct winning bucket
+        # read once (the gather's whole volume, Q·k buckets, is gather_ms),
+        # the (Q, k·128) f32 scores written once
+        k5 = {"ms": cuda_ms(lambda: topk.rescore_buckets(queries, corpus, bids, k), 20),
+              "distinct_buckets": bids.unique().numel()}
+        k5.update(bound(k5["distinct_buckets"] * 128 * D * 2 + Q * D * 2 + Q * k * 4
+                        + Q * k * 128 * 4, 2.0 * Q * k * 128 * D, "bfloat16"))
+        k5["gather_ms"] = Q * k * 128 * D * 2 / HBM_BYTES_PER_S * 1e3
+        v2_ms = cuda_ms(lambda: topk.topk_v2(queries, corpus, k), 10)
+        log(f"exact search Q={Q:4d} over 1M x 384 bf16, k=10: K4 {k4['ms']:.3f} ms = "
+            f"{2e-9 * Q * N * D / k4['ms']:.0f} TFLOP/s (bound {k4['bound_ms']:.3f} ms by "
+            f"{k4['bound_by']}), K5 {k5['ms']:.3f} ms ({k5['distinct_buckets']} distinct buckets "
+            f"of {Q * k} pairs; bound {k5['bound_ms']:.3f} ms by {k5['bound_by']}; the whole "
+            f"gather would take {k5['gather_ms']:.3f} ms), topk_v2 {v2_ms:.3f} ms = "
+            f"{Q / v2_ms * 1e3:.0f} QPS")
+        if Q == 256:
+            report["search_q256"] = {"k4": k4, "k5": k5, "topk_v2_ms": v2_ms}
+            continue
+        report["K4"].update(k4)
+        report["K5"].update(k5)
+        report["K4"]["plain_ms"] = cuda_ms(lambda: [
+            topk.bucket_maxima_plain(queries[lo:lo + 512], corpus)
+            for lo in range(0, Q, 512)], 2)
+        report["K5"]["plain_ms"] = cuda_ms(
+            lambda: topk.rescore_buckets_plain(queries, corpus, bids, k), 2)
+        scan_ms = cuda_ms(lambda: exact_topk(queries.float(), corpus, k, "dot_score"), 2)
+        report["search"] = {"qps": Q / v2_ms * 1e3, "plain_scan_qps": Q / scan_ms * 1e3}
+
+        # K4's mainloop against two yardsticks at the same Q = 4096: the product
+        # alone through torch.matmul (bf16 in, bf16 out, written to device
+        # memory and dropped; no maximum), and K4 on int8 (exact int32 sums)
+        def product_alone():
+            for lo in range(0, Q, 512):
+                torch.matmul(queries[lo:lo + 512], corpus.T)
+
+        mm_ms = cuda_ms(product_alone, 5)
+        c8 = torch.round(corpus.float() * 127).to(torch.int8)
+        q8 = torch.round(queries.float() * 127).to(torch.int8)
+        i8 = {"ms": cuda_ms(lambda: topk.bucket_maxima(q8, c8), 10)}
+        i8.update(bound(N * D + Q * D + Q * (N // 128) * 4, 2.0 * Q * N * D, "int8"))
+        # query counts whose tiles do not pack the 132 SMs (24 and 68 tiles)
+        odd = {}
+        for q_odd in (3000, 8704):
+            qs = unit(torch.randn((q_odd, D), device=dev), dim=1).to(torch.bfloat16)
+            odd[f"Q{q_odd}_ms"] = cuda_ms(lambda: topk.bucket_maxima(qs, corpus), 5)
+        # what the card does under K4: 300 launches back to back (about 1.5 s)
+        burst = clocks_under(lambda: topk.bucket_maxima(queries, corpus), 300)
+        log(f"K4 Q=4096, 300 launches back to back: {burst['ms']:.3f} ms each; SM clock "
+            f"{burst['rest_sm_mhz']} MHz after 1 s of rest, down to {burst['min_sm_mhz']} MHz; "
+            f"power {burst['rest_watts']} W, up to {burst['max_watts']} W")
+        report["k4_yardsticks"] = {"matmul_product_alone_ms": mm_ms, "int8": i8, **odd,
+                                   "burst": burst}
+        log(f"K4 Q=4096 yardsticks: the bf16 product alone through torch.matmul in chunks of "
+            f"512 queries {mm_ms:.3f} ms = {2e-9 * Q * N * D / mm_ms:.0f} TFLOP/s; K4 int8 "
+            f"{i8['ms']:.3f} ms = {2e-9 * Q * N * D / i8['ms']:.0f} TOP/s (bound "
+            f"{i8['bound_ms']:.3f} ms by {i8['bound_by']}); K4 bf16 at "
+            + ", ".join(f"Q={q} {odd[f'Q{q}_ms']:.3f} ms = "
+                        f"{2e-9 * q * N * D / odd[f'Q{q}_ms']:.0f} TFLOP/s" for q in (3000, 8704)))
+        del c8, q8
+    # K5's two forms (pairs grouped by bucket after a sort; each pair its own
+    # block) around the line where the wrapper changes from one to the other
+    forms = {}
+    group_from = topk._GROUP_MIN_PAIRS
+    try:
+        for Q in (256, 512, 1024, 4096):
+            queries = unit(torch.randn((Q, D), device=dev), dim=1).to(torch.bfloat16)
+            bids = topk._hierarchical_top_buckets(topk.bucket_maxima(queries, corpus), k)
+            forms[f"Q{Q}"] = row = {"pairs": Q * k}
+            for form, min_pairs in (("grouped_ms", 0), ("a_block_a_pair_ms", Q * k + 1)):
+                topk._GROUP_MIN_PAIRS = min_pairs
+                row[form] = cuda_ms(lambda: topk.rescore_buckets(queries, corpus, bids, k), 20, 3)
+    finally:
+        topk._GROUP_MIN_PAIRS = group_from
+    report["k5_forms"] = forms
+    log(f"K5 by form over 1M x 384 bf16, k=10 (the wrapper groups from {group_from} pairs on): "
+        + "; ".join(f"{r['pairs']} pairs grouped {r['grouped_ms']:.3f} ms, a block a pair "
+                    f"{r['a_block_a_pair_ms']:.3f} ms" for r in forms.values()))
     del corpus, queries, bm, bids, model
     torch.cuda.empty_cache()
     times_ivf(report)
@@ -1548,9 +1692,12 @@ def profile_phase(report: dict) -> None:
         queries = unit(torch.randn((Q, D), device=dev), dim=1).to(torch.bfloat16)
         wall = cuda_ms(lambda: topk.topk_v2(queries, corpus, 10), 10)
         k = device_ms(lambda: topk.topk_v2(queries, corpus, 10), 5)
+        ban_library_kernels(k, "topk_v2")
         log(f"profile search Q={Q} over 1M x 384 bf16, k=10: {wall:.3f} ms per call, "
             f"device busy {100 * sum(k.values()) / wall:.1f}%: " + shares(k, (
-                ("K4", ("bucket_max",)), ("K5", ("rescore_kernel",)))))
+                ("K4", ("bucket_max",)), ("K5", ("rescore_",)),
+                ("bucket selection, K5's sort and the last top-k",
+                 ("topk", "TopK", "sort", "Sort", "radix", "gather", "reduce"))), name_other=2))
     del corpus
 
     # the IVF search through K6 over the clustered 1M-row index of `times`
@@ -1655,8 +1802,8 @@ def main() -> None:
             fn(report)
             log(f"phase {phase}: {time.perf_counter() - t0:.1f} s")
     log(json.dumps({k: v for k, v in report.items()
-                    if k in ("encode", "search", "train", "train_steps_per_s", "ivf",
-                             "ivf_times", "layer_gemm")}))
+                    if k in ("encode", "search", "search_q256", "k4_yardsticks", "k5_forms",
+                             "train", "train_steps_per_s", "ivf", "ivf_times", "layer_gemm")}))
     log(json.dumps({"K1_training_layer": {k: report["K1"].get(k) for k in (
         "train_ms", "train_no_dropout_ms", "dropout_max_abs_err", "module_layer_ms")},
         "K1_pieces_ms": report["K1"].get("pieces_ms"),

@@ -1,12 +1,15 @@
-// Hopper (sm_90a) building blocks as inline PTX, shared by the bf16 kernels
-// of K1 and K2: mbarriers, TMA tile loads with their host-side tensor maps,
-// wgmma (m64n128k16, bf16 in, f32 out, both operands from 128-byte-swizzled
-// shared memory), and the warp-level ldmatrix / mma.sync.m16n8k16 pair the
-// attention kernels use.
+// Hopper (sm_90a) building blocks as inline PTX, shared by the tensor-core
+// kernels of K1, K2, K4 and K5: mbarriers, TMA tile loads with their host-side
+// tensor maps, wgmma (m64n128k16 bf16 → f32 and m64n128k32 int8 → int32, both
+// operands from 128-byte-swizzled shared memory), the warp-level ldmatrix /
+// mma.sync.m16n8k16 pair the attention kernels and K5 use (and its int8
+// form), and two host helpers (SM count, large dynamic shared memory).
 #pragma once
 
 #include <cuda.h>  // CUtensorMap and its enums (types only: nothing links against libcuda)
 #include <dlfcn.h>
+
+#include <atomic>
 
 #include "common.cuh"
 
@@ -85,6 +88,23 @@ inline bool make_tensor_map(CUtensorMap* map, const void* base, int rows, int co
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
+// The same for a row-major matrix of any 1-, 2- or 4-byte type seen as bytes:
+// rows of `row_bytes` (a multiple of 16), boxes of box_rows x 128 bytes.
+// tma_load's column is then a byte offset.
+inline bool make_tensor_map_bytes(CUtensorMap* map, const void* base, int rows, int row_bytes,
+                                  int box_rows) {
+  const TensorMapEncodeTiled encode = tensor_map_encoder();
+  if (encode == nullptr) return false;
+  const cuuint64_t dims[2] = {(cuuint64_t)row_bytes, (cuuint64_t)rows};
+  const cuuint64_t strides[1] = {(cuuint64_t)row_bytes};
+  const cuuint32_t box[2] = {128u, (cuuint32_t)box_rows};
+  const cuuint32_t elem[2] = {1u, 1u};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_UINT8, 2, const_cast<void*>(base), dims, strides,
+                box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
 // one box, at (column col, row row) of the matrix, into shared memory at
 // dst; its bytes complete on `bar`
 __device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map, uint32_t bar,
@@ -157,6 +177,35 @@ __device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64], uint64_t a, uin
       : "l"(a), "l"(b), "r"(accumulate), "n"(TRANS_A), "n"(TRANS_B));
 }
 
+// The int8 product: d (64 x 128 int32, the same fragment layout) = a · b (+ d),
+// 32 k a step, both operands K-major (the only layout the integer form has).
+__device__ __forceinline__ void wgmma_m64n128k32_s8(int (&d)[64], uint64_t a, uint64_t b,
+                                                    int accumulate) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k32.s32.s8.s8 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "%64, %65, p;\n"
+      "}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]), "+r"(d[6]),
+        "+r"(d[7]), "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]), "+r"(d[12]),
+        "+r"(d[13]), "+r"(d[14]), "+r"(d[15]), "+r"(d[16]), "+r"(d[17]), "+r"(d[18]),
+        "+r"(d[19]), "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]), "+r"(d[24]),
+        "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]), "+r"(d[30]),
+        "+r"(d[31]), "+r"(d[32]), "+r"(d[33]), "+r"(d[34]), "+r"(d[35]), "+r"(d[36]),
+        "+r"(d[37]), "+r"(d[38]), "+r"(d[39]), "+r"(d[40]), "+r"(d[41]), "+r"(d[42]),
+        "+r"(d[43]), "+r"(d[44]), "+r"(d[45]), "+r"(d[46]), "+r"(d[47]), "+r"(d[48]),
+        "+r"(d[49]), "+r"(d[50]), "+r"(d[51]), "+r"(d[52]), "+r"(d[53]), "+r"(d[54]),
+        "+r"(d[55]), "+r"(d[56]), "+r"(d[57]), "+r"(d[58]), "+r"(d[59]), "+r"(d[60]),
+        "+r"(d[61]), "+r"(d[62]), "+r"(d[63])
+      : "l"(a), "l"(b), "r"(accumulate));
+}
+
 // Named barrier `id` (1..15; 0 is __syncthreads) over `threads` threads:
 // named_barrier waits until that many have arrived at it, counting those
 // that only announced themselves with named_barrier_arrive and went on.
@@ -212,6 +261,18 @@ __device__ __forceinline__ void mma_m16n8k16(float (&c)[4], const uint32_t (&a)[
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
+// The int8 form, 16 x 8 x 32: byte for byte the operands lie as the bf16
+// form's (a register holds four int8 values where it held two bf16), so the
+// same ldmatrix loads feed it; int32 sums.
+__device__ __forceinline__ void mma_m16n8k32_s8(int (&c)[4], const uint32_t (&a)[4], uint32_t b0,
+                                                uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
+      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
 // two f32 rounded to bf16 (nearest even), `lo` in the low half
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
@@ -244,6 +305,34 @@ __device__ __forceinline__ void load_bf16x4(const bf16* src, float (&e)[4]) {
   const float2 lo = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&v.x));
   const float2 hi = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&v.y));
   e[0] = lo.x, e[1] = lo.y, e[2] = hi.x, e[3] = hi.y;
+}
+
+// ---------------------------------------------------------------------------
+// Host helpers of the launchers.
+// ---------------------------------------------------------------------------
+inline int sm_count() {
+  static const int n = [] {
+    int dev = 0, v = 0;
+    if (cudaGetDevice(&dev) != cudaSuccess ||
+        cudaDeviceGetAttribute(&v, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess)
+      return 0;
+    return v;
+  }();
+  return n > 0 ? n : 132;
+}
+
+// Lets `kernel` take `bytes` of dynamic shared memory once per device,
+// instead of setting the attribute on every call.
+template <typename K>
+cudaError_t allow_smem(K kernel, size_t bytes, std::atomic<uint64_t>& done) {
+  int dev;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  const uint64_t bit = dev < 64 ? 1ull << dev : 0;
+  if (done.load() & bit) return cudaSuccess;
+  e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+  if (e == cudaSuccess) done.fetch_or(bit);
+  return e;
 }
 
 }  // namespace qst

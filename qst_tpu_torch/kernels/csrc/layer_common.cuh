@@ -519,31 +519,6 @@ int gemm_splits(int M, int N, int K) {
   return s < 1 ? 1 : (s > most ? most : s);
 }
 
-inline int sm_count() {
-  static const int n = [] {
-    int dev = 0, v = 0;
-    if (cudaGetDevice(&dev) != cudaSuccess ||
-        cudaDeviceGetAttribute(&v, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess)
-      return 0;
-    return v;
-  }();
-  return n > 0 ? n : 132;
-}
-
-// Lets `kernel` take `bytes` of dynamic shared memory once per device,
-// instead of setting the attribute on every layer call.
-template <typename K>
-cudaError_t allow_smem(K kernel, size_t bytes, std::atomic<uint64_t>& done) {
-  int dev;
-  cudaError_t e = cudaGetDevice(&dev);
-  if (e != cudaSuccess) return e;
-  const uint64_t bit = dev < 64 ? 1ull << dev : 0;
-  if (done.load() & bit) return cudaSuccess;
-  e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
-  if (e == cudaSuccess) done.fetch_or(bit);
-  return e;
-}
-
 template <typename T, int EPI, bool TA = false, bool TB = false>
 int launch_gemm(const T* A, const T* W, void* C, int M, int N, int K, const EpiArgs& ep,
                 cudaStream_t st, int splits = 1) {

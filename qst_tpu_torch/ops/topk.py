@@ -16,11 +16,30 @@ Exactness: if e is one of the top-k elements, at most k−1 buckets can have a
 maximum above e's bucket maximum, so the top-k buckets contain the top-k
 elements.
 
-The kernels are CUDA C++ in ``kernels/csrc/topk.cu`` (its header says what
-bounds each on the H100 and what the design does about it). Each wrapper
-takes its plain version only for CPU tensors; CUDA tensors launch the kernel
-or raise. ``bucket_maxima.launches`` and ``rescore_buckets.launches`` count
-kernel launches.
+The kernels are CUDA C++ in ``kernels/csrc/topk.cu``; its header says what
+bounds each on the H100 and gives the designs in full. In short:
+
+- K4 is bound by its 2·Q·N·D operations once Q is in the thousands (3.3 ms
+  at Q = 4096 over 1M × 384 bf16) and by the N·D corpus bytes at the serving
+  shapes (Q ≤ 256: 0.24 ms). bf16 and int8 (D % 16 == 0) run a persistent
+  TMA + ``wgmma`` kernel: a block keeps its 128-query tile in shared memory,
+  corpus buckets stream through a ring, the blocks of a group walk the same
+  buckets in step (a bucket comes from device memory about once), and the
+  bucket maximum is taken from the accumulator registers. f32 runs on the
+  FMA units (exact f32 products).
+- K5 is bound by reading each distinct winning bucket once. The wrapper
+  sorts the (query, slot) pairs by bucket id (``_group_pairs_by_bucket``:
+  index glue, like the bucket selection) and a block brings a bucket into
+  shared memory once for the run of pairs that chose it. Below
+  ``_GROUP_MIN_PAIRS`` pairs (Q·k; the server's largest batch, 256 queries
+  of k = 10, is under it) few buckets are shared and the sort is one more
+  launch on a host-bound path, so every pair gets its own block in the order
+  it came: on the H100 the two forms cross between 5,120 and 10,240 pairs
+  over corpora of 512 to 8,192 buckets (``chip_smoke.py``'s ``times``).
+
+Each wrapper takes its plain version only for CPU tensors; CUDA tensors
+launch the kernel or raise. ``bucket_maxima.launches`` and
+``rescore_buckets.launches`` count kernel launches.
 """
 
 from __future__ import annotations
@@ -172,8 +191,19 @@ def rescore_buckets_plain(queries: torch.Tensor, corpus: torch.Tensor,
     return torch.where(valid, out, float("-inf"))
 
 
-_RS_ARGTYPES = ([ctypes.c_int] + [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4
+_RS_ARGTYPES = ([ctypes.c_int] + [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5
                 + [ctypes.c_void_p])
+# K5 groups its pairs by bucket from this many (query, slot) pairs on
+_GROUP_MIN_PAIRS = 8192
+_MAX_PAIRS_PER_BLOCK = 32     # splits a popular bucket; a cut run is fetched twice
+_RESCORE_MAX_ROW_BYTES = 28 * 1024   # eight padded rows must fit a block's shared memory
+
+
+def _group_pairs_by_bucket(bucket_ids: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(Q, k) bucket ids → (ids (Q·k,) in ascending order, order (Q·k,)
+    int64): position p of the sorted ids belongs to pair ``order[p]`` =
+    q·k + slot. Every pair appears once; pairs of one bucket are neighbours."""
+    return torch.sort(bucket_ids.reshape(-1))
 
 
 def rescore_buckets(queries: torch.Tensor, corpus: torch.Tensor,
@@ -194,15 +224,25 @@ def rescore_buckets(queries: torch.Tensor, corpus: torch.Tensor,
     from qst_tpu_torch.kernels import build
 
     Q, D = q.shape
-    if (D * c.element_size()) % 16 or D * c.element_size() > 48 * 1024:
-        raise ValueError(f"rescore kernel needs D·itemsize % 16 == 0 and <= 48 KiB, got D={D}")
+    row_bytes = D * c.element_size()
+    if row_bytes % 16 or row_bytes > _RESCORE_MAX_ROW_BYTES:
+        raise ValueError(f"rescore kernel needs D·itemsize % 16 == 0 and <= "
+                         f"{_RESCORE_MAX_ROW_BYTES} bytes, got D={D}")
     ids = bucket_ids.to(torch.int32).contiguous()
+    n_pairs = Q * k
+    if n_pairs >= _GROUP_MIN_PAIRS:
+        ids, order = _group_pairs_by_bucket(ids)
+        order_ptr = order.data_ptr()
+        # blocks enough for a few waves over the SMs, runs long enough to share
+        pairs_per_block = max(1, min(_MAX_PAIRS_PER_BLOCK, n_pairs // 512))
+    else:
+        order_ptr, pairs_per_block = None, 1
     out = torch.empty((Q, k * BUCKET), dtype=torch.float32, device=q.device)
     fn = build.function("qst_rescore_buckets", _RS_ARGTYPES)
     with torch.cuda.device(q.device):
         code = fn(build.DTYPE_CODES[str(c.dtype).removeprefix("torch.")], q.data_ptr(),
-                  c.data_ptr(), ids.data_ptr(), out.data_ptr(), Q, c.shape[0], D, k,
-                  torch.cuda.current_stream(q.device).cuda_stream)
+                  c.data_ptr(), ids.data_ptr(), order_ptr, out.data_ptr(), Q, c.shape[0], D,
+                  k, pairs_per_block, torch.cuda.current_stream(q.device).cuda_stream)
     rescore_buckets.launches += 1
     build.check(code, "rescore_buckets")
     return out
