@@ -18,9 +18,14 @@ Phases (any failure exits non-zero and prints no result):
    scores negative, shared and out-of-range bucket ids);
    the dropout masks bit for bit, K1 with dropout, K2 (the layer's
    backward, with and without dropout) at B = 128, S = 128, K3 (the fused
-   quadruplet loss, forward and backward), and K6 (the IVF probed-cell
-   scorer, f32 and bf16, D = 384, C = 1024, L = 1152 and 1160, P = 8,
-   Q = 1 / 11 / 256), then IVFIndex.search through K6 against the probe scan;
+   quadruplet loss, forward and backward: the three reductions, a scalar and
+   a per-example upstream gradient, one and many blocks, two calls bit for
+   bit, forwards overlapping on two streams), and K6 (the IVF probed-cell scorer, f32 and
+   bf16, D = 384, C = 1024, L = 1152 / 1160 / 2048, P = 8, Q = 1 / 11 / 256
+   / 1100, pairs grouped by cell and a pair a block, with and without fill
+   counts, empty and full cells, repeats and ids outside [0, C)), then
+   IVFIndex.search through K6 against the probe scan, before and after
+   compact(), which must leave one copy of the cells on the card;
    the bf16 GEMM behind K1 and K2 alone in its four operand layouts (ragged
    M, every N the layer uses, split-K), K1 and K2 at sequence lengths that
    are no multiple of 16 and at head widths 32 and 64, and K2's 16 gradients
@@ -49,13 +54,17 @@ Phases (any failure exits non-zero and prints no result):
    torch.matmul as K4's yardstick, and K5's two forms around the pair count
    where the wrapper changes over; train steps/s of the kernel path against
    the nn.Module path;
-   K6 and whole IVF searches at Q = 8 / 64 / 256 over a 1M x 384 bf16
-   clustered index beside the exact K4 + K5 search, with recall@10; K1's and
+   K6 (with and without fill counts, each beside its bound) and whole IVF
+   searches at Q = 8 /
+   64 / 256 over a 1M x 384 bf16 clustered index beside the exact K4 + K5
+   search, with recall@10; K6's two forms around the pair count where the
+   wrapper changes over; the searches again over 4M rows; K1's and
    K2's device time by piece (GEMMs, attention, LayerNorm).
 7. profile — where the time goes: device time per kernel and the device's
    busy share for encode, a train step and search (no library GEMM or
    attention kernel may run on the fused encode and train paths or in
-   topk_v2), and served
+   topk_v2; K3's two kernels must follow each other in the step's
+   timeline), the launches of one IVF search, and served
    req/s with p50/p99 latency at 1, 8 and 64 closed-loop clients.
 
 The last lines are the card's name and power limit (nvidia-smi), one JSON
@@ -445,20 +454,61 @@ def check_training_kernels(report: dict) -> None:
     report["K1"]["dropout_max_abs_err"] = k1_err
     report["K2"] = {"max_abs_err": k2_err}
 
-    # K3 forward and backward, f32, 1e-5 absolute (summation order only)
+    # K3 forward and backward, f32, 1e-5 absolute (summation order only): the
+    # three reductions the forward kernel writes itself, the backward from a
+    # per-example and from a scalar upstream gradient (not 1), two calls bit
+    # for bit, and forwards that overlap on two streams
     Bq, D = 32, 384
     emb = [torch.nn.functional.normalize(torch.randn((Bq, D), generator=gen), dim=1).to(dev)
            for _ in range(4)]
     consts = dict(gamma=0.6, m_pn=1.0, m_pt=0.5, m_tn=0.5)
-    loss, dists = qd.fused_gamma_quadruplet_loss_fwd(*emb, **consts)
-    rloss, rdists = qd.fused_gamma_quadruplet_loss_plain(*emb, **consts)
-    scale = torch.full((Bq,), 1.0 / Bq, device=dev)
-    grads = qd.fused_gamma_quadruplet_loss_bwd(*emb, rdists, scale, **consts)
-    rgrads = qd.fused_gamma_quadruplet_loss_bwd_plain(*emb, rdists, scale, **consts)
-    err = max((loss - rloss).abs().max().item(), (dists - rdists).abs().max().item(),
-              *[(a - b).abs().max().item() for a, b in zip(grads, rgrads)])
-    log(f"K3 f32 B={Bq} D={D}: max|err| over loss, distances and 4 gradients {err:.3e} "
-        f"(limit 1e-5)")
+    err = 0.0
+    for B3 in (Bq, 1000):     # one block, and 32 blocks with the last one adding up
+        x3 = [e[:B3] if B3 <= Bq else torch.nn.functional.normalize(
+            torch.randn((B3, D), generator=gen), dim=1).to(dev) for e in emb]
+        for reduction in ("none", "sum", "mean"):
+            up = (torch.rand((B3,), generator=gen) if reduction == "none"
+                  else torch.tensor(0.37)).to(dev)
+            runs = []
+            for _ in range(2):
+                loss, dists = qd.fused_gamma_quadruplet_loss_fwd(*x3, reduction=reduction,
+                                                                 **consts)
+                grads = qd.fused_gamma_quadruplet_loss_bwd(*x3, dists, up, reduction=reduction,
+                                                           **consts)
+                runs.append([loss.clone(), dists.clone(), *[g.clone() for g in grads]])
+            if not all(torch.equal(a, b) for a, b in zip(*runs)):
+                fail(f"K3 B={B3} {reduction}: two calls differ")
+            rloss, rdists = qd.fused_gamma_quadruplet_loss_plain(*x3, reduction=reduction,
+                                                                 **consts)
+            rgrads = qd.fused_gamma_quadruplet_loss_bwd_plain(*x3, rdists, up,
+                                                              reduction=reduction, **consts)
+            # a sum of B losses is held relative to its size
+            scale = max(1.0, rloss.abs().max().item())
+            err = max(err, (loss - rloss).abs().max().item() / scale,
+                      (dists - rdists).abs().max().item(),
+                      *[(a - b).abs().max().item() for a, b in zip(grads, rgrads)])
+    # launches on two streams share nothing: each mean is the one its inputs
+    # give alone
+    big = [torch.nn.functional.normalize(torch.randn((1000, D), generator=gen), dim=1).to(dev)
+           for _ in range(4)]
+    for xs in (emb, big):
+        other = [x.flip(0).contiguous() for x in xs]
+        alone = [qd.fused_gamma_quadruplet_loss_fwd(*v, reduction="mean", **consts)[0].clone()
+                 for v in (xs, other)]
+        torch.cuda.synchronize()
+        streams, got = [torch.cuda.Stream(), torch.cuda.Stream()], [[], []]
+        for _ in range(100):
+            for i, v in enumerate((xs, other)):
+                with torch.cuda.stream(streams[i]):
+                    got[i].append(qd.fused_gamma_quadruplet_loss_fwd(*v, reduction="mean",
+                                                                     **consts)[0])
+        torch.cuda.synchronize()
+        if not all(torch.equal(g, alone[i]) for i in (0, 1) for g in got[i]):
+            fail(f"K3 B={xs[0].shape[0]}: a mean taken while another stream's forward ran "
+                 f"differs from the one taken alone")
+    log(f"K3 f32 B={Bq} and 1000, D={D}, reductions none / sum / mean: max|err| over loss, "
+        f"distances and 4 gradients {err:.3e} (limit 1e-5), two calls bit-equal, means on two "
+        f"streams equal to those taken alone")
     if not err <= 1e-5:
         fail(f"K3: max|err| {err} > 1e-5")
     report["K3"] = {"max_abs_err": err}
@@ -608,26 +658,55 @@ def check_ivf(report: dict) -> None:
     gen = torch.Generator(device="cuda").manual_seed(16)
     unit = torch.nn.functional.normalize
     C, D, P = 1024, 384, 8
-    k6_err = 0.0
-    for name, budgets in (("float32", (1152, 1160)), ("bfloat16", (1152, 1160))):
-        for L in budgets:
+    k6_err, n_cases = 0.0, 0
+    group_line = ops_ivf._GROUP_MIN_PAIRS
+    for name in ("float32", "bfloat16"):
+        for L in (1152, 1160, 2048):
             cells = unit(torch.randn((C, L, D), device=dev, generator=gen), dim=2).to(
                 getattr(torch, name))
-            for Q in (1, 11, 256):
+            # fill counts: an empty cell, one row, all but one, a full cell, the rest random
+            fill = torch.randint(0, L + 1, (C,), device=dev, generator=gen, dtype=torch.int32)
+            fill[:2] = torch.tensor([0, 1], dtype=torch.int32)
+            fill[-2:] = torch.tensor([L - 1, L], dtype=torch.int32)
+            for Q in (1, 11, 256, 1100):
                 queries = unit(torch.randn((Q, D), device=dev, generator=gen), dim=1)
                 probe = torch.randint(0, C, (Q, P), device=dev, generator=gen, dtype=torch.int32)
-                probe[0, :4] = torch.tensor([0, C - 1, 0, C - 1], dtype=torch.int32)  # repeats
-                out = ops_ivf.ivf_cell_scores(queries, cells, probe)
-                ref = ops_ivf.ivf_cell_scores_plain(queries, cells, probe)
-                torch.cuda.synchronize()
-                if out.shape != (Q, P * L) or not torch.isfinite(out).all():
-                    fail(f"K6 {name} L={L} Q={Q}: shape {tuple(out.shape)} or non-finite scores")
-                err = (out - ref).abs().max().item()
-                log(f"K6 {name:8s} C={C} L={L} P={P} Q={Q:3d}: max|err| {err:.3e} (limit 1e-4)")
-                if not err <= 1e-4:
-                    fail(f"K6 {name} L={L} Q={Q}: max|err| {err} > 1e-4")
-                k6_err = max(k6_err, err)
+                # the first and last cells, repeated; the cells of the planted fills
+                probe[0] = torch.tensor([0, C - 1, 0, C - 1, 1, C - 2, 1, C - 2],
+                                        dtype=torch.int32)
+                outside = torch.zeros((Q, P), dtype=torch.bool, device=dev)
+                if Q > 2:   # ids outside [0, C): one below, one above, a whole query's
+                    probe[1, 0], probe[1, 1], probe[2] = -1, C, C + 5
+                    outside[1, :2] = outside[2] = True
+                inside = probe.clamp(0, C - 1)
+                for counts in (None, fill):
+                    ref = ops_ivf.ivf_cell_scores_plain(queries, cells, inside, counts)
+                    ref = torch.where(outside.repeat_interleave(L, dim=1), float("-inf"), ref)
+                    worst = 0.0
+                    for form, line in (("grouped", 1), ("a block a pair", 1 << 62)):
+                        ops_ivf._GROUP_MIN_PAIRS = line
+                        try:
+                            out = ops_ivf.ivf_cell_scores(queries, cells, probe, counts)
+                        finally:
+                            ops_ivf._GROUP_MIN_PAIRS = group_line
+                        torch.cuda.synchronize()
+                        what = (f"K6 {name} L={L} Q={Q} {form}, "
+                                f"{'with' if counts is not None else 'without'} fill")
+                        if out.shape != (Q, P * L) or torch.isnan(out).any():
+                            fail(f"{what}: shape {tuple(out.shape)} or NaN scores")
+                        if not torch.equal(torch.isneginf(out), torch.isneginf(ref)):
+                            fail(f"{what}: -inf in other places than the plain version")
+                        err = torch.where(torch.isneginf(ref), 0.0, out - ref).abs().max().item()
+                        if not err <= 1e-4:
+                            fail(f"{what}: max|err| {err} > 1e-4")
+                        worst = max(worst, err)
+                        n_cases += 1
+                    k6_err = max(k6_err, worst)
+                log(f"K6 {name:8s} C={C} L={L} P={P} Q={Q:4d}: both forms, with and without "
+                    f"fill (cells of 0, 1, L - 1 and L rows), repeats and ids outside [0, C): "
+                    f"max|err| {worst:.3e} (limit 1e-4), -inf where the plain version has it")
             del cells
+    log(f"K6: {n_cases} cases, worst max|err| {k6_err:.3e}")
     # an id outside [0, C) reads nothing and scores -inf
     cells = unit(torch.randn((4, 64, D), device=dev, generator=gen), dim=2)
     probe = torch.tensor([[0, 4, 3, -1]], dtype=torch.int32, device=dev)
@@ -651,6 +730,19 @@ def check_ivf(report: dict) -> None:
             if not rows_match_up_to_ties(got, want, true, 1e-4):
                 fail(f"IVFIndex.search {name} n_probe={n_probe} k={k}: the K6 path and the "
                      f"probe scan disagree")
+        # compact() moves the cells: the same answers, and one copy on the card
+        first = [t.clone() for t in idx._device_search(queries, 10, 8, "pallas")]
+        torch.cuda.synchronize()
+        held = torch.cuda.memory_allocated(dev)
+        idx.compact()
+        again = idx._device_search(queries, 10, 8, "pallas")
+        torch.cuda.synchronize()
+        if not all(torch.equal(a, b) for a, b in zip(first, again)):
+            fail(f"IVFIndex {name}: a search after compact() differs from the one before")
+        del again
+        if torch.cuda.memory_allocated(dev) > held:
+            fail(f"IVFIndex {name}: compact() left {torch.cuda.memory_allocated(dev) - held} "
+                 f"more bytes on the card than before")
         near = idx._device_search(queries, 10, 8, "pallas")[1].cpu().tolist()
         recall = float(np.mean([len(set(a) & set(b)) / 10 for a, b in zip(near, got[1].tolist())]))
         if not recall >= 0.8:
@@ -881,13 +973,64 @@ def ivf(report: dict) -> None:
             f"after")
 
 
+def query_batches(rows, Q: int, gen, n: int = 8):
+    """``n`` batches of Q noisy copies of random corpus rows, unit-norm: a
+    search in turn over them does not find the last one's cells in the 50 MB
+    L2."""
+    import torch
+
+    out = []
+    for _ in range(n):
+        pick = torch.randint(0, rows.shape[0], (Q,), device=rows.device, generator=gen)
+        noise = torch.randn((Q, rows.shape[1]), device=rows.device, generator=gen)
+        out.append(torch.nn.functional.normalize(rows[pick] + 0.02 * noise, dim=1))
+    return out
+
+
+def in_turn(fn, n: int):
+    """fn(0), fn(1), ... fn(n - 1), fn(0), ...: one more on each call."""
+    turn = [0]
+
+    def run():
+        turn[0] = (turn[0] + 1) % n
+        return fn(turn[0])
+    return run
+
+
+def searches_beside_exact(idx, rows, corpus, Q: int, P: int, k: int, gen, reps: int) -> dict:
+    """One IVF search through K6 beside the exact K4 + K5 search over the
+    same rows, with the recall@10 of the IVF answers."""
+    import torch
+
+    from qst_tpu_torch.ops import topk
+
+    batches = query_batches(rows, Q, gen)
+    search = in_turn(lambda j: idx._device_search(batches[j], k, P, "pallas"), len(batches))
+    # whole searches are host-bound at small Q, and the first twenty or
+    # so calls after a build run about twice slower than the rest (0.93
+    # against 0.48 ms at Q = 8; not investigated): a long warm-up
+    ivf_ms = cuda_ms(search, reps, warmup=reps // 2)
+    exact_ms = cuda_ms(in_turn(lambda j: topk.topk_v2(batches[j].to(torch.bfloat16), corpus, k),
+                               len(batches)), reps, warmup=reps // 2)
+    _, ivf_ids = idx._device_search(batches[0], k, P, "pallas")
+    _, exact_ids = topk.topk_v2(batches[0].to(torch.bfloat16), corpus, k)
+    recall = float(np.mean([len(set(a) & set(b)) / k for a, b in zip(
+        ivf_ids.cpu().tolist(), exact_ids.cpu().tolist())]))
+    if not recall >= 0.8:
+        fail(f"IVF recall@10 {recall} < 0.8 on the clustered index at Q={Q}")
+    return {"batches": batches, "ivf_pallas_ms": ivf_ms,
+            "ivf_pallas_qps": Q / ivf_ms * 1e3, "exact_ms": exact_ms,
+            "exact_qps": Q / exact_ms * 1e3, "recall_at_10": recall}
+
+
 def times_ivf(report: dict) -> None:
     """K6 and whole IVF searches over a 1M x 384 bf16 clustered index
-    (1,024 cells) beside the exact K4 + K5 search over the same rows."""
+    (1,024 cells) beside the exact K4 + K5 search over the same rows; K6's
+    two forms around the pair count where the wrapper changes over; the
+    searches again over 4M rows (4,096 cells)."""
     import torch
 
     from qst_tpu_torch.ops import ivf as ops_ivf
-    from qst_tpu_torch.ops import topk
     from qst_tpu_torch.retrieval import IVFIndex
     from qst_tpu_torch.retrieval.ivf import _probe
 
@@ -901,73 +1044,104 @@ def times_ivf(report: dict) -> None:
     build_s = time.perf_counter() - t0
     corpus = rows.to(torch.bfloat16)
     L = idx.cell_budget
-    log(f"IVF index over {N} x {D} clustered rows: {C} cells of budget {L}, bf16 cells "
-        f"{idx.cells.numel() * 2 / 1e9:.2f} GB, {idx.spilled} docs spilled, built in "
-        f"{build_s:.1f} s")
+    mean_fill = idx.fill.float().mean().item()
+    log(f"IVF index over {N} x {D} clustered rows: {C} cells of budget {L} (mean fill "
+        f"{mean_fill:.0f} rows), bf16 cells {idx.cells.numel() * 2 / 1e9:.2f} GB, "
+        f"{idx.spilled} docs spilled, built in {build_s:.1f} s")
     gen = torch.Generator(device="cuda").manual_seed(22)
-    unit = torch.nn.functional.normalize
-    out = {"build_s": build_s, "cell_budget": L, "cells_gb": idx.cells.numel() * 2 / 1e9}
+    out = {"build_s": build_s, "cell_budget": L, "cells_gb": idx.cells.numel() * 2 / 1e9,
+           "mean_fill": mean_fill}
     for Q in (8, 64, 256):
-        # eight query batches in turn, so a launch does not find the last
-        # one's cells in the 50 MB L2
-        batches = []
-        for _ in range(8):
-            pick = torch.randint(0, N, (Q,), device=dev, generator=gen)
-            batches.append(unit(rows[pick] + 0.02 * torch.randn((Q, D), device=dev, generator=gen),
-                                dim=1))
-        probes = [(qf, pr.to(torch.int32)) for qf, pr in (_probe(q, idx.centroids, P)
-                                                          for q in batches)]
-        turn = [0]
-
-        def each(fn):
-            def run():
-                turn[0] = (turn[0] + 1) % len(batches)
-                return fn(turn[0])
-            return run
-
-        k6_ms = cuda_ms(each(lambda j: ops_ivf.ivf_cell_scores(
-            probes[j][0], idx.cells, probes[j][1])), 16, warmup=2)
-        plain_ms = cuda_ms(each(lambda j: ops_ivf.ivf_cell_scores_plain(
-            probes[j][0], idx.cells, probes[j][1])), 8, warmup=1)
-        # whole searches are host-bound at small Q, and the first twenty or
-        # so calls after a build run about twice slower than the rest (0.93
-        # against 0.48 ms at Q = 8; not investigated): a long warm-up
-        pallas_ms = cuda_ms(each(lambda j: idx._device_search(batches[j], k, P, "pallas")), 48,
-                            warmup=24)
-        xla_ms = cuda_ms(each(lambda j: idx._device_search(batches[j], k, P, "xla")), 8, warmup=2)
-        exact_ms = cuda_ms(each(lambda j: topk.topk_v2(batches[j].to(torch.bfloat16), corpus, k)),
-                           48, warmup=24)
-        # recall@10 of the IVF answers against the exact ones, first batch
-        _, ivf_ids = idx._device_search(batches[0], k, P, "pallas")
-        _, exact_ids = topk.topk_v2(batches[0].to(torch.bfloat16), corpus, k)
-        recall = float(np.mean([len(set(a) & set(b)) / k for a, b in zip(
-            ivf_ids.cpu().tolist(), exact_ids.cpu().tolist())]))
-        # the bound, from this run's probes: each probed cell read once
-        # (the gather's whole volume beside it), the output written once
-        unique_cells = float(np.mean([p[1].unique().numel() for p in probes]))
+        whole = searches_beside_exact(idx, rows, corpus, Q, P, k, gen, reps=48)
+        batches = whole.pop("batches")
+        probes = [_probe(q, idx.centroids, P) for q in batches]
+        k6 = {}
+        for key, fn, reps in (
+                ("k6_ms", lambda j: ops_ivf.ivf_cell_scores(probes[j][0], idx.cells,
+                                                            probes[j][1], idx.fill), 16),
+                ("k6_all_slots_ms", lambda j: ops_ivf.ivf_cell_scores(
+                    probes[j][0], idx.cells, probes[j][1]), 16),
+                ("k6_plain_ms", lambda j: ops_ivf.ivf_cell_scores_plain(
+                    probes[j][0], idx.cells, probes[j][1], idx.fill), 8)):
+            k6[key] = cuda_ms(in_turn(fn, len(batches)), reps, warmup=2)
+        xla_ms = cuda_ms(in_turn(lambda j: idx._device_search(batches[j], k, P, "xla"),
+                                 len(batches)), 8, warmup=2)
+        # the bound, from this run's probes: the filled rows of each distinct
+        # probed cell read once, the queries and ids read and the scores
+        # written once; without fill every slot of those cells (beside it the
+        # whole gather: one read per pair)
+        cells_hit = [p[1].unique() for p in probes]
+        unique_cells = float(np.mean([c.numel() for c in cells_hit]))
+        filled_rows = float(np.mean([idx.fill[c].sum().item() for c in cells_hit]))
+        scored_rows = float(np.mean([idx.fill[p[1].reshape(-1)].sum().item() for p in probes]))
+        fixed = Q * D * 2 + Q * P * 4 + Q * P * L * 4
+        b = bound(filled_rows * D * 2 + C * 4 + fixed, 2.0 * scored_rows * D, "bfloat16")
+        b_all = bound(unique_cells * L * D * 2 + fixed, 2.0 * Q * P * L * D, "bfloat16")
         gather_bytes = Q * P * L * D * 2
-        b = bound(unique_cells * L * D * 2 + Q * D * 2 + Q * P * 4 + Q * P * L * 4,
-                  2.0 * Q * P * L * D, "bfloat16")
-        out[f"Q{Q}"] = {"k6_ms": k6_ms, "k6_plain_ms": plain_ms, **b,
+        out[f"Q{Q}"] = {**k6, **b, "all_slots_bound_ms": b_all["bound_ms"],
                         "gather_ms": gather_bytes / HBM_BYTES_PER_S * 1e3,
-                        "unique_cells": unique_cells,
-                        "ivf_pallas_ms": pallas_ms, "ivf_pallas_qps": Q / pallas_ms * 1e3,
-                        "ivf_xla_ms": xla_ms, "ivf_xla_qps": Q / xla_ms * 1e3,
-                        "exact_ms": exact_ms, "exact_qps": Q / exact_ms * 1e3,
-                        "recall_at_10": recall}
-        log(f"IVF Q={Q:3d} P={P} over {N} x {D} bf16: K6 {k6_ms:.3f} ms (plain {plain_ms:.3f}; "
-            f"bound {b['bound_ms']:.4f} ms by {b['bound_by']}, {unique_cells:.0f} distinct "
-            f"cells; the whole gather's {gather_bytes / 1e6:.0f} MB would take "
-            f"{gather_bytes / HBM_BYTES_PER_S * 1e3:.4f} ms); search through K6 "
-            f"{pallas_ms:.3f} ms = {Q / pallas_ms * 1e3:.0f} QPS, probe scan {xla_ms:.3f} ms, "
-            f"exact K4 + K5 {exact_ms:.3f} ms = {Q / exact_ms * 1e3:.0f} QPS; recall@10 "
-            f"{recall:.4f}")
-        if not recall >= 0.8:
-            fail(f"IVF recall@10 {recall} < 0.8 on the clustered index at Q={Q}")
+                        "unique_cells": unique_cells, "filled_rows": filled_rows,
+                        "ivf_xla_ms": xla_ms, "ivf_xla_qps": Q / xla_ms * 1e3, **whole}
+        log(f"IVF Q={Q:3d} P={P} over {N} x {D} bf16: K6 {k6['k6_all_slots_ms']:.3f} ms "
+            f"without fill (every slot of {unique_cells:.0f} distinct cells: bound "
+            f"{b_all['bound_ms']:.4f} ms, {b_all['bound_ms'] / k6['k6_all_slots_ms']:.0%}; the "
+            f"whole gather's {gather_bytes / 1e6:.0f} MB would take "
+            f"{gather_bytes / HBM_BYTES_PER_S * 1e3:.4f} ms), {k6['k6_ms']:.3f} ms with fill "
+            f"({filled_rows:.0f} filled rows: bound {b['bound_ms']:.4f} ms by {b['bound_by']}, "
+            f"{b['bound_ms'] / k6['k6_ms']:.0%}; plain {k6['k6_plain_ms']:.3f}); search through "
+            f"K6 {whole['ivf_pallas_ms']:.3f} ms = {whole['ivf_pallas_qps']:.0f} QPS, probe scan "
+            f"{xla_ms:.3f} ms, exact K4 + K5 {whole['exact_ms']:.3f} ms = "
+            f"{whole['exact_qps']:.0f} QPS; recall@10 {whole['recall_at_10']:.4f}")
+        if b["bound_ms"] > k6["k6_ms"] or b_all["bound_ms"] > k6["k6_all_slots_ms"]:
+            fail(f"K6 at Q={Q} reads faster than its bound: the bound's count is wrong")
+
+    # K6 by form, with fill: pairs sorted by cell against a pair a block
+    group_line = ops_ivf._GROUP_MIN_PAIRS
+    by_form = {}
+    for Q in (8, 64, 256, 1024):
+        probes = [_probe(q, idx.centroids, P) for q in query_batches(rows, Q, gen)]
+        forms = {}
+        for form, line in (("grouped", 1), ("ungrouped", 1 << 62)):
+            ops_ivf._GROUP_MIN_PAIRS = line
+            try:
+                forms[form] = cuda_ms(in_turn(lambda j: ops_ivf.ivf_cell_scores(
+                    probes[j][0], idx.cells, probes[j][1], idx.fill), len(probes)), 16, warmup=2)
+            finally:
+                ops_ivf._GROUP_MIN_PAIRS = group_line
+        by_form[Q * P] = forms
+    out["k6_by_form"] = by_form
+    log(f"K6 by form (pairs: grouped / a block a pair, ms; the wrapper groups from "
+        f"{group_line} pairs on): " + "; ".join(
+            f"{n}: {f['grouped']:.3f} / {f['ungrouped']:.3f}" for n, f in by_form.items()))
     report["ivf_times"] = out
     big = out["Q256"]
     report["K6"].update(ms=big["k6_ms"], plain_ms=big["k6_plain_ms"],
                         bound_ms=big["bound_ms"], bound_by=big["bound_by"])
+
+    # the same searches over 4M rows: 4,096 cells, the exact search reads 3.1 GB
+    del idx, corpus, rows
+    torch.cuda.empty_cache()
+    N4, C4 = 1 << 22, 4096
+    rows, _, _ = clustered_corpus(N4, C4, D, seed=23)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    idx = IVFIndex(rows, n_clusters=C4, dtype="bfloat16", seed=0)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    corpus = rows.to(torch.bfloat16)
+    big = {"build_s": build_s, "cell_budget": idx.cell_budget,
+           "cells_gb": idx.cells.numel() * 2 / 1e9, "mean_fill": idx.fill.float().mean().item()}
+    log(f"IVF index over {N4} x {D} clustered rows: {C4} cells of budget {idx.cell_budget} "
+        f"(mean fill {big['mean_fill']:.0f} rows), bf16 cells {big['cells_gb']:.2f} GB, "
+        f"corpus {corpus.numel() * 2 / 1e9:.2f} GB, built in {build_s:.1f} s")
+    for Q in (8, 64, 256):
+        whole = searches_beside_exact(idx, rows, corpus, Q, P, k, gen, reps=24)
+        del whole["batches"]
+        big[f"Q{Q}"] = whole
+        log(f"IVF Q={Q:3d} P={P} over {N4} x {D} bf16: search through K6 "
+            f"{whole['ivf_pallas_ms']:.3f} ms; exact K4 + K5 "
+            f"{whole['exact_ms']:.3f} ms; recall@10 {whole['recall_at_10']:.4f}")
+    report["ivf_times_4m"] = big
 
 
 def synthetic_docs(n: int, seed: int):
@@ -1237,7 +1411,7 @@ def train(report: dict) -> None:
         state.model.zero_grad(set_to_none=True)
         with plain_kernels() if plain else contextlib.nullcontext():
             emb = encoder_apply_fn(cfg0)(state.model, ids, mask, None).reshape(4, 32, -1)
-            loss_from_config(loss_cfg)(*emb).backward()
+            loss_from_config(loss_cfg)(*emb.unbind(0)).backward()
         torch.cuda.synchronize()
         grads.append({n: p.grad.detach().clone() for n, p in state.model.named_parameters()})
     kern, ref = grads
@@ -1375,9 +1549,34 @@ def times(report: dict) -> None:
                               "float32"))
     k3_dev = device_ms(lambda: k3(qd.fused_gamma_quadruplet_loss_fwd,
                                   qd.fused_gamma_quadruplet_loss_bwd), 20)
+    # through autograd, as a train step calls it (mean): from four leaves, and
+    # from the four parts of the (4, B, D) embeddings a train step unbinds
+    leaves = [e.clone().requires_grad_(True) for e in emb]
+    stacked = torch.stack(emb).requires_grad_(True)
+    one = torch.ones((), device=dev)
+    auto_ms = cuda_ms(lambda: torch.autograd.grad(
+        qd.fused_gamma_quadruplet_loss(*leaves, 0.6, 1.0, 0.5, 0.5), leaves, one), 200)
+
+    def unbound():
+        return torch.autograd.grad(
+            qd.fused_gamma_quadruplet_loss(*stacked.unbind(0), 0.6, 1.0, 0.5, 0.5), stacked, one)
+
+    unbound_ms = cuda_ms(unbound, 200)
+    # one call's device operations, counted exactly; an operation of no
+    # account goes first because a trace may miss the first kernel after it starts
+    seq = device_sequence(lambda: (one.clone(), unbound()))
+    while seq and "quadruplet_" not in seq[0]:
+        seq.pop(0)
+    report["K3"].update(autograd_ms=auto_ms, autograd_unbound_ms=unbound_ms)
     log(f"K3 forward + backward: {1e3 * report['K3']['ms']:.1f} us per call on CUDA events, "
         f"of which {1e3 * sum(k3_dev.values()):.1f} us on the device (the rest is launch "
-        f"and host time)")
+        f"and host time); loss (mean) and gradients through autograd {1e3 * auto_ms:.1f} us, "
+        f"from the unbound (4, B, D) embeddings {1e3 * unbound_ms:.1f} us in {len(seq)} device "
+        f"operations: {[n.split('(')[0][-40:] for n in seq]}")
+    if (len(seq) != 3 or "quadruplet_fwd_kernel" not in seq[0]
+            or "quadruplet_bwd_kernel" not in seq[1]):
+        fail(f"K3 through autograd: want its forward, its backward and the stack of the four "
+             f"gradients, got {seq}")
 
     # train steps/s at the training configuration: the kernel path against
     # the nn.Module path with the plain loss, in turns
@@ -1548,9 +1747,10 @@ def device_us(event) -> float:
     return event.self_cuda_time_total if us is None else us
 
 
-def device_ms(fn, reps: int) -> dict:
+def device_profile(fn, reps: int):
     """Device time per call of each kernel ``fn`` runs, from torch.profiler:
-    {kernel name: ms per call}. Fails when the profiler saw no kernel."""
+    ({kernel name: ms per call}, launches per call). Fails when the profiler
+    saw no kernel."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -1562,12 +1762,34 @@ def device_ms(fn, reps: int) -> dict:
         torch.cuda.synchronize()
     # kernels only: a record_function range (the optimizer's step) also
     # carries device time, which would count its kernels twice
-    out = {e.key: device_us(e) / 1e3 / reps for e in prof.key_averages()
-           if e.device_type.name == "CUDA" and not getattr(e, "is_user_annotation", False)
-           and not e.key.startswith("Optimizer.")}
-    if not out:
+    events = [e for e in prof.key_averages()
+              if e.device_type.name == "CUDA" and not getattr(e, "is_user_annotation", False)
+              and not e.key.startswith("Optimizer.")]
+    if not events:
         fail("the profiler saw no device kernels")
-    return out
+    return ({e.key: device_us(e) / 1e3 / reps for e in events},
+            sum(e.count for e in events) / reps)
+
+
+def device_ms(fn, reps: int) -> dict:
+    return device_profile(fn, reps)[0]
+
+
+def device_sequence(fn) -> list:
+    """The names of the device operations (kernels, copies, memsets) of one
+    call of ``fn``, in the order they started."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    events = [e for e in prof.events()
+              if e.device_type.name == "CUDA" and not getattr(e, "is_user_annotation", False)
+              and not e.name.startswith("Optimizer.")]
+    return [e.name for e in sorted(events, key=lambda e: e.time_range.start)]
 
 
 LAYER_PIECES = (("GEMMs", ("gemm_bf16_kernel", "gemm_f32_kernel")),
@@ -1683,6 +1905,20 @@ def profile_phase(report: dict) -> None:
             ("K3", ("quadruplet_",)),
             ("optimizer (foreach)", ("foreach", "multi_tensor", "MultiTensor")),
             ("library GEMM", ("gemm", "nvjet", "cutlass", "xmma"))), name_other=6))
+    # K3 in the step's timeline: its forward, then its backward, with nothing
+    # between them but the fill of backward()'s root gradient
+    seq = device_sequence(lambda: step(state, tids, tmask, tgen))
+    fwd = [i for i, n in enumerate(seq) if "quadruplet_fwd_kernel" in n]
+    bwd = [i for i, n in enumerate(seq) if "quadruplet_bwd_kernel" in n]
+    if len(fwd) != 1 or len(bwd) != 1:
+        fail(f"one train step launched K3 forward {len(fwd)} and backward {len(bwd)} times")
+    short = [n.split("(")[0][-60:] for n in seq]
+    log(f"profile train step, K3 in the timeline of {len(seq)} device operations: ... "
+        f"{short[max(fwd[0] - 2, 0):fwd[0]]} -> {short[fwd[0]:bwd[0] + 1]} -> "
+        f"{short[bwd[0] + 1:bwd[0] + 3]} ...")
+    between = seq[fwd[0] + 1:bwd[0]]
+    if len(between) > 1 or any("fill" not in n.lower() for n in between):
+        fail(f"device operations between K3's forward and backward: {between}")
     del state
 
     N, D = 1 << 20, 384
@@ -1708,15 +1944,25 @@ def profile_phase(report: dict) -> None:
     for Q in (8, 64, 256):
         queries = unit(rows[torch.randint(0, N, (Q,), device=dev)]
                        + 0.02 * torch.randn((Q, D), device=dev), dim=1)
-        wall = cuda_ms(lambda: idx._device_search(queries, 10, 8, "pallas"), 48, warmup=24)
-        k = device_ms(lambda: idx._device_search(queries, 10, 8, "pallas"), 5)
+
+        def search():
+            return idx._device_search(queries, 10, 8, "pallas")
+
+        wall = cuda_ms(search, 48, warmup=24)
+        k, launches = device_profile(search, 5)
+        if not any("ivf_cell_scores_kernel" in n for n in k):
+            fail(f"IVF search Q={Q}: the profiler did not see K6")
         log(f"profile IVF search Q={Q} over 1M x 384 bf16 in 1,024 cells of budget "
-            f"{idx.cell_budget}, n_probe 8, k=10: {wall:.3f} ms per call, {len(k)} distinct "
-            f"kernels, device busy {100 * sum(k.values()) / wall:.1f}%: " + shares(k, (
+            f"{idx.cell_budget}, n_probe 8, k=10: {wall:.3f} ms per call, "
+            f"{launches:.0f} device launches a call ({len(k)} distinct kernels), device busy "
+            f"{100 * sum(k.values()) / wall:.1f}%: " + shares(k, (
                 ("K6", ("ivf_cell_scores_kernel",)),
                 ("centroid product", ("gemm", "splitKreduce", "gemv")),
                 ("top-k", ("topk", "TopK", "sort", "Sort", "radix")),
                 ("gathers", ("gather", "index"))), name_other=3))
+        if Q == 8:
+            log("profile IVF search Q=8, its device operations in order: " + ", ".join(
+                n.split("(")[0].split("<")[0][-48:] for n in device_sequence(search)))
     del rows, idx
 
     docs = synthetic_docs(65536, seed=14)
@@ -1803,7 +2049,7 @@ def main() -> None:
             log(f"phase {phase}: {time.perf_counter() - t0:.1f} s")
     log(json.dumps({k: v for k, v in report.items()
                     if k in ("encode", "search", "search_q256", "k4_yardsticks", "k5_forms",
-                             "train", "train_steps_per_s", "ivf", "ivf_times", "layer_gemm")}))
+                             "train", "train_steps_per_s", "ivf", "ivf_times", "ivf_times_4m", "layer_gemm")}))
     log(json.dumps({"K1_training_layer": {k: report["K1"].get(k) for k in (
         "train_ms", "train_no_dropout_ms", "dropout_max_abs_err", "module_layer_ms")},
         "K1_pieces_ms": report["K1"].get("pieces_ms"),

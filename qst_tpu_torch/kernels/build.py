@@ -129,6 +129,19 @@ def function(name: str, argtypes: Sequence[object], restype: object = ctypes.c_i
         return fn
 
 
+def device_guard(device):
+    """A context in which ``device`` is the current CUDA device, as a launch
+    needs it; where it already is (the usual case) the context does nothing
+    and costs nothing."""
+    import contextlib
+
+    import torch
+
+    if torch.cuda.current_device() == device.index:
+        return contextlib.nullcontext()
+    return torch.cuda.device(device)
+
+
 def check(code: int, what: str) -> None:
     """Raise if a C entry point reported a CUDA error."""
     if code != 0:

@@ -1,9 +1,10 @@
 // Hopper (sm_90a) building blocks as inline PTX, shared by the tensor-core
-// kernels of K1, K2, K4 and K5: mbarriers, TMA tile loads with their host-side
-// tensor maps, wgmma (m64n128k16 bf16 → f32 and m64n128k32 int8 → int32, both
-// operands from 128-byte-swizzled shared memory), the warp-level ldmatrix /
-// mma.sync.m16n8k16 pair the attention kernels and K5 use (and its int8
-// form), and two host helpers (SM count, large dynamic shared memory).
+// kernels of K1, K2, K4, K5 and K6: mbarriers, TMA tile loads with their
+// host-side tensor maps, wgmma (m64n128k16 bf16 → f32 and m64n128k32 int8 →
+// int32, both operands from 128-byte-swizzled shared memory), cp.async with
+// its commit groups, the warp-level ldmatrix / mma.sync.m16n8k16 pair the
+// attention kernels, K5 and K6 use (and its int8 form), and two host helpers
+// (SM count, large dynamic shared memory).
 #pragma once
 
 #include <cuda.h>  // CUtensorMap and its enums (types only: nothing links against libcuda)
@@ -234,6 +235,17 @@ __device__ __forceinline__ void cp_async16(void* smem_dst, const void* src) {
 
 __device__ __forceinline__ void cp_async_wait_all() {
   asm volatile("cp.async.commit_group;\ncp.async.wait_group 0;" ::: "memory");
+}
+
+// A ring of cp.async stages: the copies started since the last commit form a
+// group; cp_async_wait<N> returns once all but the newest N groups have landed.
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;" ::"n"(N) : "memory");
 }
 
 // four 8 x 8 bf16 matrices; lanes 8i..8i+7 give the row addresses of matrix

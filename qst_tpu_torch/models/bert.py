@@ -17,8 +17,12 @@ dict loads as it is. The forward keeps the Flax path's semantics:
   ``where(keep, x / keep_prob, 0)``; the bits are the generator's, not
   JAX's).
 
-``use_flash_attention`` (a library kernel on the TPU) is not on this path.
-Only ``arch="bert"`` is ported; MPNet and RoBERTa wait for a later slice.
+``use_flash_attention`` (a library kernel on the TPU) has no counterpart yet:
+a config that sets it raises rather than run another attention than it asked
+for. ``remat`` recomputes each layer in the backward instead of keeping its
+activations (Flax's ``nn.remat``): the same values and gradients for less
+memory. Only ``arch="bert"`` is ported; MPNet and RoBERTa wait for a later
+slice.
 """
 
 from __future__ import annotations
@@ -29,6 +33,7 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from qst_tpu_torch.core.config import EncoderConfig
 
@@ -189,6 +194,10 @@ class BertEncoder(nn.Module):
         if cfg.arch != "bert":
             raise NotImplementedError(
                 f"arch={cfg.arch!r} is not ported to qst_tpu_torch (bert only)")
+        if cfg.use_flash_attention:
+            raise NotImplementedError(
+                "use_flash_attention=True: the blocked attention kernel for long sequences "
+                "is not ported to qst_tpu_torch yet; the flag is not ignored")
         self.cfg = cfg
         self.embeddings = BertEmbeddings(cfg)
         self.encoder = _LayerStack(cfg)
@@ -206,6 +215,36 @@ class BertEncoder(nn.Module):
         hidden = self.embeddings(input_ids, token_type_ids.long(), position_ids,
                                  dropout_generator)
         bias = torch.where(attention_mask[:, None, None, :] > 0, 0.0, MASK_BIAS).float()
+        remat = self.cfg.remat and torch.is_grad_enabled() and hidden.requires_grad
         for layer in self.encoder.layer:
-            hidden = layer(hidden, bias, dropout_generator)
+            if remat:
+                hidden = _remat_layer(layer, hidden, bias, dropout_generator)
+            else:
+                hidden = layer(hidden, bias, dropout_generator)
         return hidden
+
+
+def _remat_layer(layer: nn.Module, hidden: torch.Tensor, bias: torch.Tensor,
+                 gen: Optional[torch.Generator]) -> torch.Tensor:
+    """One layer under ``torch.utils.checkpoint``: its activations are
+    recomputed in the backward. The dropout masks come from ``gen``, whose
+    state checkpoint does not keep: the recomputation starts from the state
+    the forward started from (and puts back the one it found), so it draws
+    the same masks."""
+    if gen is None:
+        return checkpoint(layer, hidden, bias, None, use_reentrant=False)
+    start = gen.get_state()
+    first = [True]
+
+    def run(h, b):
+        if first[0]:
+            first[0] = False
+            return layer(h, b, gen)
+        now = gen.get_state()
+        gen.set_state(start)
+        try:
+            return layer(h, b, gen)
+        finally:
+            gen.set_state(now)
+
+    return checkpoint(run, hidden, bias, use_reentrant=False)

@@ -97,7 +97,8 @@ def _local_topk(s: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
     if W <= max(4096, 4 * k * BUCKET) or W % BUCKET != 0:
         return torch.topk(s, k, dim=1)
     rows = s.reshape(Q, W // BUCKET, BUCKET)
-    b_idx = torch.topk(rows.amax(dim=2), k, dim=1).indices     # (Q, k) buckets
+    # which buckets, in any order: the last top-k sorts (one launch fewer)
+    b_idx = torch.topk(rows.amax(dim=2), k, dim=1, sorted=False).indices   # (Q, k) buckets
     cand = torch.gather(rows, 1, b_idx[:, :, None].expand(Q, k, BUCKET))
     top_s, pos = torch.topk(cand.reshape(Q, k * BUCKET), k, dim=1)
     bucket = torch.gather(b_idx, 1, pos // BUCKET)

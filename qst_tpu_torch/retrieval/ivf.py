@@ -17,10 +17,11 @@ only the documents of its ``n_probe`` closest cells:
 - **search** has the source's two backends: ``"xla"`` scans the probes with
   a running top-k (one (Q, L, D) gather at a time), ``"pallas"`` scores all
   probed cells with K6 (``ops/ivf.py``: the CUDA kernel on a GPU index, its
-  plain version on a CPU index), masks padded slots by the per-cell fill
-  counts and takes one bucketed top-k over the (Q, P·L) scores. ``"auto"``
-  takes K6 under the source's rule (cell budget a multiple of 128) with
-  "the index's device is not the CPU" in place of "the platform is not cpu".
+  plain version on a CPU index), which is handed the per-cell fill counts
+  and scores padded slots −inf without reading them, and takes one bucketed
+  top-k over the (Q, P·L) scores. ``"auto"`` takes K6 under the source's
+  rule (cell budget a multiple of 128) with "the index's device is not the
+  CPU" in place of "the platform is not cpu".
 
 What differs from the source: the k-means init and the training sample come
 from a ``torch.Generator`` (``jax.random.choice`` has no torch twin), so a
@@ -175,10 +176,11 @@ def _probe_scan(qc: torch.Tensor, probe: torch.Tensor, fetch: Callable, k: int,
 
 
 def _probe(queries: torch.Tensor, centroids: torch.Tensor, n_probe: int):
-    """→ (unit-norm f32 queries, (Q, P) ids of each query's closest cells).
-    The centroid product is a plain matmul, as it is plain XLA in the source."""
+    """→ (unit-norm f32 queries, (Q, P) ids of each query's closest cells, in
+    any order: every probed cell is scored whatever its place). The centroid
+    product is a plain matmul, as it is plain XLA in the source."""
     qf = l2_normalize(queries.float())
-    return qf, torch.topk(qf @ centroids.T, n_probe, dim=1).indices
+    return qf, torch.topk(qf @ centroids.T, n_probe, dim=1, sorted=False).indices
 
 
 def _ivf_search(queries: torch.Tensor, centroids: torch.Tensor, cells: torch.Tensor,
@@ -195,19 +197,16 @@ def _ivf_pallas_search(queries: torch.Tensor, centroids: torch.Tensor,
                        cells: torch.Tensor, cell_ids: torch.Tensor, fill: torch.Tensor,
                        n_probe: int, k: int):
     """The ``"pallas"`` backend (``_ivf_pallas_search_fn`` in the source):
-    centroid product → probe top-k → K6 over the probed cells → slots at or
-    past each cell's fill count masked to −inf → one bucketed top-k over
-    the (Q, P·L) scores → doc ids, −1 where the score is −inf."""
-    Q = queries.shape[0]
+    centroid product → probe top-k → K6 over the probed cells, which scores
+    slots at or past each cell's fill count −inf itself (the source masks
+    them after its kernel) → one bucketed top-k over the (Q, P·L) scores →
+    doc ids, −1 where the score is −inf."""
     L = cells.shape[1]
     qf, probe = _probe(queries, centroids, n_probe)
-    scores = ivf_cell_scores(qf, cells, probe.to(torch.int32))   # (Q, P·L) f32
-    fillp = fill[probe]                                          # (Q, P)
-    ok = torch.arange(L, device=cells.device)[None, None, :] < fillp[:, :, None]
-    scores = torch.where(ok.reshape(Q, n_probe * L), scores, float("-inf"))
+    scores = ivf_cell_scores(qf, cells, probe, fill)             # (Q, P·L) f32
     s, pos = _local_topk(scores, min(k, n_probe * L))
-    cellid = torch.gather(probe, 1, pos // L)
-    doc = cell_ids[cellid, pos % L].long()                       # (Q, kc)
+    # the probed cells' ids laid out as the scores are, read at the winners
+    doc = cell_ids[probe].reshape(scores.shape).gather(1, pos).long()   # (Q, kc)
     return s, torch.where(torch.isneginf(s), -1, doc)
 
 
@@ -494,12 +493,12 @@ class IVFIndex:
         return _ivf_search(q, self.centroids, self.cells, self.cell_ids, n_probe, k)
 
     GATHER_BUDGET_BYTES = 1 << 30  # bounds the scan's (Q, L, D) probe gather
-    SCORES_BUDGET_BYTES = 1 << 29  # bounds the K6 path's (Q, P·L) f32 scores
+    SCORES_BUDGET_BYTES = 1 << 29  # bounds the K6 path's (Q, P·L) f32 scores (and its ids)
 
     def _q_chunk(self, backend: str, n_probe: int) -> int:
         """Queries per dispatch. The scan materializes a (Q, L, D) probe
         gather → bound by GATHER_BUDGET; the K6 path only the (Q, P·L) f32
-        scores → a far larger chunk."""
+        scores and as many int32 doc ids → a far larger chunk."""
         if self._use_pallas(backend):
             row = n_probe * self.cell_budget * 4
             return max(8, min(8192, self.SCORES_BUDGET_BYTES // row))

@@ -260,8 +260,10 @@ def make_train_step(encoder_cfg: EncoderConfig, loss_cfg: LossConfig,
         state.model.train()
         emb = encode(state.model, ids.reshape(four * B, S), mask.reshape(four * B, S),
                      dropout_generator).reshape(four, B, -1)
+        # unbind, not four slices: its backward is one stack of the four
+        # gradients, where each slice's would be padded out and the four added
         loss = loss_from_config(loss_cfg, state.discriminator if d_reg else None)(
-            emb[0], emb[1], emb[2], emb[3])
+            *emb.unbind(0))
         opt.zero_grad(set_to_none=True)
         loss.backward()
         opt.step()

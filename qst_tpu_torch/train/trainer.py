@@ -94,7 +94,12 @@ class Trainer:
         self.dataset = dataset
         self.collator = collator
         self.evaluator = evaluator
+        self.mesh = mesh
+        self.steps_per_call = steps_per_call
         self.initial_params = initial_params
+        self.pp_stages = pp_stages
+        self.pp_microbatches = pp_microbatches or pp_stages
+        self.pp_rounds = pp_rounds
         self.device = resolve_device(device)
         self.steps_per_epoch = steps_per_epoch or max(
             1, len(dataset) // train_cfg.batch_size)

@@ -116,3 +116,54 @@ def test_init_params_is_seeded_and_device_bound():
 def test_unported_arch_raises():
     with pytest.raises(NotImplementedError):
         tse.SentenceEncoderModule(EncoderConfig.tiny(arch="mpnet"))
+
+
+def test_flash_attention_flag_raises_instead_of_being_ignored():
+    with pytest.raises(NotImplementedError, match="use_flash_attention"):
+        tse.SentenceEncoderModule(EncoderConfig.tiny(use_flash_attention=True))
+
+
+@pytest.mark.parametrize("dropout", [0.0, 0.25])
+def test_remat_gives_the_same_values_and_gradients(weights, dropout):
+    """``remat=True`` recomputes each layer in the backward: the embeddings
+    and every parameter's gradient equal ``remat=False`` bit for bit, with
+    dropout too (the recomputation draws the forward's masks again and
+    leaves the generator where the forward left it)."""
+    _, _, sd = weights
+    base = EncoderConfig.tiny(hidden_dropout=dropout, attention_dropout=dropout)
+    ids, mask = (torch.from_numpy(x) for x in _ids_mask(base, B=6, S=12, seed=2))
+    runs = []
+    for remat in (False, True):
+        model = tse.SentenceEncoderModule(dataclasses.replace(base, remat=remat))
+        model.load_state_dict(sd)
+        model.train()
+        gen = torch.Generator().manual_seed(3)
+        emb = model(ids, mask, dropout_generator=gen)["sentence_embedding"]
+        after_forward = gen.get_state()
+        emb.square().sum().backward()
+        assert torch.equal(gen.get_state(), after_forward)
+        runs.append((emb.detach(), {n: p.grad for n, p in model.named_parameters()}))
+    (emb_a, grads_a), (emb_b, grads_b) = runs
+    assert torch.equal(emb_a, emb_b)
+    assert all(g is not None and torch.equal(g, grads_b[n]) for n, g in grads_a.items())
+    if dropout:
+        model.eval()        # dropout was on: train() and eval() outputs differ
+        assert not torch.equal(model(ids, mask)["sentence_embedding"], emb_b)
+
+
+def test_encode_takes_pipeline_batches_and_ignores_it(weights):
+    jcfg, _, sd = weights
+    enc = tse.SentenceEncoder(EncoderConfig.tiny(), sd, HashTokenizer(jcfg.vocab_size))
+    np.testing.assert_array_equal(enc.encode(TEXTS, batch_size=8, pipeline_batches=4),
+                                  enc.encode(TEXTS, batch_size=8))
+
+
+def test_similarity_matches_jax(weights):
+    jcfg, params, sd = weights
+    a, b = TEXTS[:3], TEXTS[2:9]
+    want = jse.SentenceEncoder(jcfg, params, JaxHashTokenizer(jcfg.vocab_size)).similarity(a, b)
+    got = tse.SentenceEncoder(EncoderConfig.tiny(), sd,
+                              HashTokenizer(jcfg.vocab_size)).similarity(a, b)
+    assert isinstance(got, np.ndarray) and got.shape == (3, 7)
+    np.testing.assert_allclose(got, want, rtol=0, atol=ATOL)
+    assert np.argmax(got[2]) == 0           # TEXTS[2] is b[0]

@@ -124,6 +124,62 @@ def test_cell_scores_plain_chunks_and_takes_any_budget(monkeypatch):
     assert torch.equal(tops.ivf_cell_scores_plain(queries, cells, probe), whole)
 
 
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_cell_scores_plain_with_fill_matches_jax_masking(dtype):
+    """With ``fill`` the scorer gives what the JAX search makes of its
+    kernel's scores (``where(slot < fill[probe], scores, -inf)``,
+    qst_tpu/retrieval/ivf.py), for cells of 0, 1, L − 1 and L rows."""
+    rng = np.random.default_rng(13)
+    C, L, D, Q, P = 6, 128, 32, 9, 4
+    cells = rng.standard_normal((C, L, D)).astype(np.float32)
+    fill = np.array([0, 1, L - 1, L, 77, 128], np.int32)
+    queries = rng.standard_normal((Q, D)).astype(np.float32)
+    probe = rng.integers(0, C, (Q, P)).astype(np.int32)
+    probe[0] = (0, 1, 2, 3)                 # every planted fill is probed …
+    probe[1] = (3, 3, 0, 0)                 # … and two cells twice by one query
+    raw = ivf_cell_scores_fn(interpret=True)(
+        jnp.asarray(queries), jnp.asarray(cells).astype(jnp.dtype(dtype)), jnp.asarray(probe))
+    live = jnp.arange(L)[None, None, :] < jnp.asarray(fill)[jnp.asarray(probe)][:, :, None]
+    want = np.asarray(jnp.where(live.reshape(Q, P * L), raw, -jnp.inf))
+    tcells = torch.from_numpy(cells).to(getattr(torch, dtype))
+    args = (torch.from_numpy(queries), tcells, torch.from_numpy(probe))
+    for counts in (torch.from_numpy(fill), torch.from_numpy(fill).long()):
+        got = tops.ivf_cell_scores_plain(*args, counts).numpy()
+        np.testing.assert_array_equal(np.isneginf(got), np.isneginf(want))
+        fin = np.isfinite(want)
+        np.testing.assert_allclose(got[fin], want[fin], **TOL)
+        assert torch.equal(tops.ivf_cell_scores(*args, counts), torch.from_numpy(got))
+    assert np.isneginf(got[0, :L]).all() and np.isfinite(got[0, 3 * L:]).all()
+    assert np.isneginf(got[0, L + 1:2 * L]).all() and np.isfinite(got[0, L])
+    # no fill: every slot's raw score, as the kernel alone gives it
+    np.testing.assert_allclose(tops.ivf_cell_scores_plain(*args).numpy(), np.asarray(raw), **TOL)
+    with pytest.raises(ValueError, match="fill must be"):
+        tops.ivf_cell_scores(*args, torch.zeros(C + 1, dtype=torch.int32))
+    with pytest.raises(TypeError, match="fill must hold"):
+        tops.ivf_cell_scores(*args, torch.zeros(C))
+
+
+@pytest.mark.parametrize("shape,n_cells", [((8, 8), 1024), ((256, 8), 1024), ((5, 3), 2),
+                                           ((1, 1), 7)])
+def test_group_pairs_by_cell_against_numpy(shape, n_cells):
+    """Every pair once, the pairs of a cell neighbours, repeats and ids
+    outside [0, C) kept (below 0 first, C and above last)."""
+    rng = np.random.default_rng(14)
+    probe = rng.integers(0, n_cells, shape).astype(np.int32)
+    probe[0, 0] = -3                         # outside [0, C), both sides
+    if probe.size > 2:
+        probe[-1, -1] = n_cells + 5
+        probe[0, -1] = probe[0, 1]           # one query probing a cell twice
+    ids, order = tops._group_pairs_by_cell(torch.from_numpy(probe))
+    ids, order = ids.numpy(), order.numpy()
+    flat = probe.reshape(-1)
+    assert ids.dtype == np.int32 and order.dtype == np.int64
+    np.testing.assert_array_equal(np.sort(order), np.arange(flat.size))   # every pair once
+    np.testing.assert_array_equal(ids, flat[order])      # position i holds pair order[i]'s cell
+    np.testing.assert_array_equal(ids, np.sort(flat))    # ascending: a cell's pairs are one run
+    assert ids[0] == -3 and (probe.size <= 2 or ids[-1] == n_cells + 5)
+
+
 def test_cell_scores_validation():
     q, c = torch.zeros((3, 8)), torch.zeros((4, 16, 8))
     p = torch.zeros((3, 2), dtype=torch.int32)
@@ -451,3 +507,87 @@ def test_cuda_index_backends_agree(cuda_device):
     auto = ivf.search(q, k=150, n_probe=2)
     assert tops.ivf_cell_scores.launches == before + 1
     assert_ivf_rows_equal(auto, ivf.search(q, k=150, n_probe=2, backend="xla"))
+
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("Q", [1, 11, 256, 1100])
+@pytest.mark.parametrize("L", [1152, 1160, 2048])
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_cuda_cell_scores_both_forms_with_and_without_fill(cuda_device, monkeypatch, dtype, L, Q):
+    """K6 on the card, pairs grouped by cell and a pair a block, with fill
+    counts (an empty cell, one row, L − 1, L) and without: 1e-4 absolute
+    against the plain version on unit vectors, −inf in the same places, and
+    ids outside [0, C) scoring −inf."""
+    gen = torch.Generator().manual_seed(15)
+    C, D, P = 64, 384, 8
+    unit = torch.nn.functional.normalize
+    cells = unit(torch.randn((C, L, D), generator=gen), dim=2).to(cuda_device,
+                                                                  getattr(torch, dtype))
+    fill = torch.randint(0, L + 1, (C,), generator=gen, dtype=torch.int32)
+    fill[:2], fill[-2:] = torch.tensor([0, 1]), torch.tensor([L - 1, L])
+    fill = fill.to(cuda_device)
+    queries = unit(torch.randn((Q, D), generator=gen), dim=1).to(cuda_device)
+    probe = torch.randint(0, C, (Q, P), generator=gen, dtype=torch.int32)
+    probe[0] = torch.tensor([0, C - 1, 0, C - 1, 1, C - 2, 1, C - 2])
+    outside = torch.zeros((Q, P), dtype=torch.bool)
+    if Q > 2:
+        probe[1, 0], probe[1, 1], probe[2] = -1, C, C + 5
+        outside[1, :2] = outside[2] = True
+    probe, outside = probe.to(cuda_device), outside.to(cuda_device)
+    for counts in (None, fill):
+        want = tops.ivf_cell_scores_plain(queries, cells, probe.clamp(0, C - 1), counts)
+        want = torch.where(outside.repeat_interleave(L, dim=1), float("-inf"), want)
+        for line in (1, 1 << 62):           # grouped; a pair a block
+            monkeypatch.setattr(tops, "_GROUP_MIN_PAIRS", line)
+            before = tops.ivf_cell_scores.launches
+            got = tops.ivf_cell_scores(queries, cells, probe, counts)
+            torch.cuda.synchronize()
+            assert tops.ivf_cell_scores.launches == before + 1
+            assert got.shape == (Q, P * L) and not torch.isnan(got).any()
+            assert torch.equal(torch.isneginf(got), torch.isneginf(want))
+            assert torch.where(torch.isneginf(want), 0.0, got - want).abs().max().item() <= 1e-4
+
+
+@pytest.mark.cuda
+def test_cuda_compact_releases_the_old_buffers(cuda_device):
+    """After searches through K6, ``compact()`` leaves one copy of the cells
+    on the card, not two, and the answers are unchanged."""
+    ivf = IVFIndex(torch.from_numpy(_blobs()).to(cuda_device), n_clusters=16, seed=0)
+    q = np.random.default_rng(16).standard_normal((9, 32)).astype(np.float32)
+    want = [ivf.search(q, k=5, n_probe=2, backend="pallas") for _ in range(3)][-1]
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated(cuda_device)
+    ivf.compact()
+    torch.cuda.synchronize()
+    assert ivf.cells.is_cuda and torch.cuda.memory_allocated(cuda_device) <= before
+    assert_ivf_rows_equal(ivf.search(q, k=5, n_probe=2, backend="pallas"), want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,D", [("float32", 12288), ("float32", 3688), ("bfloat16", 24576),
+                                     ("bfloat16", 7400)])
+def test_cuda_cell_scores_wide_rows(cuda_device, monkeypatch, dtype, D):
+    """Rows up to 48 KiB: past what two staged tiles hold, K6 takes fewer
+    rows a tile and then a single stage; wider rows raise."""
+    gen = torch.Generator().manual_seed(17)
+    C, L, P, Q = 6, 24, 3, 5
+    unit = torch.nn.functional.normalize
+    cells = unit(torch.randn((C, L, D), generator=gen), dim=2).to(cuda_device,
+                                                                  getattr(torch, dtype))
+    fill = torch.tensor([0, 1, L - 1, L, 7, 16], dtype=torch.int32, device=cuda_device)
+    queries = unit(torch.randn((Q, D), generator=gen), dim=1).to(cuda_device)
+    probe = torch.randint(0, C, (Q, P), generator=gen).to(cuda_device)
+    for counts in (None, fill):
+        want = tops.ivf_cell_scores_plain(queries, cells, probe, counts)
+        for line in (1, 1 << 62):           # grouped; a pair a block
+            monkeypatch.setattr(tops, "_GROUP_MIN_PAIRS", line)
+            got = tops.ivf_cell_scores(queries, cells, probe, counts)
+            torch.cuda.synchronize()
+            assert torch.equal(torch.isneginf(got), torch.isneginf(want))
+            assert torch.where(torch.isneginf(want), 0.0, got - want).abs().max().item() <= 1e-4
+    if D * cells.element_size() == 48 * 1024:
+        wider = torch.zeros((2, 8, D + 8), dtype=cells.dtype, device=cuda_device)
+        with pytest.raises(ValueError, match="bytes"):
+            tops.ivf_cell_scores(torch.zeros((1, D + 8), device=cuda_device), wider,
+                                 torch.zeros((1, 1), dtype=torch.int64, device=cuda_device))

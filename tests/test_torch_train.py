@@ -382,6 +382,31 @@ def test_unported_trainer_options_raise(tmp_path):
         Trainer(*args, steps_per_call=0)
 
 
+def test_trainer_keeps_the_source_attributes(tmp_path):
+    """``mesh``, ``steps_per_call`` and the ``pp_*`` options stay on the
+    trainer as qst_tpu's keeps them (``qst_tpu/train/trainer.py``), with its
+    default for ``pp_microbatches`` (the stage count)."""
+    root = str(tmp_path / "chunks")
+    write_synthetic_dataset(root, n_chunks=1, chunk_dim=8)
+    trainer, _ = _trainer(root, str(tmp_path / "exp"))
+    assert (trainer.mesh, trainer.steps_per_call, trainer.pp_stages, trainer.pp_microbatches,
+            trainer.pp_rounds) == (None, 1, 1, 1, 1)
+
+
+def test_fused_loss_of_unbound_roles_equals_the_sliced_form():
+    """The train step unbinds its (4, B, D) embeddings for the loss (one
+    stack on the way back); loss and gradient are those of four slices."""
+    tl = tc.LossConfig(margin_pos_part=0.5, margin_part_neg=0.5, use_fused_kernel=True)
+    emb = torch.from_numpy(np.random.default_rng(21).standard_normal((4, 5, 16)).astype(
+        np.float32))
+    loss_fn = tts.loss_from_config(tl)
+    a, b = emb.clone().requires_grad_(True), emb.clone().requires_grad_(True)
+    la, lb = loss_fn(*a.unbind(0)), loss_fn(b[0], b[1], b[2], b[3])
+    la.backward()
+    lb.backward()
+    assert torch.equal(la, lb) and torch.equal(a.grad, b.grad)
+
+
 def test_initial_params_reach_training(tmp_path):
     """Trainer(initial_params) at lr 0 finishes with the given weights."""
     root = str(tmp_path / "chunks")
