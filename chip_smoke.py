@@ -1,9 +1,10 @@
-"""Drive the PyTorch/CUDA port's serving, training and IVF paths on one NVIDIA GPU.
+"""Drive the PyTorch/CUDA port's serving, training, evaluation and IVF paths on one NVIDIA GPU.
 
     python3 chip_smoke.py                          # every phase, one GPU
     python3 chip_smoke.py --phases build,check     # a new kernel's first, short call
     python3 chip_smoke.py --phases build,check,train
     python3 chip_smoke.py --phases build,check,ivf
+    python3 chip_smoke.py --phases build,check,train,evaluate
 
 Phases (any failure exits non-zero and prints no result):
 
@@ -28,7 +29,8 @@ Phases (any failure exits non-zero and prints no result):
    compact(), which must leave one copy of the cells on the card;
    the bf16 GEMM behind K1 and K2 alone in its four operand layouts (ragged
    M, every N the layer uses, split-K), K1 and K2 at sequence lengths that
-   are no multiple of 16 and at head widths 32 and 64, and K2's 16 gradients
+   are no multiple of 16 and at head widths 32 and 64, at head width 16
+   (EncoderConfig.tiny()'s shapes, f32 and bf16), and K2's 16 gradients
    bit-equal between two calls.
 3. serve  — random-init MiniLM-L6 with use_fused_layer, a bfloat16 Retriever
    over 65,536 synthetic docs (so "auto" search takes K4 + K5), a
@@ -39,7 +41,9 @@ Phases (any failure exits non-zero and prints no result):
    configuration (MiniLM-L6, batch 32 quadruplets, S = 128, bf16, dropout
    0.1, fused γ loss, AdamW): finite losses, 6 K1 and 6 K2 launches and one
    K3 forward and backward per step; the first step's gradients at dropout
-   0 against the plain versions; a falling loss on a repeated batch.
+   0 against the plain versions; one step at EncoderConfig.tiny() (head
+   width 16) through the kernels against the plain versions; a falling loss
+   on a repeated batch.
 5. ivf    — qst_tpu_torch.cli.index_main as a user calls it: ``build
    --index_dtype ivf --use_fused_layer`` over 65,536 synthetic docs, the
    ``serve`` command's retriever and server on port 0 answering concurrent
@@ -49,7 +53,8 @@ Phases (any failure exits non-zero and prints no result):
    must rise, and the only library GEMM in a request is the centroid product.
 6. times  — kernel against plain at the main paths' shapes, each with the
    least time the card could take (bytes over memory rate or operations over
-   peak rate); encode sentences/s at B=256, S=128; search QPS over 1M x 384
+   peak rate); encode sentences/s at B=256, S=128; a 65,536-text encode to
+   numpy at dispatch_depth 1 and 4; search QPS over 1M x 384
    bf16 at Q=4096 and Q=256, with K4 on int8, the product alone through
    torch.matmul as K4's yardstick, and K5's two forms around the pair count
    where the wrapper changes over; train steps/s of the kernel path against
@@ -66,6 +71,21 @@ Phases (any failure exits non-zero and prints no result):
    topk_v2; K3's two kernels must follow each other in the step's
    timeline), the launches of one IVF search, and served
    req/s with p50/p99 latency at 1, 8 and 64 closed-loop clients.
+8. evaluate — training with validation and negative mining, and IR
+   evaluation, from the command line: a synthetic quadruplet dataset of
+   11,200 instances (66,200 IR docs) and its first 960; train_main on the
+   960 (MiniLM-L6, batch 32, fused layer and loss, hard-contrastive mode 1,
+   then random mode -1; IR + quadruplet + loss evaluation every 10 steps):
+   the evaluations at epoch -1 and each evaluation step, finite losses, and
+   K1 / K2 / K3 launches exactly the steps', the miner's and the
+   evaluators'; the evaluators on the trained model against their plain
+   versions (IR metrics and accuracies within 0.005, the loss within 2e-2
+   relative) and the logged validation loss recomputed; ir_eval_main over
+   the 11,200 (cos and dot, k up to 128) for baseline and trained through
+   the exact index (one K4 and one K5 a dot search), for the baseline
+   through the IVF index (K6), and the trained model's evaluation through
+   the plain versions; one evaluation timed by part; the miner's table
+   refresh, steps/s with and without the miner, the device's busy share.
 
 The last lines are the card's name and power limit (nvidia-smi), one JSON
 object with a row per kernel, and {"ok": true, "device": {...}}.
@@ -78,6 +98,7 @@ from __future__ import annotations
 import argparse
 import contextlib
 import json
+import os
 import subprocess
 import sys
 import threading
@@ -86,7 +107,7 @@ import urllib.request
 
 import numpy as np
 
-PHASES = ("build", "check", "serve", "ivf", "train", "times", "profile")
+PHASES = ("build", "check", "serve", "ivf", "train", "times", "profile", "evaluate")
 
 
 def fail(msg: str) -> None:
@@ -590,6 +611,39 @@ def check_layer_edges(report: dict) -> None:
             f"mean|err|/mean|ref| {mean:.3e} ({mean_n}; limit {2.0 ** -7:.2e})")
         if not (mx <= 2e-2 and mean <= 2.0 ** -7):
             fail(f"K2 bf16 {what}: outside the limits")
+
+    # head width 16: EncoderConfig.tiny()'s shapes (H = 64, 4 heads, F = 128,
+    # S = 32), f32 and bf16, with and without dropout; K1's and K2's limits
+    for dtype in (torch.float32, torch.bfloat16):
+        B, S, H, F, NH = 6, 32, 64, 128, 4
+        w = random_layer(H, F, dtype, gen, dev)
+        x, bias, g = masked_batch(B, S, H, dtype, gen, dev)
+        name = str(dtype)[6:]
+        for rate in (0.0, 0.1):
+            kw = dict(num_heads=NH, attn_dropout=rate, hidden_dropout=rate, nb=8,
+                      seed=torch.tensor([13579], dtype=torch.int32, device=dev) if rate else None)
+            what = f"B={B} S={S} H={H} F={F} head width 16 dropout {rate}"
+            out = fl.fused_bert_layer(x, bias, w, **kw).float()
+            ref = fl.fused_bert_layer_plain(x, bias, w, **kw).float()
+            if not torch.isfinite(out).all():
+                fail(f"K1 {name} {what}: non-finite output")
+            if dtype == torch.float32:
+                err = (out - ref).abs().max().item()
+                log(f"K1 {name} {what}: max|err| {err:.3e} (limit 1e-4)")
+                if not err <= 1e-4:
+                    fail(f"K1 {name} {what}: max|err| {err} > 1e-4")
+            else:
+                bf16_limits(f"K1 {name} {what}", out, ref)
+            dx, dw = fl.fused_bert_layer_bwd(x, bias, w, g, **kw)
+            rdx, rdw = fl.fused_bert_layer_bwd_plain(x, bias, w, g, **kw)
+            torch.cuda.synchronize()
+            (mx, mx_n), (mean, mean_n), _ = grad_errors(dict(dw, dx=dx), dict(rdw, dx=rdx))
+            lim_max, lim_mean = (1e-4, 2e-5) if dtype == torch.float32 else (2e-2, 2.0 ** -7)
+            log(f"K2 {name} {what}: worst max|err|/max|ref| {mx:.3e} ({mx_n}; limit "
+                f"{lim_max:.0e}), worst mean|err|/mean|ref| {mean:.3e} ({mean_n}; limit "
+                f"{lim_mean:.2e})")
+            if not (mx <= lim_max and mean <= lim_mean):
+                fail(f"K2 {name} {what}: outside the limits")
 
     # no atomics: two calls give the same bits (training shape, dropout 0.1)
     B, S, H, F, NH = 128, 128, 384, 1536, 12
@@ -1357,6 +1411,7 @@ def train(report: dict) -> None:
 
     import torch
 
+    from qst_tpu_torch.core.config import EncoderConfig
     from qst_tpu_torch.core.telemetry import JsonLogSink
     from qst_tpu_torch.data import QuadrupletCollator, QuadrupletDataset
     from qst_tpu_torch.models.tokenizer import HashTokenizer
@@ -1432,6 +1487,32 @@ def train(report: dict) -> None:
         fail("the kernel path's gradients disagree with the plain versions")
     report["train"]["grad_cosine"] = cos
 
+    # one train step at EncoderConfig.tiny() (head width 16, f32, dropout
+    # 0.1) through K1, K2 and K3, and its loss against the same step through
+    # the plain versions (the same dropout masks): 1e-4 absolute
+    tiny = EncoderConfig.tiny(use_fused_layer=True)
+    ids = torch.randint(5, tiny.vocab_size, (4, 8, 32), generator=torch.Generator().manual_seed(4))
+    tiny_mask = torch.ones_like(ids)
+    tiny_mask[:, :, 20:] = 0
+    tiny_losses = []
+    for plain in (False, True):
+        state, _ = create_train_state(tiny, base, torch.Generator().manual_seed(5), 10, loss_cfg,
+                                      device=dev)
+        for c in counters:
+            c.launches = 0
+        with plain_kernels() if plain else contextlib.nullcontext():
+            state, loss = make_train_step(tiny, loss_cfg)(
+                state, ids, tiny_mask, torch.Generator(device=dev).manual_seed(6))
+        tiny_losses.append(loss.item())
+        if not plain:
+            tiny_launches = [c.launches for c in counters]
+    log(f"one train step at EncoderConfig.tiny() (head width 16): loss {tiny_losses[0]:.6f} "
+        f"through the kernels, {tiny_losses[1]:.6f} through the plain versions (limit 1e-4); "
+        f"launches K1 {tiny_launches[0]}, K2 {tiny_launches[1]}, K3 {tiny_launches[2:]}")
+    if not (np.isfinite(tiny_losses[0]) and abs(tiny_losses[0] - tiny_losses[1]) <= 1e-4
+            and tiny_launches == [2, 2, 1, 1]):
+        fail("the tiny train step through the kernels")
+
     # a falling loss: 20 steps on one repeated batch, warmup 4
     state, _ = create_train_state(enc_cfg, dataclasses.replace(base, learning_rate=1e-4,
                                                                warmup_steps=4),
@@ -1446,6 +1527,482 @@ def train(report: dict) -> None:
         f"{losses[-1]:.4f}; {['%.3f' % v for v in losses]}")
     if not (all(np.isfinite(losses)) and np.mean(losses[-3:]) < np.mean(losses[:3])):
         fail(f"the loss did not fall: {losses}")
+
+
+class plain_search:
+    """Within the block, ExactIndex's "auto" takes the plain scan for every
+    search (``backend="xla"``): with ``plain_kernels`` the IR evaluator's
+    path through the plain versions alone."""
+
+    def __enter__(self):
+        from qst_tpu_torch.retrieval.index import ExactIndex
+
+        self.saved = ExactIndex.PALLAS_MIN_DOCS
+        ExactIndex.PALLAS_MIN_DOCS = 1 << 62
+        return self
+
+    def __exit__(self, *exc):
+        from qst_tpu_torch.retrieval.index import ExactIndex
+
+        ExactIndex.PALLAS_MIN_DOCS = self.saved
+        return False
+
+
+class logged:
+    """Collects the records of one logger (a CLI's own summary line)."""
+
+    def __init__(self, name: str):
+        import logging
+
+        self.logger, self.records = logging.getLogger(name), []
+        self.handler = logging.Handler()
+        self.handler.emit = self.records.append
+
+    def __enter__(self):
+        self.logger.addHandler(self.handler)
+        return self.records
+
+    def __exit__(self, *exc):
+        self.logger.removeHandler(self.handler)
+        return False
+
+
+def batches_of(n: int, size: int = 256) -> int:
+    """The encode batches (SentenceEncoder.encode's default size) of n texts."""
+    return -(-n // size)
+
+
+EVAL_STEPS = 10
+IR_GRID = ["--accuracy_at_k", "1", "3", "5", "10", "--precision_recall_at_k", "1", "3", "5",
+           "10", "--mrr_at_k", "10", "--ndcg_at_k", "10", "--map_at_k", "100"]
+
+
+def read_csv(path: str) -> list:
+    import csv
+
+    with open(path) as f:
+        return list(csv.reader(f))[1:]
+
+
+def train_main_run(report: dict, small: str, exp: str, mode: str) -> dict:
+    """``train_main`` as a user calls it on ``small``; its launches, held to
+    what the steps, the miner and the evaluators account for exactly."""
+    from qst_tpu_torch.cli import train_main
+    from qst_tpu_torch.ops import fused_layer as fl
+    from qst_tpu_torch.ops import ivf as ops_ivf
+    from qst_tpu_torch.ops import quadruplet as qd
+    from qst_tpu_torch.ops import topk
+
+    counters = {"K1": fl.fused_bert_layer, "K2": fl.fused_bert_layer_bwd,
+                "K3 forward": qd.fused_gamma_quadruplet_loss_fwd,
+                "K3 backward": qd.fused_gamma_quadruplet_loss_bwd,
+                "K4": topk.bucket_maxima, "K5": topk.rescore_buckets,
+                "K6": ops_ivf.ivf_cell_scores}
+    argv = ["--dataset_root", small, "--experiment_dir", exp, "--use_fused_layer",
+            "--use_fused_loss_kernel", "--hard_contrastive_mode", mode, "--use_ir_evaluator",
+            "--epochs", "1", "--evaluation_steps", str(EVAL_STEPS), "--warmup_steps", "5",
+            "--learning_rate", "5e-5", "--early_stopping_patience", "100", "--seed", "14"]
+    for c in counters.values():
+        c.launches = 0
+    t0 = time.perf_counter()
+    with logged("qst_tpu_torch.cli.train") as records:
+        if train_main.main(argv) != 0:
+            fail(f"train_main --hard_contrastive_mode {mode} failed")
+    import torch
+
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {n: c.launches for n, c in counters.items()}
+    done = [r for r in records if r.msg.startswith("done:")]
+    if not done:
+        fail("train_main logged no summary")
+    best, _, n_evals, steps_per_s, _ = done[0].args
+
+    # what the run did, from its own files
+    from qst_tpu_torch.data import ChunkStore
+
+    n_inst = len(ChunkStore(small))
+    steps = n_inst // 32
+    n_val = min(max(1, int(n_inst * 0.1)), 1000)
+    val_rows = min(n_val, 256)
+    val_batches = -(-val_rows // 32)
+    with open(f"{exp}/ir_eval_set.json") as f:
+        ir_set = json.load(f)
+    evals = [(-1, -1)] + [(0, s) for s in range(EVAL_STEPS, steps + 1, EVAL_STEPS)] + [(0, steps)]
+    quad_rows = [(int(r[0]), int(r[1])) for r in read_csv(f"{exp}/quadruplet_results.csv")]
+    ir_rows = read_csv(f"{exp}/ir_results.csv")
+    with open(f"{exp}/val_quadruplet_loss_eval.json") as f:
+        loss_log = json.load(f)
+    with open(f"{exp}/train_loss.json") as f:
+        train_losses = [e["loss"] for e in json.load(f)]
+    if (quad_rows != evals or [(e["epoch"], e["steps"]) for e in loss_log] != evals
+            or sorted({(int(r[0]), int(r[1])) for r in ir_rows}) != sorted(set(evals))
+            or len(ir_rows) != len(evals) * 3 * 44 or n_evals != len(evals)):
+        fail(f"train_main mode {mode}: evaluations {quad_rows}, want {evals}")
+    if not (len(train_losses) == len(evals) - 2 and all(np.isfinite(train_losses))
+            and all(np.isfinite(e["average_loss"]) for e in loss_log)):
+        fail(f"train_main mode {mode}: losses {train_losses}, validation {loss_log}")
+
+    # the launches each part accounts for: 6 layers a forward
+    pool = len(ChunkStore(small).all_positive_captions())    # the miner's table
+    miner = 6 * (batches_of(pool) + batches_of(val_rows) + val_batches + steps)
+    per_eval = 6 * (batches_of(len(ir_set["queries"])) + batches_of(len(ir_set["corpus"]))
+                    + batches_of(4 * val_rows) + val_batches)
+    want = {"K1": 6 * steps + miner + len(evals) * per_eval, "K2": 6 * steps,
+            "K3 forward": steps + len(evals) * val_batches, "K3 backward": steps,
+            "K4": 0, "K5": 0, "K6": 0}
+    log(f"train_main --hard_contrastive_mode {mode}: {steps} steps of MiniLM-L6 over {n_inst} "
+        f"instances, {len(evals)} evaluations (IR {len(ir_set['queries'])} queries x "
+        f"{len(ir_set['corpus'])} docs, 3 score functions, k up to 900: the plain scan; "
+        f"quadruplet {val_rows}; validation loss {val_batches} batches) in {wall:.1f} s, "
+        f"{steps_per_s:.2f} steps/s in the loop (evaluations included); best {best:.6f}; "
+        f"train losses {['%.4f' % v for v in train_losses]}; launches {launches}; K1 = "
+        f"steps {6 * steps} + miner {miner} + evaluators {len(evals) * per_eval}")
+    if launches != want:
+        fail(f"train_main mode {mode}: launches {launches}, want {want}")
+    for n in ("K1", "K2"):
+        report[n]["launches"] = report[n].get("launches", 0) + launches[n]
+    report["K3"]["launches"] = (report["K3"].get("launches", 0) + launches["K3 forward"]
+                                + launches["K3 backward"])
+    return {"wall_s": wall, "steps_per_s": steps_per_s, "evaluations": len(evals),
+            "miner_k1": miner, "steps_k1": 6 * steps, "evaluators_k1": len(evals) * per_eval}
+
+
+def compare_evaluators(exp: str, small: str, tmp: str) -> dict:
+    """The run's evaluators rebuilt (``train_main.build_trainer``: the same
+    val batches, eval set and miner draws), each called on the run's final
+    model through the kernels and through the plain versions; and the
+    logged final validation loss recomputed apart from the evaluator."""
+    import torch
+
+    from qst_tpu_torch.cli import train_main
+    from qst_tpu_torch.models.sentence_encoder import SentenceEncoder
+    from qst_tpu_torch.train.train_step import make_eval_loss_fn
+
+    args = train_main.build_parser().parse_args([
+        "--dataset_root", small, "--experiment_dir", f"{tmp}/recheck", "--use_fused_layer",
+        "--use_fused_loss_kernel", "--hard_contrastive_mode", "1", "--use_ir_evaluator",
+        "--seed", "14"])
+    trainer = train_main.build_trainer(args)
+    evaluators = dict(trainer.evaluator.evaluators)
+    steps = len(trainer.dataset) // 32
+    final = torch.load(f"{exp}/checkpoints/periodic/{steps}/state.pt", map_location="cuda",
+                       weights_only=True)["model"]
+    enc = SentenceEncoder(trainer.encoder_cfg, final, trainer.collator.tokenizer)
+    out = {}
+    for plain in (False, True):
+        ctx = contextlib.ExitStack()
+        if plain:
+            ctx.enter_context(plain_kernels())
+            ctx.enter_context(plain_search())
+        with ctx:
+            loss = -evaluators["loss"](enc.model)
+            evaluators["quadruplet"](enc.encode)
+            evaluators["ir"](enc.encode)
+            torch.cuda.synchronize()
+        out[plain] = (loss, dict(evaluators["quadruplet"].last_scores),
+                      {f: dict(m) for f, m in evaluators["ir"].last_results.items()})
+    # the logged value of the last evaluation against the same model, recomputed
+    # here batch by batch through the kernels
+    with open(f"{exp}/val_quadruplet_loss_eval.json") as f:
+        logged_loss = json.load(f)[-1]["average_loss"]
+    loss_fn = make_eval_loss_fn(trainer.encoder_cfg, trainer.loss_cfg)
+    total = 0.0
+    for batch in evaluators["loss"].batches:
+        qb = evaluators["loss"].collator(batch)
+        total += float(loss_fn(enc.model, qb.input_ids, qb.attention_mask))
+    recomputed = total / len(evaluators["loss"].batches)
+    (k_loss, k_quad, k_ir), (p_loss, p_quad, p_ir) = out[False], out[True]
+    quad_err = max(abs(k_quad[n] - p_quad[n]) for n in k_quad)
+    ir_err = max(abs(k_ir[f][m] - p_ir[f][m]) for f in k_ir for m in k_ir[f])
+    loss_rel = abs(k_loss - p_loss) / abs(p_loss)
+    log(f"evaluators on the trained model, kernels against plain versions: validation loss "
+        f"{k_loss:.6f} / {p_loss:.6f} (rel {loss_rel:.2e}, limit 2e-2); quadruplet "
+        f"accuracies {k_quad} / {p_quad} (max diff {quad_err:.4f}, limit 0.005); IR "
+        f"map@100 cos {k_ir['cos_sim']['map@100']:.4f} / {p_ir['cos_sim']['map@100']:.4f}, "
+        f"max diff over 3 x 44 metrics {ir_err:.4f} (limit 0.005); the logged final "
+        f"validation loss {logged_loss:.6f}, recomputed {recomputed:.6f}")
+    if not (loss_rel <= 2e-2 and quad_err <= 0.005 and ir_err <= 0.005):
+        fail("an evaluator through the kernels disagrees with its plain versions")
+    if not abs(recomputed - logged_loss) <= 1e-6 * abs(logged_loss):
+        fail(f"the logged validation loss {logged_loss} != recomputed {recomputed}")
+    return {"loss_rel_err": loss_rel, "quadruplet_max_err": quad_err, "ir_max_err": ir_err}
+
+
+def ir_eval_run(report: dict, big: str, exp, out_root: str, index: str) -> dict:
+    """``ir_eval_main`` on ``big`` for the baseline and, given ``exp``, the
+    trained model (cos and dot, k up to 128) → its results.json; the K4 + K5
+    (exact: one each a dot_score search) or K6 (ivf: one a search) launches
+    held to the searches."""
+    import torch
+
+    from qst_tpu_torch.cli import ir_eval_main
+    from qst_tpu_torch.ops import ivf as ops_ivf
+    from qst_tpu_torch.ops import topk
+
+    counters = {"K4": topk.bucket_maxima, "K5": topk.rescore_buckets,
+                "K6": ops_ivf.ivf_cell_scores}
+    for c in counters.values():
+        c.launches = 0
+    argv = ["--dataset_root", big, "--output_root", out_root, "--use_fused_layer",
+            "--score_functions", "cos_sim", "dot_score", "--eval_index", index, *IR_GRID]
+    if exp:
+        argv += ["--model_path", exp]
+    t0 = time.perf_counter()
+    if ir_eval_main.main(argv) != 0:
+        fail(f"ir_eval_main --eval_index {index} failed")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {n: c.launches for n, c in counters.items()}
+    [out] = [d for d in os.listdir(out_root)]
+    with open(f"{out_root}/{out}/results.json") as f:
+        results = json.load(f)
+    with open(f"{out_root}/{out}/ir_eval_set.json") as f:
+        ir_set = json.load(f)
+    models = ["baseline"] + (["trained"] if exp else [])
+    searches = len(models) * (1 if index == "exact" else 2)   # dot only, or cos and dot
+    want = ({"K4": searches, "K5": searches, "K6": 0} if index == "exact"
+            else {"K4": 0, "K5": 0, "K6": searches})
+    log(f"ir_eval_main --eval_index {index}: {len(ir_set['queries'])} queries x "
+        f"{len(ir_set['corpus'])} docs, {' and '.join(models)}, cos and dot, k up to 128, "
+        f"in {wall:.1f} s; map@100 "
+        + ", ".join(f"{m} {f} {results[m]['metrics'][f]['map@100']:.4f}"
+                    for m in results for f in results[m]['metrics'])
+        + f"; launches {launches}")
+    if launches != want or set(results) != set(models):
+        fail(f"ir_eval_main {index}: launches {launches}, want {want}; results {set(results)}")
+    for n in ("K4", "K5", "K6"):
+        report[n]["launches"] = report[n].get("launches", 0) + launches[n]
+    return {"results": results, "wall_s": wall, "eval_set": f"{out_root}/{out}/ir_eval_set.json"}
+
+
+def plain_ir_trained(big_eval_set: str, exp: str) -> dict:
+    """ir_eval_main's evaluation of the trained model again, on its eval
+    set, through the plain versions (K1's, and the plain scan for K4 + K5)
+    → the metrics."""
+    from qst_tpu_torch.cli.common import load_best_params
+    from qst_tpu_torch.core.config import EncoderConfig, IREvalConfig
+    from qst_tpu_torch.evals import InformationRetrievalEvaluator, IREvaluationSet
+    from qst_tpu_torch.models.sentence_encoder import SentenceEncoder
+    from qst_tpu_torch.models.tokenizer import HashTokenizer
+
+    with open(big_eval_set) as f:
+        ir_set = IREvaluationSet.from_json(json.load(f))
+    cfg = EncoderConfig.minilm_l6(use_fused_layer=True)
+    ev = InformationRetrievalEvaluator(
+        ir_set.queries, ir_set.corpus, ir_set.relevant,
+        cfg=IREvalConfig(accuracy_at_k=(1, 3, 5, 10), precision_recall_at_k=(1, 3, 5, 10),
+                         mrr_at_k=(10,), ndcg_at_k=(10,), map_at_k=(100,),
+                         score_functions=("cos_sim", "dot_score")))
+    enc = SentenceEncoder(cfg, load_best_params(exp), HashTokenizer(cfg.vocab_size),
+                          device="cuda")
+    with plain_kernels(), plain_search():
+        ev(enc.encode)
+    return ev.last_results
+
+
+def evaluation_times(big: str, exp: str) -> dict:
+    """One full IR evaluation of the trained model over ``big`` as the
+    evaluator runs it, timed by part (host clock, synchronised): the encode
+    of queries and corpus, each score function's search (with the id lists)
+    and the metrics on the host; at ir_eval_main's grid above (k up to 128,
+    cos and dot) and at the default grid (k up to 900, three functions)."""
+    import torch
+
+    from qst_tpu_torch.cli.common import load_best_params
+    from qst_tpu_torch.core.config import EncoderConfig, IREvalConfig
+    from qst_tpu_torch.data import ChunkStore
+    from qst_tpu_torch.evals import create_ir_evaluation_set, ir_metrics
+    from qst_tpu_torch.models.sentence_encoder import SentenceEncoder
+    from qst_tpu_torch.models.tokenizer import HashTokenizer
+    from qst_tpu_torch.retrieval.index import ExactIndex
+
+    cfg = EncoderConfig.minilm_l6(use_fused_layer=True)
+    enc = SentenceEncoder(cfg, load_best_params(exp), HashTokenizer(cfg.vocab_size),
+                          device="cuda")
+    ir_set = create_ir_evaluation_set(list(ChunkStore(big).iter_instances()))
+    qids = [q for q in ir_set.queries if ir_set.relevant.get(q)]
+    queries, cids = [ir_set.queries[q] for q in qids], list(ir_set.corpus)
+    corpus = [ir_set.corpus[c] for c in cids]
+    rel = [ir_set.relevant[q] for q in qids]
+    enc.encode(queries, convert_to_numpy=False)            # warm
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    q_emb = enc.encode(queries, convert_to_numpy=False)
+    c_emb = enc.encode(corpus, convert_to_numpy=False)
+    index = ExactIndex(c_emb, ids=cids)
+    torch.cuda.synchronize()
+    out = {"encode_s": time.perf_counter() - t0, "n_queries": len(queries),
+           "n_docs": len(corpus)}
+    # the host's share: tokenizing a quarter of the corpus alone
+    sample = corpus[: len(corpus) // 4]
+    t0 = time.perf_counter()
+    for i in range(0, len(sample), 256):
+        enc.tokenizer.batch_encode(sample[i:i + 256], max_length=cfg.max_seq_length)
+    out["tokenize_per_1k_texts_s"] = (time.perf_counter() - t0) / len(sample) * 1e3
+    grids = {"k<=128": (IREvalConfig(accuracy_at_k=(1, 3, 5, 10),
+                                     precision_recall_at_k=(1, 3, 5, 10), mrr_at_k=(10,),
+                                     ndcg_at_k=(10,), map_at_k=(100,),
+                                     score_functions=("cos_sim", "dot_score"))),
+             "default": IREvalConfig()}
+    for name, grid in grids.items():
+        k = max((*grid.accuracy_at_k, *grid.precision_recall_at_k, *grid.mrr_at_k,
+                 *grid.ndcg_at_k, *grid.map_at_k))
+        for fn in grid.score_functions:
+            index.search_ids(q_emb, k=k, score=fn)          # warm
+            t0 = time.perf_counter()
+            _, ranked = index.search_ids(q_emb, k=k, score=fn)
+            t1 = time.perf_counter()
+            ir_metrics(ranked, rel, accuracy_at_k=grid.accuracy_at_k,
+                       precision_recall_at_k=grid.precision_recall_at_k,
+                       mrr_at_k=grid.mrr_at_k, ndcg_at_k=grid.ndcg_at_k,
+                       map_at_k=grid.map_at_k)
+            out[f"{name} {fn} search_s"] = t1 - t0
+            out[f"{name} {fn} metrics_s"] = time.perf_counter() - t1
+    log(f"one IR evaluation of the trained model, {len(queries)} queries x {len(corpus)} docs "
+        f"(host clock, synchronised): encode {out['encode_s']:.3f} s (of it tokenization "
+        f"{out['tokenize_per_1k_texts_s'] * (len(queries) + len(corpus)) / 1e3:.3f} s at "
+        f"{out['tokenize_per_1k_texts_s']:.3f} s per 1,000 texts); "
+        + "; ".join(f"{k} {v:.3f} s" for k, v in out.items() if k.endswith("search_s")
+                    or k.endswith("metrics_s")))
+    return out
+
+
+def mining_times(small: str, big: str, tmp: str) -> dict:
+    """The miner's cost: the EmbeddingTable's refresh (its whole pool through
+    the frozen encoder) at the small and the big dataset's pool; train steps/s
+    of train_main's trainer (no evaluator) with the miner and without it, in
+    turns (mined, plain, plain, mined); the device's busy share over steps
+    with and without the miner (torch.profiler: device time of the kernels
+    over the window's wall time)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from qst_tpu_torch.cli import train_main
+    from qst_tpu_torch.data import ChunkStore, EmbeddingTable, PrefetchIterator
+    from qst_tpu_torch.train.trainer import step_generator
+
+    args = train_main.build_parser().parse_args([
+        "--dataset_root", small, "--experiment_dir", f"{tmp}/timing", "--use_fused_layer",
+        "--use_fused_loss_kernel", "--hard_contrastive_mode", "1", "--epochs", "1",
+        "--evaluation_steps", "0", "--checkpoint_save_steps", "0", "--no-save_best_model",
+        "--seed", "14"])
+    trainer = train_main.build_trainer(args)
+    trainer.evaluator = None
+    miner = trainer.dataset.miner
+    out = {}
+    for name, captions in (("small", miner.table.captions),
+                           ("big", ChunkStore(big).all_positive_captions())):
+        table = EmbeddingTable(captions, miner.encode_fn)
+        if name == "small":
+            table.refresh(0)                  # warm
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        table.refresh(0)
+        torch.cuda.synchronize()
+        out[f"refresh_{name}_s"] = time.perf_counter() - t0
+        out[f"pool_{name}"] = len(captions)
+    # how many candidates the threshold leaves (cos <= 0.2 to the anchor):
+    # with no valid candidate both modes take the sub-pool's first, as in
+    # qst_tpu
+    refs = [inst["reference"] for _, inst in zip(range(256), ChunkStore(small).iter_instances())]
+    a = torch.nn.functional.normalize(miner.encode_fn(refs, convert_to_numpy=False).float(), dim=1)
+    t = torch.nn.functional.normalize(miner.table.embeddings.float(), dim=1)
+    cos = a @ t.T
+    out["valid_share"] = (cos <= miner.threshold).float().mean().item()
+    out["cos_min"] = cos.min().item()
+    rates = {"mined": [], "plain": []}
+    for name in ("mined", "plain", "plain", "mined"):
+        trainer.dataset.miner = miner if name == "mined" else None
+        rates[name].append(trainer.train().steps_per_sec)
+    out["steps_per_s"] = rates
+
+    # busy share over 20 steps after 5, the batches sampled (and mined) on
+    # the prefetch thread as in Trainer.train
+    from qst_tpu_torch.train import create_train_state, make_train_step
+
+    busy, dev = {}, torch.device("cuda")
+    for name in ("mined", "plain"):
+        trainer.dataset.miner = miner if name == "mined" else None
+        state, _ = create_train_state(trainer.encoder_cfg, trainer.train_cfg,
+                                      torch.Generator().manual_seed(14), 100, trainer.loss_cfg,
+                                      device=dev)
+        step = make_train_step(trainer.encoder_cfg, trainer.loss_cfg)
+        batches = PrefetchIterator(trainer.dataset.iter_batches(32, epoch=0),
+                                   transform=trainer.collator, depth=2)
+        for i in range(5):
+            qb = next(batches)
+            state, _ = step(state, qb.input_ids, qb.attention_mask, step_generator(14, i + 1, dev))
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for i in range(5, 25):
+                qb = next(batches)
+                state, _ = step(state, qb.input_ids, qb.attention_mask,
+                                step_generator(14, i + 1, dev))
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        for _ in batches:        # the rest of the epoch: the thread ends here
+            pass
+        dev_ms = sum(device_us(e) for e in prof.key_averages()
+                     if e.device_type.name == "CUDA"
+                     and not getattr(e, "is_user_annotation", False)
+                     and not e.key.startswith("Optimizer.")) / 1e3
+        busy[name] = {"wall_ms_per_step": wall * 1e3 / 20, "device_ms_per_step": dev_ms / 20,
+                      "busy": dev_ms / (wall * 1e3)}
+    out["busy"] = busy
+    log(f"mining: EmbeddingTable refresh {out['refresh_small_s']:.3f} s over a pool of "
+        f"{out['pool_small']} captions, {out['refresh_big_s']:.3f} s over {out['pool_big']}; "
+        f"candidates with cos <= {miner.threshold} to 256 anchors: {100 * out['valid_share']:.2f}% "
+        f"(least cos {out['cos_min']:.3f}); "
+        f"train_main's trainer without evaluator, steps/s mined {rates['mined']} against "
+        f"no miner {rates['plain']}; over 20 steps: "
+        + "; ".join(f"{n} {b['wall_ms_per_step']:.2f} ms a step, device "
+                    f"{b['device_ms_per_step']:.2f} ms, busy {100 * b['busy']:.1f}%"
+                    for n, b in busy.items()))
+    return out
+
+
+def evaluate(report: dict) -> None:
+    """Training with validation and negative mining, and IR evaluation, from
+    the command line: a synthetic dataset of 11,200 instances (66,200 IR
+    docs from 1,000 queries) and its first 960 instances; train_main on the
+    960 in modes 1 and -1 with every evaluator each 10 steps; the
+    evaluators against their plain versions on the trained model;
+    ir_eval_main over the 11,200 through the exact index (K4 + K5 in the
+    dot searches) for baseline and trained, and the IVF index (K6) for the
+    baseline; the trained model's evaluation again through the plain
+    versions; then the times of one evaluation and of the miner."""
+    import tempfile
+
+    with tempfile.TemporaryDirectory() as tmp:
+        big, small = f"{tmp}/big", f"{tmp}/small"
+        write_quadruplet_chunks(big, 11200, seed=21)
+        write_quadruplet_chunks(small, 960, seed=21)      # the first 960 of the same draws
+        runs = {mode: train_main_run(report, small, f"{tmp}/exp{mode}", mode)
+                for mode in ("1", "-1")}
+        parity = compare_evaluators(f"{tmp}/exp1", small, tmp)
+        exact = ir_eval_run(report, big, f"{tmp}/exp1", f"{tmp}/ir_exact", "exact")
+        ivf_run = ir_eval_run(report, big, None, f"{tmp}/ir_ivf", "ivf")
+        t0 = time.perf_counter()
+        plain = plain_ir_trained(exact["eval_set"], f"{tmp}/exp1")
+        plain_s = time.perf_counter() - t0
+        kern = exact["results"]["trained"]["metrics"]
+        err = max(abs(kern[f][k] - plain[f][k]) for f in kern for k in kern[f])
+        recall = (ivf_run["results"]["baseline"]["metrics"]["dot_score"]["recall@10"]
+                  - exact["results"]["baseline"]["metrics"]["dot_score"]["recall@10"])
+        log(f"ir_eval_main's evaluation of the trained model through the kernels against the "
+            f"plain versions ({plain_s:.1f} s; cos and dot, {len(kern['cos_sim'])} metrics "
+            f"each): max diff {err:.4f} (limit 0.005); IVF recall@10 minus exact (baseline, "
+            f"n_probe 8 of 256 cells): {recall:.4f}")
+        if not err <= 0.005:
+            fail("ir_eval_main's metrics through the kernels disagree with the plain versions")
+        report["evaluate"] = {
+            "train_main": runs, "evaluators_vs_plain": dict(parity, ir_eval_main_max_err=err),
+            "ir_eval_main_s": {"exact": exact["wall_s"], "ivf_baseline": ivf_run["wall_s"],
+                               "plain_trained": plain_s},
+            "evaluation_times": evaluation_times(big, f"{tmp}/exp1"),
+            "mining": mining_times(small, big, tmp)}
 
 
 def times(report: dict) -> None:
@@ -1602,6 +2159,29 @@ def times(report: dict) -> None:
     report["encode"] = {"sentences_per_s": B / enc_ms * 1e3,
                         "module_path_sentences_per_s": B / mod_ms * 1e3}
 
+    # SentenceEncoder.encode of 65,536 texts to numpy, the evaluators' and the
+    # miner's call: dispatch_depth 1 (each batch's copy waited for) against 4,
+    # in turns (1, 4, 4, 1), host clock
+    from qst_tpu_torch.models.sentence_encoder import SentenceEncoder
+    from qst_tpu_torch.models.tokenizer import HashTokenizer
+
+    sent = SentenceEncoder(cfg, model.state_dict(), HashTokenizer(cfg.vocab_size))
+    docs = synthetic_docs(65536, seed=31)
+    sent.encode(docs[:4096])
+    depth = {1: [], 4: []}
+    arrays = {}
+    for d in (1, 4, 4, 1):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        arrays[d] = sent.encode(docs, dispatch_depth=d)
+        depth[d].append(time.perf_counter() - t0)
+    if not np.array_equal(arrays[1], arrays[4]):
+        fail("encode to numpy: dispatch_depth 1 and 4 give different arrays")
+    log(f"encode of 65,536 texts to numpy (fused MiniLM-L6, batches of 256): dispatch_depth 1 "
+        f"{['%.3f' % t for t in depth[1]]} s, 4 {['%.3f' % t for t in depth[4]]} s "
+        f"(identical arrays)")
+    report["encode_depth"] = {"texts": 65536, "depth1_s": depth[1], "depth4_s": depth[4]}
+
     # search over 1M x 384 bf16, k = 10: Q = 4096 (a search chunk: the kernels'
     # rows in the last lines) and Q = 256 (the server's largest batch)
     N, D, k = 1 << 20, 384, 10
@@ -1747,24 +2327,48 @@ def device_us(event) -> float:
     return event.self_cuda_time_total if us is None else us
 
 
-def device_profile(fn, reps: int):
-    """Device time per call of each kernel ``fn`` runs, from torch.profiler:
-    ({kernel name: ms per call}, launches per call). Fails when the profiler
-    saw no kernel."""
+MARKER = "spin_kernel"          # torch.cuda._sleep's kernel
+
+
+def profiled(fn, reps: int):
+    """torch.profiler over ``reps`` calls of ``fn``, after three marker
+    kernels (``torch.cuda._sleep``): the trace can miss the first kernels
+    after it starts, and the markers take that loss. → the profile."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    fn()
-    torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(3):
+            torch.cuda._sleep(1000)
+        torch.cuda.synchronize()
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
-    # kernels only: a record_function range (the optimizer's step) also
-    # carries device time, which would count its kernels twice
-    events = [e for e in prof.key_averages()
-              if e.device_type.name == "CUDA" and not getattr(e, "is_user_annotation", False)
-              and not e.key.startswith("Optimizer.")]
+    return prof
+
+
+def is_kernel(e) -> bool:
+    """A device event of the profiled calls: not a marker, not a
+    record_function range (the optimizer's step also carries device time,
+    which would count its kernels twice)."""
+    key = getattr(e, "key", None) or e.name
+    return (e.device_type.name == "CUDA" and not getattr(e, "is_user_annotation", False)
+            and not key.startswith("Optimizer.") and MARKER not in key)
+
+
+def device_profile(fn, reps: int):
+    """Device time per call of each kernel ``fn`` runs, from torch.profiler:
+    ({kernel name: ms per call}, launches per call). Fails when the profiler
+    saw no kernel in two tries."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    for attempt in range(2):
+        events = [e for e in profiled(fn, reps).key_averages() if is_kernel(e)]
+        if events:
+            break
+        log(f"the profiler saw no device kernels (attempt {attempt + 1} of 2)")
     if not events:
         fail("the profiler saw no device kernels")
     return ({e.key: device_us(e) / 1e3 / reps for e in events},
@@ -1777,19 +2381,15 @@ def device_ms(fn, reps: int) -> dict:
 
 def device_sequence(fn) -> list:
     """The names of the device operations (kernels, copies, memsets) of one
-    call of ``fn``, in the order they started."""
+    call of ``fn``, in the order they started (after the last marker)."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
-    events = [e for e in prof.events()
-              if e.device_type.name == "CUDA" and not getattr(e, "is_user_annotation", False)
-              and not e.name.startswith("Optimizer.")]
-    return [e.name for e in sorted(events, key=lambda e: e.time_range.start)]
+    events = sorted((e for e in profiled(fn, 1).events() if e.device_type.name == "CUDA"),
+                    key=lambda e: e.time_range.start)
+    marks = [i for i, e in enumerate(events) if MARKER in e.name]
+    return [e.name for e in events[marks[-1] + 1 if marks else 0:] if is_kernel(e)]
 
 
 LAYER_PIECES = (("GEMMs", ("gemm_bf16_kernel", "gemm_f32_kernel")),
@@ -2041,15 +2641,18 @@ def main() -> None:
     build.load()
     log(f"build: {time.perf_counter() - t0:.1f} s")
     report = {n: {} for n in ("K1", "K2", "K3", "K4", "K5", "K6")}
+    # evaluate last: its trainer threads and profiled steps come after the
+    # timing phases' profiles
     for phase, fn in (("check", check_kernels), ("serve", serve), ("ivf", ivf), ("train", train),
-                      ("times", times), ("profile", profile_phase)):
+                      ("times", times), ("profile", profile_phase), ("evaluate", evaluate)):
         if phase in phases:
             t0 = time.perf_counter()
             fn(report)
             log(f"phase {phase}: {time.perf_counter() - t0:.1f} s")
     log(json.dumps({k: v for k, v in report.items()
                     if k in ("encode", "search", "search_q256", "k4_yardsticks", "k5_forms",
-                             "train", "train_steps_per_s", "ivf", "ivf_times", "ivf_times_4m", "layer_gemm")}))
+                             "train", "train_steps_per_s", "ivf", "ivf_times", "ivf_times_4m", "layer_gemm",
+                             "evaluate", "encode_depth")}))
     log(json.dumps({"K1_training_layer": {k: report["K1"].get(k) for k in (
         "train_ms", "train_no_dropout_ms", "dropout_max_abs_err", "module_layer_ms")},
         "K1_pieces_ms": report["K1"].get("pieces_ms"),

@@ -3,7 +3,8 @@ loading, provenance dumps — counterpart of ``qst_tpu/cli/common.py``.
 
 All boolean flags use ``BooleanOptionalAction``. Every entry point takes
 ``--device`` (``add_device_flag``): the GPU unless the caller names another.
-The HF-checkpoint-directory flags wait for the port of ``hf_export``.
+The HF-checkpoint-directory flag is parsed as in the source and refused by
+``refuse_not_ported`` until the HF import of a whole directory is ported.
 """
 
 from __future__ import annotations
@@ -83,3 +84,23 @@ def add_device_flag(parser: argparse.ArgumentParser) -> None:
         "--device", default=None,
         help="torch device to run on (default: the GPU; the command fails "
              "without one unless --device cpu is given)")
+
+
+HF_CHECKPOINT_DIR_ENV = "QST_HF_CHECKPOINT_DIR"
+
+
+def add_hf_checkpoint_dir_flag(parser: argparse.ArgumentParser) -> None:
+    parser.add_argument(
+        "--hf_checkpoint_dir",
+        default=os.environ.get(HF_CHECKPOINT_DIR_ENV),
+        help="local sentence-transformers/HF checkpoint directory; defaults "
+             "to $" + HF_CHECKPOINT_DIR_ENV + " (not ported yet)")
+
+
+def refuse_not_ported(checks) -> None:
+    """Exit with a plain "not ported" message for the first flag whose
+    module the port lacks: ``checks`` holds (flag, set-to-a-non-default,
+    the missing part)."""
+    for flag, is_set, what in checks:
+        if is_set:
+            raise SystemExit(f"{flag} is not ported to qst_tpu_torch yet ({what})")

@@ -1,7 +1,7 @@
 """Typed configuration — copies of ``EncoderConfig`` (with its presets),
-``LossConfig``, ``DataConfig`` and ``TrainConfig``, of the constants they
-and the data modules use, and of ``save_config``, from
-``qst_tpu/core/config.py``.
+``LossConfig``, ``DataConfig``, ``TrainConfig`` and ``IREvalConfig``, of the
+constants they, the data modules and the evaluators use, and of
+``save_config`` and ``config_hash``, from ``qst_tpu/core/config.py``.
 
 The port cannot import the original: importing ``qst_tpu.core`` pulls in JAX.
 ``tests/test_torch_ops.py`` holds these copies to their source field for
@@ -11,6 +11,7 @@ field, preset for preset, check for check.
 from __future__ import annotations
 
 import dataclasses
+import hashlib
 import json
 import os
 from dataclasses import dataclass
@@ -20,7 +21,10 @@ from typing import Any, Dict, Tuple
 RANDOM_SEED = 14
 DEFAULT_GAMMA = 0.6
 NEGATIVE_SIM_THRESHOLD = 0.2
+CROSS_ENCODER_RELEVANCE_THRESHOLD = 0.4
 CHUNK_DIM = 500
+N_IR_SAMPLES = 1000
+CORPUS_CHUNK_SIZE = 50_000
 
 # Canonical instance/feature keys
 KEY_REFERENCE = "reference"
@@ -234,6 +238,26 @@ class TrainConfig:
     manual_notes: str = ""
 
 
+@dataclass(frozen=True)
+class IREvalConfig:
+    """IR evaluation config (reference ir_evauation_script.py:136-205)."""
+
+    n_queries: int = N_IR_SAMPLES
+    corpus_chunk_size: int = CORPUS_CHUNK_SIZE
+    accuracy_at_k: Tuple[int, ...] = (1, 3, 5, 10)
+    precision_recall_at_k: Tuple[int, ...] = (1, 3, 5, 10, 20, 30, 40, 50, 100)
+    mrr_at_k: Tuple[int, ...] = (10, 20, 30, 40, 50, 100, 200, 500, 900)
+    ndcg_at_k: Tuple[int, ...] = (10, 20, 30, 40, 50, 100, 200, 500, 900)
+    map_at_k: Tuple[int, ...] = (100, 200, 500, 900)
+    score_functions: Tuple[str, ...] = ("cos_sim", "dot_score", "euclid_score")
+    use_pos_examples: bool = True
+    use_part_pos_examples: bool = True
+    use_cross_encoder: bool = False
+    cross_encoder_threshold: float = CROSS_ENCODER_RELEVANCE_THRESHOLD
+    generate_query_variations: bool = False
+    seed: int = RANDOM_SEED
+
+
 def _to_jsonable(obj: Any) -> Any:
     if dataclasses.is_dataclass(obj) and not isinstance(obj, type):
         return {k: _to_jsonable(v) for k, v in dataclasses.asdict(obj).items()}
@@ -246,6 +270,13 @@ def _to_jsonable(obj: Any) -> Any:
 
 def config_to_dict(cfg: Any) -> Dict[str, Any]:
     return _to_jsonable(cfg)
+
+
+def config_hash(cfg: Any) -> str:
+    """sha256 of the canonical config JSON — reproduces the output-dir keying
+    of reference ir_evauation_script.py:61-63."""
+    blob = json.dumps(config_to_dict(cfg), sort_keys=True).encode("utf-8")
+    return hashlib.sha256(blob).hexdigest()
 
 
 def save_config(cfg: Any, path: str) -> None:

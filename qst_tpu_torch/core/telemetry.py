@@ -1,7 +1,7 @@
-"""Telemetry: the JSON result log and step timing — counterpart of
-``qst_tpu/core/telemetry.py`` (``JsonLogSink``, ``StepTimer``).
+"""Telemetry: the CSV and JSON result logs and step timing — counterpart of
+``qst_tpu/core/telemetry.py`` (``CsvSink``, ``JsonLogSink``, ``StepTimer``).
 
-``JsonLogSink`` is a host copy. ``StepTimer`` differs only in its device
+``CsvSink`` and ``JsonLogSink`` are host copies. ``StepTimer`` differs only in its device
 hooks: each phase is a ``torch.profiler.record_function`` span (so it shows
 in a profiler trace, as ``jax.profiler.TraceAnnotation`` did), and ``sync``
 — a tensor the phase produced — waits for its CUDA device before the clock
@@ -10,13 +10,30 @@ stops, as ``jax.block_until_ready`` did.
 
 from __future__ import annotations
 
+import csv
 import json
 import os
 import time
 from contextlib import contextmanager
-from typing import Any, Dict, List
+from typing import Any, Dict, List, Sequence
 
 import torch
+
+
+class CsvSink:
+    """Append-only CSV results file with a fixed header (written once)."""
+
+    def __init__(self, path: str, header: Sequence[str]):
+        self.path = path
+        self.header = list(header)
+        os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+        if not os.path.isfile(path):
+            with open(path, "w", newline="") as f:
+                csv.writer(f).writerow(self.header)
+
+    def append(self, row: Sequence[Any]) -> None:
+        with open(self.path, "a", newline="") as f:
+            csv.writer(f).writerow(list(row))
 
 
 class JsonLogSink:

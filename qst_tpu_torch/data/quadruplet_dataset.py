@@ -1,14 +1,14 @@
 """Quadruplet dataset: map-style access + batched iteration — counterpart
-of ``qst_tpu/data/quadruplet_dataset.py``, the miner-less path only.
+of ``qst_tpu/data/quadruplet_dataset.py``.
 
 Over chunked JSON files with an LRU chunk cache, each access samples
 ``n_pos`` positives and ``n_part_pos`` part-positives without duplicates
-(``choose_examples``) and ``n_neg`` negatives uniformly from other
-instances (``_random_negatives``, qst_tpu's path when no miner is
-configured). Negative mining (``qst_tpu/data/mining.py``) is not ported
-yet: ``miner=`` and ``from_config(encode_fn=...)`` raise
-``NotImplementedError``. With a step, sampling is a pure function of
-(seed, step), so the draws are qst_tpu's draws for the same chunks.
+(``choose_examples``) and ``n_neg`` negatives: mined by a
+``data.mining.NegativeMiner`` against the caption pool when one is
+attached (``miner=`` or ``from_config(encode_fn=...)``), else uniformly from
+other instances (``_random_negatives``). With a step, sampling is a pure
+function of (seed, step), so the draws are qst_tpu's draws for the same
+chunks.
 """
 
 from __future__ import annotations
@@ -24,8 +24,7 @@ from qst_tpu_torch.core.config import (
     KEY_REFERENCE,
 )
 from qst_tpu_torch.data.chunks import ChunkStore
-
-RANDOM = -1  # hard_contrastive_mode: random negatives (qst_tpu/data/mining.py)
+from qst_tpu_torch.data.mining import RANDOM, NegativeMiner
 
 
 def choose_examples(pool: Sequence[str], n: int,
@@ -56,12 +55,9 @@ class QuadrupletDataset:
         n_neg: int = 1,
         cache_size: int = 30,
         transform: Optional[Callable[[Dict[str, Any]], Any]] = None,
-        miner: Any = None,
+        miner: Optional[NegativeMiner] = None,
         seed: int = 14,
     ):
-        if miner is not None:
-            raise NotImplementedError(
-                "negative mining (qst_tpu/data/mining.py) is not ported yet")
         for name, v in (("n_pos", n_pos), ("n_part_pos", n_part_pos),
                         ("n_neg", n_neg)):
             if v < 1:
@@ -72,22 +68,34 @@ class QuadrupletDataset:
         self.n_part_pos = n_part_pos
         self.n_neg = n_neg
         self.transform = transform
+        self.miner = miner
         self._seed = seed
         self._rng = np.random.default_rng(seed)
 
     @classmethod
     def from_config(cls, cfg, encode_fn=None,
                     transform=None) -> "QuadrupletDataset":
-        """Build from a :class:`qst_tpu_torch.core.config.DataConfig`."""
-        if encode_fn is not None:
-            raise NotImplementedError(
-                "negative mining (qst_tpu/data/mining.py) is not ported yet")
-        return cls(
+        """Build from a :class:`qst_tpu_torch.core.config.DataConfig`. When an
+        ``encode_fn`` is given, a NegativeMiner is attached with the config's
+        threshold/mode/refresh settings; its table lives where ``encode_fn``
+        leaves the embeddings."""
+        from qst_tpu_torch.data.mining import EmbeddingTable
+
+        ds = cls(
             root=cfg.root,
             chunk_indices=list(range(cfg.n_chunks)) if cfg.n_chunks else None,
             hard_contrastive_mode=cfg.hard_contrastive_mode,
             n_pos=cfg.n_pos, n_part_pos=cfg.n_part_pos, n_neg=cfg.n_neg,
             cache_size=cfg.cache_size, transform=transform, seed=cfg.seed)
+        if encode_fn is not None:
+            table = EmbeddingTable(ds.store.all_positive_captions(),
+                                   encode_fn,
+                                   refresh_steps=cfg.mining_refresh_steps)
+            ds.miner = NegativeMiner(
+                table, encode_fn, mode=cfg.hard_contrastive_mode,
+                threshold=cfg.neg_sim_threshold,
+                max_attempts=cfg.neg_max_attempts, seed=cfg.seed)
+        return ds
 
     def __len__(self) -> int:
         return len(self.store)
@@ -106,7 +114,8 @@ class QuadrupletDataset:
 
     def _random_negatives(self, anchors: List[str],
                           rng: np.random.Generator) -> List[List[str]]:
-        """Uniform captions from other instances (no similarity filter)."""
+        """Miner-less fallback: uniform captions from other instances (no
+        similarity filter). Used only when no miner is configured."""
         out = []
         n_total = len(self.store)
         for _ in anchors:
@@ -130,7 +139,10 @@ class QuadrupletDataset:
                    np.random.SeedSequence([self._seed, int(step)])))
         items = [self._sample_instance(i, rng) for i in indices]
         anchors = [it[KEY_REFERENCE] for it in items]
-        negs = self._random_negatives(anchors, rng)
+        if self.miner is not None:
+            negs = self.miner.mine(anchors, self.n_neg, step=step or 0)
+        else:
+            negs = self._random_negatives(anchors, rng)
         for it, neg in zip(items, negs):
             it[KEY_NEGATIVE] = list(neg)
         if self.transform is not None:

@@ -142,6 +142,17 @@ def device_guard(device):
     return torch.cuda.device(device)
 
 
+_count_lock = threading.Lock()
+
+
+def count_launch(wrapper) -> None:
+    """Add one to ``wrapper.launches``, the count of its kernel's launches,
+    under a lock: an encode on a data-loading thread (the negative miner)
+    launches K1 while the main thread runs train steps."""
+    with _count_lock:
+        wrapper.launches += 1
+
+
 def check(code: int, what: str) -> None:
     """Raise if a C entry point reported a CUDA error."""
     if code != 0:

@@ -150,7 +150,7 @@ int launch_layernorm_bwd(const float* r, const TD* dy, const float* gamma, int M
 
 // ---------------------------------------------------------------------------
 // f32 attention backward (SIMT): one block per (head, sequence), blockDim 256, which
-// hd (32 or 64) divides, so each thread keeps one column d = tid % hd of
+// hd (16, 32 or 64) divides, so each thread keeps one column d = tid % hd of
 // every (S, hd) output and sums it for the bias gradient. Shared memory:
 // X and Y (S x (hd+1) each: Q and K, then V and dC, then Q and K again),
 // P (the f32 probabilities before dropout), D (the dropped probabilities
@@ -539,6 +539,8 @@ int launch_attention_bwd(const T* qkv, const T* dctx, const float* mask_bias, T*
                          cudaStream_t st) {
   const int hd = H / nh;
   if constexpr (std::is_same<T, bf16>::value) {
+    if (hd == 16)
+      return launch_attention_bwd_mma<16>(qkv, dctx, mask_bias, dqkv, part, B, S, H, nh, ad, st);
     if (hd == 32)
       return launch_attention_bwd_mma<32>(qkv, dctx, mask_bias, dqkv, part, B, S, H, nh, ad, st);
     if (hd == 64)

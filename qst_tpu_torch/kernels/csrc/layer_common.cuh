@@ -924,6 +924,7 @@ int launch_attention(const T* qkv, const float* mask_bias, T* ctx, int B, int S,
                      const DropSite& ad, cudaStream_t st) {
   const int hd = H / nh;
   if constexpr (std::is_same<T, bf16>::value) {
+    if (hd == 16) return launch_attention_mma<16>(qkv, mask_bias, ctx, B, S, H, nh, ad, st);
     if (hd == 32) return launch_attention_mma<32>(qkv, mask_bias, ctx, B, S, H, nh, ad, st);
     if (hd == 64) return launch_attention_mma<64>(qkv, mask_bias, ctx, B, S, H, nh, ad, st);
     return (int)cudaErrorInvalidValue;

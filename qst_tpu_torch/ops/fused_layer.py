@@ -24,7 +24,7 @@ as its backward.
 plain versions only for tensors on the CPU; a CUDA tensor launches the
 kernels or raises. Each counts its kernel launches in ``.launches``.
 
-Scope of the CUDA path: S ≤ 128, head_dim 32 or 64, float32 or bfloat16,
+Scope of the CUDA path: S ≤ 128, head_dim 16, 32 or 64, float32 or bfloat16,
 deterministic (no atomics). MPNet's relative bias raises
 ``NotImplementedError``.
 """
@@ -52,7 +52,7 @@ WEIGHT_NAMES = (
 _KERNEL_OPERANDS = ("wqkv", "bqkv") + WEIGHT_NAMES[6:]
 _MATRICES = ("wqkv", "wo", "w1", "w2")
 MAX_SEQ = 128
-HEAD_DIMS = (32, 64)
+HEAD_DIMS = (16, 32, 64)
 
 
 def _layernorm_f32(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
@@ -360,7 +360,7 @@ def fused_bert_layer(x: torch.Tensor, mask_bias: torch.Tensor,
                   qkv.data_ptr(), ctx.data_ptr(), tmp.data_ptr(), y.data_ptr(),
                   inter.data_ptr(), out.data_ptr(), B, S, H, F, num_heads, eps, *drop,
                   torch.cuda.current_stream(x.device).cuda_stream)
-    fused_bert_layer.launches += 1
+    build.count_launch(fused_bert_layer)
     build.check(code, "fused_bert_layer")
     del seed_t
     return out
@@ -392,7 +392,7 @@ def drop_mask(shape: Tuple[int, int], seed, rate: float, tag: int,
     with torch.cuda.device(device):
         code = fn(out.data_ptr(), rows, cols, s.data_ptr(), _keep_threshold(rate),
                   _keep_scale(rate), tag, torch.cuda.current_stream(device).cuda_stream)
-    drop_mask.launches += 1
+    build.count_launch(drop_mask)
     build.check(code, "drop_mask")
     return out
 
@@ -445,7 +445,7 @@ def layer_gemm(a: torch.Tensor, b: torch.Tensor, *, trans_a: bool = False,
         code = fn(a.data_ptr(), b.data_ptr(), out.data_ptr(), ws.data_ptr(), M, N, K,
                   int(trans_a), int(trans_b), splits,
                   torch.cuda.current_stream(a.device).cuda_stream)
-    layer_gemm.launches += 1
+    build.count_launch(layer_gemm)
     build.check(code, "layer_gemm")
     return out
 
@@ -586,7 +586,7 @@ def fused_bert_layer_bwd(x: torch.Tensor, mask_bias: torch.Tensor,
                  dx.data_ptr(), dwqkv.data_ptr(), dwo.data_ptr(), dw1.data_ptr(),
                  dw2.data_ptr(), dvec.data_ptr(), ws.data_ptr(), B, S, H, F, num_heads, eps,
                  *drop, torch.cuda.current_stream(dev).cuda_stream)
-    fused_bert_layer_bwd.launches += 1
+    build.count_launch(fused_bert_layer_bwd)
     build.check(err, "fused_bert_layer_bwd")
     del seed_t
 

@@ -151,7 +151,7 @@ def ivf_cell_scores(queries: torch.Tensor, cells: torch.Tensor, probe: torch.Ten
                   cells.data_ptr(), ids.data_ptr(), int(ids.dtype == torch.int64), order_ptr,
                   None if counts is None else counts.data_ptr(), out.data_ptr(), Q, C, L, D, P,
                   pairs_per_block, torch.cuda.current_stream(cells.device).cuda_stream)
-    ivf_cell_scores.launches += 1
+    build.count_launch(ivf_cell_scores)
     build.check(code, "ivf_cell_scores")
     return out
 

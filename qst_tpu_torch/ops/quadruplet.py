@@ -146,7 +146,7 @@ def _launch_fwd(rows, B: int, D: int, device, reduction: str, gamma, m_pn, m_pt,
                   None if counter is None else counter.data_ptr(), B, D,
                   _REDUCTIONS[reduction], g, w_c, m_pn, m_pt, m_tn,
                   torch.cuda.current_stream(device).cuda_stream)
-    fused_gamma_quadruplet_loss_fwd.launches += 1
+    build.count_launch(fused_gamma_quadruplet_loss_fwd)
     build.check(code, "qst_quadruplet_forward")
     return (buf[3 * B:4 * B] if reduction == "none" else buf[4 * B]), buf[:3 * B].view(B, 3)
 
@@ -168,7 +168,7 @@ def _launch_bwd(rows, dists, scale, B: int, D: int, reduction: str, gamma, m_pn,
         code = fn(*rows, dists.data_ptr(), scale.data_ptr(), grads.data_ptr(), B, D,
                   int(reduction == "none"), _scale_const(reduction, B), g, w_c, m_pn, m_pt,
                   m_tn, torch.cuda.current_stream(dists.device).cuda_stream)
-    fused_gamma_quadruplet_loss_bwd.launches += 1
+    build.count_launch(fused_gamma_quadruplet_loss_bwd)
     build.check(code, "qst_quadruplet_backward")
     return grads
 

@@ -141,7 +141,7 @@ def bucket_maxima(queries: torch.Tensor, corpus: torch.Tensor,
         code = fn(build.DTYPE_CODES[str(c.dtype).removeprefix("torch.")], q.data_ptr(),
                   c.data_ptr(), out.data_ptr(), Q, N, D, n_real,
                   torch.cuda.current_stream(q.device).cuda_stream)
-    bucket_maxima.launches += 1
+    build.count_launch(bucket_maxima)
     build.check(code, "bucket_maxima")
     return out
 
@@ -243,7 +243,7 @@ def rescore_buckets(queries: torch.Tensor, corpus: torch.Tensor,
         code = fn(build.DTYPE_CODES[str(c.dtype).removeprefix("torch.")], q.data_ptr(),
                   c.data_ptr(), ids.data_ptr(), order_ptr, out.data_ptr(), Q, c.shape[0], D,
                   k, pairs_per_block, torch.cuda.current_stream(q.device).cuda_stream)
-    rescore_buckets.launches += 1
+    build.count_launch(rescore_buckets)
     build.check(code, "rescore_buckets")
     return out
 

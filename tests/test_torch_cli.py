@@ -1,4 +1,5 @@
-"""The port's ``index_main`` CLI and ``cli/common.py`` against qst_tpu's.
+"""The port's CLIs (``index_main``, ``train_main``, ``ir_eval_main``) and
+``cli/common.py`` against qst_tpu's.
 
 The two packages draw different random weights from one seed, so the
 encoder's weights are carried across: qst_tpu's ``init_params`` go through
@@ -6,11 +7,15 @@ encoder's weights are carried across: qst_tpu's ``init_params`` go through
 the port's ``--model_path`` loads. The float32 index's answers are then held
 to the JAX ``Retriever``'s over the same weights (scores to 1e-5: the two
 encoders' embeddings agree to 1e-5; ids up to ties), and the IVF index's
-answers at full probe to the exact ones. Every command runs with
+answers at full probe to the exact ones; ``ir_eval_main``'s metrics over
+the same carried weights to qst_tpu's evaluator. ``train_main`` is held to
+what it must write: every evaluator at epoch −1 and each evaluation step,
+qst_tpu's eval set, a best checkpoint. Every command runs with
 ``--device cpu``.
 """
 
 import argparse
+import csv
 import dataclasses
 import json
 import os
@@ -23,13 +28,21 @@ import torch
 
 from qst_tpu.cli import common as jcommon
 from qst_tpu.cli import index_main as jmain
+from qst_tpu.cli import ir_eval_main as jir_main
+from qst_tpu.cli import train_main as jtrain_main
 from qst_tpu.core.config import EncoderConfig as JaxConfig
+from qst_tpu.core.config import IREvalConfig as JaxIREvalConfig
+from qst_tpu.data.chunks import ChunkStore as JaxChunkStore
+from qst_tpu.evals import InformationRetrievalEvaluator as JaxIREvaluator
+from qst_tpu.evals import create_ir_evaluation_set as jax_create_ir_evaluation_set
 from qst_tpu.models.sentence_encoder import SentenceEncoder as JaxSentenceEncoder
 from qst_tpu.models.sentence_encoder import init_params as jax_init_params
 from qst_tpu.models.tokenizer import HashTokenizer as JaxHashTokenizer
 from qst_tpu.retrieval import Retriever as JaxRetriever
 from qst_tpu_torch.cli import common as tcommon
 from qst_tpu_torch.cli import index_main as tmain
+from qst_tpu_torch.cli import ir_eval_main as tir_main
+from qst_tpu_torch.cli import train_main as ttrain_main
 from qst_tpu_torch.core.config import EncoderConfig
 from qst_tpu_torch.models.hf_import import state_dict_from_flax_params
 from qst_tpu_torch.models.tokenizer import HashTokenizer
@@ -226,3 +239,130 @@ def test_common_helpers(tmp_path, workdir):
         tcommon.load_best_params(str(tmp_path / "no_exp"))
     sd = tcommon.load_best_params(workdir[2])
     assert all(isinstance(v, torch.Tensor) and v.device.type == "cpu" for v in sd.values())
+
+
+
+# ------------------------------------------------ train_main and ir_eval_main
+
+
+def _plain_flags(parser):
+    return {a.dest: (a.default, a.type, tuple(a.choices) if a.choices else None,
+                     tuple(a.option_strings))
+            for a in parser._actions if a.dest != "help"}
+
+
+@pytest.mark.parametrize("jmod,tmod", [(jtrain_main, ttrain_main), (jir_main, tir_main)])
+def test_train_and_ir_eval_parsers_keep_the_source_flags(jmod, tmod):
+    want, got = _plain_flags(jmod.build_parser()), _plain_flags(tmod.build_parser())
+    assert got.pop("device") == (None, None, None, ("--device",))
+    assert got == want
+
+
+@pytest.fixture(scope="module")
+def quad_data(tmp_path_factory):
+    """A chunked quadruplet dataset (48 instances) and an experiment dir
+    holding qst_tpu's tiny-preset weights as the port's best checkpoint."""
+    from helpers import write_synthetic_dataset
+
+    root = tmp_path_factory.mktemp("quad")
+    data = str(root / "data")
+    write_synthetic_dataset(data, n_chunks=4, chunk_dim=12)
+    jcfg = JaxConfig.tiny()
+    params = jax.tree.map(np.asarray, jax_init_params(jcfg, jax.random.key(7)))
+    exp = str(root / "carried")
+    _save(state_dict_from_flax_params(params, EncoderConfig(**dataclasses.asdict(jcfg))),
+          os.path.join(exp, "checkpoints", "best", "params.pt"))
+    return root, data, exp, JaxSentenceEncoder(jcfg, params, JaxHashTokenizer(jcfg.vocab_size))
+
+
+@pytest.mark.parametrize("mode", ["1", "-1"])
+def test_train_cli_mines_evaluates_and_checkpoints(quad_data, mode):
+    """``train_main`` with the fused layer and loss, mining in mode 1 or −1
+    and the IR evaluator: every evaluator scores epoch −1 and each
+    evaluation step, the eval set is qst_tpu's, the best model is saved."""
+    root, data, _, _ = quad_data
+    exp = str(root / f"train{mode}")
+    assert ttrain_main.main([
+        "--dataset_root", data, "--experiment_dir", exp, "--encoder_preset", "tiny",
+        "--device", "cpu", "--use_fused_layer", "--use_fused_loss_kernel",
+        "--hard_contrastive_mode", mode, "--use_ir_evaluator", "--batch_size", "8",
+        "--epochs", "1", "--evaluation_steps", "2", "--warmup_steps", "2",
+        "--learning_rate", "1e-3"]) == 0
+    steps = [(-1, -1), (0, 2), (0, 4), (0, 6), (0, 6)]       # 48 // 8 = 6 steps
+    with open(os.path.join(exp, "quadruplet_results.csv")) as f:
+        rows = list(csv.reader(f))[1:]
+    assert [(int(r[0]), int(r[1])) for r in rows] == steps
+    with open(os.path.join(exp, "ir_results.csv")) as f:
+        ir_rows = list(csv.reader(f))[1:]
+    assert sorted({(int(r[0]), int(r[1])) for r in ir_rows}) == sorted(set(steps))
+    assert len(ir_rows) == len(steps) * 3 * 44
+    with open(os.path.join(exp, "val_quadruplet_loss_eval.json")) as f:
+        log = json.load(f)
+    assert [(e["epoch"], e["steps"]) for e in log] == steps
+    assert all(np.isfinite(e["average_loss"]) for e in log)
+    with open(os.path.join(exp, "ir_eval_set.json")) as f:
+        written = json.load(f)
+    want = jax_create_ir_evaluation_set(list(JaxChunkStore(data).iter_instances()), seed=14)
+    assert written == want.to_json()
+    with open(os.path.join(exp, "command_line_args.json")) as f:
+        assert json.load(f)["hard_contrastive_mode"] == int(mode)
+    assert tcommon.load_best_params(exp).keys() == state_dict_from_flax_params(
+        jax.tree.map(np.asarray, jax_init_params(JaxConfig.tiny(), jax.random.key(0))),
+        EncoderConfig.tiny()).keys()
+
+
+@pytest.mark.parametrize("index", ["exact", "ivf"])
+def test_ir_eval_cli_matches_the_jax_evaluator(quad_data, index):
+    """``ir_eval_main`` over the exact and the IVF index: the baseline and
+    the trained model (qst_tpu's weights carried into the port's
+    checkpoint), the trained metrics held to qst_tpu's evaluator over the
+    same weights (exact: within 1e-6; IVF at full probe: the exact search's
+    metrics), euclid dropped for IVF as in the source."""
+    root, data, exp, jenc = quad_data
+    out = str(root / f"ir_{index}")
+    argv = ["--dataset_root", data, "--model_path", exp, "--encoder_preset", "tiny",
+            "--device", "cpu", "--output_root", out, "--eval_index", index,
+            "--eval_ivf_clusters", "4", "--eval_ivf_probe", "4", "--n_queries", "20"]
+    assert tir_main.main(argv) == 0
+    [hashed] = os.listdir(out)
+    with open(os.path.join(out, hashed, "results.json")) as f:
+        results = json.load(f)
+    assert set(results) == {"baseline", "trained"}
+    fns = ["cos_sim", "dot_score"] + (["euclid_score"] if index == "exact" else [])
+    with open(os.path.join(out, hashed, "ir_eval_set.json")) as f:
+        eval_set = json.load(f)
+    jset = jax_create_ir_evaluation_set(list(JaxChunkStore(data).iter_instances()),
+                                        n_queries=20, seed=14)
+    assert eval_set == jset.to_json()
+    ev = JaxIREvaluator(jset.queries, jset.corpus, jset.relevant,
+                        cfg=JaxIREvalConfig(n_queries=20, score_functions=tuple(fns)))
+    ev(lambda texts: jenc.encode(list(texts)))
+    assert list(results["trained"]["metrics"]) == fns
+    for fn in fns:
+        for name, value in ev.last_results[fn].items():
+            assert results["trained"]["metrics"][fn][name] == pytest.approx(value, abs=1e-6), (
+                fn, name)
+    assert results["baseline"]["metrics"] != results["trained"]["metrics"]
+
+
+@pytest.mark.parametrize("argv", [
+    ["--hf_checkpoint", "x.bin"], ["--hf_checkpoint_dir", "ckpt"], ["--steps_per_call", "2"],
+    ["--pp_stages", "2"], ["--pp_rounds", "2"], ["--mesh_data", "2"], ["--mesh_model", "2"],
+])
+def test_train_cli_refuses_unported_flags(quad_data, argv):
+    root, data, _, _ = quad_data
+    with pytest.raises(SystemExit, match="not ported"):
+        ttrain_main.main(["--dataset_root", data, "--experiment_dir", str(root / "refused"),
+                          "--device", "cpu", *argv])
+
+
+@pytest.mark.parametrize("argv", [
+    ["--baseline_hf_checkpoint", "x.bin"], ["--hf_checkpoint_dir", "ckpt"],
+    ["--use_cross_encoder"], ["--cross_encoder_dir", "ce"], ["--generate_query_variations"],
+    ["--eval_index", "pq"], ["--eval_index", "ivfpq"], ["--mesh_model", "2"],
+])
+def test_ir_eval_cli_refuses_unported_flags(quad_data, argv):
+    root, data, _, _ = quad_data
+    with pytest.raises(SystemExit, match="not ported"):
+        tir_main.main(["--dataset_root", data, "--output_root", str(root / "refused_ir"),
+                       "--device", "cpu", *argv])

@@ -1,8 +1,8 @@
 """The port's host copies of the data pipeline against their sources:
 ``qst_tpu/data/chunks.py``, ``collate.py`` and ``prefetch.py`` are held to
 the source code (docstrings aside), ``quadruplet_dataset.py`` — the
-miner-less path only — to the draws of qst_tpu's dataset on the same chunk
-files.
+miner-less path; the mined one is in tests/test_torch_mining.py — to the
+draws of qst_tpu's dataset on the same chunk files.
 """
 
 import ast
@@ -98,12 +98,17 @@ def test_prefetch_copy_runs_and_surfaces_errors():
 
 
 def test_mining_is_not_ported_yet(tmp_path):
+    """``miner=`` and ``from_config(encode_fn=)`` attach a NegativeMiner (the
+    mining itself: tests/test_torch_mining.py); without them the dataset
+    takes the miner-less path."""
     root = str(tmp_path / "chunks")
     write_synthetic_dataset(root, n_chunks=1, chunk_dim=4)
-    with pytest.raises(NotImplementedError, match="mining"):
-        tds.QuadrupletDataset(root, miner=object())
-    cfg = tconfig.DataConfig(root=root)
-    with pytest.raises(NotImplementedError, match="mining"):
-        tds.QuadrupletDataset.from_config(cfg, encode_fn=lambda texts: None)
+    cfg = tconfig.DataConfig(root=root, hard_contrastive_mode=1, neg_max_attempts=2,
+                             mining_refresh_steps=7)
+    ds = tds.QuadrupletDataset.from_config(cfg, encode_fn=lambda texts: None)
+    assert (ds.miner.mode, ds.miner.max_attempts, ds.miner.table.refresh_steps) == (1, 2, 7)
+    assert ds.miner.table.captions == ds.store.all_positive_captions()
+    assert tds.QuadrupletDataset(root, miner=ds.miner).miner is ds.miner
+    assert tds.QuadrupletDataset.from_config(cfg).miner is None
     assert len(tds.QuadrupletDataset.from_config(cfg)) == 4
     assert tds.RANDOM == -1

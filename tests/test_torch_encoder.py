@@ -158,6 +158,26 @@ def test_encode_takes_pipeline_batches_and_ignores_it(weights):
                                   enc.encode(TEXTS, batch_size=8))
 
 
+@pytest.mark.parametrize("batch_size", [4, 8, 64])
+def test_encode_dispatch_depth_gives_identical_arrays(weights, batch_size):
+    """Depth 1 lands each batch before the next; depth 4 keeps up to four
+    in flight through its ring of buffers (more batches than buffers at
+    batch size 4): the arrays are the same, and those of the on-device
+    path."""
+    jcfg, _, sd = weights
+    enc = tse.SentenceEncoder(EncoderConfig.tiny(), sd, HashTokenizer(jcfg.vocab_size))
+    texts = TEXTS * 3
+    one = enc.encode(texts, batch_size=batch_size, dispatch_depth=1)
+    four = enc.encode(texts, batch_size=batch_size, dispatch_depth=4)
+    assert one.dtype == np.float32 and one.shape == (len(texts), jcfg.hidden_size)
+    np.testing.assert_array_equal(one, four)
+    np.testing.assert_array_equal(
+        one, enc.encode(texts, batch_size=batch_size, convert_to_numpy=False).numpy())
+    for bad in (dict(dispatch_depth=0), dict(pipeline_batches=0)):
+        with pytest.raises(ValueError):
+            enc.encode(texts, **bad)
+
+
 def test_similarity_matches_jax(weights):
     jcfg, params, sd = weights
     a, b = TEXTS[:3], TEXTS[2:9]

@@ -101,10 +101,10 @@ def _random_case(S, num_heads, seed, B=4, H=64, F=128):
 
 
 @pytest.mark.parametrize("S", [24, 40])
-@pytest.mark.parametrize("num_heads", [2, 1])   # head widths 32 and 64
+@pytest.mark.parametrize("num_heads", [4, 2, 1])   # head widths 16, 32 and 64
 def test_plain_matches_tpu_kernel_interpret_at_the_attention_edges(S, num_heads):
-    """Sequence lengths that are no multiple of 16, both head widths the CUDA
-    attention takes, a fully padded sequence: the shapes at which the
+    """Sequence lengths that are no multiple of 16, the three head widths the
+    CUDA attention takes, a fully padded sequence: the shapes at which the
     tensor-core attention pads its key columns."""
     w, x, bias = _random_case(S, num_heads, seed=31 + S + num_heads)
     want = np.asarray(jax_fused_bert_layer(
@@ -251,6 +251,27 @@ def test_cuda_kernel_matches_plain_at_the_attention_edges(cuda_device, S, num_he
     out = fl.fused_bert_layer(x, bias, w, num_heads=num_heads).float()
     assert torch.isfinite(out).all()
     _bf16_limits(out, fl.fused_bert_layer_plain(x, bias, w, num_heads=num_heads).float())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("S", [32, 21])
+def test_cuda_kernel_matches_plain_at_head_width_16(cuda_device, dtype, S):
+    """K1 at ``EncoderConfig.tiny()``'s shapes (H = 64, 4 heads of width
+    16, F = 128), f32 and bf16, at the tiny preset's S = 32 and a ragged S,
+    at the limits of test_cuda_kernel_matches_plain."""
+    w, x, bias = _random_case(S, 4, seed=S, B=6, H=64, F=128)
+    w = {k: torch.from_numpy(v).to(cuda_device, dtype if v.shape[0] > 1 else torch.float32)
+         for k, v in w.items()}
+    x = torch.from_numpy(x).to(cuda_device, dtype)
+    bias = torch.from_numpy(bias).to(cuda_device)
+    out = fl.fused_bert_layer(x, bias, w, num_heads=4).float()
+    ref = fl.fused_bert_layer_plain(x, bias, w, num_heads=4).float()
+    assert torch.isfinite(out).all()
+    if dtype == torch.float32:
+        assert (out - ref).abs().max().item() <= 1e-4
+    else:
+        _bf16_limits(out, ref)
 
 
 @pytest.mark.cuda

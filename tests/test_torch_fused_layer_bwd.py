@@ -120,10 +120,10 @@ def test_plain_backward_matches_tpu_kernel_interpret(layer, attn, hid):
 
 
 @pytest.mark.parametrize("S", [24, 40])
-@pytest.mark.parametrize("num_heads", [2, 1])   # head widths 32 and 64
+@pytest.mark.parametrize("num_heads", [4, 2, 1])   # head widths 16, 32 and 64
 def test_plain_backward_matches_tpu_kernel_interpret_at_the_attention_edges(S, num_heads):
-    """Sequence lengths that are no multiple of 16, both head widths the CUDA
-    attention backward takes, a fully padded sequence, dropout on."""
+    """Sequence lengths that are no multiple of 16, the three head widths the
+    CUDA attention backward takes, a fully padded sequence, dropout on."""
     rng = np.random.default_rng(50 + S + num_heads)
 
     def mat(r, c):
@@ -248,6 +248,39 @@ def test_cuda_k1_dropout_and_k2_match_plain(cuda_device, dtype, rate):
     ref = fl.fused_bert_layer_plain(x, bias, w, **kw).float()
     k1_lim = 1e-4 if dtype == torch.float32 else 2e-2 * ref.abs().max().item()
     assert (out - ref).abs().max().item() <= k1_lim
+    dx, dw = fl.fused_bert_layer_bwd(x, bias, w, g, **kw)
+    rdx, rdw = fl.fused_bert_layer_bwd_plain(x, bias, w, g, **kw)
+    lim_max, lim_mean = (1e-4, 2e-5) if dtype == torch.float32 else (2e-2, 2.0 ** -7)
+    for n, (a, b) in dict(dx=(dx, rdx), **{k: (dw[k], rdw[k]) for k in dw}).items():
+        assert torch.isfinite(a).all(), n
+        d = (a.float() - b.float()).abs()
+        scale = (rdw["bq"] if n == "bk" else b).float().abs()
+        assert d.max().item() <= lim_max * scale.max().item(), n
+        assert d.mean().item() <= lim_mean * scale.mean().item(), n
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+def test_cuda_k1_and_k2_match_plain_at_head_width_16(cuda_device, dtype, rate):
+    """K1 with dropout and K2 at ``EncoderConfig.tiny()``'s shapes (H = 64,
+    4 heads of width 16, F = 128, S = 32 and a padded row), at the limits
+    of test_cuda_k1_dropout_and_k2_match_plain."""
+    gen = torch.Generator().manual_seed(16)
+    w = _cuda_layer(cuda_device, dtype, gen, Hc=64, Fc=128)
+    Bc, Sc = 6, 32
+    x = torch.randn((Bc, Sc, 64), generator=gen).to(cuda_device, dtype)
+    bias = torch.zeros((Bc, Sc))
+    bias[-1] = fl.MASK_BIAS
+    bias[2, 9:] = fl.MASK_BIAS
+    bias = bias.to(cuda_device)
+    g = torch.randn((Bc, Sc, 64), generator=gen).to(cuda_device, dtype)
+    kw = dict(num_heads=4, attn_dropout=rate, hidden_dropout=rate,
+              seed=23 if rate else None, nb=8)
+    out = fl.fused_bert_layer(x, bias, w, **kw).float()
+    ref = fl.fused_bert_layer_plain(x, bias, w, **kw).float()
+    k1_lim = 1e-4 if dtype == torch.float32 else 2e-2 * ref.abs().max().item()
+    assert torch.isfinite(out).all() and (out - ref).abs().max().item() <= k1_lim
     dx, dw = fl.fused_bert_layer_bwd(x, bias, w, g, **kw)
     rdx, rdw = fl.fused_bert_layer_bwd_plain(x, bias, w, g, **kw)
     lim_max, lim_mean = (1e-4, 2e-5) if dtype == torch.float32 else (2e-2, 2.0 ** -7)

@@ -9,6 +9,7 @@ atol 1e-6 (same arithmetic, another summation order).
 import ast
 import dataclasses
 import inspect
+import os
 import subprocess
 import sys
 import textwrap
@@ -47,7 +48,7 @@ def test_encoder_config_presets_match_field_for_field(preset):
     assert over.use_fused_layer and over.dtype == "float32"
 
 
-@pytest.mark.parametrize("name", ["LossConfig", "TrainConfig", "DataConfig"])
+@pytest.mark.parametrize("name", ["LossConfig", "TrainConfig", "DataConfig", "IREvalConfig"])
 def test_training_configs_match_field_for_field(name):
     j, t = getattr(jconfig, name)(), getattr(tconfig, name)()
     assert dataclasses.asdict(t) == dataclasses.asdict(j)
@@ -58,8 +59,12 @@ def test_training_configs_match_field_for_field(name):
 def test_config_constants_match_source():
     for name in ("RANDOM_SEED", "DEFAULT_GAMMA", "NEGATIVE_SIM_THRESHOLD", "CHUNK_DIM",
                  "KEY_REFERENCE", "KEY_POSITIVE", "KEY_PART_POSITIVE", "KEY_NEGATIVE",
-                 "KEY_INSTANCES", "QUADRUPLET_KEYS", "REDUCTIONS"):
+                 "KEY_INSTANCES", "QUADRUPLET_KEYS", "REDUCTIONS",
+                 "CROSS_ENCODER_RELEVANCE_THRESHOLD", "N_IR_SAMPLES", "CORPUS_CHUNK_SIZE"):
         assert getattr(tconfig, name) == getattr(jconfig, name), name
+    for cfg in (jconfig.IREvalConfig(), jconfig.IREvalConfig(n_queries=7, map_at_k=(5,))):
+        mirror = tconfig.IREvalConfig(**dataclasses.asdict(cfg))
+        assert tconfig.config_hash(mirror) == jconfig.config_hash(cfg)
 
 
 @pytest.mark.parametrize("kwargs", [
@@ -205,7 +210,11 @@ def test_port_imports_no_jax_flax_or_qst_tpu():
                      if m.split(".")[0] in ("jax", "jaxlib", "flax", "qst_tpu"))
         print(len(names), bad)
         new = {"core.device", "ops.ivf", "retrieval.ivf", "retrieval.updatable", "cli.common",
-               "cli.index_main"}
+               "cli.index_main", "core.config", "core.telemetry", "core.rng",
+               "evals.ir_metrics", "evals.ir_evaluator", "evals.quadruplet_evaluator",
+               "evals.loss_evaluator", "evals.sequential", "evals.eval_set", "evals.factory",
+               "evals", "data.mining", "data.quadruplet_dataset", "cli.train_main",
+               "cli.ir_eval_main"}
         missing = sorted(n for n in new if "qst_tpu_torch." + n not in names)
         print(missing)
         sys.exit(1 if bad or missing or len(names) < 15 else 0)
@@ -216,3 +225,62 @@ def test_port_imports_no_jax_flax_or_qst_tpu():
     proc = subprocess.run([sys.executable, "-c", code], cwd=root, capture_output=True,
                           text=True, timeout=120)
     assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+def test_launch_counts_are_exact_across_threads():
+    """``kernels.build.count_launch`` — the kernels' launch counters — loses
+    no count when threads add at once (the miner launches K1 on the
+    trainer's prefetch thread while the main thread trains)."""
+    import threading
+
+    from qst_tpu_torch.kernels import build
+
+    def wrapper():
+        pass
+
+    wrapper.launches = 0
+    old = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        threads = [threading.Thread(target=lambda: [build.count_launch(wrapper)
+                                                    for _ in range(5000)])
+                   for _ in range(16)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=60)
+        assert not any(t.is_alive() for t in threads)
+    finally:
+        sys.setswitchinterval(old)
+    assert wrapper.launches == 16 * 5000
+
+
+def test_rng_streams_are_pure_functions_of_the_seed():
+    """``core/rng.py``: a stream's generators follow from (seed, counter,
+    fork tags) alone; forks are independent of the parent's draws;
+    ``numpy()`` is a numpy Generator; ``seed_everything`` seeds the host's
+    generators as the source does."""
+    import random
+
+    from qst_tpu_torch.core import rng
+
+    def draws(stream, n=3):
+        return [torch.rand(4, generator=stream.next()) for _ in range(n)]
+
+    a, b = rng.RngStream(5), rng.RngStream(5)
+    assert all(torch.equal(x, y) for x, y in zip(draws(a), draws(b)))
+    assert not torch.equal(draws(rng.RngStream(5))[0], draws(rng.RngStream(6))[0])
+    fresh = rng.RngStream(5).fork("mining")
+    assert torch.equal(draws(a.fork("mining"))[0], draws(fresh)[0])
+    assert not torch.equal(draws(a.fork("eval"))[0], draws(rng.RngStream(5).fork("mining"))[0])
+    assert isinstance(rng.RngStream(3).numpy(), np.random.Generator)
+    assert (rng.RngStream(3).numpy().integers(0, 1 << 30)
+            == rng.RngStream(3).numpy().integers(0, 1 << 30))
+    it = rng.key_iter(9)
+    assert torch.equal(torch.rand(2, generator=next(it)),
+                       torch.rand(2, generator=rng.RngStream(9).next()))
+    root = rng.seed_everything(14)
+    x = (random.random(), np.random.random(), torch.rand(1).item())
+    rng.seed_everything(14)
+    assert (random.random(), np.random.random(), torch.rand(1).item()) == x
+    assert isinstance(root, rng.RngStream) and os.environ["PYTHONHASHSEED"] == "14"

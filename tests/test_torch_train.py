@@ -32,6 +32,7 @@ from qst_tpu.models.sentence_encoder import init_params as jax_init_params
 from qst_tpu.train import callbacks as jcallbacks
 from qst_tpu.train import schedules as jsched
 from qst_tpu.train import train_step as jts
+from qst_tpu.train.trainer import Trainer as JaxTrainer
 from qst_tpu_torch.core import config as tc
 from qst_tpu_torch.data import QuadrupletCollator, QuadrupletDataset
 from qst_tpu_torch.models.hf_import import state_dict_from_flax_params
@@ -422,3 +423,74 @@ def test_initial_params_reach_training(tmp_path):
     for k, v in custom.items():
         np.testing.assert_allclose(result.state.model.state_dict()[k].numpy(), v.numpy(),
                                    atol=1e-7, err_msg=k)
+
+
+def _trainer_with_evaluator(root, exp, framework, evaluate):
+    """A one-epoch run on the tiny preset at dropout 0 from qst_tpu's
+    weights, in either package, with the sequential evaluator (IR, quadruplet,
+    loss) every two steps or with none."""
+    from helpers import make_instances
+
+    (jcfg, jl, _), (tcfg, tl, _) = _configs(False)
+    params = jax.tree.map(np.asarray, jax_init_params(jcfg, jax.random.key(6)))
+    val = make_instances(8, offset=3)
+    for inst in val:
+        inst["negative"] = [make_instances(1, offset=inst["id"] + 9)[0]["positive"][0]]
+    over = dict(batch_size=4, epochs=1, learning_rate=LR, scheduler="constantlr",
+                evaluation_steps=2, checkpoint_save_steps=0, save_best_model=True,
+                experiment_dir=exp)
+    grid = dict(accuracy_at_k=(1, 3), precision_recall_at_k=(1,), mrr_at_k=(5,),
+                ndcg_at_k=(5,), map_at_k=(10,), score_functions=("cos_sim", "dot_score"))
+    if framework == "jax":
+        from qst_tpu.data import QuadrupletCollator as JaxCollator
+        from qst_tpu.data import QuadrupletDataset as JaxDataset
+        from qst_tpu.evals import create_ir_evaluation_set, get_sequential_evaluator
+        from qst_tpu.models.tokenizer import HashTokenizer as JaxHashTokenizer
+
+        tok = JaxHashTokenizer(vocab_size=jcfg.vocab_size)
+        evaluator = get_sequential_evaluator(
+            jcfg, jl, tok, val, val_batches=[val[:4], val[4:]],
+            ir_eval_set=create_ir_evaluation_set(make_instances(16), n_queries=6, seed=2),
+            ir_cfg=jc.IREvalConfig(**grid), log_dir=exp)
+        return JaxTrainer(jcfg, jl, jc.TrainConfig(**{**dataclasses.asdict(jc.TrainConfig()),
+                                                      **over}),
+                          JaxDataset(root, seed=1),
+                          JaxCollator(tok, max_length=jcfg.max_seq_length),
+                          evaluator=evaluator, initial_params=params)
+    from qst_tpu_torch.evals import create_ir_evaluation_set, get_sequential_evaluator
+
+    tok = HashTokenizer(vocab_size=tcfg.vocab_size)
+    evaluator = get_sequential_evaluator(
+        tcfg, tl, tok, val, val_batches=[val[:4], val[4:]],
+        ir_eval_set=create_ir_evaluation_set(make_instances(16), n_queries=6, seed=2),
+        ir_cfg=tc.IREvalConfig(**grid), log_dir=exp) if evaluate else None
+    return Trainer(tcfg, tl, tc.TrainConfig(**over), QuadrupletDataset(root, seed=1),
+                   QuadrupletCollator(tok, max_length=tcfg.max_seq_length),
+                   evaluator=evaluator, initial_params=state_dict_from_flax_params(params, tcfg),
+                   device="cpu")
+
+
+def test_trainer_with_the_sequential_evaluator_matches_jax(tmp_path):
+    """The history (epoch −1, every second step, each epoch's end) within
+    1e-4 of qst_tpu's Trainer with its own evaluator on the same data; and
+    evaluating leaves training alone: the logged losses and the final
+    weights are those of the same run without an evaluator."""
+    root = str(tmp_path / "chunks")
+    write_synthetic_dataset(root, n_chunks=2, chunk_dim=8)     # 4 steps an epoch
+    want = _trainer_with_evaluator(root, str(tmp_path / "jax"), "jax", True).train(
+        rng=jax.random.key(14))
+    with_eval = _trainer_with_evaluator(root, str(tmp_path / "t"), "torch", True).train()
+    without = _trainer_with_evaluator(root, str(tmp_path / "n"), "torch", False).train()
+    assert [(h["epoch"], h["steps"]) for h in with_eval.history] == [
+        (h["epoch"], h["steps"]) for h in want.history] == [
+        (-1, -1), (0, 2), (0, 4), (0, 4)]
+    np.testing.assert_allclose([h["score"] for h in with_eval.history],
+                               [h["score"] for h in want.history], rtol=0, atol=1e-4)
+    assert with_eval.best_score == pytest.approx(want.best_score, abs=1e-4)
+    assert without.history == []
+    losses = [tcallbacks_json(tc.TrainConfig(experiment_dir=str(tmp_path / d)))
+              for d in ("t", "n")]
+    assert len(losses[0]) == 2 and losses[0] == losses[1]
+    for (k, a), b in zip(with_eval.state.model.state_dict().items(),
+                         without.state.model.state_dict().values()):
+        assert torch.equal(a, b), k
