@@ -1,10 +1,12 @@
-"""Drive the PyTorch/CUDA port's serving, training, evaluation and IVF paths on one NVIDIA GPU.
+"""Drive the PyTorch/CUDA port's paths on one NVIDIA GPU (serving to datasets).
 
     python3 chip_smoke.py                          # every phase, one GPU
     python3 chip_smoke.py --phases build,check     # a new kernel's first, short call
     python3 chip_smoke.py --phases build,check,train
     python3 chip_smoke.py --phases build,check,ivf
     python3 chip_smoke.py --phases build,check,train,evaluate
+    python3 chip_smoke.py --phases build,dataset,capture,ablation
+    python3 chip_smoke.py --phases build,ablation --ablation_steps 2000   # the decisive run
 
 Phases (any failure exits non-zero and prints no result):
 
@@ -86,6 +88,24 @@ Phases (any failure exits non-zero and prints no result):
    through the IVF index (K6), and the trained model's evaluation through
    the plain versions; one evaluation timed by part; the miner's table
    refresh, steps/s with and without the miner, the device's busy share.
+9. dataset — qst_tpu_torch.cli.dataset_main as a user calls it: 4,000
+   synthetic images (20,000 captions, the ablation's recipe), positives
+   mined by MiniLM-L6 on the card, adaptive-crop partial positives, chunks
+   of 500, the verbose check; the eight chunks and the metadata read back;
+   wall time, images/s, encode calls and the encoder's share.
+10. capture — the captured train step on those chunks at the training
+   configuration: four steps a call as one CUDA graph (the first call runs
+   eagerly and captures) against eager steps from the same state, bit for
+   bit in losses, parameters and Adam moments, at dropout 0.1, at dropout 0
+   and with accumulation 2, with K1 / K2 / K3 launches exact across
+   replays; train_main at --steps_per_call 1 and 4 in turns, with and
+   without the miner (steps/s, equal final weights, busy share).
+11. ablation — the port's quadruplet-vs-triplet ablation at the JAX run's
+   decisive configuration (WordPiece, MiniLM-L6 through the fused layer,
+   hard mining), four steps a call, 500 steps an arm (the JAX script's
+   default: the ordering bars) or, with --ablation_steps 2000 (its own call:
+   --phases build,ablation), the decisive run and all its quality bars; the
+   RESULTS.md table beside the JAX rows.
 
 The last lines are the card's name and power limit (nvidia-smi), one JSON
 object with a row per kernel, and {"ok": true, "device": {...}}.
@@ -107,7 +127,8 @@ import urllib.request
 
 import numpy as np
 
-PHASES = ("build", "check", "serve", "ivf", "train", "times", "profile", "evaluate")
+PHASES = ("build", "check", "serve", "ivf", "train", "times", "profile", "evaluate", "dataset",
+          "capture", "ablation")
 
 
 def fail(msg: str) -> None:
@@ -1417,7 +1438,7 @@ def train(report: dict) -> None:
     from qst_tpu_torch.models.tokenizer import HashTokenizer
     from qst_tpu_torch.ops import fused_layer as fl
     from qst_tpu_torch.ops import quadruplet as qd
-    from qst_tpu_torch.train import Trainer, create_train_state, make_train_step
+    from qst_tpu_torch.train import Trainer, create_train_state, dropout_key, make_train_step
     from qst_tpu_torch.train.train_step import encoder_apply_fn, loss_from_config
 
     enc_cfg, loss_cfg, base = train_config()
@@ -1502,7 +1523,7 @@ def train(report: dict) -> None:
             c.launches = 0
         with plain_kernels() if plain else contextlib.nullcontext():
             state, loss = make_train_step(tiny, loss_cfg)(
-                state, ids, tiny_mask, torch.Generator(device=dev).manual_seed(6))
+                state, ids, tiny_mask, dropout_key(6, 1))
         tiny_losses.append(loss.item())
         if not plain:
             tiny_launches = [c.launches for c in counters]
@@ -1520,8 +1541,7 @@ def train(report: dict) -> None:
     step = make_train_step(enc_cfg, loss_cfg)
     losses = []
     for i in range(20):
-        gen = torch.Generator(device=dev).manual_seed(1000 + i)
-        state, loss = step(state, batch.input_ids, batch.attention_mask, gen)
+        state, loss = step(state, batch.input_ids, batch.attention_mask, dropout_key(1000, i + 1))
         losses.append(loss.item())
     log(f"20 steps on one repeated batch (lr 1e-4, warmup 4): loss {losses[0]:.4f} -> "
         f"{losses[-1]:.4f}; {['%.3f' % v for v in losses]}")
@@ -1880,7 +1900,7 @@ def mining_times(small: str, big: str, tmp: str) -> dict:
 
     from qst_tpu_torch.cli import train_main
     from qst_tpu_torch.data import ChunkStore, EmbeddingTable, PrefetchIterator
-    from qst_tpu_torch.train.trainer import step_generator
+    from qst_tpu_torch.train import dropout_key
 
     args = train_main.build_parser().parse_args([
         "--dataset_root", small, "--experiment_dir", f"{tmp}/timing", "--use_fused_layer",
@@ -1932,14 +1952,13 @@ def mining_times(small: str, big: str, tmp: str) -> dict:
                                    transform=trainer.collator, depth=2)
         for i in range(5):
             qb = next(batches)
-            state, _ = step(state, qb.input_ids, qb.attention_mask, step_generator(14, i + 1, dev))
+            state, _ = step(state, qb.input_ids, qb.attention_mask, dropout_key(14, i + 1))
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
             for i in range(5, 25):
                 qb = next(batches)
-                state, _ = step(state, qb.input_ids, qb.attention_mask,
-                                step_generator(14, i + 1, dev))
+                state, _ = step(state, qb.input_ids, qb.attention_mask, dropout_key(14, i + 1))
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
         for _ in batches:        # the rest of the epoch: the thread ends here
@@ -2003,6 +2022,343 @@ def evaluate(report: dict) -> None:
                                "plain_trained": plain_s},
             "evaluation_times": evaluation_times(big, f"{tmp}/exp1"),
             "mining": mining_times(small, big, tmp)}
+
+
+_WORK: dict = {}          # one scratch directory for the phases of a run
+
+
+def work_dir(name: str) -> str:
+    """A directory of this run's scratch tree (removed when the run ends)."""
+    import tempfile
+
+    if "tree" not in _WORK:
+        _WORK["tree"] = tempfile.TemporaryDirectory(prefix="chip_smoke_")
+    path = os.path.join(_WORK["tree"].name, name)
+    os.makedirs(path, exist_ok=True)
+    return path
+
+
+DATASET_IMAGES = 4000     # the ablation's recipe: five captions an image
+
+
+def dataset(report: dict) -> None:
+    """dataset_main as a user calls it on the card: MiniLM-L6 (random init,
+    its nn.Module path, as the JAX CLI leaves the fused flag off) mining the
+    positives of 4,000 synthetic images (20,000 captions) at cos >= 0.6,
+    adaptive-crop partial positives, chunks of 500 and the verbose check;
+    then the eight chunks and the metadata read back through
+    QuadrupletDataset, wall time, images/s, encode calls and the share of
+    the time spent in the encoder."""
+    from qst_tpu_torch.cli import dataset_main
+    from qst_tpu_torch.data import QuadrupletDataset
+    from qst_tpu_torch.data.chunks import discover_chunks, read_meta
+    from qst_tpu_torch.experiments.ablation import make_coco_annotations
+    from qst_tpu_torch.models.sentence_encoder import SentenceEncoder
+
+    tmp = work_dir("dataset")
+    ann = f"{tmp}/captions.json"
+    make_coco_annotations(ann, DATASET_IMAGES, np.random.default_rng(14))
+    with open(ann) as f:
+        captions = {}
+        for a in json.load(f)["annotations"]:
+            captions.setdefault(a["image_id"], set()).add(a["caption"])
+    encode, spent = SentenceEncoder.encode, {"calls": 0, "s": 0.0}
+
+    def timed_encode(self, texts, *a, **kw):         # host numpy out: synchronised
+        t0 = time.perf_counter()
+        out = encode(self, texts, *a, **kw)
+        spent["s"] += time.perf_counter() - t0
+        spent["calls"] += 1
+        return out
+
+    SentenceEncoder.encode = timed_encode
+    try:
+        with logged("qst_tpu_torch.cli.dataset") as records:
+            t0 = time.perf_counter()
+            code = dataset_main.main(["--ann_file", ann, "--output_root", f"{tmp}/out",
+                                      "--chunk_dim", "500", "--part_pos_algorithm",
+                                      "adaptive_crop", "--verbose_check"])
+            wall = time.perf_counter() - t0
+    finally:
+        SentenceEncoder.encode = encode
+    root = f"{tmp}/out/CoCoCaptionDataset"
+    ds = QuadrupletDataset(root, seed=14)
+    insts = list(ds.store.iter_instances())
+    first_try = np.mean([set(i["positive"]) <= captions[i["id"]] for i in insts])
+    checked = [r.getMessage() for r in records if r.getMessage().startswith("cache stats")]
+    log(f"dataset_main: {DATASET_IMAGES} images ({sum(map(len, captions.values()))} captions), "
+        f"MiniLM-L6 on the card, in {wall:.1f} s = {DATASET_IMAGES / wall:.1f} images/s; "
+        f"{spent['calls']} encode calls, {spent['s']:.1f} s in the encoder "
+        f"({100 * spent['s'] / wall:.1f}% of the wall); chunks {discover_chunks(root)}, "
+        f"metadata {read_meta(root)}, {len(ds)} instances; positives from the image's own "
+        f"captions (the first-try branch) for {100 * first_try:.1f}%; {checked}")
+    if (code != 0 or read_meta(root) != 8 or discover_chunks(root) != list(range(8))
+            or len(ds) != DATASET_IMAGES or not checked
+            or any(len(i["positive"]) != 4 or len(i["part_positive"]) != 8 for i in insts)):
+        fail("dataset_main did not write the expected eight chunks")
+    report["dataset"] = {"wall_s": wall, "images_per_s": DATASET_IMAGES / wall,
+                         "encode_calls": spent["calls"], "encoder_s": spent["s"],
+                         "encoder_share": spent["s"] / wall, "first_try_share": first_try,
+                         "root": root}
+
+
+COUNTED = ("K1", "K2", "K3 forward", "K3 backward")
+
+
+def train_counters():
+    from qst_tpu_torch.ops import fused_layer as fl
+    from qst_tpu_torch.ops import quadruplet as qd
+
+    return (fl.fused_bert_layer, fl.fused_bert_layer_bwd, qd.fused_gamma_quadruplet_loss_fwd,
+            qd.fused_gamma_quadruplet_loss_bwd)
+
+
+def add_train_launches(report: dict, launches) -> None:
+    """Add K1, K2 and K3 (forward + backward) launches to the kernel rows."""
+    for name, n in (("K1", launches[0]), ("K2", launches[1]),
+                    ("K3", launches[2] + launches[3])):
+        report[name]["launches"] = report[name].get("launches", 0) + n
+
+
+def window(run, steps: int) -> dict:
+    """Wall time (host clock, synchronised) and device time (torch.profiler's
+    kernels) of ``run()``, per step, and the device's busy share."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(3):
+            torch.cuda._sleep(1000)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    dev_ms = sum(device_us(e) for e in prof.key_averages() if is_kernel(e)) / 1e3
+    return {"wall_ms_per_step": wall * 1e3 / steps, "device_ms_per_step": dev_ms / steps,
+            "busy": dev_ms / (wall * 1e3)}
+
+
+def capture(report: dict) -> None:
+    """The captured train step on the dataset phase's chunks, at the training
+    configuration (MiniLM-L6, fused layer and loss, batch 32 quadruplets,
+    S = 128): K = 4 steps a call, two calls (the first runs its steps
+    eagerly and captures, the second replays) against eight eager steps from
+    the same state — losses, parameters and Adam moments bit for bit — at
+    dropout 0.1, at dropout 0 and with accumulation 2, and K1 / K2 / K3
+    launches exactly the steps'. Then train_main at --steps_per_call 1 and
+    4 in turns, with the miner and without, over 1,000 instances (31
+    steps): steps/s, the final weights of the two equal bit for bit (the
+    capture runs while the miner's thread encodes), and over 20 steps the
+    wall and device time a step and the busy share."""
+    import dataclasses
+    import shutil
+
+    import torch
+
+    from qst_tpu_torch.cli import train_main
+    from qst_tpu_torch.data import PrefetchIterator, QuadrupletCollator, QuadrupletDataset
+    from qst_tpu_torch.data import write_meta
+    from qst_tpu_torch.models.tokenizer import HashTokenizer
+    from qst_tpu_torch.train import (create_train_state, dropout_key, make_multi_step,
+                                     make_train_step)
+
+    if "dataset" not in report:
+        dataset(report)
+    root = report["dataset"]["root"]
+    enc_cfg, loss_cfg, base = train_config()
+    dev, K = torch.device("cuda"), 4
+    ds = QuadrupletDataset(root, seed=14)
+    collator = QuadrupletCollator(HashTokenizer(vocab_size=enc_cfg.vocab_size),
+                                  max_length=enc_cfg.max_seq_length)
+    batches = [collator(ds.sample_batch(range(32 * i, 32 * (i + 1)), step=i))
+               for i in range(2 * K)]
+    ids = np.stack([b.input_ids for b in batches])
+    mask = np.stack([b.attention_mask for b in batches])
+    keys = torch.stack([dropout_key(14, s) for s in range(1, 2 * K + 1)])
+    counters = train_counters()
+    out = {"bit_for_bit": {}}
+    for label, rate, accum in (("dropout 0.1", 0.1, 1), ("dropout 0", 0.0, 1),
+                               ("dropout 0.1, accumulation 2", 0.1, 2)):
+        cfg = dataclasses.replace(enc_cfg, hidden_dropout=rate, attention_dropout=rate)
+        tcfg = dataclasses.replace(base, learning_rate=1e-4, warmup_steps=2,
+                                   gradient_accumulation_steps=accum)
+        graph_st, eager_st = (create_train_state(cfg, tcfg, torch.Generator().manual_seed(14),
+                                                 100, loss_cfg, device=dev)[0]
+                              for _ in range(2))
+        multi = make_multi_step(cfg, loss_cfg, None, K)
+        graph_losses, launches = [], []
+        for call in range(2):
+            before = [c.launches for c in counters]
+            part = slice(call * K, (call + 1) * K)
+            graph_st, losses = multi(graph_st, ids[part], mask[part], keys[part])
+            torch.cuda.synchronize()
+            launches.append([c.launches - b for c, b in zip(counters, before)])
+            graph_losses.append(losses)
+        if multi._graph is None:
+            fail(f"{label}: no graph was captured")
+        step = make_train_step(cfg, loss_cfg)
+        eager_losses = []
+        before = [c.launches for c in counters]
+        for j in range(2 * K):
+            eager_st, loss = step(eager_st, ids[j], mask[j], keys[j])
+            eager_losses.append(loss)
+        torch.cuda.synchronize()
+        eager_launches = [c.launches - b for c, b in zip(counters, before)]
+        graph_losses, eager_losses = torch.cat(graph_losses), torch.stack(eager_losses)
+        tensors = list(zip(graph_st.optimizer.state_tensors(), eager_st.optimizer.state_tensors()))
+        unequal = [(a - b).abs().max().item() for a, b in tensors if not torch.equal(a, b)]
+        want = [6 * K, 6 * K, K, K]
+        log(f"captured steps ({label}, MiniLM-L6, batch 32, S=128): 2 calls of {K} (eager + "
+            f"capture, then one replay) against {2 * K} eager steps: losses "
+            f"{'bit-equal' if torch.equal(graph_losses, eager_losses) else 'DIFFER'} "
+            f"({['%.5f' % v for v in graph_losses.tolist()]}), {len(tensors) - len(unequal)} of "
+            f"{len(tensors)} parameter and optimizer-state tensors bit-equal (largest "
+            f"difference {max(unequal, default=0.0):.3e}); launches a call {launches} (want "
+            f"{want}: {', '.join(COUNTED)})")
+        if not torch.equal(graph_losses, eager_losses) or unequal:
+            fail(f"{label}: the captured steps differ from the eager ones")
+        if launches != [want, want]:
+            fail(f"{label}: launches {launches} across the replay, want {want} a call")
+        if eager_launches != [2 * n for n in want]:
+            fail(f"{label}: the {2 * K} eager steps launched {eager_launches}, want "
+                 f"{[2 * n for n in want]}")
+        add_train_launches(report, [sum(c) for c in zip(*launches)])
+        add_train_launches(report, eager_launches)
+        out["bit_for_bit"][label] = {"losses": graph_losses.tolist(), "tensors": len(tensors)}
+        del graph_st, eager_st, multi
+
+    # train_main over the first two chunks (1,000 instances: 31 steps)
+    small = work_dir("capture_small")
+    for c in (0, 1):
+        shutil.copy(f"{root}/chunk_{c}.json", small)
+    write_meta(small, 2)
+
+    def trainer_for(K_call: int, mined: bool, name: str):
+        args = train_main.build_parser().parse_args([
+            "--dataset_root", small, "--experiment_dir", work_dir(f"capture_{name}"),
+            "--use_fused_layer", "--use_fused_loss_kernel", "--hard_contrastive_mode", "1",
+            "--epochs", "1", "--evaluation_steps", "0", "--checkpoint_save_steps", "0",
+            "--no-save_best_model", "--seed", "14", "--steps_per_call", str(K_call)])
+        trainer = train_main.build_trainer(args)
+        trainer.evaluator = None
+        if not mined:
+            trainer.dataset.miner = None
+        return trainer
+
+    rates, finals = {}, {}
+    for mined in (True, False):
+        for K_call in (1, K, K, 1):
+            name = f"{'mined' if mined else 'plain'} K={K_call}"
+            before = [c.launches for c in counters]
+            result = trainer_for(K_call, mined, name.replace(" ", "_")).train()
+            rates.setdefault(name, []).append(result.steps_per_sec)
+            finals.setdefault(name, {n: t.detach().clone() for n, t in
+                                     result.state.model.state_dict().items()})
+            add_train_launches(report, [c.launches - b for c, b in zip(counters, before)])
+    same = {m: all(torch.equal(finals[f"{m} K=1"][n], t) for n, t in finals[f"{m} K={K}"].items())
+            for m in ("mined", "plain")}
+    log(f"train_main, 31 steps at --steps_per_call 1 and {K} in turns (steps/s in the loop, "
+        f"the {K}-step runs' first call eager + capture): {rates}; final weights of the "
+        f"{K}-step run equal the 1-step run's bit for bit: {same}")
+    if not all(same.values()):
+        fail("train_main at --steps_per_call 4 ends with other weights than at 1")
+
+    # 20 steps after warm-up, the batches sampled (and mined) on the
+    # prefetch thread as in Trainer.train
+    busy = {}
+    for mined in (True, False):
+        trainer = trainer_for(1, mined, "busy")
+        for K_call in (1, K):
+            state, _ = create_train_state(trainer.encoder_cfg, trainer.train_cfg,
+                                          torch.Generator().manual_seed(14), 100,
+                                          trainer.loss_cfg, device=dev)
+            batches = iter(PrefetchIterator(trainer.dataset.iter_batches(32, epoch=0),
+                                            transform=trainer.collator, depth=2 * K_call))
+            before = [c.launches for c in counters]
+            step_no = [0]
+            if K_call == 1:
+                step = make_train_step(trainer.encoder_cfg, trainer.loss_cfg)
+
+                def run(n):
+                    for _ in range(n):
+                        qb = next(batches)
+                        step_no[0] += 1
+                        step(state, qb.input_ids, qb.attention_mask, dropout_key(14, step_no[0]))
+                warm = 5
+            else:
+                multi = make_multi_step(trainer.encoder_cfg, trainer.loss_cfg, None, K_call)
+
+                def run(n):
+                    for _ in range(n // K_call):
+                        qbs = [next(batches) for _ in range(K_call)]
+                        ks = torch.stack([dropout_key(14, step_no[0] + 1 + j)
+                                          for j in range(K_call)])
+                        step_no[0] += K_call
+                        multi(state, np.stack([b.input_ids for b in qbs]),
+                              np.stack([b.attention_mask for b in qbs]), ks)
+                warm = 2 * K_call
+            run(warm)
+            torch.cuda.synchronize()
+            w = window(lambda: run(20), 20)
+            if w["device_ms_per_step"] == 0.0:
+                fail(f"the profiler saw no kernel of the K={K_call} steps")
+            for _ in batches:            # the rest of the epoch: the thread ends here
+                pass
+            add_train_launches(report, [c.launches - b for c, b in zip(counters, before)])
+            busy[f"{'mined' if mined else 'plain'} K={K_call}"] = w
+            del state
+    log("captured against eager, 20 steps of train_main's trainer after warm-up: " + "; ".join(
+        f"{n}: {b['wall_ms_per_step']:.2f} ms a step ({1e3 / b['wall_ms_per_step']:.1f} "
+        f"steps/s), device {b['device_ms_per_step']:.2f} ms, busy {100 * b['busy']:.1f}%"
+        for n, b in busy.items()))
+    out.update(train_main_steps_per_s=rates, busy=busy)
+    report["capture"] = out
+
+
+ABLATION_STEPS = 500      # the JAX script's default; --ablation_steps 2000: the decisive run
+
+
+def ablation(report: dict) -> None:
+    """The port's quadruplet-vs-triplet ablation at the JAX package's
+    decisive configuration (WordPiece from the corpus, MiniLM-L6 through the
+    fused layer with in-kernel dropout, the γ arm's loss through K3, hard
+    mining on the topic hash embedder), four steps a call, for
+    ``ABLATION_STEPS`` an arm (``--ablation_steps``; the decisive run is
+    2,000); the RESULTS.md table with the JAX run's rows beside it, the
+    quality bars held (below 2,000 steps the ordering bars only), K2 and K3
+    launches exactly the steps'."""
+    import tempfile
+
+    from qst_tpu_torch.experiments import ablation as abl
+
+    counters = train_counters()
+    args = abl.build_parser().parse_args([
+        "--steps", str(ABLATION_STEPS), "--wordpiece", "--use_fused_layer",
+        "--preset", "minilm_l6", "--steps_per_call", "4"])
+    before = [c.launches for c in counters]
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as work:
+        out = abl.run(args, work)
+    wall = time.perf_counter() - t0
+    launches = [c.launches - b for c, b in zip(counters, before)]
+    steps = out["steps_per_arm"]
+    total = steps["quadruplet"] + steps["triplet"]
+    log(f"ablation ({ABLATION_STEPS} steps an arm, MiniLM-L6, WordPiece, fused layer, K3 in "
+        f"the γ arm, 4 steps a call): {wall:.1f} s, of it {out['seconds']}; steps/s in the "
+        f"loop {out['steps_per_sec']}; launches K1 {launches[0]} (training {6 * total}, "
+        f"evaluation the rest), K2 {launches[1]}, K3 {launches[2:]}\n"
+        + abl.markdown_table(out["results"]))
+    if launches[1] != 6 * total or launches[2:] != [steps["quadruplet"]] * 2 \
+            or launches[0] < 6 * total:
+        fail(f"ablation launches {launches} for {steps} steps")
+    failed = abl.quality_bars(out["results"], ordering_only=ABLATION_STEPS < 2000)
+    if failed:
+        fail("the ablation's quality bars: " + "; ".join(failed))
+    add_train_launches(report, launches)
+    report["ablation"] = {"wall_s": wall, "seconds": out["seconds"],
+                          "steps_per_sec": out["steps_per_sec"], "steps_per_arm": steps,
+                          "table": {k: abl.table_row(v) for k, v in out["results"].items()}}
 
 
 def times(report: dict) -> None:
@@ -2120,10 +2476,15 @@ def times(report: dict) -> None:
 
     unbound_ms = cuda_ms(unbound, 200)
     # one call's device operations, counted exactly; an operation of no
-    # account goes first because a trace may miss the first kernel after it starts
-    seq = device_sequence(lambda: (one.clone(), unbound()))
-    while seq and "quadruplet_" not in seq[0]:
-        seq.pop(0)
+    # account goes first because a trace may miss the first kernel after it
+    # starts, and a second trace is taken when this one lost the forward too
+    for attempt in range(2):
+        seq = device_sequence(lambda: (one.clone(), unbound()))
+        while seq and "quadruplet_" not in seq[0]:
+            seq.pop(0)
+        if seq and "quadruplet_fwd_kernel" in seq[0]:
+            break
+        log(f"the trace lost K3's forward (attempt {attempt + 1} of 2): {seq}")
     report["K3"].update(autograd_ms=auto_ms, autograd_unbound_ms=unbound_ms)
     log(f"K3 forward + backward: {1e3 * report['K3']['ms']:.1f} us per call on CUDA events, "
         f"of which {1e3 * sum(k3_dev.values()):.1f} us on the device (the rest is launch "
@@ -2291,33 +2652,47 @@ def train_setup(enc_cfg, loss_cfg, gen, device):
 
 
 def train_step_rates(gen) -> dict:
-    """Steps/s (host clock, synchronised) of the kernel path and of the
-    nn.Module path with the plain loss, timed in turns: kernels, module,
-    module, kernels; 20 steps each after 3 warm-up steps."""
+    """Steps/s (host clock, synchronised) of the kernel path one step a
+    call, the same steps captured four a call (one CUDA graph replay), and
+    the nn.Module path with the plain loss, timed in turns: kernels,
+    captured, module, module, captured, kernels; 20 steps each after warm-up
+    (3 steps; the captured path's first call runs eagerly and captures)."""
     import dataclasses
 
     import torch
 
+    from qst_tpu_torch.train import dropout_key, make_multi_step
+
     dev = torch.device("cuda")
     enc_cfg, loss_cfg, _ = train_config()
-    paths = {"kernels": (enc_cfg, loss_cfg),
+    paths = {"kernels": (enc_cfg, loss_cfg), "captured": (enc_cfg, loss_cfg),
              "module": (dataclasses.replace(enc_cfg, use_fused_layer=False),
                         dataclasses.replace(loss_cfg, use_fused_kernel=False))}
-    rates = {"kernels": [], "module": []}
-    for name in ("kernels", "module", "module", "kernels"):
+    rates = {"kernels": [], "captured": [], "module": []}
+    K = 4
+    for name in ("kernels", "captured", "module", "module", "captured", "kernels"):
         state, step, ids, mask = train_setup(*paths[name], gen, dev)
-        gens = [torch.Generator(device=dev).manual_seed(i) for i in range(23)]
-        for g in gens[:3]:
-            step(state, ids, mask, g)
+        if name == "captured":
+            multi = make_multi_step(enc_cfg, loss_cfg, None, K)
+            kids, kmask = ids.expand(K, *ids.shape), mask.expand(K, *mask.shape)
+            keys = [torch.stack([dropout_key(c, j + 1) for j in range(K)]) for c in range(7)]
+            calls = [lambda c=c: multi(state, kids, kmask, keys[c]) for c in range(7)]
+            warm, timed, n = calls[:2], calls[2:], 20
+        else:
+            calls = [lambda i=i: step(state, ids, mask, dropout_key(i, 1)) for i in range(23)]
+            warm, timed, n = calls[:3], calls[3:], 20
+        for c in warm:
+            c()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        for g in gens[3:]:
-            step(state, ids, mask, g)
+        for c in timed:
+            c()
         torch.cuda.synchronize()
-        rates[name].append(20 / (time.perf_counter() - t0))
+        rates[name].append(n / (time.perf_counter() - t0))
         del state
     log(f"train steps/s, MiniLM-L6, batch 32 quadruplets, S=128, bf16, dropout 0.1: "
-        f"kernel path {rates['kernels']}, nn.Module path with plain loss {rates['module']}")
+        f"kernel path {rates['kernels']}, captured {K} a call {rates['captured']}, "
+        f"nn.Module path with plain loss {rates['module']}")
     return rates
 
 
@@ -2415,6 +2790,15 @@ def ban_library_kernels(kernels: dict, what: str) -> None:
         fail(f"library kernels on the path of {what}: {banned}")
 
 
+def short_name(kernel: str) -> str:
+    """A kernel's name without its namespaces and launch template
+    arguments, up to 110 characters: the functor that tells torch's
+    elementwise kernels apart stays."""
+    for noise in ("void ", "at::native::", "(anonymous namespace)::", "at::", "c10::"):
+        kernel = kernel.replace(noise, "")
+    return kernel[:110]
+
+
 def shares(kernels: dict, groups, name_other: int = 0) -> str:
     """'label ms (share%)' for each (label, name substrings) group of
     kernels, then the rest, as a share of all device time; with
@@ -2429,8 +2813,60 @@ def shares(kernels: dict, groups, name_other: int = 0) -> str:
     parts.append(f"other {rest:.3f} ms ({100 * rest / total:.1f}%)")
     top = sorted(left.items(), key=lambda kv: -kv[1])[:name_other]
     if top:
-        parts.append("largest other: " + "; ".join(f"{n[:70]} {ms:.3f} ms" for n, ms in top))
+        parts.append("largest other: " + "; ".join(f"{short_name(n)} {ms:.3f} ms"
+                                                   for n, ms in top))
     return ", ".join(parts)
+
+
+def glue_pieces(enc_cfg, ids, dev) -> None:
+    """Two pieces of the train step's glue (the device work outside the
+    kernels), timed alone with CUDA events at the step's shapes: the
+    embedding dropout's mask (its int32 hash, as the step draws it, against
+    the int64 reference ``_hash31``; the two bit-equal on the card) and the
+    word embedding's lookup forward + backward (``F.embedding``, as the step
+    runs it, against the index form ``weight[ids]``), on random ids and on
+    the same ids padded as short captions are (the last three quarters of
+    each row id 0)."""
+    import torch
+
+    from qst_tpu_torch.ops import fused_layer as fl
+    from qst_tpu_torch.train import dropout_key
+
+    H = enc_cfg.hidden_size
+    flat = ids.reshape(-1, ids.shape[-1]).long()
+    padded = flat.clone()
+    padded[:, flat.shape[1] // 4:] = 0
+    x = torch.randn(flat.shape + (H,), device=dev).to(torch.bfloat16)
+    base = fl.step_draws(dropout_key(3, 1).to(dev), enc_cfg.num_layers)[0]
+    i64 = torch.arange(x.numel(), dtype=torch.int64, device=dev)
+    if not torch.equal(fl._hash31_i32(i64.to(torch.int32), base, fl._TAG_EMBED).long(),
+                       fl._hash31(i64, base, fl._TAG_EMBED)):
+        fail("the int32 embedding-mask hash differs from the int64 one on the card")
+    del i64
+
+    def mask_int64():
+        idx = torch.arange(x.numel(), dtype=torch.int64, device=dev).reshape(x.shape)
+        return (x.float() * fl._keep(fl._hash31(idx, base, fl._TAG_EMBED), 0.1)).to(x.dtype)
+
+    weight = torch.randn((enc_cfg.vocab_size, H), device=dev, requires_grad=True)
+    grad = torch.randn(flat.shape + (H,), device=dev)
+
+    def lookup(rows, embedding: bool):
+        def run():
+            out = torch.nn.functional.embedding(rows, weight) if embedding else weight[rows]
+            torch.autograd.grad(out, weight, grad)
+        return run
+
+    ms = {"mask int32": cuda_ms(lambda: fl.embedding_dropout(x, base, 0.1), 20),
+          "mask int64": cuda_ms(mask_int64, 20)}
+    for name, rows in (("random", flat), ("padded", padded)):
+        for form, embedding in (("F.embedding", True), ("index", False)):
+            ms[f"{form} {name}"] = cuda_ms(lookup(rows, embedding), 10)
+    log(f"profile train step glue, {flat.numel()} rows x {H}: embedding-dropout mask "
+        f"{ms['mask int32']:.3f} ms (int32 hash, the step's) against {ms['mask int64']:.3f} "
+        f"(int64); word-embedding lookup forward + backward on random / padded ids "
+        f"{ms['F.embedding random']:.3f} / {ms['F.embedding padded']:.3f} ms (F.embedding, the "
+        f"step's) against {ms['index random']:.3f} / {ms['index padded']:.3f} (weight[ids])")
 
 
 def profile_phase(report: dict) -> None:
@@ -2448,6 +2884,7 @@ def profile_phase(report: dict) -> None:
     from qst_tpu_torch.ops import topk
     from qst_tpu_torch.retrieval import Retriever
     from qst_tpu_torch.serve import RetrievalServer
+    from qst_tpu_torch.train import dropout_key
 
     dev = torch.device("cuda")
     gen = torch.Generator().manual_seed(7)
@@ -2480,7 +2917,7 @@ def profile_phase(report: dict) -> None:
     # layer x 6
     enc_cfg, loss_cfg, _ = train_config()
     state, step, tids, tmask = train_setup(enc_cfg, loss_cfg, gen, dev)
-    tgen = torch.Generator(device=dev).manual_seed(3)
+    tgen = dropout_key(3, 1)
     for _ in range(2):
         step(state, tids, tmask, tgen)
     torch.cuda.synchronize()
@@ -2504,7 +2941,8 @@ def profile_phase(report: dict) -> None:
                                                               "sum_rows_kernel")),
             ("K3", ("quadruplet_",)),
             ("optimizer (foreach)", ("foreach", "multi_tensor", "MultiTensor")),
-            ("library GEMM", ("gemm", "nvjet", "cutlass", "xmma"))), name_other=6))
+            ("library GEMM", ("gemm", "nvjet", "cutlass", "xmma"))), name_other=10))
+    glue_pieces(enc_cfg, tids, dev)
     # K3 in the step's timeline: its forward, then its backward, with nothing
     # between them but the fill of backward()'s root gradient
     seq = device_sequence(lambda: step(state, tids, tmask, tgen))
@@ -2619,9 +3057,15 @@ def profile_phase(report: dict) -> None:
 
 
 def main() -> None:
+    global ABLATION_STEPS
+    default_steps = ABLATION_STEPS
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--phases", default=",".join(PHASES))
+    ap.add_argument("--ablation_steps", type=int, default=default_steps,
+                    help="train steps an arm in the ablation phase (2000: the decisive run, "
+                    "all its quality bars)")
     args = ap.parse_args()
+    ABLATION_STEPS = args.ablation_steps
     phases = args.phases.split(",")
     if any(p not in PHASES for p in phases):
         fail(f"unknown phase in {phases}; choices {PHASES}")
@@ -2644,15 +3088,20 @@ def main() -> None:
     # evaluate last: its trainer threads and profiled steps come after the
     # timing phases' profiles
     for phase, fn in (("check", check_kernels), ("serve", serve), ("ivf", ivf), ("train", train),
-                      ("times", times), ("profile", profile_phase), ("evaluate", evaluate)):
+                      ("times", times), ("profile", profile_phase), ("evaluate", evaluate),
+                      ("dataset", dataset), ("capture", capture), ("ablation", ablation)):
         if phase in phases:
             t0 = time.perf_counter()
             fn(report)
             log(f"phase {phase}: {time.perf_counter() - t0:.1f} s")
+    if "tree" in _WORK:
+        _WORK.pop("tree").cleanup()
     log(json.dumps({k: v for k, v in report.items()
                     if k in ("encode", "search", "search_q256", "k4_yardsticks", "k5_forms",
                              "train", "train_steps_per_s", "ivf", "ivf_times", "ivf_times_4m", "layer_gemm",
-                             "evaluate", "encode_depth")}))
+                             "evaluate", "encode_depth", "capture", "ablation")}))
+    if "dataset" in report:
+        log(json.dumps({"dataset": {k: v for k, v in report["dataset"].items() if k != "root"}}))
     log(json.dumps({"K1_training_layer": {k: report["K1"].get(k) for k in (
         "train_ms", "train_no_dropout_ms", "dropout_max_abs_err", "module_layer_ms")},
         "K1_pieces_ms": report["K1"].get("pieces_ms"),

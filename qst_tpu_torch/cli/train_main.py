@@ -14,10 +14,10 @@ patience-based early stopping. Everything runs on the GPU unless
       --experiment_dir trained/exp1 --use_fused_layer --use_fused_loss_kernel \\
       --hard_contrastive_mode 1 --use_ir_evaluator
 
-The flags and defaults are the JAX CLI's. Not ported yet, and refused with a
-message: ``--hf_checkpoint`` / ``--hf_checkpoint_dir``, ``--steps_per_call``
-above 1, and pipeline or mesh layouts (``--pp_*``, ``--mesh_*`` off their
-defaults).
+The flags and defaults are the JAX CLI's; ``--steps_per_call K`` runs K
+steps per call, one CUDA graph replay on the GPU. Not ported yet, and
+refused with a message: ``--hf_checkpoint`` / ``--hf_checkpoint_dir``, and
+pipeline or mesh layouts (``--pp_*``, ``--mesh_*`` off their defaults).
 """
 
 from __future__ import annotations
@@ -109,7 +109,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--experiment_dir", required=True)
     p.add_argument("--manual_notes", default="")
     p.add_argument("--steps_per_call", type=int, default=1,
-                   help="train steps per dispatch (only 1 is ported)")
+                   help="train steps per call: K > 1 replays K captured steps as one "
+                   "CUDA graph")
     # parallelism (not ported)
     p.add_argument("--pp_stages", type=int, default=1)
     p.add_argument("--pp_microbatches", type=int, default=0)
@@ -140,7 +141,6 @@ def build_trainer(args: argparse.Namespace):
     refuse_not_ported([
         ("--hf_checkpoint", args.hf_checkpoint, "HF checkpoint import"),
         ("--hf_checkpoint_dir", args.hf_checkpoint_dir, "HF checkpoint import"),
-        ("--steps_per_call > 1", args.steps_per_call > 1, "the multi-step train step"),
         ("--pp_stages/--pp_microbatches/--pp_rounds",
          (args.pp_stages, args.pp_microbatches, args.pp_rounds) != (1, 0, 1),
          "pipeline parallelism"),

@@ -20,9 +20,13 @@ from typing import Any, Dict, Tuple
 # Defaults mirroring the reference's semantics (qst_tpu/core/config.py:24-47)
 RANDOM_SEED = 14
 DEFAULT_GAMMA = 0.6
+POSITIVE_SIM_THRESHOLD = 0.6
 NEGATIVE_SIM_THRESHOLD = 0.2
 CROSS_ENCODER_RELEVANCE_THRESHOLD = 0.4
 CHUNK_DIM = 500
+N_EXAMPLES = 4
+N_PART_EXAMPLES = 8
+MAX_WORDS_TO_REPLACE = 5
 N_IR_SAMPLES = 1000
 CORPUS_CHUNK_SIZE = 50_000
 
@@ -40,6 +44,15 @@ QUADRUPLET_KEYS: Tuple[str, str, str, str] = (
 )
 
 REDUCTIONS = frozenset({"mean", "sum", "none"})
+
+# Words never replaced by synonym augmentation (reference constants.py:9-12)
+NO_REPLACE_WORDS = frozenset(
+    {
+        "a", "an", "the", "is", "are", "was", "were", "be", "been", "being",
+        "of", "to", "in", "on", "at", "by", "for", "with", "and", "or", "not",
+        "it", "its", "this", "that", "these", "those", "as", "from",
+    }
+)
 
 
 def _validate_positive(name: str, value: float) -> None:

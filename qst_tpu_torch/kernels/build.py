@@ -143,14 +143,51 @@ def device_guard(device):
 
 
 _count_lock = threading.Lock()
+_captured: Optional[Dict[object, int]] = None   # launches recorded into a CUDA graph
 
 
 def count_launch(wrapper) -> None:
     """Add one to ``wrapper.launches``, the count of its kernel's launches,
     under a lock: an encode on a data-loading thread (the negative miner)
-    launches K1 while the main thread runs train steps."""
+    launches K1 while the main thread runs train steps. A call made while
+    its stream is being captured into a CUDA graph launches nothing: inside
+    ``capturing_launches`` it is recorded there instead, and
+    ``add_launches`` counts the recording once per replay."""
     with _count_lock:
+        if _captured is not None:
+            import torch
+
+            if torch.cuda.is_current_stream_capturing():
+                _captured[wrapper] = _captured.get(wrapper, 0) + 1
+                return
         wrapper.launches += 1
+
+
+class capturing_launches:
+    """``with capturing_launches() as rec:`` around a graph capture → ``rec``,
+    {wrapper: the launches each replay of the graph makes}. Calls on other
+    streams (a miner's encode on another thread) still count as launches."""
+
+    def __enter__(self) -> Dict[object, int]:
+        global _captured
+        with _count_lock:
+            if _captured is not None:
+                raise RuntimeError("one graph capture at a time")
+            _captured = {}
+            return _captured
+
+    def __exit__(self, *exc) -> bool:
+        global _captured
+        with _count_lock:
+            _captured = None
+        return False
+
+
+def add_launches(recorded: Dict[object, int]) -> None:
+    """Count one replay of a graph whose capture recorded ``recorded``."""
+    with _count_lock:
+        for wrapper, n in recorded.items():
+            wrapper.launches += n
 
 
 def check(code: int, what: str) -> None:

@@ -43,12 +43,19 @@ class SentenceEncoderModule(BertEncoder):
         return {"token_embeddings": hidden, "sentence_embedding": pooled}
 
 
+# the standard deviation of a unit normal cut at ±2 (jax.nn.initializers'
+# truncated_normal rescales by it)
+_TRUNCATED_STD = 0.87962566103423978
+
+
 def init_params(cfg: EncoderConfig, generator: torch.Generator,
                 device: Any = None) -> Dict[str, torch.Tensor]:
     """Random weights from ``generator`` (a CPU generator), as a state dict
-    on ``device`` (default: the GPU, ``core/device.py``): HF ``BertModel``'s
-    initialisation — normal(0, 0.02) matrices and embeddings, zero biases,
-    unit LayerNorm scales."""
+    on ``device`` (default: the GPU, ``core/device.py``), drawn from the
+    distribution of qst_tpu's ``init_params`` (Flax's defaults): embeddings
+    normal(0, 1/√H), every dense kernel lecun-normal — a normal cut at two
+    standard deviations and scaled to variance 1/fan_in — zero biases, unit
+    LayerNorm scales. The draws are torch's, not ``jax.random``'s."""
     device = resolve_device(device)
     model = SentenceEncoderModule(cfg)
     sd = {}
@@ -57,8 +64,12 @@ def init_params(cfg: EncoderConfig, generator: torch.Generator,
             t = torch.ones_like(p)
         elif name.endswith(".bias"):
             t = torch.zeros_like(p)
-        else:
-            t = torch.normal(0.0, 0.02, p.shape, generator=generator)
+        elif name.startswith("embeddings."):
+            t = torch.normal(0.0, cfg.hidden_size ** -0.5, p.shape, generator=generator)
+        else:          # an nn.Linear weight, (out, in)
+            std = p.shape[1] ** -0.5 / _TRUNCATED_STD
+            t = torch.nn.init.trunc_normal_(torch.empty(p.shape), 0.0, std, -2 * std, 2 * std,
+                                            generator=generator)
         sd[name] = t.to(device)
     return sd
 

@@ -151,6 +151,54 @@ def step_seed(seed, blk):
     return ((_seed_int(seed) & _M32) ^ (blk * _GOLDEN)) & _M32
 
 
+# Site tags of the training forward's own draws (the kernels' sites use 0, 1
+# and 16 + ...): the step's base seed, the layer seeds, the embedding mask
+_TAG_STEP, _TAG_LAYERS, _TAG_EMBED = 7, 8, 9
+
+
+def step_draws(key: torch.Tensor, num_layers: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The training forward's draws for dropout key ``key`` = (seed, step),
+    an int64 tensor of two on the model's device: → (the step's 31-bit base
+    seed as a (1,) int64 tensor, the (num_layers, 1) int32 seeds of K1's
+    in-kernel masks). Both come from ``_hash31`` on the device — integer ops
+    only, no host value and no generator — so a step's draws are a pure
+    function of (seed, step), the same whether the step runs eagerly or
+    replays from a captured graph."""
+    key = key.to(torch.int64)
+    base = _hash31(key[1:2] & _M32, key[0:1] & _M32, _TAG_STEP)
+    layers = torch.arange(num_layers, dtype=torch.int64, device=key.device)[:, None]
+    return base, _hash31(layers, base, _TAG_LAYERS).to(torch.int32)
+
+
+def _wrap32(c: int) -> int:
+    """The int32 with the bits of the uint32 ``c``."""
+    return c - (1 << 32) if c & 0x80000000 else c
+
+
+def _hash31_i32(idx: torch.Tensor, seed: torch.Tensor, tag: int) -> torch.Tensor:
+    """``_hash31`` in int32 arithmetic, for an int32 ``idx`` and a (1,) int64
+    ``seed``: the same bits at half the bytes a pass and in fewer passes
+    (int32 products wrap modulo 2**32; each right shift is masked to make
+    it logical). The int64 form stays the reference."""
+    s = (seed + tag * _GOLDEN) & _M32
+    h = idx ^ ((s ^ 0x80000000) - 0x80000000).to(torch.int32)
+    h ^= (h >> 16) & 0xFFFF
+    h *= _wrap32(0x85EBCA6B)
+    h ^= (h >> 13) & 0x7FFFF
+    h *= _wrap32(0xC2B2AE35)
+    h ^= (h >> 16) & 0xFFFF
+    return h & 0x7FFFFFFF
+
+
+def embedding_dropout(x: torch.Tensor, base: torch.Tensor, rate: float) -> torch.Tensor:
+    """Inverted dropout of the embeddings' output: element i kept when the
+    31 bits ``_hash31(i, base, tag)`` fall under the rate's threshold, as
+    K1 keeps its own elements, and scaled by float32(1/(1 − rate)). The
+    bits come from ``_hash31_i32`` (the (B·S, H) index fits int32)."""
+    idx = torch.arange(x.numel(), dtype=torch.int32, device=x.device).reshape(x.shape)
+    return (x.float() * _keep(_hash31_i32(idx, base, _TAG_EMBED), rate)).to(x.dtype)
+
+
 def _hidden_mask(B: int, S: int, H: int, seed, rate: float, nb: int, tag: int,
                  device) -> torch.Tensor:
     """(B·S, H) mask of a hidden-state site (tag 0: attention output, 1: FFN
@@ -691,7 +739,7 @@ def layer_weights_from_module(layer: torch.nn.Module,
 def fused_encoder_forward(cfg: EncoderConfig, model: torch.nn.Module,
                           input_ids: torch.Tensor, attention_mask: torch.Tensor, *,
                           differentiable: bool = False,
-                          dropout_generator: Optional[torch.Generator] = None) -> torch.Tensor:
+                          dropout_key: Optional[torch.Tensor] = None) -> torch.Tensor:
     """ids/mask → last hidden state (B, S, H) through the fused layer
     (``fused_layer_pallas.py:695``).
 
@@ -700,21 +748,25 @@ def fused_encoder_forward(cfg: EncoderConfig, model: torch.nn.Module,
     call, or with ``differentiable`` one ``FusedBertLayer`` (K1 forward, K2
     backward). The GPU needs no batch padding to a block multiple.
 
-    ``dropout_generator``: when given and the config has dropout, the
-    training forward — embedding dropout in plain torch (its bits are the
-    generator's, not JAX's), and one int32 seed per layer drawn from the
-    generator for the in-kernel masks of attention probabilities, attention
-    output and FFN output. The generator draws on its own device."""
+    ``dropout_key``: when given and the config has dropout, the training
+    forward of step (seed, step) = ``dropout_key`` (two int64 values, moved
+    to the ids' device): embedding dropout in plain torch and one int32 seed
+    per layer for the in-kernel masks of attention probabilities, attention
+    output and FFN output, all derived on the device by ``step_draws`` (their
+    bits are not ``jax.random``'s)."""
     if cfg.arch != "bert":
         raise NotImplementedError(f"fused layer port covers arch='bert', got {cfg.arch}")
     dt = getattr(torch, cfg.dtype)
-    train = dropout_generator is not None and (cfg.hidden_dropout > 0
-                                               or cfg.attention_dropout > 0)
+    train = dropout_key is not None and (cfg.hidden_dropout > 0 or cfg.attention_dropout > 0)
     attn_drop = cfg.attention_dropout if train else 0.0
     hid_drop = cfg.hidden_dropout if train else 0.0
     emb = model.embeddings
     S = input_ids.shape[1]
-    word = emb.word_embeddings.weight[input_ids.long()].to(dt)
+    # the embedding lookup, not an index: its backward sums repeated ids in
+    # a fixed order (an index's backward adds them atomically on the CPU)
+    # and splits a long run of one id (the padding) across blocks (an
+    # index's backward on the card sums each id's run in one thread block)
+    word = torch.nn.functional.embedding(input_ids.long(), emb.word_embeddings.weight).to(dt)
     pos = emb.position_embeddings.weight[:S].to(dt)[None]
     typ = emb.token_type_embeddings.weight[0].to(dt)[None, None]
     x = _layernorm_f32((word + pos + typ).float(), emb.LayerNorm.weight.float(),
@@ -722,13 +774,9 @@ def fused_encoder_forward(cfg: EncoderConfig, model: torch.nn.Module,
     mask_bias = torch.where(attention_mask > 0, 0.0, MASK_BIAS).float().contiguous()
     seeds = None
     if train:
-        gen = dropout_generator
+        base, seeds = step_draws(dropout_key.to(x.device), cfg.num_layers)
         if cfg.hidden_dropout > 0:
-            keepp = 1.0 - cfg.hidden_dropout
-            keep = torch.rand(x.shape, generator=gen, device=gen.device).to(x.device) < keepp
-            x = (x * keep.to(dt) / keepp).to(dt)
-        seeds = torch.randint(0, 2**31 - 1, (cfg.num_layers, 1), generator=gen,
-                              device=gen.device).to(x.device, torch.int32)
+            x = embedding_dropout(x, base, cfg.hidden_dropout)
     x = x.contiguous()
     for i, layer in enumerate(model.encoder.layer):
         seed = seeds[i] if train else None
@@ -750,16 +798,16 @@ def fused_embed_fn(cfg: EncoderConfig, *, differentiable: bool = False,
     drop-in for ``models.sentence_encoder.embed_fn`` on the encode path
     (``fused_layer_pallas.py:816``). ``differentiable``: the training trunk,
     gradients through K2 (otherwise the forward runs under ``no_grad``).
-    ``with_dropout``: the function takes a trailing ``dropout_generator``
-    and applies the config's dropout rates."""
+    ``with_dropout``: the function takes a trailing ``dropout_key`` (seed,
+    step) and applies the config's dropout rates."""
     from qst_tpu_torch.ops.distances import l2_normalize
     from qst_tpu_torch.ops.pooling import POOLERS
 
-    def fwd(model, input_ids, attention_mask, dropout_generator=None):
+    def fwd(model, input_ids, attention_mask, dropout_key=None):
         with contextlib.nullcontext() if differentiable else torch.no_grad():
             hidden = fused_encoder_forward(cfg, model, input_ids, attention_mask,
                                            differentiable=differentiable,
-                                           dropout_generator=dropout_generator)
+                                           dropout_key=dropout_key)
             pooled = POOLERS[cfg.pooling](hidden, attention_mask)
             if cfg.normalize:
                 pooled = l2_normalize(pooled)

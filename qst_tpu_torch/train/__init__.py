@@ -8,14 +8,17 @@ from qst_tpu_torch.train.train_step import (
     ClippedAdamW,
     TrainState,
     create_train_state,
+    dropout_key,
     encoder_apply_fn,
     loss_from_config,
     make_eval_loss_fn,
+    make_multi_step,
     make_optimizer,
     make_train_step,
 )
 from qst_tpu_torch.train.trainer import Trainer, TrainResult
 
 __all__ = ["CheckpointManager", "ClippedAdamW", "EarlyStopping", "TrainResult", "TrainState",
-           "Trainer", "create_train_state", "encoder_apply_fn", "get_schedule",
-           "loss_from_config", "make_eval_loss_fn", "make_optimizer", "make_train_step"]
+           "Trainer", "create_train_state", "dropout_key", "encoder_apply_fn", "get_schedule",
+           "loss_from_config", "make_eval_loss_fn", "make_multi_step", "make_optimizer",
+           "make_train_step"]

@@ -5,12 +5,16 @@ collated on a prefetch thread), one train step per batch, periodic
 evaluation driving early stopping and best-model checkpoints, a
 pre-training evaluation at epoch −1, periodic checkpoints and a resume that
 fast-forwards the already-trained batches. Every per-step draw is a pure
-function of (seed, step): the dataset's sampling and the dropout generator,
-seeded from (seed, global_step + 1) as ``jax.random.fold_in`` is at
-``trainer.py:272``, so a resumed run continues the interrupted one.
+function of (seed, step): the dataset's sampling and the dropout key
+(seed, global_step + 1), as ``jax.random.fold_in`` is at ``trainer.py:272``,
+so a resumed run continues the interrupted one.
 
-Not ported: pipeline parallelism (``pp_*``), the ``mesh``, and
-``steps_per_call > 1`` (a TPU-relay dispatch amortisation) raise
+``steps_per_call`` K > 1 hands K collated batches at a time to
+``make_multi_step`` — one CUDA graph replay on the GPU — as the JAX trainer
+hands them to its scanned step (``trainer.py:236-280``); a remainder of
+fewer than K batches runs single steps.
+
+Not ported: pipeline parallelism (``pp_*``) and the ``mesh`` raise
 ``NotImplementedError``.
 """
 
@@ -33,7 +37,13 @@ from qst_tpu_torch.data.prefetch import PrefetchIterator
 from qst_tpu_torch.data.quadruplet_dataset import QuadrupletDataset
 from qst_tpu_torch.train.callbacks import EarlyStopping
 from qst_tpu_torch.train.checkpoints import CheckpointManager
-from qst_tpu_torch.train.train_step import TrainState, create_train_state, make_train_step
+from qst_tpu_torch.train.train_step import (
+    TrainState,
+    create_train_state,
+    dropout_key,
+    make_multi_step,
+    make_train_step,
+)
 
 logger = logging.getLogger("qst_tpu_torch.trainer")
 
@@ -46,13 +56,6 @@ class TrainResult:
     history: List[Dict[str, float]]
     stopped_early: bool
     steps_per_sec: float
-
-
-def step_generator(seed: int, step: int, device: Any) -> torch.Generator:
-    """The dropout generator of train step ``step`` (1-based, as
-    ``fold_in(rng, global_step + 1)``), on ``device``."""
-    state = np.random.SeedSequence([seed, step]).generate_state(1, np.uint64)[0]
-    return torch.Generator(device=device).manual_seed(int(state))
 
 
 class Trainer:
@@ -83,9 +86,11 @@ class Trainer:
         checkpoint) instead of random weights; ``resume`` restores over it."""
         if steps_per_call < 1:
             raise ValueError(f"steps_per_call must be >= 1, {steps_per_call}")
-        if steps_per_call > 1:
-            raise NotImplementedError("steps_per_call > 1 amortised a TPU relay's dispatch; "
-                                      "the port runs one step per call")
+        if pp_stages > 1 and steps_per_call > 1:
+            raise ValueError(
+                "steps_per_call > 1 is not supported with pipeline "
+                "training (the PP schedule is already a scanned multi-tick "
+                "dispatch)")
         if mesh is not None or pp_stages > 1 or pp_microbatches or pp_rounds != 1:
             raise NotImplementedError("mesh and pipeline training are not ported yet")
         self.encoder_cfg = encoder_cfg
@@ -158,6 +163,9 @@ class Trainer:
         t_start = time.perf_counter()
         steps_run = 0
         loss = None
+        K = self.steps_per_call
+        multi_fn = (make_multi_step(self.encoder_cfg, self.loss_cfg, state.optimizer, K)
+                    if K > 1 else None)
         for epoch in range(start_epoch, cfg.epochs):
             if stop:
                 break
@@ -166,14 +174,39 @@ class Trainer:
             prefetch = PrefetchIterator(
                 self.dataset.iter_batches(cfg.batch_size, shuffle=True, epoch=epoch,
                                           step_offset=global_step, start_batch=skip),
-                transform=self.collator, depth=2)
-            for qb in prefetch:
+                transform=self.collator, depth=2 * K)
+            pending = []
+            iterator = iter(prefetch)
+            exhausted = False
+            while not exhausted and not stop:
+                # collect up to steps_per_call collated batches
+                while len(pending) < K:
+                    try:
+                        pending.append(next(iterator))
+                    except StopIteration:
+                        exhausted = True
+                        break
+                if not pending:
+                    break
                 step_before = global_step
-                gen = step_generator(seed, global_step + 1, self.device)
-                with self.timer.phase("train_step"):
-                    state, loss = step_fn(state, qb.input_ids, qb.attention_mask, gen)
-                global_step += 1
-                steps_run += 1
+                if multi_fn is not None and len(pending) == K:
+                    keys = torch.stack([dropout_key(seed, global_step + 1 + j)
+                                        for j in range(K)])
+                    with self.timer.phase("train_step"):
+                        state, losses = multi_fn(
+                            state, np.stack([b.input_ids for b in pending]),
+                            np.stack([b.attention_mask for b in pending]), keys)
+                    loss = losses[-1]
+                    global_step += K
+                    steps_run += K
+                else:  # remainder (or steps_per_call == 1): single steps
+                    for qb in pending:
+                        with self.timer.phase("train_step"):
+                            state, loss = step_fn(state, qb.input_ids, qb.attention_mask,
+                                                  dropout_key(seed, global_step + 1))
+                        global_step += 1
+                        steps_run += 1
+                pending = []
                 ev = cfg.evaluation_steps
                 if ev > 0 and (step_before // ev) != (global_step // ev):
                     loss_log.append({"epoch": epoch, "steps": global_step,

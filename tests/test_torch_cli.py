@@ -346,7 +346,7 @@ def test_ir_eval_cli_matches_the_jax_evaluator(quad_data, index):
 
 
 @pytest.mark.parametrize("argv", [
-    ["--hf_checkpoint", "x.bin"], ["--hf_checkpoint_dir", "ckpt"], ["--steps_per_call", "2"],
+    ["--hf_checkpoint", "x.bin"], ["--hf_checkpoint_dir", "ckpt"],
     ["--pp_stages", "2"], ["--pp_rounds", "2"], ["--mesh_data", "2"], ["--mesh_model", "2"],
 ])
 def test_train_cli_refuses_unported_flags(quad_data, argv):
@@ -354,6 +354,57 @@ def test_train_cli_refuses_unported_flags(quad_data, argv):
     with pytest.raises(SystemExit, match="not ported"):
         ttrain_main.main(["--dataset_root", data, "--experiment_dir", str(root / "refused"),
                           "--device", "cpu", *argv])
+
+
+@pytest.mark.parametrize("fused", [False, True], ids=["module", "fused"])
+def test_train_cli_steps_per_call_gives_the_single_step_run(quad_data, fused):
+    """``--steps_per_call 2`` (6 steps an epoch: three calls of two) gives
+    the ``--steps_per_call 1`` run: the same logged losses and the same best
+    and final weights, dropout 0.1 included — each step's draws follow from
+    (seed, step) whichever way it runs."""
+    root, data, _, _ = quad_data
+    runs = {}
+    for k in ("1", "2"):
+        exp = str(root / f"spc{k}_{fused}")
+        assert ttrain_main.main([
+            "--dataset_root", data, "--experiment_dir", exp, "--encoder_preset", "tiny",
+            "--device", "cpu", "--batch_size", "8", "--epochs", "1", "--evaluation_steps", "2",
+            "--warmup_steps", "2", "--learning_rate", "1e-3", "--steps_per_call", k,
+            *(["--use_fused_layer", "--use_fused_loss_kernel"] if fused else [])]) == 0
+        with open(os.path.join(exp, "train_loss.json")) as f:
+            losses = json.load(f)
+        runs[k] = (losses, tcommon.load_best_params(exp),
+                   torch.load(os.path.join(exp, "checkpoints", "periodic", "6", "state.pt"),
+                              weights_only=False)["model"])
+    assert [e["steps"] for e in runs["2"][0]] == [e["steps"] for e in runs["1"][0]] == [2, 4, 6]
+    assert runs["2"][0] == runs["1"][0]
+    for a, b in zip(runs["2"][1:], runs["1"][1:]):
+        assert a.keys() == b.keys() and all(torch.equal(a[n], b[n]) for n in a)
+
+
+@pytest.mark.parametrize("module", ["dataset_main", "train_main"])
+def test_entry_points_run_on_the_card_unless_told(quad_data, tmp_path, module):
+    """Without ``--device`` the CLIs ask for the GPU and fail without one."""
+    if torch.cuda.is_available():
+        pytest.skip("this machine has a GPU")
+    from qst_tpu_torch.cli import dataset_main as tdm
+
+    root, data, _, _ = quad_data
+    argv = {"dataset_main": (tdm, ["--ann_file", "x.json", "--output_root", str(tmp_path)]),
+            "train_main": (ttrain_main, ["--dataset_root", data, "--experiment_dir",
+                                         str(tmp_path / "e"), "--steps_per_call", "4"])}
+    cli, flags = argv[module]
+    with pytest.raises(RuntimeError, match="no CUDA device.*device='cpu'"):
+        cli.main(flags)
+
+
+def test_dataset_parser_keeps_the_source_flags():
+    from qst_tpu.cli import dataset_main as jdm
+    from qst_tpu_torch.cli import dataset_main as tdm
+
+    want, got = _plain_flags(jdm.build_parser()), _plain_flags(tdm.build_parser())
+    assert got.pop("device") == (None, None, None, ("--device",))
+    assert got == want
 
 
 @pytest.mark.parametrize("argv", [

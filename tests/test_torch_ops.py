@@ -60,7 +60,9 @@ def test_config_constants_match_source():
     for name in ("RANDOM_SEED", "DEFAULT_GAMMA", "NEGATIVE_SIM_THRESHOLD", "CHUNK_DIM",
                  "KEY_REFERENCE", "KEY_POSITIVE", "KEY_PART_POSITIVE", "KEY_NEGATIVE",
                  "KEY_INSTANCES", "QUADRUPLET_KEYS", "REDUCTIONS",
-                 "CROSS_ENCODER_RELEVANCE_THRESHOLD", "N_IR_SAMPLES", "CORPUS_CHUNK_SIZE"):
+                 "CROSS_ENCODER_RELEVANCE_THRESHOLD", "N_IR_SAMPLES", "CORPUS_CHUNK_SIZE",
+                 "POSITIVE_SIM_THRESHOLD", "N_EXAMPLES", "N_PART_EXAMPLES",
+                 "MAX_WORDS_TO_REPLACE", "NO_REPLACE_WORDS"):
         assert getattr(tconfig, name) == getattr(jconfig, name), name
     for cfg in (jconfig.IREvalConfig(), jconfig.IREvalConfig(n_queries=7, map_at_k=(5,))):
         mirror = tconfig.IREvalConfig(**dataclasses.asdict(cfg))
@@ -214,7 +216,10 @@ def test_port_imports_no_jax_flax_or_qst_tpu():
                "evals.ir_metrics", "evals.ir_evaluator", "evals.quadruplet_evaluator",
                "evals.loss_evaluator", "evals.sequential", "evals.eval_set", "evals.factory",
                "evals", "data.mining", "data.quadruplet_dataset", "cli.train_main",
-               "cli.ir_eval_main"}
+               "cli.ir_eval_main", "augment", "augment.backtranslation", "augment.llm_client",
+               "augment.partial_positive", "augment.pos_tagger", "augment.positive_mining",
+               "augment.synonyms", "data.coco", "data.sentence_compression",
+               "cli.dataset_main", "experiments", "experiments.ablation"}
         missing = sorted(n for n in new if "qst_tpu_torch." + n not in names)
         print(missing)
         sys.exit(1 if bad or missing or len(names) < 15 else 0)
@@ -255,6 +260,34 @@ def test_launch_counts_are_exact_across_threads():
     assert wrapper.launches == 16 * 5000
 
 
+def test_launches_recorded_in_a_capture_count_once_per_replay(monkeypatch):
+    """Inside ``capturing_launches`` a call on a capturing stream records
+    its launch instead of counting it (the capture launches nothing); a call
+    on another stream — a miner's thread — still counts; each replay adds
+    the recording once. One capture at a time."""
+    from qst_tpu_torch.kernels import build
+
+    def wrapper():
+        pass
+
+    wrapper.launches = 0
+    capturing = {"now": True}
+    monkeypatch.setattr(torch.cuda, "is_current_stream_capturing", lambda: capturing["now"])
+    with build.capturing_launches() as recorded:
+        for _ in range(3):
+            build.count_launch(wrapper)
+        capturing["now"] = False
+        build.count_launch(wrapper)                   # another stream: a real launch
+        with pytest.raises(RuntimeError, match="one graph capture"):
+            build.capturing_launches().__enter__()
+    assert recorded == {wrapper: 3} and wrapper.launches == 1
+    capturing["now"] = True
+    build.count_launch(wrapper)                       # no capture open: counts
+    for _ in range(2):
+        build.add_launches(recorded)
+    assert wrapper.launches == 1 + 1 + 2 * 3
+
+
 def test_rng_streams_are_pure_functions_of_the_seed():
     """``core/rng.py``: a stream's generators follow from (seed, counter,
     fork tags) alone; forks are independent of the parent's draws;
@@ -284,3 +317,36 @@ def test_rng_streams_are_pure_functions_of_the_seed():
     rng.seed_everything(14)
     assert (random.random(), np.random.random(), torch.rand(1).item()) == x
     assert isinstance(root, rng.RngStream) and os.environ["PYTHONHASHSEED"] == "14"
+
+
+@pytest.mark.parametrize("preset", ["tiny", "minilm_l6"])
+def test_init_params_follow_the_jax_distribution(preset):
+    """The port's random init draws what qst_tpu's ``init_params`` draws, in
+    distribution: per tensor the same standard deviation (within 5%), a mean
+    near zero, kernels cut at two standard deviations as Flax's lecun-normal,
+    embeddings uncut, exact zeros and ones where JAX has them."""
+    import jax
+
+    from qst_tpu.models.sentence_encoder import init_params as jax_init_params
+    from qst_tpu_torch.models.hf_import import state_dict_from_flax_params
+    from qst_tpu_torch.models.sentence_encoder import init_params
+
+    jcfg = getattr(jconfig.EncoderConfig, preset)()
+    tcfg = getattr(tconfig.EncoderConfig, preset)()
+    want = state_dict_from_flax_params(
+        jax.tree.map(np.asarray, jax_init_params(jcfg, jax.random.key(3))), tcfg)
+    got = init_params(tcfg, torch.Generator().manual_seed(3), device="cpu")
+    assert got.keys() == want.keys()
+    for name, w in want.items():
+        g = got[name].float()
+        if w.std() == 0:
+            assert torch.equal(g, w.float()), name
+            continue
+        n = g.numel()           # sampling error of a std over n draws ~ 1/sqrt(2n)
+        assert abs(g.std().item() / w.std().item() - 1) < 0.02 + 4 / (2 * n) ** 0.5, name
+        assert abs(g.mean().item()) < 5 * w.std().item() / n ** 0.5, name
+        cut = lambda t: (t.abs().max() / t.std()).item()  # noqa: E731
+        if not name.startswith("embeddings."):
+            assert cut(g) < 2.31 and cut(w.float()) < 2.31, name
+        elif n >= 4096:         # uncut: draws beyond 2.4 standard deviations appear
+            assert cut(g) > 2.4 and cut(w.float()) > 2.4, name

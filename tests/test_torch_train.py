@@ -252,20 +252,21 @@ def test_eval_loss_is_deterministic_and_matches_jax():
 
 @pytest.mark.parametrize("fused", [False, True], ids=["module", "fused"])
 def test_dropout_follows_the_generator(fused):
-    """In train() mode with a generator both paths drop: the same generator
-    seed gives the same loss, another seed another loss, no generator none."""
+    """In train() mode with a dropout key both paths drop: the same key
+    (seed, step) gives the same embeddings, another seed or another step
+    others, no key none."""
     cfg = tc.EncoderConfig.tiny(use_fused_layer=fused)
     st, _ = tts.create_train_state(cfg, tc.TrainConfig(), torch.Generator().manual_seed(0), 10,
                                    device="cpu")
     enc = tts.encoder_apply_fn(cfg)
     ids, mask = (torch.from_numpy(a.reshape(4 * B, -1)) for a in _batch(cfg.max_seq_length))
     st.model.train()
-    runs = [enc(st.model, ids, mask, g) for g in (torch.Generator().manual_seed(1),
-                                                  torch.Generator().manual_seed(1),
-                                                  torch.Generator().manual_seed(2), None)]
+    runs = [enc(st.model, ids, mask, k) for k in (tts.dropout_key(1, 3), tts.dropout_key(1, 3),
+                                                  tts.dropout_key(2, 3), tts.dropout_key(1, 4),
+                                                  None)]
     assert torch.equal(runs[0], runs[1])
-    assert not torch.allclose(runs[0], runs[2])
-    assert not torch.allclose(runs[0], runs[3])
+    for other in runs[2:]:
+        assert not torch.allclose(runs[0], other)
     with torch.no_grad():
         det = tts.make_eval_loss_fn(cfg, tc.LossConfig())(st.model, *_batch(cfg.max_seq_length))
     assert np.isfinite(det.item())
@@ -376,11 +377,13 @@ def test_unported_trainer_options_raise(tmp_path):
     write_synthetic_dataset(root, n_chunks=1, chunk_dim=8)
     trainer, cfg = _trainer(root, str(tmp_path / "exp"))
     args = (trainer.encoder_cfg, trainer.loss_cfg, cfg, trainer.dataset, trainer.collator)
-    for kw in (dict(steps_per_call=2), dict(pp_stages=2), dict(mesh=object())):
+    for kw in (dict(pp_stages=2), dict(mesh=object())):
         with pytest.raises(NotImplementedError):
             Trainer(*args, **kw)
     with pytest.raises(ValueError):
         Trainer(*args, steps_per_call=0)
+    with pytest.raises(ValueError, match="pipeline"):      # as qst_tpu's Trainer
+        Trainer(*args, steps_per_call=2, pp_stages=2)
 
 
 def test_trainer_keeps_the_source_attributes(tmp_path):
@@ -494,3 +497,244 @@ def test_trainer_with_the_sequential_evaluator_matches_jax(tmp_path):
     for (k, a), b in zip(with_eval.state.model.state_dict().items(),
                          without.state.model.state_dict().values()):
         assert torch.equal(a, b), k
+
+
+# ------------------------------------------------------------ multi-step
+K_STEPS = 3
+
+
+def _stacked(S, K, seed=0):
+    """K (4, B, S) batches stacked: (K, 4, B, S) ids and mask."""
+    pairs = [_batch(S, seed + j) for j in range(K)]
+    return np.stack([p[0] for p in pairs]), np.stack([p[1] for p in pairs])
+
+
+@pytest.mark.parametrize("fused", [False, True], ids=["module", "fused"])
+def test_multi_step_matches_jax_make_multi_step(fused):
+    """K = 3 steps in one call against qst_tpu's scanned ``make_multi_step``
+    from the same weights at dropout 0: per-step losses and the final
+    parameters to the one- and two-step tests' tolerances."""
+    (jcfg, jl, jt), (tcfg, tl, tt) = _configs(fused)
+    params = jax.tree.map(np.asarray, jax_init_params(jcfg, jax.random.key(3)))
+    ids, mask = _stacked(jcfg.max_seq_length, K_STEPS, seed=4)
+    sj, tx = jts.create_train_state(jcfg, jt, jax.random.key(0), 10, jl, initial_params=params)
+    sj, lj = jts.make_multi_step(jcfg, jl, tx, K_STEPS)(
+        sj, jnp.asarray(ids), jnp.asarray(mask), jax.random.split(jax.random.key(1), K_STEPS))
+    st, _ = tts.create_train_state(tcfg, tt, torch.Generator().manual_seed(0), 10, tl,
+                                   initial_params=state_dict_from_flax_params(params, tcfg),
+                                   device="cpu")
+    st, lt = tts.make_multi_step(tcfg, tl, None, K_STEPS)(st, ids, mask, None)
+    assert lt.shape == (K_STEPS,) and st.step == int(sj.step) == K_STEPS
+    np.testing.assert_allclose(lt.numpy(), np.asarray(lj), rtol=1e-5)
+    want = state_dict_from_flax_params(jax.tree.map(np.asarray, sj.params), tcfg)
+    got = st.model.state_dict()
+    for k, v in want.items():
+        atol = 2 * LR if k.endswith("attention.self.key.bias") else 0.1 * LR
+        np.testing.assert_allclose(got[k].numpy(), v.numpy(), rtol=0, atol=atol, err_msg=k)
+
+
+def _state_tensors(st):
+    return [t.detach().clone() for t in st.optimizer.state_tensors()]
+
+
+@pytest.mark.parametrize("fused", [False, True], ids=["module", "fused"])
+@pytest.mark.parametrize("accum", [1, 2])
+def test_multi_step_equals_single_steps_exactly(fused, accum):
+    """With dropout 0.1 and the per-step keys, K steps in one call are K
+    single steps bit for bit: losses, parameters, moments, accumulators and
+    the host counters."""
+    cfg = tc.EncoderConfig.tiny(use_fused_layer=fused)
+    loss_cfg = tc.LossConfig(margin_pos_part=0.5, margin_part_neg=0.5, use_fused_kernel=fused)
+    tcfg = tc.TrainConfig(learning_rate=LR, warmup_steps=2, gradient_accumulation_steps=accum)
+    ids, mask = _stacked(cfg.max_seq_length, K_STEPS, seed=7)
+    keys = torch.stack([tts.dropout_key(5, s) for s in range(1, K_STEPS + 1)])
+    multi_st, _ = tts.create_train_state(cfg, tcfg, torch.Generator().manual_seed(1), 10,
+                                         loss_cfg, device="cpu")
+    multi_st, losses = tts.make_multi_step(cfg, loss_cfg, None, K_STEPS)(multi_st, ids, mask,
+                                                                          keys)
+    single_st, _ = tts.create_train_state(cfg, tcfg, torch.Generator().manual_seed(1), 10,
+                                          loss_cfg, device="cpu")
+    step = tts.make_train_step(cfg, loss_cfg)
+    singles = []
+    for j in range(K_STEPS):
+        single_st, loss = step(single_st, ids[j], mask[j], keys[j])
+        singles.append(loss)
+    assert torch.equal(losses, torch.stack(singles))
+    for a, b in zip(_state_tensors(multi_st), _state_tensors(single_st)):
+        assert torch.equal(a, b)
+    groups = [s.optimizer.param_groups[0] for s in (multi_st, single_st)]
+    assert ([(g["count"], g["mini_step"]) for g in groups] == [
+        (K_STEPS // accum, K_STEPS % accum)] * 2)
+    assert multi_st.step == single_st.step == K_STEPS
+
+
+def test_accumulation_inside_multi_step():
+    """``MultiSteps`` inside the multi-step (qst_tpu's
+    ``test_accumulation_inside_multi_step_scan``): with accumulation 2 and
+    K = 4, exactly two updates fire, the mini-step ends at 0, and every
+    parameter moved."""
+    cfg = tc.EncoderConfig.tiny(hidden_dropout=0.0, attention_dropout=0.0)
+    loss_cfg = tc.LossConfig(margin_pos_part=0.5, margin_part_neg=0.5)
+    tcfg = tc.TrainConfig(batch_size=4, learning_rate=1e-3, scheduler="constantlr",
+                          gradient_accumulation_steps=2)
+    st, opt = tts.create_train_state(cfg, tcfg, torch.Generator().manual_seed(0), 50, loss_cfg,
+                                     device="cpu")
+    before = {k: v.clone() for k, v in st.model.state_dict().items()}
+    ids, mask = _stacked(cfg.max_seq_length, 4, seed=2)
+    st, losses = tts.make_multi_step(cfg, loss_cfg, opt, 4)(st, ids, mask, None)
+    assert losses.shape == (4,) and torch.isfinite(losses).all()
+    group = opt.param_groups[0]
+    assert (group["count"], group["mini_step"]) == (2, 0)
+    assert all(not torch.equal(before[k], v) for k, v in st.model.state_dict().items()
+               if not k.endswith("position_ids"))
+    assert all(torch.count_nonzero(opt.state[p]["acc"]) == 0 for p in st.model.parameters())
+    with pytest.raises(ValueError, match="multi_step takes"):
+        tts.make_multi_step(cfg, loss_cfg, opt, 4)(st, ids[:3], mask[:3], None)
+    with pytest.raises(ValueError):
+        tts.make_multi_step(cfg, loss_cfg, opt, 0)
+
+
+def test_step_draws_are_a_pure_function_of_seed_and_step():
+    """The training forward's draws (layer seeds, embedding mask) follow
+    from (seed, step) alone; another seed or step draws anew."""
+    from qst_tpu_torch.ops.fused_layer import embedding_dropout, step_draws
+
+    base, seeds = step_draws(tts.dropout_key(14, 3), 6)
+    again = step_draws(tts.dropout_key(14, 3).clone(), 6)
+    assert torch.equal(base, again[0]) and torch.equal(seeds, again[1])
+    assert seeds.dtype == torch.int32 and seeds.shape == (6, 1)
+    assert len(set(seeds.flatten().tolist())) == 6 and int(seeds.min()) >= 0
+    for other in (tts.dropout_key(14, 4), tts.dropout_key(15, 3)):
+        b, s = step_draws(other, 6)
+        assert not torch.equal(b, base) and not torch.equal(s, seeds)
+    x = torch.ones((64, 32, 16), dtype=torch.float32)
+    y = embedding_dropout(x, base, 0.1)
+    assert torch.equal(y, embedding_dropout(x, base, 0.1))
+    kept = (y != 0).float().mean().item()
+    assert abs(kept - 0.9) < 0.01
+    assert set(torch.unique(y).tolist()) == {0.0, float(np.float32(1 / 0.9))}
+
+
+@pytest.mark.parametrize("seed", [0, 1, 12345678, 2**30 + 7, 2**31 - 1])
+def test_the_int32_embedding_hash_gives_the_int64_hash_bits(seed):
+    """The embedding mask's int32 hash (wrapping products, masked shifts)
+    equals the int64 reference ``_hash31`` over the whole int32 index range."""
+    from qst_tpu_torch.ops import fused_layer as fl
+
+    rng = np.random.default_rng(seed)
+    idx = np.concatenate([np.arange(4096), rng.integers(0, 2**31, 50_000),
+                          [2**31 - 1, 2**31 - 2, 2**16 - 1, 2**16]])
+    idx = torch.from_numpy(idx.astype(np.int64))
+    base = torch.tensor([seed], dtype=torch.int64)
+    fast = fl._hash31_i32(idx.to(torch.int32), base, fl._TAG_EMBED)
+    assert fast.dtype == torch.int32
+    assert torch.equal(fast.long(), fl._hash31(idx, base, fl._TAG_EMBED))
+
+
+def _kstep_trainer(root, exp, framework, K, evals):
+    """One epoch pair on the tiny preset at dropout 0 from qst_tpu's
+    weights, ``steps_per_call`` K, an evaluator that records its steps."""
+    (jcfg, jl, _), (tcfg, tl, _) = _configs(False)
+    params = jax.tree.map(np.asarray, jax_init_params(jcfg, jax.random.key(9)))
+    over = dict(batch_size=4, epochs=2, learning_rate=LR, scheduler="constantlr",
+                evaluation_steps=2, checkpoint_save_steps=0, early_stopping_patience=50,
+                save_best_model=False, experiment_dir=exp)
+    evaluator = lambda model, epoch, steps: evals.append((epoch, steps)) or 0.5  # noqa: E731
+    if framework == "jax":
+        from qst_tpu.data import QuadrupletCollator as JaxCollator
+        from qst_tpu.data import QuadrupletDataset as JaxDataset
+        from qst_tpu.models.tokenizer import HashTokenizer as JaxHashTokenizer
+
+        return JaxTrainer(jcfg, jl, jc.TrainConfig(**over), JaxDataset(root, seed=1),
+                          JaxCollator(JaxHashTokenizer(vocab_size=jcfg.vocab_size),
+                                      max_length=jcfg.max_seq_length),
+                          evaluator=evaluator, initial_params=params, steps_per_call=K)
+    return Trainer(tcfg, tl, tc.TrainConfig(**over), QuadrupletDataset(root, seed=1),
+                   QuadrupletCollator(HashTokenizer(vocab_size=tcfg.vocab_size),
+                                      max_length=tcfg.max_seq_length),
+                   evaluator=evaluator, initial_params=state_dict_from_flax_params(params, tcfg),
+                   steps_per_call=K, device="cpu")
+
+
+def test_trainer_steps_per_call_matches_jax(tmp_path):
+    """``Trainer(steps_per_call=3)`` against qst_tpu's (``test_trainer_steps_per_call``):
+    4 batches an epoch run as one multi-step and one remainder step; the
+    evaluations fall where qst_tpu's do (after the call that crosses a
+    boundary), the logged losses and final weights agree, and the same run
+    at one step a call ends with the same weights bit for bit."""
+    root = str(tmp_path / "chunks")
+    write_synthetic_dataset(root, n_chunks=2, chunk_dim=8)     # 16 instances
+    evals = {"jax": [], "torch": [], "single": []}
+    want = _kstep_trainer(root, str(tmp_path / "jax"), "jax", 3, evals["jax"]).train(
+        rng=jax.random.key(14))
+    got = _kstep_trainer(root, str(tmp_path / "t"), "torch", 3, evals["torch"]).train()
+    single = _kstep_trainer(root, str(tmp_path / "s"), "torch", 1, evals["single"]).train()
+    assert got.state.step == int(want.state.step) == 8
+    assert evals["torch"] == evals["jax"] == [(-1, -1), (0, 3), (0, 4), (0, 4), (1, 7), (1, 8),
+                                              (1, 8)]
+    assert [h["steps"] for h in got.history] == [s for _, s in evals["torch"]]
+    logged = [tcallbacks_json(tc.TrainConfig(experiment_dir=str(tmp_path / d)))
+              for d in ("t", "jax")]
+    assert [e["steps"] for e in logged[0]] == [e["steps"] for e in logged[1]] == [3, 4, 7, 8]
+    np.testing.assert_allclose([e["loss"] for e in logged[0]], [e["loss"] for e in logged[1]],
+                               rtol=1e-5)
+    want_sd = state_dict_from_flax_params(jax.tree.map(np.asarray, want.state.params),
+                                          _configs(False)[1][0])
+    for k, v in want_sd.items():
+        atol = 2 * LR if k.endswith("attention.self.key.bias") else 0.1 * LR
+        np.testing.assert_allclose(got.state.model.state_dict()[k].numpy(), v.numpy(), rtol=0,
+                                   atol=atol, err_msg=k)
+    for (k, a), b in zip(got.state.model.state_dict().items(),
+                         single.state.model.state_dict().values()):
+        assert torch.equal(a, b), k
+
+
+def _cuda_tiny_states(dropout, accum, n):
+    cfg = tc.EncoderConfig.tiny(use_fused_layer=True, hidden_dropout=dropout,
+                                attention_dropout=dropout)
+    loss_cfg = tc.LossConfig(margin_pos_part=0.5, margin_part_neg=0.5, use_fused_kernel=True)
+    tcfg = tc.TrainConfig(learning_rate=LR, warmup_steps=2, gradient_accumulation_steps=accum)
+    states = [tts.create_train_state(cfg, tcfg, torch.Generator().manual_seed(2), 20, loss_cfg,
+                                     device="cuda")[0] for _ in range(n)]
+    return cfg, loss_cfg, states
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dropout,accum", [(0.1, 1), (0.0, 1), (0.1, 2)])
+def test_cuda_captured_steps_equal_eager_steps(dropout, accum):
+    """On the card: two calls of K = 4 (the first runs its steps eagerly and
+    captures, the second replays the graph) against 8 single steps from the
+    same state — losses, parameters and Adam moments bit for bit — and the
+    replay's launches counted exactly: K1 and K2 per layer and step, K3 once
+    each way per step."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
+    from qst_tpu_torch.ops import fused_layer as fl
+    from qst_tpu_torch.ops import quadruplet as qd
+
+    K = 4
+    cfg, loss_cfg, (graph_st, eager_st) = _cuda_tiny_states(dropout, accum, 2)
+    ids, mask = _stacked(cfg.max_seq_length, 2 * K, seed=11)
+    keys = torch.stack([tts.dropout_key(3, s) for s in range(1, 2 * K + 1)])
+    multi = tts.make_multi_step(cfg, loss_cfg, None, K)
+    counters = (fl.fused_bert_layer, fl.fused_bert_layer_bwd,
+                qd.fused_gamma_quadruplet_loss_fwd, qd.fused_gamma_quadruplet_loss_bwd)
+    graph_losses = []
+    for call in range(2):
+        before = [c.launches for c in counters]
+        graph_st, losses = multi(graph_st, ids[call * K:(call + 1) * K],
+                                 mask[call * K:(call + 1) * K], keys[call * K:(call + 1) * K])
+        torch.cuda.synchronize()
+        graph_losses.append(losses)
+        L = cfg.num_layers
+        assert [c.launches - b for c, b in zip(counters, before)] == [K * L, K * L, K, K]
+    assert multi._graph is not None
+    step = tts.make_train_step(cfg, loss_cfg)
+    eager_losses = []
+    for j in range(2 * K):
+        eager_st, loss = step(eager_st, ids[j], mask[j], keys[j])
+        eager_losses.append(loss)
+    assert torch.equal(torch.cat(graph_losses), torch.stack(eager_losses))
+    for a, b in zip(_state_tensors(graph_st), _state_tensors(eager_st)):
+        assert torch.equal(a, b)
+    assert graph_st.step == eager_st.step == 2 * K
