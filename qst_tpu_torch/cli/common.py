@@ -3,8 +3,8 @@ loading, provenance dumps — counterpart of ``qst_tpu/cli/common.py``.
 
 All boolean flags use ``BooleanOptionalAction``. Every entry point takes
 ``--device`` (``add_device_flag``): the GPU unless the caller names another.
-The HF-checkpoint-directory flag is parsed as in the source and refused by
-``refuse_not_ported`` until the HF import of a whole directory is ported.
+``--hf_checkpoint_dir`` (``add_hf_checkpoint_dir_flag``) loads a local
+sentence-transformers directory through ``resolve_hf_checkpoint_dir``.
 """
 
 from __future__ import annotations
@@ -93,8 +93,38 @@ def add_hf_checkpoint_dir_flag(parser: argparse.ArgumentParser) -> None:
     parser.add_argument(
         "--hf_checkpoint_dir",
         default=os.environ.get(HF_CHECKPOINT_DIR_ENV),
-        help="local sentence-transformers/HF checkpoint directory; defaults "
-             "to $" + HF_CHECKPOINT_DIR_ENV + " (not ported yet)")
+        help="local sentence-transformers/HF checkpoint directory (BERT or MPNet, "
+             "e.g. a clone of all-MiniLM-L6-v2 or all-mpnet-base-v2); defaults to $"
+             + HF_CHECKPOINT_DIR_ENV + ". Provides architecture config, weights and "
+             "vocab in one shot")
+
+
+def resolve_hf_checkpoint_dir(args: argparse.Namespace,
+                              max_seq_length: Optional[int] = None,
+                              dtype: Optional[str] = None):
+    """If ``--hf_checkpoint_dir`` / $QST_HF_CHECKPOINT_DIR is set, load it →
+    (EncoderConfig, state dict on the CPU, tokenizer); else None. Explicit
+    ``--vocab_path``, ``--max_seq_length`` and ``dtype`` (``--use_amp``
+    off: float32) still win over the checkpoint's own
+    (``qst_tpu/cli/common.py:100-121``)."""
+    ckpt_dir = getattr(args, "hf_checkpoint_dir", None)
+    if not ckpt_dir:
+        return None
+    import dataclasses
+
+    from qst_tpu_torch.models.hf_import import load_hf_checkpoint_dir
+
+    cfg, params, vocab_path = load_hf_checkpoint_dir(ckpt_dir)
+    overrides: Dict[str, Any] = {}
+    if max_seq_length is not None:
+        overrides["max_seq_length"] = max_seq_length
+    if dtype is not None:
+        overrides["dtype"] = dtype
+    if overrides:
+        cfg = dataclasses.replace(cfg, **overrides)
+    explicit_vocab = getattr(args, "vocab_path", None)
+    tokenizer = tokenizer_from_args(explicit_vocab or vocab_path, cfg.vocab_size)
+    return cfg, params, tokenizer
 
 
 def refuse_not_ported(checks) -> None:

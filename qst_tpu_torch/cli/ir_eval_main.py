@@ -11,9 +11,11 @@ CSV. Everything runs on the GPU unless ``--device`` names another device:
   python -m qst_tpu_torch.cli.ir_eval_main --dataset_root data/test \\
       --model_path trained/exp1 --use_fused_layer [--eval_index ivf]
 
-The flags and defaults are the JAX CLI's. Not ported yet, and refused with a
-message: ``--baseline_hf_checkpoint`` / ``--hf_checkpoint_dir``, the
-cross-encoder labels (``--use_cross_encoder``, ``--cross_encoder_dir``),
+The flags and defaults are the JAX CLI's. ``--hf_checkpoint_dir`` (a local
+sentence-transformers directory, BERT or MPNet) gives the baseline encoder
+and its config, ``--baseline_hf_checkpoint`` the baseline's weights file.
+Not ported yet, and refused with a message: the cross-encoder labels
+(``--use_cross_encoder``, ``--cross_encoder_dir``),
 ``--generate_query_variations``, ``--eval_index pq|ivfpq`` and mesh layouts
 (``--mesh_*`` off their defaults).
 """
@@ -21,6 +23,7 @@ cross-encoder labels (``--use_cross_encoder``, ``--cross_encoder_dir``),
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import logging
 import os
@@ -36,6 +39,7 @@ from qst_tpu_torch.cli.common import (
     encoder_from_args,
     load_best_params,
     refuse_not_ported,
+    resolve_hf_checkpoint_dir,
     tokenizer_from_args,
 )
 from qst_tpu_torch.core.config import (
@@ -58,8 +62,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--encoder_preset", default="minilm-l6")
     p.add_argument("--vocab_path", default=None)
     p.add_argument("--baseline_hf_checkpoint", default=None,
-                   help="local HF state dict for the baseline encoder "
-                   "(not ported yet)")
+                   help="local HF state dict for the baseline encoder")
     add_hf_checkpoint_dir_flag(p)
     p.add_argument("--n_queries", type=int, default=N_IR_SAMPLES)
     p.add_argument("--cross_encoder_threshold", type=float,
@@ -119,8 +122,6 @@ def main(argv=None) -> int:
     from qst_tpu_torch.models.sentence_encoder import SentenceEncoder, init_params
 
     refuse_not_ported([
-        ("--baseline_hf_checkpoint", args.baseline_hf_checkpoint, "HF checkpoint import"),
-        ("--hf_checkpoint_dir", args.hf_checkpoint_dir, "HF checkpoint import"),
         ("--use_cross_encoder", args.use_cross_encoder or args.cross_encoder_dir,
          "the cross-encoder"),
         ("--generate_query_variations", args.generate_query_variations,
@@ -160,9 +161,18 @@ def main(argv=None) -> int:
     os.makedirs(out_dir, exist_ok=True)
     dump_args(args, out_dir)
 
-    encoder_cfg = encoder_from_args(
-        args.encoder_preset, use_fused_layer=args.use_fused_layer)
-    tokenizer = tokenizer_from_args(args.vocab_path, encoder_cfg.vocab_size)
+    hf_ckpt = resolve_hf_checkpoint_dir(args)
+    hf_baseline_params = None
+    if hf_ckpt is not None:
+        encoder_cfg, hf_baseline_params, tokenizer = hf_ckpt
+        logger.info("baseline from HF checkpoint dir %s (arch=%s)",
+                    args.hf_checkpoint_dir, encoder_cfg.arch)
+        if args.use_fused_layer:
+            encoder_cfg = dataclasses.replace(encoder_cfg, use_fused_layer=True)
+    else:
+        encoder_cfg = encoder_from_args(
+            args.encoder_preset, use_fused_layer=args.use_fused_layer)
+        tokenizer = tokenizer_from_args(args.vocab_path, encoder_cfg.vocab_size)
 
     instances = list(ChunkStore(args.dataset_root).iter_instances())
     if args.use_test_set:  # held-out split (reference :48-58)
@@ -194,9 +204,17 @@ def main(argv=None) -> int:
     def encode_with(params):
         return SentenceEncoder(encoder_cfg, params, tokenizer, device=device).encode
 
-    # baseline model (random-init)
-    baseline_params = init_params(encoder_cfg, torch.Generator().manual_seed(args.seed),
-                                  device=device)
+    # baseline model (random-init, the checkpoint directory's or a weights file's)
+    if hf_baseline_params is not None:
+        baseline_params = hf_baseline_params
+    else:
+        baseline_params = init_params(encoder_cfg, torch.Generator().manual_seed(args.seed),
+                                      device=device)
+    if args.baseline_hf_checkpoint:
+        from qst_tpu_torch.models.hf_import import load_torch_state_dict
+
+        baseline_params = load_torch_state_dict(args.baseline_hf_checkpoint)
+    baseline_params = {k: v.to(device) for k, v in baseline_params.items()}
 
     results = {}
     logger.info("evaluating baseline model")

@@ -15,9 +15,11 @@ patience-based early stopping. Everything runs on the GPU unless
       --hard_contrastive_mode 1 --use_ir_evaluator
 
 The flags and defaults are the JAX CLI's; ``--steps_per_call K`` runs K
-steps per call, one CUDA graph replay on the GPU. Not ported yet, and
-refused with a message: ``--hf_checkpoint`` / ``--hf_checkpoint_dir``, and
-pipeline or mesh layouts (``--pp_*``, ``--mesh_*`` off their defaults).
+steps per call, one CUDA graph replay on the GPU. ``--hf_checkpoint_dir``
+starts from a local sentence-transformers directory (BERT or MPNet, at its
+own ``max_seq_length`` up to 512), ``--hf_checkpoint`` from a weights file.
+Not ported yet, and refused with a message: pipeline or mesh layouts
+(``--pp_*``, ``--mesh_*`` off their defaults).
 """
 
 from __future__ import annotations
@@ -37,6 +39,7 @@ from qst_tpu_torch.cli.common import (
     dump_args,
     encoder_from_args,
     refuse_not_ported,
+    resolve_hf_checkpoint_dir,
     tokenizer_from_args,
 )
 from qst_tpu_torch.core.config import (
@@ -67,8 +70,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--vocab_path", default=None)
     p.add_argument("--max_seq_length", type=int, default=None)
     p.add_argument("--hf_checkpoint", default=None,
-                   help="local pytorch_model.bin/safetensors to import "
-                   "(not ported yet)")
+                   help="local pytorch_model.bin/safetensors to import")
     add_hf_checkpoint_dir_flag(p)
     # loss (reference defaults training/main.py:211-218)
     p.add_argument("--loss_kind", default="gamma",
@@ -139,8 +141,6 @@ def build_trainer(args: argparse.Namespace):
     from qst_tpu_torch.train.trainer import Trainer
 
     refuse_not_ported([
-        ("--hf_checkpoint", args.hf_checkpoint, "HF checkpoint import"),
-        ("--hf_checkpoint_dir", args.hf_checkpoint_dir, "HF checkpoint import"),
         ("--pp_stages/--pp_microbatches/--pp_rounds",
          (args.pp_stages, args.pp_microbatches, args.pp_rounds) != (1, 0, 1),
          "pipeline parallelism"),
@@ -149,10 +149,19 @@ def build_trainer(args: argparse.Namespace):
     ])
     device = resolve_device(args.device)
     seed_everything(args.seed)
-    encoder_cfg = encoder_from_args(
-        args.encoder_preset, max_seq_length=args.max_seq_length,
+    hf_ckpt = resolve_hf_checkpoint_dir(
+        args, max_seq_length=args.max_seq_length,
         dtype=None if args.use_amp else "float32")
-    tokenizer = tokenizer_from_args(args.vocab_path, encoder_cfg.vocab_size)
+    if hf_ckpt is not None:
+        encoder_cfg, hf_params, tokenizer = hf_ckpt
+        logger.info("loaded HF checkpoint dir %s (arch=%s, max_seq_length=%d)",
+                    args.hf_checkpoint_dir, encoder_cfg.arch, encoder_cfg.max_seq_length)
+    else:
+        hf_params = None
+        encoder_cfg = encoder_from_args(
+            args.encoder_preset, max_seq_length=args.max_seq_length,
+            dtype=None if args.use_amp else "float32")
+        tokenizer = tokenizer_from_args(args.vocab_path, encoder_cfg.vocab_size)
     if args.use_fused_layer:
         encoder_cfg = dataclasses.replace(encoder_cfg, use_fused_layer=True)
         logger.info("training through the fused layer kernels "
@@ -180,7 +189,16 @@ def build_trainer(args: argparse.Namespace):
         experiment_dir=args.experiment_dir, manual_notes=args.manual_notes)
     dump_args(args, args.experiment_dir, manual_notes=args.manual_notes)
 
-    init = init_params(encoder_cfg, torch.Generator().manual_seed(args.seed), device=device)
+    # initial weights: the checkpoint directory's, a weights file's, or random
+    if hf_params is not None:
+        init = {k: v.to(device) for k, v in hf_params.items()}
+    else:
+        init = init_params(encoder_cfg, torch.Generator().manual_seed(args.seed), device=device)
+    if args.hf_checkpoint:
+        from qst_tpu_torch.models.hf_import import load_torch_state_dict
+
+        init = {k: v.to(device) for k, v in load_torch_state_dict(args.hf_checkpoint).items()}
+        logger.info("imported HF checkpoint %s", args.hf_checkpoint)
 
     # mining: the frozen initial encoder over the caption pool, its
     # embeddings on the device

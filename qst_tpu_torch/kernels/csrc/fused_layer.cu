@@ -10,7 +10,8 @@
 // per layer (M = B·S tokens), against (M·H) activations in and out — at
 // M = 32768 and MiniLM widths that is ~116 GFLOP over ~100 MB, far above the
 // card's ~295 FLOP/byte bf16 ridge, so the tensor cores are the limit.
-// Attention is small (S ≤ 128) and its probabilities must stay on chip.
+// Attention is small at S ≤ 128, a few percent of the operations at S = 384,
+// and its probabilities must stay on chip.
 //
 // What this design does about it (bf16; layer_common.cuh has the details):
 // - the projections run as one persistent, warp-specialised GEMM: 128x128
@@ -27,7 +28,11 @@
 //   Q, K and V as bf16 tiles in shared memory (cp.async), a warp per 16
 //   query rows with the whole score row in registers, the exact two-pass
 //   softmax there, and the probabilities handed to P·V as register
-//   fragments — they reach neither shared nor device memory;
+//   fragments — they reach neither shared nor device memory; for
+//   128 < S ≤ 512 a block per 64 query rows walks the keys in blocks of 64
+//   with a running maximum and sum (attention_kb.cuh); MPNet's (nh·S, S)
+//   relative bias (`rel_ref`, :154-155) is added after scale and mask bias
+//   in both, a template flag, so BERT's kernels are the ones they were;
 // - residual + LayerNorm with f32 statistics runs one warp per row.
 // The f32 path (a SIMT FMA GEMM and a SIMT attention with f32 scores in
 // shared memory) is kept as the comparison path that holds 1e-4.
@@ -44,14 +49,15 @@
 // residual (the EPI_BIAS_RESID_F32 epilogue). The masks are a pure function
 // of (seed, b // nb, element, site), so K2 regenerates them bit for bit.
 // The GEMMs, attention and LayerNorm live in layer_common.cuh, shared with K2.
-#include "layer_common.cuh"
+#include "attention_kb.cuh"
 
 namespace qst {
 
 // wqkv is [Wq | Wk | Wv] as one (H, 3H) matrix, bqkv its (1, 3H) bias;
 // tmp holds the f32 residual sum before each LayerNorm
 template <typename T>
-int fused_layer_forward(const T* x, const float* mask_bias, const T* wqkv, const float* bqkv,
+int fused_layer_forward(const T* x, const float* mask_bias, const float* rel, const T* wqkv,
+                        const float* bqkv,
                         const T* wo, const float* bo, const float* ln1_g,
                         const float* ln1_b, const T* w1, const float* b1, const T* w2,
                         const float* b2, const float* ln2_g, const float* ln2_b,
@@ -64,7 +70,8 @@ int fused_layer_forward(const T* x, const float* mask_bias, const T* wqkv, const
   EpiArgs ep;
   ep.bias = bqkv;
   if ((err = launch_gemm<T, EPI_BIAS>(x, wqkv, qkv, M, 3 * H, H, ep, st))) return err;
-  if ((err = launch_attention<T>(qkv, mask_bias, ctx, B, S, H, nh, attn_drop, st))) return err;
+  if ((err = launch_attention<T>(qkv, mask_bias, rel, ctx, B, S, H, nh, attn_drop, st)))
+    return err;
 
   EpiArgs res;
   res.bias = bo;
@@ -99,8 +106,8 @@ __global__ void drop_mask_kernel(float* __restrict__ out, int rows, int cols, Dr
 using namespace qst;
 
 extern "C" int qst_fused_layer_forward(
-    int dtype, const void* x, const void* mask_bias, const void* wqkv, const void* bqkv,
-    const void* wo, const void* bo, const void* ln1_g, const void* ln1_b, const void* w1,
+    int dtype, const void* x, const void* mask_bias, const void* rel, const void* wqkv,
+    const void* bqkv, const void* wo, const void* bo, const void* ln1_g, const void* ln1_b, const void* w1,
     const void* b1, const void* w2, const void* b2, const void* ln2_g,
     const void* ln2_b, void* qkv, void* ctx, void* tmp, void* y, void* inter,
     void* out, int B, int S, int H, int F, int nh, float eps, const void* seed, int nb,
@@ -112,7 +119,8 @@ extern "C" int qst_fused_layer_forward(
 #define QST_F(p) reinterpret_cast<const float*>(p)
 #define QST_LAYER(T)                                                               \
   fused_layer_forward<T>(                                                          \
-      reinterpret_cast<const T*>(x), QST_F(mask_bias), reinterpret_cast<const T*>(wqkv), \
+      reinterpret_cast<const T*>(x), QST_F(mask_bias), QST_F(rel),                 \
+      reinterpret_cast<const T*>(wqkv),                                            \
       QST_F(bqkv), reinterpret_cast<const T*>(wo), QST_F(bo), QST_F(ln1_g),        \
       QST_F(ln1_b), reinterpret_cast<const T*>(w1), QST_F(b1),                     \
       reinterpret_cast<const T*>(w2), QST_F(b2), QST_F(ln2_g), QST_F(ln2_b),       \

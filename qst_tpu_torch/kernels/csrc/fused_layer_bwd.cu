@@ -32,13 +32,20 @@
 //   per (sequence, head) on mma.sync.m16n8k16, with P, dP and dS in
 //   registers and the two (S, S) tiles its transposed products need in
 //   shared memory as bf16, regenerating P and the dropout mask from the seed
-//   as K1 made them (see attention_bwd_mma_kernel).
+//   as K1 made them (see attention_bwd_mma_kernel), for BERT at S ≤ 128;
+//   for 128 < S ≤ 512 or with MPNet's relative bias, the key-blocked
+//   backward of attention_kb.cuh, which also returns drel (:457-474,
+//   506-507): the logits' gradient summed over the batch inside blocks of
+//   one head and tile (groups of sequences when the tiles alone would not
+//   fill the card: groups x nh·S² f32 of workspace, 4.7 MB at MPNet-base,
+//   B = 128, S = 128, 6.3 MB at S = 256, none from S = 320 up), never
+//   B·nh·S² per-sequence partials (906 MB at S = 384).
 // The f32 path keeps the SIMT GEMM and the SIMT attention backward: it is
 // the comparison path that holds 1e-4.
 // bf16 rounding happens where the TPU kernel rounds: df, dipre, da, dctx,
 // the dropped probabilities, dS·scale and dq/dk/dv before their products;
 // bias gradients sum the f32 values.
-#include "layer_common.cuh"
+#include "attention_kb.cuh"
 
 namespace qst {
 
@@ -320,22 +327,6 @@ inline size_t attention_bwd_mma_smem_bytes(int S, int hd) {
          8 * 3 * hd * sizeof(float);
 }
 
-// the column sums of the warp's 16 x HD accumulators → out[0 .. HD-1]
-template <int HD>
-__device__ __forceinline__ void warp_colsum(const float (&acc)[HD / 8][4], float* out, int lane) {
-#pragma unroll
-  for (int nb = 0; nb < HD / 8; ++nb) {
-#pragma unroll
-    for (int e = 0; e < 2; ++e) {
-      float s = acc[nb][e] + acc[nb][2 + e];
-      s += __shfl_xor_sync(0xffffffffu, s, 4);
-      s += __shfl_xor_sync(0xffffffffu, s, 8);
-      s += __shfl_xor_sync(0xffffffffu, s, 16);
-      if (lane < 4) out[nb * 8 + lane * 2 + e] = s;
-    }
-  }
-}
-
 // dP of keys 16·nb2 .. + 15 for the warp's 16 query rows: dC (A operand ca)
 // · Vᵀ, through the dropout mask (`keep` bit 4nb + i, `kept` = 1 / (1 - rate))
 template <int HD>
@@ -397,7 +388,7 @@ attention_bwd_mma_kernel(const bf16* __restrict__ qkv, const bf16* __restrict__ 
   float* my_red = red + warp * 3 * HD;
   if (active) {
     float p[16][4];
-    attention_probs<HD>(p, Qs, Ks, bias_s, r0, S, S_pad, scale, lane);
+    attention_probs<HD, false>(p, Qs, Ks, bias_s, nullptr, nullptr, r0, S, S_pad, scale, lane);
     // the dropout mask of this thread's 64 probabilities, bit 4nb + i
     uint64_t keep = ~0ull;
     if (ad.on) {
@@ -525,7 +516,7 @@ int launch_attention_bwd_mma(const bf16* qkv, const bf16* dctx, const float* mas
                              const DropSite& ad, cudaStream_t st) {
   static std::atomic<uint64_t> done{0};
   cudaError_t e = allow_smem(attention_bwd_mma_kernel<HD>,
-                             attention_bwd_mma_smem_bytes(kMaxSeq, HD), done);
+                             attention_bwd_mma_smem_bytes(kSmallSeq, HD), done);
   if (e != cudaSuccess) return (int)e;
   attention_bwd_mma_kernel<HD><<<dim3(nh, B), 256, attention_bwd_mma_smem_bytes(S, HD), st>>>(
       qkv, dctx, mask_bias, dqkv, part, S, H, 1.0f / sqrtf((float)HD), ad);
@@ -549,7 +540,7 @@ int launch_attention_bwd(const T* qkv, const T* dctx, const float* mask_bias, T*
   } else {
     static std::atomic<uint64_t> done{0};
     cudaError_t e = allow_smem(attention_bwd_kernel<T>,
-                               attention_bwd_smem_bytes(kMaxSeq, kMaxHeadDim), done);
+                               attention_bwd_smem_bytes(kSmallSeq, kMaxHeadDim), done);
     if (e != cudaSuccess) return (int)e;
     attention_bwd_kernel<T><<<dim3(nh, B), 256, attention_bwd_smem_bytes(S, hd), st>>>(
         qkv, dctx, mask_bias, dqkv, part, S, H, hd, 1.0f / sqrtf((float)hd), ad);
@@ -577,9 +568,13 @@ template <typename T>
 struct BwdBuffers {
   T *qkv, *ctx, *y, *inter, *df, *dipre, *da, *dctx, *dqkv;
   float *r1, *ipre, *r2, *dr2, *dy, *dr1, *ln_part, *col_part, *attn_part, *splitk;
+  float *stats, *drel_part;  // the key-blocked path's row statistics and drel groups
   size_t bytes;
 
-  BwdBuffers(void* ws, int B, int S, int H, int F) {
+  // the key-blocked attention backward: S > 128, or the relative bias
+  static bool key_blocked(int S, bool rel) { return S > kSmallSeq || rel; }
+
+  BwdBuffers(void* ws, int B, int S, int H, int F, int nh, bool rel) {
     const size_t M = (size_t)B * S;
     Workspace w(ws);
     qkv = w.take<T>(M * 3 * H);
@@ -599,7 +594,11 @@ struct BwdBuffers {
     dr1 = w.take<float>(M * H);
     ln_part = w.take<float>((size_t)ln_bwd_warp_rows((int)M) * 3 * H);
     col_part = w.take<float>((size_t)gemm_row_tiles<T>((int)M) * F);
-    attn_part = w.take<float>((size_t)B * 3 * H);
+    const bool kb = key_blocked(S, rel);
+    attn_part = w.take<float>((size_t)B * (kb ? kb_tiles<T>(S) : 1) * 3 * H);
+    stats = w.take<float>(kb ? (size_t)3 * B * nh * S : 0);
+    const int groups = rel ? drel_groups<T>(B, S, nh, nullptr) : 1;
+    drel_part = w.take<float>(groups > 1 ? (size_t)groups * nh * S * S : 0);
     size_t sk = 0;
     const int shapes[4][2] = {{F, H}, {H, F}, {H, H}, {H, 3 * H}};
     for (const auto& s : shapes) {
@@ -617,13 +616,16 @@ int fused_layer_backward(const T* x, const float* mask_bias, const T* wqkv, cons
                          const T* wo, const float* bo, const float* ln1_g,
                          const float* ln1_b, const T* w1, const float* b1, const T* w2,
                          const float* b2, const float* ln2_g, const float* ln2_b,
-                         const T* g, T* dx, float* dwqkv, float* dwo, float* dw1, float* dw2,
-                         float* dvec, void* workspace, int B, int S, int H, int F, int nh,
+                         const float* rel, const T* g, T* dx, float* dwqkv, float* dwo,
+                         float* dw1, float* dw2, float* dvec, float* drel, void* workspace,
+                         int B, int S, int H, int F, int nh,
                          float eps, const DropSite& attn_drop, const DropSite& hid_drop,
                          cudaStream_t st) {
   const int M = B * S, hd = H / nh;
-  if (S > kMaxSeq || hd > kMaxHeadDim || 256 % hd) return (int)cudaErrorInvalidValue;
-  BwdBuffers<T> w(workspace, B, S, H, F);
+  if (S > kMaxSeq || hd > kMaxHeadDim || 256 % hd || (rel && !drel))
+    return (int)cudaErrorInvalidValue;
+  const bool kb = BwdBuffers<T>::key_blocked(S, rel != nullptr);
+  BwdBuffers<T> w(workspace, B, S, H, F, nh, rel != nullptr);
   float* d_qkv_b = dvec;
   float* d_ln1 = dvec + 3 * H;
   float* d_b1 = dvec + 6 * H;
@@ -634,7 +636,7 @@ int fused_layer_backward(const T* x, const float* mask_bias, const T* wqkv, cons
   EpiArgs ep;
   ep.bias = bqkv;
   if ((err = launch_gemm<T, EPI_BIAS>(x, wqkv, w.qkv, M, 3 * H, H, ep, st))) return err;
-  if ((err = launch_attention<T>(w.qkv, mask_bias, w.ctx, B, S, H, nh, attn_drop, st)))
+  if ((err = launch_attention<T>(w.qkv, mask_bias, rel, w.ctx, B, S, H, nh, attn_drop, st)))
     return err;
   EpiArgs res;
   res.bias = bo;
@@ -679,10 +681,22 @@ int fused_layer_backward(const T* x, const float* mask_bias, const T* wqkv, cons
     return err;
 
   // ---- attention, then Q, K and V as one product
-  if ((err = launch_attention_bwd<T>(w.qkv, w.dctx, mask_bias, w.dqkv, w.attn_part, B, S, H,
-                                     nh, attn_drop, st)))
+  if (!kb) {
+    if ((err = launch_attention_bwd<T>(w.qkv, w.dctx, mask_bias, w.dqkv, w.attn_part, B, S, H,
+                                       nh, attn_drop, st)))
+      return err;
+  } else if (rel) {
+    if ((err = launch_attention_bwd_kb<T, true>(w.qkv, w.dctx, mask_bias, rel, w.dqkv, w.stats,
+                                                w.attn_part, drel, w.drel_part, B, S, H, nh,
+                                                attn_drop, st)))
+      return err;
+  } else if ((err = launch_attention_bwd_kb<T, false>(w.qkv, w.dctx, mask_bias, rel, w.dqkv,
+                                                      w.stats, w.attn_part, drel, w.drel_part, B,
+                                                      S, H, nh, attn_drop, st))) {
     return err;
-  if ((err = launch_sum_rows(w.attn_part, B, 3 * H, d_qkv_b, st))) return err;
+  }
+  if ((err = launch_sum_rows(w.attn_part, B * (kb ? kb_tiles<T>(S) : 1), 3 * H, d_qkv_b, st)))
+    return err;
   if ((err = launch_weight_grad<T>(x, w.dqkv, dwqkv, w.splitk, H, 3 * H, M, st))) return err;
   EpiArgs to_x;
   to_x.resid = w.dr1;
@@ -694,17 +708,19 @@ int fused_layer_backward(const T* x, const float* mask_bias, const T* wqkv, cons
 
 using namespace qst;
 
-extern "C" size_t qst_fused_layer_backward_workspace(int dtype, int B, int S, int H, int F) {
-  if (dtype == QST_BF16) return BwdBuffers<bf16>(nullptr, B, S, H, F).bytes;
-  return BwdBuffers<float>(nullptr, B, S, H, F).bytes;
+extern "C" size_t qst_fused_layer_backward_workspace(int dtype, int B, int S, int H, int F,
+                                                     int nh, int rel) {
+  if (dtype == QST_BF16) return BwdBuffers<bf16>(nullptr, B, S, H, F, nh, rel != 0).bytes;
+  return BwdBuffers<float>(nullptr, B, S, H, F, nh, rel != 0).bytes;
 }
 
 extern "C" int qst_fused_layer_backward(
     int dtype, const void* x, const void* mask_bias, const void* wqkv, const void* bqkv,
     const void* wo, const void* bo, const void* ln1_g, const void* ln1_b, const void* w1,
     const void* b1, const void* w2, const void* b2, const void* ln2_g, const void* ln2_b,
-    const void* g, void* dx, void* dwqkv, void* dwo, void* dw1, void* dw2, void* dvec,
-    void* workspace, int B, int S, int H, int F, int nh, float eps, const void* seed, int nb,
+    const void* rel, const void* g, void* dx, void* dwqkv, void* dwo, void* dw1, void* dw2,
+    void* dvec, void* drel, void* workspace, int B, int S, int H, int F, int nh, float eps,
+    const void* seed, int nb,
     int attn_on, unsigned attn_thr, float attn_scale, int hid_on, unsigned hid_thr,
     float hid_scale, void* stream) {
   cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
@@ -716,11 +732,11 @@ extern "C" int qst_fused_layer_backward(
       reinterpret_cast<const T*>(x), QST_F(mask_bias), reinterpret_cast<const T*>(wqkv),  \
       QST_F(bqkv), reinterpret_cast<const T*>(wo), QST_F(bo), QST_F(ln1_g), QST_F(ln1_b), \
       reinterpret_cast<const T*>(w1), QST_F(b1), reinterpret_cast<const T*>(w2),          \
-      QST_F(b2), QST_F(ln2_g), QST_F(ln2_b), reinterpret_cast<const T*>(g),               \
+      QST_F(b2), QST_F(ln2_g), QST_F(ln2_b), QST_F(rel), reinterpret_cast<const T*>(g),   \
       reinterpret_cast<T*>(dx), reinterpret_cast<float*>(dwqkv),                          \
       reinterpret_cast<float*>(dwo), reinterpret_cast<float*>(dw1),                       \
-      reinterpret_cast<float*>(dw2), reinterpret_cast<float*>(dvec), workspace, B, S, H,  \
-      F, nh, eps, ad, hdp, st)
+      reinterpret_cast<float*>(dw2), reinterpret_cast<float*>(dvec),                      \
+      reinterpret_cast<float*>(drel), workspace, B, S, H, F, nh, eps, ad, hdp, st)
   if (dtype == QST_F32) return QST_BWD(float);
   if (dtype == QST_BF16) return QST_BWD(bf16);
 #undef QST_BWD

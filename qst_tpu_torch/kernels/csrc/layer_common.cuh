@@ -17,7 +17,9 @@
 // applied warp by warp on the way from the accumulators to device memory
 // while the other warpgroup multiplies) serves all of K1's and K2's products,
 // and the attention runs on mma.sync with the probabilities kept in
-// registers. The f32 path (a SIMT GEMM and a SIMT attention) is the
+// registers (S ≤ 128; longer sequences take the key-blocked kernels of
+// attention_kb.cuh). MPNet's relative bias is a template flag of every
+// attention forward. The f32 path (a SIMT GEMM and a SIMT attention) is the
 // comparison path that holds 1e-4.
 #pragma once
 
@@ -425,6 +427,10 @@ gemm_bf16_kernel(const __grid_constant__ CUtensorMap map_a,
   }
 }
 
+// the wrappers' limits: S ≤ kSmallSeq runs the one-block-per-(sequence,
+// head) attention kernels, up to kMaxSeq the key-blocked ones
+constexpr int kSmallSeq = 128, kMaxSeq = 512, kMaxHeadDim = 64;
+
 // ---------------------------------------------------------------------------
 // f32 GEMM on the FMA units (the comparison path: tensor-core TF32 would not
 // hold an f32 tolerance). Block tile 64x64, k-step 16, 256 threads each
@@ -587,17 +593,26 @@ int launch_weight_grad(const T* A, const T* B, float* out, float* ws, int M, int
 }
 
 // ---------------------------------------------------------------------------
+// The (S, S) relative-bias rows of head h (MPNet: (nh·S, S) f32, shared by
+// every sequence); a row past S is clamped to the last, for query rows that
+// pad a tile and are never stored.
+__device__ __forceinline__ const float* rel_row(const float* rel, int h, int row, int S) {
+  return rel + ((size_t)h * S + (row < S ? row : S - 1)) * S;
+}
+
 // f32 attention forward (SIMT): one block per (head, sequence). qkv is (B·S, 3H) with
 // q, k, v at column offsets 0, H, 2H; ctx is (B·S, H). Shared memory holds
 // Q, K (rows padded by one float against bank conflicts), V, the (S, S)
-// scores and the sequence's mask bias, all f32. Attention dropout (tag
+// scores and the sequence's mask bias, all f32 (S ≤ 128). With REL the
+// head's relative-bias row is added after scale and mask bias. Attention dropout (tag
 // 16 + (b % nb)·heads + h, element q·S + k) scales the probabilities after
 // the softmax and before their bf16 cast, as in the TPU kernel.
 // ---------------------------------------------------------------------------
-template <typename T>
+template <typename T, bool REL>
 __global__ void __launch_bounds__(256)
 attention_kernel(const T* __restrict__ qkv, const float* __restrict__ mask_bias,
-                 T* __restrict__ ctx, int S, int H, int hd, float scale, DropSite ad) {
+                 const float* __restrict__ rel, T* __restrict__ ctx, int S, int H, int hd,
+                 float scale, DropSite ad) {
   extern __shared__ float sm[];
   const int h = blockIdx.x, b = blockIdx.y, nh = gridDim.x;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
@@ -626,6 +641,7 @@ attention_kernel(const T* __restrict__ qkv, const float* __restrict__ mask_bias,
     float acc = 0.0f;
     for (int d = 0; d < hd; ++d) acc = fmaf(q[d], k[d], acc);
     Ps[i] = acc * scale + bias_s[c];
+    if (REL) Ps[i] += rel_row(rel, h, r, S)[c];
   }
   __syncthreads();
 
@@ -684,9 +700,13 @@ constexpr int ATT_PAD = 8;
 // f32 probabilities (before dropout) of the warp's 16 query rows q0 .. q0+15
 // against all keys. p[nb] is the accumulator of key columns 8nb .. 8nb + 7
 // (see mma_m16n8k16 for its layout); blocks from S_pad / 8 up are untouched.
-template <int HD>
+// With REL, rel_a and rel_b are the relative-bias rows of query rows
+// q0 + lane/4 and eight below, added after scale and mask bias as the TPU
+// kernel adds them (fused_layer_pallas.py:153-155).
+template <int HD, bool REL>
 __device__ __forceinline__ void attention_probs(float (&p)[16][4], const bf16* Qs,
-                                                const bf16* Ks, const float* bias_s, int q0,
+                                                const bf16* Ks, const float* bias_s,
+                                                const float* rel_a, const float* rel_b, int q0,
                                                 int S, int S_pad, float scale, int lane) {
   constexpr int LD = HD + ATT_PAD;
   const int t2 = (lane & 3) * 2;
@@ -719,6 +739,7 @@ __device__ __forceinline__ void attention_probs(float (&p)[16][4], const bf16* Q
         const float bias = c < S ? bias_s[c] : 0.0f;
         p[nb][e] = c < S ? p[nb][e] * scale + bias : -INFINITY;
         p[nb][2 + e] = c < S ? p[nb][2 + e] * scale + bias : -INFINITY;
+        if (REL && c < S) p[nb][e] += rel_a[c], p[nb][2 + e] += rel_b[c];
         m0 = fmaxf(m0, p[nb][e]);
         m1 = fmaxf(m1, p[nb][2 + e]);
       }
@@ -801,10 +822,11 @@ __device__ __forceinline__ void store_rows_bf16(bf16* dst, size_t ld, const floa
   }
 }
 
-template <int HD>
+template <int HD, bool REL>
 __global__ void __launch_bounds__(256)
 attention_mma_kernel(const bf16* __restrict__ qkv, const float* __restrict__ mask_bias,
-                     bf16* __restrict__ ctx, int S, int H, float scale, DropSite ad) {
+                     const float* __restrict__ rel, bf16* __restrict__ ctx, int S, int H,
+                     float scale, DropSite ad) {
   extern __shared__ __align__(16) unsigned char att_smem[];
   constexpr int LD = HD + ATT_PAD;
   const int h = blockIdx.x, b = blockIdx.y, nh = gridDim.x;
@@ -826,7 +848,9 @@ attention_mma_kernel(const bf16* __restrict__ qkv, const float* __restrict__ mas
   const int q0 = warp * 16;
   if (q0 >= S_pad) return;
   float p[16][4];
-  attention_probs<HD>(p, Qs, Ks, bias_s, q0, S, S_pad, scale, lane);
+  const float* rel_a = REL ? rel_row(rel, h, q0 + (lane >> 2), S) : nullptr;
+  const float* rel_b = REL ? rel_row(rel, h, q0 + (lane >> 2) + 8, S) : nullptr;
+  attention_probs<HD, REL>(p, Qs, Ks, bias_s, rel_a, rel_b, q0, S, S_pad, scale, lane);
   if (ad.on) {
     const uint32_t seed = drop_step_seed(ad, b / ad.nb);
     const uint32_t tag = 16u + (uint32_t)((b % ad.nb) * nh + h);
@@ -865,14 +889,15 @@ inline size_t attention_mma_smem_bytes(int S, int hd) {
   return (size_t)3 * S_pad * (hd + ATT_PAD) * sizeof(bf16) + S_pad * sizeof(float);
 }
 
-template <int HD>
-int launch_attention_mma(const bf16* qkv, const float* mask_bias, bf16* ctx, int B, int S, int H,
-                         int nh, const DropSite& ad, cudaStream_t st) {
+template <int HD, bool REL>
+int launch_attention_mma(const bf16* qkv, const float* mask_bias, const float* rel, bf16* ctx,
+                         int B, int S, int H, int nh, const DropSite& ad, cudaStream_t st) {
   static std::atomic<uint64_t> done{0};
-  cudaError_t e = allow_smem(attention_mma_kernel<HD>, attention_mma_smem_bytes(128, HD), done);
+  cudaError_t e = allow_smem(attention_mma_kernel<HD, REL>,
+                             attention_mma_smem_bytes(kSmallSeq, HD), done);
   if (e != cudaSuccess) return (int)e;
-  attention_mma_kernel<HD><<<dim3(nh, B), 256, attention_mma_smem_bytes(S, HD), st>>>(
-      qkv, mask_bias, ctx, S, H, 1.0f / sqrtf((float)HD), ad);
+  attention_mma_kernel<HD, REL><<<dim3(nh, B), 256, attention_mma_smem_bytes(S, HD), st>>>(
+      qkv, mask_bias, rel, ctx, S, H, 1.0f / sqrtf((float)HD), ad);
   QST_RETURN_IF_LAUNCH_FAILED();
   return 0;
 }
@@ -913,31 +938,51 @@ layernorm_kernel(const float* __restrict__ in, const float* __restrict__ gamma,
   }
 }
 
-constexpr int kMaxSeq = 128, kMaxHeadDim = 64;  // the wrappers' limits
-
 inline size_t attention_smem_bytes(int S, int hd) {
   return (size_t)(S * hd + S * (hd + 1) + S * hd + S * S + S) * sizeof(float);
 }
 
-template <typename T>
-int launch_attention(const T* qkv, const float* mask_bias, T* ctx, int B, int S, int H, int nh,
-                     const DropSite& ad, cudaStream_t st) {
+// defined in attention_kb.cuh (included by the sources after this header)
+template <typename T, bool REL>
+int launch_attention_kb(const T* qkv, const float* mask_bias, const float* rel, T* ctx, int B,
+                        int S, int H, int nh, const DropSite& ad, cudaStream_t st);
+
+template <typename T, bool REL>
+int launch_attention_small(const T* qkv, const float* mask_bias, const float* rel, T* ctx, int B,
+                           int S, int H, int nh, const DropSite& ad, cudaStream_t st) {
   const int hd = H / nh;
   if constexpr (std::is_same<T, bf16>::value) {
-    if (hd == 16) return launch_attention_mma<16>(qkv, mask_bias, ctx, B, S, H, nh, ad, st);
-    if (hd == 32) return launch_attention_mma<32>(qkv, mask_bias, ctx, B, S, H, nh, ad, st);
-    if (hd == 64) return launch_attention_mma<64>(qkv, mask_bias, ctx, B, S, H, nh, ad, st);
+#define QST_SMALL(HD) launch_attention_mma<HD, REL>(qkv, mask_bias, rel, ctx, B, S, H, nh, ad, st)
+    if (hd == 16) return QST_SMALL(16);
+    if (hd == 32) return QST_SMALL(32);
+    if (hd == 64) return QST_SMALL(64);
+#undef QST_SMALL
     return (int)cudaErrorInvalidValue;
   } else {
     static std::atomic<uint64_t> done{0};
-    cudaError_t e =
-        allow_smem(attention_kernel<T>, attention_smem_bytes(kMaxSeq, kMaxHeadDim), done);
+    cudaError_t e = allow_smem(attention_kernel<T, REL>,
+                               attention_smem_bytes(kSmallSeq, kMaxHeadDim), done);
     if (e != cudaSuccess) return (int)e;
-    attention_kernel<T><<<dim3(nh, B), 256, attention_smem_bytes(S, hd), st>>>(
-        qkv, mask_bias, ctx, S, H, hd, 1.0f / sqrtf((float)hd), ad);
+    attention_kernel<T, REL><<<dim3(nh, B), 256, attention_smem_bytes(S, hd), st>>>(
+        qkv, mask_bias, rel, ctx, S, H, hd, 1.0f / sqrtf((float)hd), ad);
     QST_RETURN_IF_LAUNCH_FAILED();
     return 0;
   }
+}
+
+// The attention forward of K1 (and of K2's recompute): for S ≤ 128 the
+// one-block-per-(sequence, head) kernels above, the relative bias a template
+// flag (so BERT's instantiation is the one it always was); for 128 < S ≤ 512
+// the key-blocked kernels of attention_kb.cuh.
+template <typename T>
+int launch_attention(const T* qkv, const float* mask_bias, const float* rel, T* ctx, int B,
+                     int S, int H, int nh, const DropSite& ad, cudaStream_t st) {
+  if (S > kSmallSeq) {
+    if (rel) return launch_attention_kb<T, true>(qkv, mask_bias, rel, ctx, B, S, H, nh, ad, st);
+    return launch_attention_kb<T, false>(qkv, mask_bias, rel, ctx, B, S, H, nh, ad, st);
+  }
+  if (rel) return launch_attention_small<T, true>(qkv, mask_bias, rel, ctx, B, S, H, nh, ad, st);
+  return launch_attention_small<T, false>(qkv, mask_bias, rel, ctx, B, S, H, nh, ad, st);
 }
 
 template <typename T>

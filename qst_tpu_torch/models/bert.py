@@ -21,8 +21,7 @@ dict loads as it is. The forward keeps the Flax path's semantics:
 a config that sets it raises rather than run another attention than it asked
 for. ``remat`` recomputes each layer in the backward instead of keeping its
 activations (Flax's ``nn.remat``): the same values and gradients for less
-memory. Only ``arch="bert"`` is ported; MPNet and RoBERTa wait for a later
-slice.
+memory. MPNet is ``models/mpnet.py``; RoBERTa waits for a later slice.
 """
 
 from __future__ import annotations

@@ -9,9 +9,16 @@ chain of hand-written kernels (``kernels/csrc/fused_layer.cu`` and
 bfloat16 one persistent TMA + ``wgmma`` GEMM with the bias, erf-GELU,
 dropout or residual applied in its epilogue (``layer_gemm`` runs it alone),
 one ``mma.sync`` attention block per (sequence, head) whose (S, S)
-probabilities stay in registers, and warp-per-row LayerNorm with f32
-statistics; in float32 SIMT kernels, the path comparisons are held on. What
-bounds them and what the design does about it is in those files' headers.
+probabilities stay in registers (S ≤ 128), or for 128 < S ≤ 512 key-blocked
+attention with a running maximum and sum (``attention_kb.cuh``), and
+warp-per-row LayerNorm with f32 statistics; in float32 SIMT kernels, the
+path comparisons are held on. What bounds them and what the design does
+about it is in those files' headers.
+
+MPNet's relative-position bias (``rel_bias``, (nh·S, S) f32, shared by the
+batch) is added to the logits after scale and mask bias in every attention
+forward; K2 returns its gradient ``drel``, the logits' gradient summed over
+the batch in a fixed order.
 
 Training dropout is the TPU kernel's own: ``drop_mask_plain`` gives the bits
 of ``_drop_mask`` (``:82-103``), a hash of (element, seed folded with the
@@ -24,9 +31,9 @@ as its backward.
 plain versions only for tensors on the CPU; a CUDA tensor launches the
 kernels or raises. Each counts its kernel launches in ``.launches``.
 
-Scope of the CUDA path: S ≤ 128, head_dim 16, 32 or 64, float32 or bfloat16,
-deterministic (no atomics). MPNet's relative bias raises
-``NotImplementedError``.
+Scope of the CUDA path: S ≤ 512 (BERT's 512 positions; MPNet's 514 start at
+pad + 1), head_dim 16, 32 or 64, float32 or bfloat16, deterministic (no
+atomics).
 """
 
 from __future__ import annotations
@@ -51,7 +58,7 @@ WEIGHT_NAMES = (
 # What the CUDA entry point takes: Q, K and V as one (H, 3H) GEMM operand
 _KERNEL_OPERANDS = ("wqkv", "bqkv") + WEIGHT_NAMES[6:]
 _MATRICES = ("wqkv", "wo", "w1", "w2")
-MAX_SEQ = 128
+MAX_SEQ = 512  # max_position_embeddings of BERT (MPNet: 514 = 512 + pad + 1)
 HEAD_DIMS = (16, 32, 64)
 
 
@@ -231,8 +238,17 @@ def _check_dropout(attn_dropout: float, hidden_dropout: float, seed) -> bool:
 # ---------------------------------------------------------------------------
 # K1: forward
 # ---------------------------------------------------------------------------
+def _add_rel(scores: torch.Tensor, rel_bias: Optional[torch.Tensor]) -> torch.Tensor:
+    """(B, nh, S, S) logits + the (nh·S, S) relative bias of each head."""
+    if rel_bias is None:
+        return scores
+    nh, S = scores.shape[1], scores.shape[-1]
+    return scores + rel_bias.float().reshape(nh, S, S)[None]
+
+
 def fused_bert_layer_plain(x: torch.Tensor, mask_bias: torch.Tensor,
                            weights: Dict[str, torch.Tensor], *, num_heads: int,
+                           rel_bias: Optional[torch.Tensor] = None,
                            eps: float = 1e-12, attn_dropout: float = 0.0,
                            hidden_dropout: float = 0.0, seed=None,
                            nb: int = 8) -> torch.Tensor:
@@ -241,7 +257,8 @@ def fused_bert_layer_plain(x: torch.Tensor, mask_bias: torch.Tensor,
     probabilities before P·V, ctx, the LN1 output, the GELU output and the
     layer output round to x.dtype; everything else is f32). Products upcast
     to f32 first, so bf16 operands give exact products with f32 sums.
-    Dropout masks are ``_drop_mask``'s, with ``nb`` sequences per grid step."""
+    Dropout masks are ``_drop_mask``'s, with ``nb`` sequences per grid step.
+    ``rel_bias`` (nh·S, S) is added after scale and mask bias."""
     _check_dropout(attn_dropout, hidden_dropout, seed)
     B, S, H = x.shape
     hd = H // num_heads
@@ -258,6 +275,7 @@ def fused_bert_layer_plain(x: torch.Tensor, mask_bias: torch.Tensor,
     q, k, v = proj("wq", "bq"), proj("wk", "bk"), proj("wv", "bv")
     scores = torch.einsum("bqhd,bkhd->bhqk", heads(q), heads(k))
     scores = scores * (1.0 / math.sqrt(hd)) + mask_bias.float()[:, None, None, :]
+    scores = _add_rel(scores, rel_bias)
     m = torch.amax(scores, dim=-1, keepdim=True)
     p = torch.exp(scores - m)
     p = p / torch.sum(p, dim=-1, keepdim=True)
@@ -288,14 +306,16 @@ def _qkv_operands(weights: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
     return {n: weights[n] for n in _KERNEL_OPERANDS}
 
 
-def _check_cuda_args(x, mask_bias, operands, num_heads) -> None:
+def _check_cuda_args(x, mask_bias, operands, num_heads, rel_bias=None) -> None:
     if x.dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"fused layer kernel takes float32/bfloat16, got {x.dtype}")
     B, S, H = x.shape
     F = operands["w1"].shape[1]
     hd = H // num_heads
     if S > MAX_SEQ:
-        raise NotImplementedError(f"fused layer kernel needs S <= {MAX_SEQ}, got {S}")
+        raise NotImplementedError(
+            f"fused layer kernel needs S <= {MAX_SEQ} (the 512 positions of BERT and MPNet), "
+            f"got {S}")
     if H % num_heads or hd not in HEAD_DIMS:
         raise NotImplementedError(f"fused layer kernel needs head_dim in {HEAD_DIMS}")
     if H % 64 or F % 64 or H > 1024:
@@ -305,6 +325,12 @@ def _check_cuda_args(x, mask_bias, operands, num_heads) -> None:
     if (mask_bias.shape != (B, S) or mask_bias.dtype != torch.float32
             or not mask_bias.is_contiguous() or mask_bias.device != x.device):
         raise ValueError("mask_bias must be a contiguous (B, S) float32 tensor on x's device")
+    if rel_bias is not None and (
+            tuple(rel_bias.shape) != (num_heads * S, S) or rel_bias.dtype != torch.float32
+            or not rel_bias.is_contiguous() or rel_bias.device != x.device):
+        raise ValueError(f"rel_bias must be a contiguous ({num_heads * S}, {S}) float32 tensor "
+                         f"on x's device, got {tuple(rel_bias.shape)} {rel_bias.dtype} on "
+                         f"{rel_bias.device}")
     shapes = {"wqkv": (H, 3 * H), "bqkv": (1, 3 * H), "wo": (H, H), "w1": (H, F),
               "w2": (F, H), "b1": (1, F)}
     for n, t in operands.items():
@@ -354,7 +380,7 @@ def _dtype_code(dt: torch.dtype) -> int:
     return build.DTYPE_CODES[str(dt).removeprefix("torch.")]
 
 
-_ARGTYPES = ([ctypes.c_int] + [ctypes.c_void_p] * 20 + [ctypes.c_int] * 5 + [ctypes.c_float]
+_ARGTYPES = ([ctypes.c_int] + [ctypes.c_void_p] * 21 + [ctypes.c_int] * 5 + [ctypes.c_float]
              + _DROP_ARGTYPES + [ctypes.c_void_p])
 
 
@@ -373,21 +399,22 @@ def fused_bert_layer(x: torch.Tensor, mask_bias: torch.Tensor,
     the kernel's single QKV product needs no concatenation per call.
     ``attn_dropout``/``hidden_dropout`` > 0 need ``seed``, an int or a (1,)
     int32 tensor on x's device; ``nb`` is the TPU kernel's sequences per
-    grid step, which the masks depend on. → (B, S, H) in x.dtype.
+    grid step, which the masks depend on. ``rel_bias``: MPNet's (nh·S, S)
+    f32 relative bias (``fused_layer_pallas.py:191``). → (B, S, H) in x.dtype.
 
     A CPU tensor takes ``fused_bert_layer_plain``; a CUDA tensor launches
     K1 or raises on what it does not take."""
-    if rel_bias is not None:
-        raise NotImplementedError(
-            "the fused layer port covers the BERT layer only (MPNet relative bias is not ported)")
     if x.device.type == "cpu":
-        return fused_bert_layer_plain(x, mask_bias, weights, num_heads=num_heads, eps=eps,
-                                      attn_dropout=attn_dropout,
+        if rel_bias is not None and tuple(rel_bias.shape) != (num_heads * x.shape[1], x.shape[1]):
+            raise ValueError(f"rel_bias must be ({num_heads * x.shape[1]}, {x.shape[1]}), "
+                             f"got {tuple(rel_bias.shape)}")
+        return fused_bert_layer_plain(x, mask_bias, weights, num_heads=num_heads,
+                                      rel_bias=rel_bias, eps=eps, attn_dropout=attn_dropout,
                                       hidden_dropout=hidden_dropout, seed=seed, nb=nb)
     if x.device.type != "cuda":
         raise ValueError(f"fused layer runs on cpu or cuda tensors, got {x.device}")
     operands = _qkv_operands(weights)
-    _check_cuda_args(x, mask_bias, operands, num_heads)
+    _check_cuda_args(x, mask_bias, operands, num_heads, rel_bias)
     drop, seed_t = _drop_args(seed, attn_dropout, hidden_dropout, nb, x.device)
     from qst_tpu_torch.kernels import build
 
@@ -403,8 +430,9 @@ def fused_bert_layer(x: torch.Tensor, mask_bias: torch.Tensor,
     out = torch.empty((B, S, H), dtype=dt, device=x.device)
     fn = build.function("qst_fused_layer_forward", _ARGTYPES)
     with torch.cuda.device(x.device):   # launch into the tensors' device context
-        code = fn(_dtype_code(dt), x.data_ptr(),
-                  mask_bias.data_ptr(), *[operands[n].data_ptr() for n in _KERNEL_OPERANDS],
+        code = fn(_dtype_code(dt), x.data_ptr(), mask_bias.data_ptr(),
+                  None if rel_bias is None else rel_bias.data_ptr(),
+                  *[operands[n].data_ptr() for n in _KERNEL_OPERANDS],
                   qkv.data_ptr(), ctx.data_ptr(), tmp.data_ptr(), y.data_ptr(),
                   inter.data_ptr(), out.data_ptr(), B, S, H, F, num_heads, eps, *drop,
                   torch.cuda.current_stream(x.device).cuda_stream)
@@ -506,7 +534,8 @@ layer_gemm.launches = 0
 # ---------------------------------------------------------------------------
 def fused_bert_layer_bwd_plain(x: torch.Tensor, mask_bias: torch.Tensor,
                                weights: Dict[str, torch.Tensor], g: torch.Tensor, *,
-                               num_heads: int, eps: float = 1e-12, attn_dropout: float = 0.0,
+                               num_heads: int, rel_bias: Optional[torch.Tensor] = None,
+                               eps: float = 1e-12, attn_dropout: float = 0.0,
                                hidden_dropout: float = 0.0, seed=None, nb: int = 8
                                ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Plain PyTorch version of K2 (``_layer_bwd_kernel``, :345): recompute
@@ -514,7 +543,9 @@ def fused_bert_layer_bwd_plain(x: torch.Tensor, mask_bias: torch.Tensor,
     The TPU kernel's rounding points to x.dtype are kept: the forward's, and
     df, dipre, da, dctx, the dropped probabilities, dS·scale and dq/dk/dv
     before their products; bias gradients sum the f32 values.
-    → (dx (B, S, H) in x.dtype, {weight name: f32 gradient})."""
+    → (dx (B, S, H) in x.dtype, {weight name: f32 gradient}); with
+    ``rel_bias`` the dict also holds ``drel`` (nh·S, S), the logits'
+    gradient before the scale summed over the batch (:470-474)."""
     _check_dropout(attn_dropout, hidden_dropout, seed)
     B, S, H = x.shape
     nh, hd, M, dt = num_heads, H // num_heads, B * S, x.dtype
@@ -539,6 +570,7 @@ def fused_bert_layer_bwd_plain(x: torch.Tensor, mask_bias: torch.Tensor,
     # ---- forward recompute
     q, k, v = (rnd(x2 @ w[f"w{n}"] + w[f"b{n}"]) for n in "qkv")
     scores = heads(q) @ heads(k).transpose(-1, -2) * scale + mask_bias.float()[:, None, None, :]
+    scores = _add_rel(scores, rel_bias)
     p = torch.exp(scores - torch.amax(scores, dim=-1, keepdim=True))
     p = p / torch.sum(p, dim=-1, keepdim=True)
     p_dt = rnd(p * m_attn if m_attn is not None else p)
@@ -583,32 +615,37 @@ def fused_bert_layer_bwd_plain(x: torch.Tensor, mask_bias: torch.Tensor,
         grads[f"w{n}"] = x2.T @ d_dt
         grads[f"b{n}"] = d[n].sum(0, keepdim=True)
         dx = dx + d_dt @ w[f"w{n}"].T
-    return dx.to(dt).reshape(B, S, H), {n: grads[n] for n in WEIGHT_NAMES}
+    out = {n: grads[n] for n in WEIGHT_NAMES}
+    if rel_bias is not None:
+        out["drel"] = ds.sum(0).reshape(nh * S, S)
+    return dx.to(dt).reshape(B, S, H), out
 
 
-_BWD_ARGTYPES = ([ctypes.c_int] + [ctypes.c_void_p] * 22 + [ctypes.c_int] * 5
+_BWD_ARGTYPES = ([ctypes.c_int] + [ctypes.c_void_p] * 24 + [ctypes.c_int] * 5
                  + [ctypes.c_float] + _DROP_ARGTYPES + [ctypes.c_void_p])
 
 
 def fused_bert_layer_bwd(x: torch.Tensor, mask_bias: torch.Tensor,
                          weights: Dict[str, torch.Tensor], g: torch.Tensor, *,
-                         num_heads: int, eps: float = 1e-12, attn_dropout: float = 0.0,
+                         num_heads: int, rel_bias: Optional[torch.Tensor] = None,
+                         eps: float = 1e-12, attn_dropout: float = 0.0,
                          hidden_dropout: float = 0.0, seed=None, nb: int = 8
                          ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """K2: the layer's backward given the upstream gradient ``g`` (B, S, H)
     in x.dtype — the forward recomputed from x, dropout masks regenerated
-    from ``seed``. → (dx in x.dtype, {weight name: f32 gradient}).
+    from ``seed``. → (dx in x.dtype, {weight name: f32 gradient}), the dict
+    with ``drel`` (nh·S, S) f32 when ``rel_bias`` is given.
 
     A CPU tensor takes ``fused_bert_layer_bwd_plain``; a CUDA tensor
     launches K2 or raises."""
-    kw = dict(num_heads=num_heads, eps=eps, attn_dropout=attn_dropout,
+    kw = dict(num_heads=num_heads, rel_bias=rel_bias, eps=eps, attn_dropout=attn_dropout,
               hidden_dropout=hidden_dropout, seed=seed, nb=nb)
     if x.device.type == "cpu":
         return fused_bert_layer_bwd_plain(x, mask_bias, weights, g, **kw)
     if x.device.type != "cuda":
         raise ValueError(f"fused layer runs on cpu or cuda tensors, got {x.device}")
     operands = _qkv_operands(weights)
-    _check_cuda_args(x, mask_bias, operands, num_heads)
+    _check_cuda_args(x, mask_bias, operands, num_heads, rel_bias)
     if g.shape != x.shape or g.dtype != x.dtype or not g.is_contiguous() or g.device != x.device:
         raise ValueError("g must be a contiguous tensor of x's shape, dtype and device")
     drop, seed_t = _drop_args(seed, attn_dropout, hidden_dropout, nb, x.device)
@@ -618,8 +655,9 @@ def fused_bert_layer_bwd(x: torch.Tensor, mask_bias: torch.Tensor,
     F = weights["w1"].shape[1]
     dev, f32 = x.device, torch.float32
     code = _dtype_code(x.dtype)
-    ws_bytes = build.function("qst_fused_layer_backward_workspace", [ctypes.c_int] * 5,
-                              ctypes.c_size_t)(code, B, S, H, F)
+    has_rel = rel_bias is not None
+    ws_bytes = build.function("qst_fused_layer_backward_workspace", [ctypes.c_int] * 7,
+                              ctypes.c_size_t)(code, B, S, H, F, num_heads, int(has_rel))
     ws = torch.empty(ws_bytes, dtype=torch.uint8, device=dev)
     dx = torch.empty_like(x)
     dwqkv = torch.empty((H, 3 * H), dtype=f32, device=dev)
@@ -627,12 +665,15 @@ def fused_bert_layer_bwd(x: torch.Tensor, mask_bias: torch.Tensor,
     dw1 = torch.empty((H, F), dtype=f32, device=dev)
     dw2 = torch.empty((F, H), dtype=f32, device=dev)
     dvec = torch.empty(9 * H + F, dtype=f32, device=dev)
+    drel = torch.empty((num_heads * S, S), dtype=f32, device=dev) if has_rel else None
     fn = build.function("qst_fused_layer_backward", _BWD_ARGTYPES)
     with torch.cuda.device(dev):
         err = fn(code, x.data_ptr(), mask_bias.data_ptr(),
-                 *[operands[n].data_ptr() for n in _KERNEL_OPERANDS], g.data_ptr(),
+                 *[operands[n].data_ptr() for n in _KERNEL_OPERANDS],
+                 rel_bias.data_ptr() if has_rel else None, g.data_ptr(),
                  dx.data_ptr(), dwqkv.data_ptr(), dwo.data_ptr(), dw1.data_ptr(),
-                 dw2.data_ptr(), dvec.data_ptr(), ws.data_ptr(), B, S, H, F, num_heads, eps,
+                 dw2.data_ptr(), dvec.data_ptr(), drel.data_ptr() if has_rel else None,
+                 ws.data_ptr(), B, S, H, F, num_heads, eps,
                  *drop, torch.cuda.current_stream(dev).cuda_stream)
     build.count_launch(fused_bert_layer_bwd)
     build.check(err, "fused_bert_layer_bwd")
@@ -645,7 +686,10 @@ def fused_bert_layer_bwd(x: torch.Tensor, mask_bias: torch.Tensor,
                  w1=dw1, w2=dw2, bq=vec(0, H), bk=vec(H, H), bv=vec(2 * H, H),
                  ln1_g=vec(3 * H, H), ln1_b=vec(4 * H, H), bo=vec(5 * H, H), b1=vec(6 * H, F),
                  ln2_g=vec(6 * H + F, H), ln2_b=vec(7 * H + F, H), b2=vec(8 * H + F, H))
-    return dx, {n: grads[n] for n in WEIGHT_NAMES}
+    out = {n: grads[n] for n in WEIGHT_NAMES}
+    if has_rel:
+        out["drel"] = drel
+    return dx, out
 
 
 fused_bert_layer_bwd.launches = 0
@@ -658,39 +702,56 @@ class FusedBertLayer(torch.autograd.Function):
     come back in the weights' dtype, as JAX casts ``dw`` (:614), so an f32
     parameter behind a bf16 weight receives a bf16-rounded gradient.
 
-    ``apply(x, mask_bias, seed, opts, *weights)`` with ``opts`` =
-    (num_heads, eps, attn_dropout, hidden_dropout, nb) and the 16 weights in
-    ``WEIGHT_NAMES`` order."""
+    ``apply(x, mask_bias, seed, opts, *weights[, rel_bias])`` with ``opts`` =
+    (num_heads, eps, attn_dropout, hidden_dropout, nb), the 16 weights in
+    ``WEIGHT_NAMES`` order and, for MPNet, the (nh·S, S) relative bias last,
+    whose gradient is K2's ``drel``."""
 
     @staticmethod
-    def forward(ctx, x, mask_bias, seed, opts, *weights):
+    def forward(ctx, x, mask_bias, seed, opts, *inputs):
         num_heads, eps, attn_dropout, hidden_dropout, nb = opts
-        ctx.save_for_backward(x, mask_bias, *weights)
+        weights, rel = inputs[:len(WEIGHT_NAMES)], inputs[len(WEIGHT_NAMES):]
+        ctx.save_for_backward(x, mask_bias, *inputs)
         ctx.seed, ctx.opts = seed, opts
         return fused_bert_layer(x, mask_bias, dict(zip(WEIGHT_NAMES, weights)),
-                                num_heads=num_heads, eps=eps, attn_dropout=attn_dropout,
-                                hidden_dropout=hidden_dropout, seed=seed, nb=nb)
+                                num_heads=num_heads, rel_bias=rel[0] if rel else None, eps=eps,
+                                attn_dropout=attn_dropout, hidden_dropout=hidden_dropout,
+                                seed=seed, nb=nb)
 
     @staticmethod
     def backward(ctx, g):
-        x, mask_bias, *weights = ctx.saved_tensors
+        x, mask_bias, *inputs = ctx.saved_tensors
         num_heads, eps, attn_dropout, hidden_dropout, nb = ctx.opts
+        weights, rel = inputs[:len(WEIGHT_NAMES)], inputs[len(WEIGHT_NAMES):]
+        rel_bias = rel[0] if rel else None
         w = dict(zip(WEIGHT_NAMES, weights))
         dx, dw = fused_bert_layer_bwd(x, mask_bias, w, g.contiguous(), num_heads=num_heads,
-                                      eps=eps, attn_dropout=attn_dropout,
+                                      rel_bias=rel_bias, eps=eps, attn_dropout=attn_dropout,
                                       hidden_dropout=hidden_dropout, seed=ctx.seed, nb=nb)
-        return (dx, None, None, None, *[dw[n].to(w[n].dtype) for n in WEIGHT_NAMES])
+        drel = (dw["drel"].to(rel_bias.dtype),) if rel else ()
+        return (dx, None, None, None, *[dw[n].to(w[n].dtype) for n in WEIGHT_NAMES], *drel)
+
+
+def _attention_parts(layer: torch.nn.Module):
+    """(q, k, v, o, attention LayerNorm) of a ``BertLayer`` or an
+    ``MPNetLayer`` (``layer_weights_from_params``' two name sets, :675)."""
+    att = layer.attention
+    if hasattr(att, "attn"):    # MPNet: attention.attn.{q,k,v,o}, attention.LayerNorm
+        return att.attn.q, att.attn.k, att.attn.v, att.attn.o, att.LayerNorm
+    return (att.self.query, att.self.key, att.self.value, att.output.dense,
+            att.output.LayerNorm)
 
 
 def layer_weights_for_training(layer: torch.nn.Module,
                                dtype: torch.dtype) -> Dict[str, torch.Tensor]:
-    """One ``BertLayer``'s weights in the kernel layout, made anew on each
-    call so gradients flow from ``FusedBertLayer`` back to the
-    ``nn.Parameter``s through the transpose and the cast (the JAX package's
-    autodiff of ``layer_weights_from_params``). HF ``Linear`` weights are
-    (out, in); the kernel takes (in, out) in the compute dtype; vectors are
-    (1, n) f32."""
-    att, ffn_in, ffn_out = layer.attention, layer.intermediate, layer.output
+    """One ``BertLayer``'s or ``MPNetLayer``'s weights in the kernel layout,
+    made anew on each call so gradients flow from ``FusedBertLayer`` back to
+    the ``nn.Parameter``s through the transpose and the cast (the JAX
+    package's autodiff of ``layer_weights_from_params``). HF ``Linear``
+    weights are (out, in); the kernel takes (in, out) in the compute dtype;
+    vectors are (1, n) f32."""
+    q, k, v, o, ln1 = _attention_parts(layer)
+    ffn_in, ffn_out = layer.intermediate, layer.output
 
     def mat(lin):
         return lin.weight.t().to(dtype).contiguous()
@@ -699,11 +760,8 @@ def layer_weights_for_training(layer: torch.nn.Module,
         return t.reshape(1, -1).float().contiguous()
 
     return dict(
-        wq=mat(att.self.query), bq=vec(att.self.query.bias),
-        wk=mat(att.self.key), bk=vec(att.self.key.bias),
-        wv=mat(att.self.value), bv=vec(att.self.value.bias),
-        wo=mat(att.output.dense), bo=vec(att.output.dense.bias),
-        ln1_g=vec(att.output.LayerNorm.weight), ln1_b=vec(att.output.LayerNorm.bias),
+        wq=mat(q), bq=vec(q.bias), wk=mat(k), bk=vec(k.bias), wv=mat(v), bv=vec(v.bias),
+        wo=mat(o), bo=vec(o.bias), ln1_g=vec(ln1.weight), ln1_b=vec(ln1.bias),
         w1=mat(ffn_in.dense), b1=vec(ffn_in.dense.bias),
         w2=mat(ffn_out.dense), b2=vec(ffn_out.dense.bias),
         ln2_g=vec(ffn_out.LayerNorm.weight), ln2_b=vec(ffn_out.LayerNorm.bias),
@@ -712,7 +770,7 @@ def layer_weights_for_training(layer: torch.nn.Module,
 
 def layer_weights_from_module(layer: torch.nn.Module,
                               dtype: torch.dtype) -> Dict[str, torch.Tensor]:
-    """One ``models.bert.BertLayer``'s weights in the kernel layout, made
+    """One ``BertLayer``'s or ``MPNetLayer``'s weights in the kernel layout, made
     once and cached on the layer (counterpart of
     ``layer_weights_from_params``, ``fused_layer_pallas.py:658``), for the
     encode path: detached, no gradient flows through them.
@@ -741,12 +799,17 @@ def fused_encoder_forward(cfg: EncoderConfig, model: torch.nn.Module,
                           differentiable: bool = False,
                           dropout_key: Optional[torch.Tensor] = None) -> torch.Tensor:
     """ids/mask → last hidden state (B, S, H) through the fused layer
-    (``fused_layer_pallas.py:695``).
+    (``fused_layer_pallas.py:695``), for BERT and MPNet.
 
     The embeddings (a gather plus LayerNorm) stay plain torch, as they stay
     XLA in the TPU version; each transformer layer is one ``fused_bert_layer``
     call, or with ``differentiable`` one ``FusedBertLayer`` (K1 forward, K2
-    backward). The GPU needs no batch padding to a block multiple.
+    backward). The GPU needs no batch padding to a block multiple. MPNet
+    (:724-749): padding-aware positions, no token types, and the shared
+    relative-bias table gathered once per call into (nh·S, S), its gradient
+    (K2's ``drel`` of every layer) flowing back to the table through that
+    gather. Both MPNet gathers (positions, bias table) have backward passes
+    of their own that give the same bits on every run (``models/mpnet.py``).
 
     ``dropout_key``: when given and the config has dropout, the training
     forward of step (seed, step) = ``dropout_key`` (two int64 values, moved
@@ -754,8 +817,9 @@ def fused_encoder_forward(cfg: EncoderConfig, model: torch.nn.Module,
     per layer for the in-kernel masks of attention probabilities, attention
     output and FFN output, all derived on the device by ``step_draws`` (their
     bits are not ``jax.random``'s)."""
-    if cfg.arch != "bert":
-        raise NotImplementedError(f"fused layer port covers arch='bert', got {cfg.arch}")
+    if cfg.arch not in ("bert", "mpnet"):
+        raise NotImplementedError(
+            f"fused layer port covers arch='bert' and 'mpnet', got {cfg.arch}")
     dt = getattr(torch, cfg.dtype)
     train = dropout_key is not None and (cfg.hidden_dropout > 0 or cfg.attention_dropout > 0)
     attn_drop = cfg.attention_dropout if train else 0.0
@@ -767,9 +831,21 @@ def fused_encoder_forward(cfg: EncoderConfig, model: torch.nn.Module,
     # and splits a long run of one id (the padding) across blocks (an
     # index's backward on the card sums each id's run in one thread block)
     word = torch.nn.functional.embedding(input_ids.long(), emb.word_embeddings.weight).to(dt)
-    pos = emb.position_embeddings.weight[:S].to(dt)[None]
-    typ = emb.token_type_embeddings.weight[0].to(dt)[None, None]
-    x = _layernorm_f32((word + pos + typ).float(), emb.LayerNorm.weight.float(),
+    rel_bias = None
+    if cfg.arch == "mpnet":
+        from qst_tpu_torch.models.mpnet import position_embeddings, relative_bias
+
+        summed = word + position_embeddings(input_ids.long(), emb.position_embeddings.weight,
+                                            cfg.pad_token_id).to(dt)
+        rel_bias = relative_bias(model.encoder.relative_attention_bias.weight, S)
+        rel_bias = rel_bias.reshape(cfg.num_heads * S, S).contiguous()
+        if not differentiable:
+            rel_bias = rel_bias.detach()
+    else:
+        pos = emb.position_embeddings.weight[:S].to(dt)[None]
+        typ = emb.token_type_embeddings.weight[0].to(dt)[None, None]
+        summed = word + pos + typ
+    x = _layernorm_f32(summed.float(), emb.LayerNorm.weight.float(),
                        emb.LayerNorm.bias.float(), cfg.layer_norm_eps).to(dt)
     mask_bias = torch.where(attention_mask > 0, 0.0, MASK_BIAS).float().contiguous()
     seeds = None
@@ -783,10 +859,13 @@ def fused_encoder_forward(cfg: EncoderConfig, model: torch.nn.Module,
         if differentiable:
             w = layer_weights_for_training(layer, dt)
             opts = (cfg.num_heads, cfg.layer_norm_eps, attn_drop, hid_drop, cfg.fused_nb)
-            x = FusedBertLayer.apply(x, mask_bias, seed, opts, *[w[n] for n in WEIGHT_NAMES])
+            rel = (rel_bias,) if rel_bias is not None else ()
+            x = FusedBertLayer.apply(x, mask_bias, seed, opts,
+                                     *[w[n] for n in WEIGHT_NAMES], *rel)
         else:
             x = fused_bert_layer(x, mask_bias, layer_weights_from_module(layer, dt),
-                                 num_heads=cfg.num_heads, eps=cfg.layer_norm_eps,
+                                 num_heads=cfg.num_heads, rel_bias=rel_bias,
+                                 eps=cfg.layer_norm_eps,
                                  attn_dropout=attn_drop, hidden_dropout=hid_drop, seed=seed,
                                  nb=cfg.fused_nb)
     return x

@@ -346,7 +346,6 @@ def test_ir_eval_cli_matches_the_jax_evaluator(quad_data, index):
 
 
 @pytest.mark.parametrize("argv", [
-    ["--hf_checkpoint", "x.bin"], ["--hf_checkpoint_dir", "ckpt"],
     ["--pp_stages", "2"], ["--pp_rounds", "2"], ["--mesh_data", "2"], ["--mesh_model", "2"],
 ])
 def test_train_cli_refuses_unported_flags(quad_data, argv):
@@ -408,7 +407,6 @@ def test_dataset_parser_keeps_the_source_flags():
 
 
 @pytest.mark.parametrize("argv", [
-    ["--baseline_hf_checkpoint", "x.bin"], ["--hf_checkpoint_dir", "ckpt"],
     ["--use_cross_encoder"], ["--cross_encoder_dir", "ce"], ["--generate_query_variations"],
     ["--eval_index", "pq"], ["--eval_index", "ivfpq"], ["--mesh_model", "2"],
 ])
@@ -417,3 +415,92 @@ def test_ir_eval_cli_refuses_unported_flags(quad_data, argv):
     with pytest.raises(SystemExit, match="not ported"):
         tir_main.main(["--dataset_root", data, "--output_root", str(root / "refused_ir"),
                        "--device", "cpu", *argv])
+
+
+def _tiny_dir(root, arch: str, weights: str = "model.safetensors"):
+    """A random-init sentence-transformers directory of the port's exporter:
+    2 layers, H 32, max_seq_length 20, a small WordPiece vocab."""
+    from qst_tpu_torch.models.hf_export import save_checkpoint_dir
+    from qst_tpu_torch.models.sentence_encoder import init_params
+
+    cfg = EncoderConfig(name=f"dir-{arch}", arch=arch, vocab_size=40, hidden_size=32,
+                        num_layers=2, num_heads=2, intermediate_size=64,
+                        max_position_embeddings=40, max_seq_length=20,
+                        pad_token_id=1 if arch == "mpnet" else 0)
+    vocab = ["[PAD]", "<s>", "[UNK]", "[CLS]", "[SEP]", "[MASK]"] + [
+        w for w in "a the cat dog car red on in mat park road of pasta beach plane sky people "
+        "sand young small with sauce runs sits variant scene image photo of".split()][:34]
+    sd = init_params(cfg, torch.Generator().manual_seed(3), device="cpu")
+    return cfg, sd, save_checkpoint_dir(sd, cfg, str(root / f"dir_{arch}_{weights}"),
+                                        vocab=vocab, weights=weights)
+
+
+@pytest.mark.parametrize("arch", ["bert", "mpnet"])
+def test_train_cli_takes_a_checkpoint_dir(quad_data, arch):
+    """``--hf_checkpoint_dir``: the directory's architecture, widths and
+    weights are what trains (the best checkpoint holds its names and its
+    shapes, and the evaluation before the first step scores its weights
+    as the same run from those weights as a file does)."""
+    root, data, _, _ = quad_data
+    cfg, sd, d = _tiny_dir(root, arch)
+    flags = ["--dataset_root", data, "--device", "cpu", "--use_fused_layer",
+             "--use_fused_loss_kernel", "--batch_size", "8", "--epochs", "1",
+             "--evaluation_steps", "3", "--warmup_steps", "2", "--learning_rate", "1e-3"]
+    exp = str(root / f"hfdir_{arch}")
+    assert ttrain_main.main([*flags, "--experiment_dir", exp, "--hf_checkpoint_dir", d]) == 0
+    best = tcommon.load_best_params(exp)
+    assert best.keys() == sd.keys()
+    assert all(best[k].shape == sd[k].shape for k in sd)
+    with open(os.path.join(exp, "quadruplet_results.csv")) as f:
+        first = list(csv.reader(f))[1]
+    assert (int(first[0]), int(first[1])) == (-1, -1)
+
+
+def test_train_cli_takes_a_weights_file(quad_data):
+    """``--hf_checkpoint``: a weights file at the preset's widths."""
+    root, data, exp_carried, _ = quad_data
+    w = str(root / "tiny_weights.bin")
+    torch.save({f"bert.{k}": v for k, v in tcommon.load_best_params(exp_carried).items()}, w)
+    exp = str(root / "hffile")
+    assert ttrain_main.main([
+        "--dataset_root", data, "--experiment_dir", exp, "--encoder_preset", "tiny",
+        "--device", "cpu", "--batch_size", "8", "--epochs", "1", "--evaluation_steps", "3",
+        "--hf_checkpoint", w]) == 0
+    assert tcommon.load_best_params(exp).keys() == tcommon.load_best_params(exp_carried).keys()
+
+
+@pytest.mark.parametrize("arch", ["bert", "mpnet"])
+def test_ir_eval_cli_takes_a_checkpoint_dir(quad_data, arch):
+    """``ir_eval_main --hf_checkpoint_dir``: the baseline is the directory's
+    encoder, in its own compute dtype (bf16): its metrics are those of the
+    port's evaluator over ``load_hf_checkpoint_dir``'s encoder (the two
+    packages' encoders agree at f32 in tests/test_torch_hf.py; in bf16 the
+    near-ties of a random model's rankings fall apart)."""
+    from qst_tpu_torch.core.config import IREvalConfig
+    from qst_tpu_torch.evals.eval_set import create_ir_evaluation_set
+    from qst_tpu_torch.evals.ir_evaluator import InformationRetrievalEvaluator
+    from qst_tpu_torch.models.hf_import import load_hf_checkpoint_dir
+    from qst_tpu_torch.models.sentence_encoder import SentenceEncoder
+    from qst_tpu_torch.models.tokenizer import load_tokenizer
+
+    root, data, _, _ = quad_data
+    _, _, d = _tiny_dir(root, arch, weights="pytorch_model.bin")
+    out = str(root / f"ir_hfdir_{arch}")
+    assert tir_main.main(["--dataset_root", data, "--hf_checkpoint_dir", d, "--device", "cpu",
+                          "--output_root", out, "--n_queries", "20"]) == 0
+    [hashed] = os.listdir(out)
+    with open(os.path.join(out, hashed, "results.json")) as f:
+        results = json.load(f)
+    assert set(results) == {"baseline"}
+    cfg, sd, vocab = load_hf_checkpoint_dir(d)
+    assert cfg.arch == arch and cfg.dtype == "bfloat16"
+    enc = SentenceEncoder(cfg, sd, load_tokenizer(vocab, vocab_size=cfg.vocab_size),
+                          device="cpu")
+    es = create_ir_evaluation_set(list(JaxChunkStore(data).iter_instances()), n_queries=20,
+                                  seed=14)
+    fns = ("cos_sim", "dot_score", "euclid_score")
+    ev = InformationRetrievalEvaluator(es.queries, es.corpus, es.relevant,
+                                       cfg=IREvalConfig(n_queries=20,
+                                                      score_functions=fns))
+    ev(enc.encode)
+    assert results["baseline"]["metrics"] == ev.last_results

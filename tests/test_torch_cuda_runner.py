@@ -21,7 +21,7 @@ _STUBBED = ("jax", "jaxlib", "flax", "optax", "qst_tpu")
 FILES = ("tests/test_torch_fused_layer.py", "tests/test_torch_topk.py",
          "tests/test_torch_fused_layer_bwd.py", "tests/test_torch_quadruplet.py",
          "tests/test_torch_losses.py", "tests/test_torch_train.py", "tests/test_torch_data.py",
-         "tests/test_torch_ivf.py")
+         "tests/test_torch_ivf.py", "tests/test_torch_mpnet.py")
 _ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 

@@ -114,8 +114,10 @@ def test_init_params_is_seeded_and_device_bound():
 
 
 def test_unported_arch_raises():
-    with pytest.raises(NotImplementedError):
-        tse.SentenceEncoderModule(EncoderConfig.tiny(arch="mpnet"))
+    """RoBERTa waits for its tokenizer and trunk (MPNet is ported:
+    tests/test_torch_mpnet.py)."""
+    with pytest.raises(NotImplementedError, match="A8/A9"):
+        tse.SentenceEncoderModule(EncoderConfig.tiny(arch="roberta"))
 
 
 def test_flash_attention_flag_raises_instead_of_being_ignored():

@@ -167,11 +167,11 @@ def test_wrapper_takes_the_plain_version_on_cpu(setup):
 @pytest.mark.parametrize("kwargs", [dict(rel_bias=torch.zeros(1)), dict(attn_dropout=0.1),
                                     dict(hidden_dropout=0.1)])
 def test_unported_options_raise(setup, kwargs):
-    """MPNet's relative bias is not ported; dropout is, and needs a seed
-    (the TPU kernel's ValueError)."""
+    """Options given wrong raise: MPNet's relative bias must be (nh·S, S)
+    (it is ported: tests/test_torch_mpnet.py), and dropout needs a seed (the
+    TPU kernel's ValueError)."""
     w = fl.layer_weights_from_module(setup["model"].encoder.layer[0], torch.float32)
-    exc = NotImplementedError if "rel_bias" in kwargs else ValueError
-    with pytest.raises(exc):
+    with pytest.raises(ValueError):
         fl.fused_bert_layer(torch.from_numpy(setup["x"]), torch.from_numpy(setup["bias"]),
                             w, num_heads=2, **kwargs)
 
