@@ -4,6 +4,7 @@
     python3 chip_smoke.py --phases build,check     # a new kernel's first, short call
     python3 chip_smoke.py --phases build,check,train
     python3 chip_smoke.py --phases build,check,ivf
+    python3 chip_smoke.py --phases build,pq
     python3 chip_smoke.py --phases build,check,train,evaluate
     python3 chip_smoke.py --phases build,dataset,capture,ablation
     python3 chip_smoke.py --phases build,ablation --ablation_steps 2000   # the decisive run
@@ -125,6 +126,24 @@ Phases (any failure exits non-zero and prints no result):
    sentences/s and the MPNet-base train step with its busy share (no
    library GEMM or attention kernel in a profiled encode or train step).
 
+13. pq    — the compressed and streamed indexes, last (run before the
+   profiled phases, it left their traces empty once): index_main build |
+   serve | query for --index_dtype pq (m 48, refine rows), ivfpq at 8 and 4 bits
+   and streaming over the ivf phase's 65,536 docs, 256 queries a batch (pq
+   and streaming through K4 + K5, launches exactly one of each a search a
+   slice or tile), each saved index reloaded and queried in a fresh
+   process; then over 8,388,608 clustered rows of D = 384 made on the card
+   (ivfpq_bench.py's generator): PQIndex's kernels' path (four 2M-row
+   slices through topk_local) against its plain scan at Q = 256 and 4,096,
+   IVFPQIndex (8,192 cells, int8 refine rows) at 8 and 4 bits with recall@10
+   raw and refined x8 against a bf16 ExactIndex, ms and QPS at n_probe 8 /
+   16 / 32, the full probe against the exact top-10 over the
+   reconstructions; StreamingExactIndex over a 4,191,304-row f32 memmap at
+   tile_rows 2^21 and 2^19 (bf16 cast on the host, int8 per tile,
+   pre-quantized int8) against its plain path and the top-k over the rows it
+   sends held on the card at once, with GB/s beside a pinned copy;
+   K4 and K5 over a decoded 2M-row slice beside their bounds.
+
 The last lines are the card's name and power limit (nvidia-smi), one JSON
 object with a row per kernel, and {"ok": true, "device": {...}}.
 
@@ -146,7 +165,7 @@ import urllib.request
 import numpy as np
 
 PHASES = ("build", "check", "serve", "ivf", "train", "times", "profile", "evaluate", "dataset",
-          "capture", "ablation", "mpnet")
+          "capture", "ablation", "mpnet", "pq")
 
 
 def fail(msg: str) -> None:
@@ -3717,6 +3736,657 @@ def mpnet(report: dict) -> None:
     log("mpnet phase by part (s): " + ", ".join(f"{n} {v:.1f}" for n, v in parts.items()))
 
 
+# --------------------------------------------------------------------- pq
+PQ_ROWS = 1 << 23            # the scale part's corpus: 8,388,608 rows of D = 384
+PQ_CELLS = 8192              # IVF-PQ cells at that size
+STREAM_ROWS = (1 << 22) - 3000   # the streamed memmap: both tile sizes leave a ragged tile
+GEN_CHUNK = 1 << 20          # rows the corpus generator makes at a time
+PQ_QUERIES = 256
+PQ_CLI_DOCS = 65536          # the ivf phase's corpus
+
+
+def clustered_chunks(n: int, seed: int, dim: int = 384, rank: int = 64, noise: float = 0.35):
+    """``benchmarks/ivfpq_bench.py``'s clustered generator in torch, on the
+    card: each row is a latent cluster center (max(65,536, n/32) of them)
+    plus N(0, noise²) latent noise through one fixed rank-64 projection,
+    plus N(0, 0.05²) noise per dimension (within-cluster cosine about
+    0.89). Yields (first row, (rows, dim) f32 chunk), GEN_CHUNK rows at a
+    time, each chunk made from (seed, chunk index) alone."""
+    import torch
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    n_centers = max(1 << 16, n // 32)
+    w = torch.randn((rank, dim), device="cuda", generator=gen) / 8
+    centers = torch.randn((n_centers, rank), device="cuda", generator=gen)
+    for lo in range(0, n, GEN_CHUNK):
+        rows = min(GEN_CHUNK, n - lo)
+        g = torch.Generator(device="cuda").manual_seed(seed * 7919 + 1 + lo // GEN_CHUNK)
+        cid = torch.randint(0, n_centers, (rows,), device="cuda", generator=g)
+        lat = centers[cid] + noise * torch.randn((rows, rank), device="cuda", generator=g)
+        yield lo, lat @ w + 0.05 * torch.randn((rows, dim), device="cuda", generator=g)
+
+
+def launch_counts():
+    from qst_tpu_torch.ops import fused_layer as fl
+    from qst_tpu_torch.ops import topk
+
+    return {"K1": fl.fused_bert_layer, "K4": topk.bucket_maxima, "K5": topk.rescore_buckets}
+
+
+def reset_counts() -> None:
+    for fn in launch_counts().values():
+        fn.launches = 0
+
+
+def read_counts() -> dict:
+    return {n: fn.launches for n, fn in launch_counts().items()}
+
+
+def add_launches(report: dict, counts: dict) -> None:
+    for n in ("K4", "K5"):
+        report[n]["launches"] = report[n].get("launches", 0) + counts[n]
+
+
+def expect_launches(what: str, counts: dict, k4: int) -> None:
+    """K4 and K5 each launched exactly ``k4`` times (a search through the
+    kernels launches one of each a slice or tile)."""
+    if counts["K4"] != k4 or counts["K5"] != k4:
+        fail(f"{what}: K4 / K5 launched {counts['K4']} / {counts['K5']} times, "
+             f"{k4} each accounted for")
+
+
+RELOAD_SCRIPT = """
+import contextlib, io, json, sys
+from qst_tpu_torch.cli import index_main
+from qst_tpu_torch.ops import topk
+argv, kinds = json.loads(sys.argv[1]), json.loads(sys.argv[2])
+out = {}
+for name, flags in kinds.items():
+    topk.bucket_maxima.launches = topk.rescore_buckets.launches = 0
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = index_main.main(["query", *flags, *argv])
+    out[name] = {"rc": rc, "K4": topk.bucket_maxima.launches,
+                 "K5": topk.rescore_buckets.launches,
+                 "rows": [json.loads(l) for l in buf.getvalue().splitlines() if l.startswith("{")]}
+print("RELOADED " + json.dumps(out))
+"""
+
+
+class CandidateScores:
+    """The true scores of each query's candidates only, indexed like a
+    (Q, N) score matrix by ``[row, ids]`` (the ties check reads no other):
+    for corpora whose (Q, N) matrix would not fit in memory."""
+
+    def __init__(self, ids, scores):
+        self.rows = [dict(zip(i.tolist(), s.tolist())) for i, s in
+                     zip(np.asarray(ids), np.asarray(scores))]
+
+    def __getitem__(self, key):
+        row, ids = key
+        return np.array([self.rows[row][int(j)] for j in np.atleast_1d(ids)], np.float32)
+
+
+def hits_of(rows, k: int):
+    """(scores, ids) of index_main query's printed rows."""
+    return (np.array([[h["score"] for h in r["hits"][:k]] for r in rows]),
+            np.array([[h["id"] for h in r["hits"][:k]] for r in rows]))
+
+
+def pq_cli(report: dict) -> None:
+    """index_main build | serve | query for pq (m 48, refine rows),
+    ivfpq at 8 and 4 bits and streaming over the ivf phase's 65,536 docs,
+    256 queries a batch (so "auto" takes K4 + K5 for pq and streaming); the
+    four saved indexes reloaded and queried again in a fresh process."""
+    import io
+    import tempfile
+
+    import torch
+
+    from qst_tpu_torch.cli import index_main
+    from qst_tpu_torch.ops.distances import l2_normalize
+    from qst_tpu_torch.retrieval import IVFPQIndex, PQIndex, StreamingExactIndex
+
+    docs = synthetic_docs(PQ_CLI_DOCS, seed=14)
+    rng = np.random.default_rng(21)
+    queries = [docs[j] for j in rng.integers(0, len(docs), 128)] + synthetic_docs(128, seed=98)
+    encoder_flags = ["--encoder_preset", "minilm-l6", "--use_fused_layer", "--seed", "14"]
+    kinds = {"pq": ["--index_dtype", "pq"], "ivfpq8": ["--index_dtype", "ivfpq"],
+             "ivfpq4": ["--index_dtype", "ivfpq"], "streaming": ["--index_dtype", "streaming"]}
+    types = {"pq": PQIndex, "ivfpq8": IVFPQIndex, "ivfpq4": IVFPQIndex,
+             "streaming": StreamingExactIndex}
+    # searches through the kernels: pq's one 2M-row slice and streaming's one
+    # tile, once served and once queried
+    through_kernels = {"pq": 2, "ivfpq8": 0, "ivfpq4": 0, "streaming": 2}
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        texts = f"{tmp}/docs.txt"
+        with open(texts, "w") as f:
+            f.write("\n".join(docs) + "\n")
+        for name, kind_flags in kinds.items():
+            index_dir = f"{tmp}/{name}"
+            kinds[name] = kind_flags = kind_flags + ["--index_dir", index_dir]
+            reset_counts()
+            t0 = time.perf_counter()
+            if index_main.main(["build", "--texts", texts, *kind_flags, "--pq_m", "48",
+                                "--ivf_clusters", "256", "--ivf_probe", "8", "--ivfpq_bits",
+                                "4" if name == "ivfpq4" else "8", *encoder_flags]) != 0:
+                fail(f"index_main build --index_dtype {name} failed")
+            torch.cuda.synchronize()
+            build_s = time.perf_counter() - t0
+            args = index_main.build_parser().parse_args(
+                ["serve", *kind_flags, "--port", "0", "--max_wait_ms", "200", *encoder_flags])
+            retr = index_main.serving_retriever(args)
+            index = retr.index
+            if not isinstance(index, types[name]) or index.n_docs != len(docs):
+                fail(f"serve --index_dtype {name} loaded {type(index).__name__}")
+            seen = {}
+            encode = retr.encoder.encode
+
+            def recording_encode(texts, batch_size=256, convert_to_numpy=True):
+                got = encode(texts, batch_size=batch_size, convert_to_numpy=convert_to_numpy)
+                for t, row in zip(texts, got):
+                    seen.setdefault(t, row)
+                return got
+
+            retr.encoder.encode = recording_encode
+            server = index_main.serving_server(args, retr)
+            port = server.start()
+            try:
+                served = post(port, "/search", {"queries": queries, "k": 10})["results"]
+                batches = server._search_batcher.stats()["max_batch"]
+            finally:
+                server.stop()
+            retr.encoder.encode = encode
+            printed = io.StringIO()
+            with contextlib.redirect_stdout(printed):
+                rc = index_main.main(["query", *kind_flags, "--k", "10", "--queries", *queries,
+                                      *encoder_flags])
+            rows = [json.loads(line) for line in printed.getvalue().splitlines()
+                    if line.startswith("{")]
+            counts = read_counts()
+            if rc != 0 or len(rows) != len(queries) or batches != len(queries):
+                fail(f"{name}: query rc {rc}, {len(rows)} rows; the server's largest batch "
+                     f"{batches} of {len(queries)} queries")
+            expect_launches(f"index_main serve + query --index_dtype {name}", counts,
+                            through_kernels[name])
+            if counts["K1"] <= 0:
+                fail(f"{name}: K1 was never launched by build + serve + query")
+            add_launches(report, counts)
+            report["K1"]["launches"] = report["K1"].get("launches", 0) + counts["K1"]
+
+            # the served rows (k 10 of a k = 16 search: the server buckets k)
+            # and the query command's against the index's plain path over
+            # the same embeddings, scores to 1e-4, ids up to ties
+            q_emb = torch.stack([seen[q] for q in queries])
+            if name == "streaming":
+                sent = torch.cat([l2_normalize(torch.from_numpy(np.asarray(
+                    index.embeddings[lo:lo + 16384])).cuda().to(torch.bfloat16).float())
+                    .to(torch.bfloat16) for lo in range(0, index.n_docs, 16384)])
+                true = (l2_normalize(q_emb.float()).to(torch.bfloat16).float()
+                        @ sent.float().T).cpu().numpy()
+                plain = {k: index.search(q_emb, k=k, backend="xla") for k in (16, 10)}
+            else:
+                rows_f32 = torch.from_numpy(index.refine_rows_f32()).cuda()
+                true = (l2_normalize(q_emb.float()) @ rows_f32.T).cpu().numpy()
+                if name == "pq":
+                    plain = {k: index.search(q_emb, k=k, backend="xla") for k in (16, 10)}
+                else:      # IVF-PQ answers id lists, None where cells ran out
+                    plain = {}
+                    for k in (16, 10):
+                        s, ids = index.search(q_emb, k=k)
+                        plain[k] = (s, np.array([[-1 if j is None else j for j in r]
+                                                 for r in ids]))
+            ss = np.array([[r[1] for r in row] for row in served])
+            si = np.array([[r[0] for r in row] for row in served])
+            ps, pi = plain[16]
+            if not ids_match_up_to_ties(ss, si, ps[:, :10], pi[:, :10], true, 1e-4):
+                fail(f"{name}: served answers differ from the index's plain path")
+            qs, qi = hits_of(rows, 10)
+            if not ids_match_up_to_ties(qs, qi, *plain[10], true, 1e-4 + 5e-5):
+                fail(f"{name}: index_main query's hits differ from the index's plain path")
+            out[name] = {"build_s": build_s, "K4": counts["K4"], "K5": counts["K5"],
+                         "query_rows": rows}
+            log(f"index_main --index_dtype {name}: {len(docs)} docs built in {build_s:.1f} s "
+                f"({type(index).__name__}); /search of {len(queries)} queries in one batch and "
+                f"query match the plain path (scores 1e-4); K4 / K5 launches {counts['K4']} / "
+                f"{counts['K5']} as accounted")
+            del retr, index
+
+        # each saved index reloaded in a fresh process (from the checkout root)
+        import qst_tpu_torch
+
+        proc = subprocess.run(
+            [sys.executable, "-c", RELOAD_SCRIPT,
+             json.dumps(["--k", "10", "--queries", *queries, *encoder_flags]),
+             json.dumps(kinds)], capture_output=True, text=True, timeout=600,
+            cwd=os.path.dirname(os.path.dirname(os.path.abspath(qst_tpu_torch.__file__))))
+        line = [ln for ln in proc.stdout.splitlines() if ln.startswith("RELOADED ")]
+        if proc.returncode != 0 or not line:
+            fail(f"the fresh-process reload failed: {proc.stderr[-3000:]}")
+        reloaded = json.loads(line[0][len("RELOADED "):])
+        for name, got in reloaded.items():
+            want = hits_of(out[name]["query_rows"], 10)
+            have = hits_of(got["rows"], 10)
+            if got["rc"] != 0 or not (np.allclose(have[0], want[0], atol=1e-4, rtol=0)
+                                      and np.array_equal(have[1], want[1])):
+                fail(f"{name}: the index reloaded in a fresh process answers otherwise")
+            expect_launches(f"{name} reloaded in a fresh process", got, through_kernels[name] // 2)
+            add_launches(report, got)
+        log("the four saved indexes reloaded in a fresh process: the same hits, K4 / K5 "
+            f"launches {[(n, g['K4']) for n, g in reloaded.items()]}")
+    report["pq"]["cli"] = {n: {k: v for k, v in o.items() if k != "query_rows"}
+                           for n, o in out.items()}
+
+
+def recall_at(got_ids, truth_ids) -> float:
+    return float(np.mean([len(set(a) & set(b)) / len(b) for a, b in zip(
+        np.asarray(got_ids).tolist(), np.asarray(truth_ids).tolist())]))
+
+
+def full_probe_golden(idx, queries, k: int):
+    """The exact top-k over an IVF-PQ index's reconstructions in its
+    search's own arithmetic (queries and decoded residuals in the compute
+    dtype, bf16 on the card, products summed in f32, the centroid term in
+    f32), cell by cell over the whole index: → (scores (Q, k), positions
+    (Q, k))."""
+    import torch
+
+    from qst_tpu_torch.ops.distances import l2_normalize
+    from qst_tpu_torch.retrieval.ivfpq import _compute_dtype, _decode_any
+
+    C, L, m = idx.cell_codes.shape
+    cd = _compute_dtype(idx.device)
+    qf = l2_normalize(queries.float())
+    qb = qf.to(cd).float()
+    psim = qf @ idx.centroids.T                                     # (Q, C)
+    cb = idx.codebooks.to(cd).float()
+    cs = torch.full((qf.shape[0], k), float("-inf"), device="cuda")
+    ci = torch.full((qf.shape[0], k), -1, dtype=torch.int64, device="cuda")
+    step = max(1, (1 << 18) // L)
+    for c0 in range(0, C, step):
+        codes = idx.cell_codes[c0:c0 + step].reshape(-1, m)
+        ids = idx.cell_ids[c0:c0 + step].reshape(-1).long()
+        s = qb @ _decode_any(codes, cb, idx.bits).T
+        if idx.residual:
+            s = s + psim[:, c0:c0 + step].repeat_interleave(L, dim=1)
+        s = torch.where(ids[None, :] >= 0, s, float("-inf"))
+        cs, pos = torch.topk(torch.cat([cs, s], 1), k, dim=1)
+        ci = torch.gather(torch.cat([ci, ids[None, :].expand(qf.shape[0], -1)], 1), 1, pos)
+    return cs, ci
+
+
+def ivfpq_candidate_scores(idx, queries, cand: np.ndarray) -> CandidateScores:
+    """The scores of the docs ``cand`` names, from their codes: each doc's
+    slot found in the cell table, its reconstruction decoded by the one-hot
+    products (not the search's gather) and scored in the search's
+    arithmetic, the centroid term of its cell added."""
+    import torch
+
+    from qst_tpu_torch.ops.distances import l2_normalize
+    from qst_tpu_torch.retrieval.ivfpq import _compute_dtype, _decode_any
+
+    C, L, m = idx.cell_codes.shape
+    flat_ids = idx.cell_ids.reshape(-1).long()
+    slot = torch.full((idx.n_docs,), -1, dtype=torch.int64, device="cuda")
+    valid = flat_ids >= 0
+    slot[flat_ids[valid]] = torch.arange(C * L, device="cuda")[valid]
+    pos = slot[torch.from_numpy(cand).cuda()]                       # (Q, n)
+    if bool((pos < 0).any()):
+        fail("IVF-PQ: an answer names a doc that no cell holds")
+    cd = _compute_dtype(idx.device)
+    qf = l2_normalize(queries.float())
+    dec = _decode_any(idx.cell_codes.reshape(C * L, m)[pos.reshape(-1)],
+                      idx.codebooks.to(cd), idx.bits, "onehot").float()
+    got = torch.einsum("qd,qnd->qn", qf.to(cd).float(), dec.reshape(*pos.shape, -1))
+    if idx.residual:
+        got = got + torch.gather(qf @ idx.centroids.T, 1, pos // L)
+    return CandidateScores(cand, got.cpu().numpy())
+
+
+def pq_scale(report: dict) -> None:
+    """PQIndex and IVFPQIndex at MiniLM-L6's width over PQ_ROWS clustered
+    rows made on the card: the kernels' path (four 2M-row slices through
+    topk_local) against the plain scan; IVF-PQ at 8 and 4 bits with recall,
+    ms and QPS, and its full probe against the exact top-k over its
+    reconstructions."""
+    import torch
+
+    from qst_tpu_torch.ops import topk
+    from qst_tpu_torch.ops.distances import l2_normalize
+    from qst_tpu_torch.retrieval import ExactIndex, IVFPQIndex, PQIndex
+    from qst_tpu_torch.retrieval import pq as pq_mod
+
+    n, D, k = PQ_ROWS, 384, 10
+    t0 = time.perf_counter()
+    rows = torch.empty((n, D), device="cuda")
+    for lo, chunk in clustered_chunks(n, seed=31):
+        rows[lo:lo + chunk.shape[0]] = l2_normalize(chunk)
+    gen = torch.Generator(device="cuda").manual_seed(32)
+    pick = torch.randint(0, GEN_CHUNK, (4096,), device="cuda", generator=gen)
+    queries = l2_normalize(rows[pick] + 0.03 * torch.randn((4096, D), device="cuda",
+                                                           generator=gen))
+    torch.cuda.synchronize()
+    log(f"pq scale: {n} clustered unit rows of D = {D} made on the card in "
+        f"{time.perf_counter() - t0:.1f} s")
+    res = {"rows": n}
+    exact = ExactIndex(rows, dtype="bfloat16", device="cuda")
+    _, truth = exact.search(queries[:PQ_QUERIES], k=k, score="dot_score", backend="xla")
+    del exact
+    torch.cuda.empty_cache()
+
+    # PQIndex, m = 48: the kernels' path against the plain scan
+    t0 = time.perf_counter()
+    pq = PQIndex(rows, m=48, device="cuda")
+    torch.cuda.synchronize()
+    res["pq_build_s"] = time.perf_counter() - t0
+    n_slices = -(-pq.codes.shape[0] // pq_mod.PQ_SUPER_TILE)
+    for Q in (PQ_QUERIES, 4096):
+        q = queries[:Q]
+        reset_counts()
+        fs, fi = pq._device_search(q, k, "dot_score", 0, "auto")
+        torch.cuda.synchronize()
+        counts = read_counts()
+        expect_launches(f"PQIndex search Q={Q} over {n} rows", counts, n_slices)
+        add_launches(report, counts)
+        xs, xi = pq._device_search(q, k, "dot_score", 0, "xla")
+        # the true scores of both answers' docs decide ties: the query
+        # against each doc's decoded row, both in the compute dtype (bf16)
+        cd = pq_mod._compute_dtype(pq.device)
+        cand = torch.cat([fi, xi], 1)
+        recon = pq_mod._decode_rows(pq.codes[cand.reshape(-1)], pq.codebooks.to(cd), "gather")
+        picked = torch.einsum("qd,qkd->qk", l2_normalize(q.float()).to(cd).float(),
+                              recon.float().reshape(Q, 2 * k, D))
+        true = CandidateScores(cand.cpu().numpy(), picked.cpu().numpy())
+        fs_, fi_, xs_, xi_ = (t.cpu().numpy() for t in (fs, fi, xs, xi))
+        if not ids_match_up_to_ties(fs_, fi_, xs_, xi_, true, 1e-4):
+            fail(f"PQIndex Q={Q}: the kernels' path and the plain scan disagree")
+        err = float(np.abs(fs_ - xs_).max())
+        fused_ms = cuda_ms(lambda: pq._device_search(q, k, "dot_score", 0, "pallas"), 3)
+        scan_ms = cuda_ms(lambda: pq._device_search(q, k, "dot_score", 0, "xla"), 1)
+        res[f"pq_q{Q}"] = {"fused_ms": fused_ms, "scan_ms": scan_ms, "max_abs_err": err,
+                           "fused_qps": Q / fused_ms * 1e3, "K4_launches": counts["K4"]}
+        if Q == PQ_QUERIES:
+            res["pq_recall_at_10_raw"] = recall_at(fi_, truth)
+        log(f"PQIndex m=48 over {n} rows, Q={Q}, k={k}: {n_slices} slices through K4 + K5 "
+            f"{fused_ms:.2f} ms ({Q / fused_ms * 1e3:.0f} QPS) against the plain scan "
+            f"{scan_ms:.2f} ms; answers equal up to ties, max|score diff| {err:.2e} (limit 1e-4)")
+    log(f"PQIndex raw recall@10 against exact (Q={PQ_QUERIES}): {res['pq_recall_at_10_raw']:.4f}")
+    del pq, recon
+    torch.cuda.empty_cache()
+
+    # IVFPQIndex, C = PQ_CELLS, at 8 and 4 bits with int8 refine rows
+    q = queries[:PQ_QUERIES]
+    for bits in (8, 4):
+        t0 = time.perf_counter()
+        idx = IVFPQIndex(rows, n_clusters=PQ_CELLS, m=48, bits=bits, keep_rows="int8",
+                         device="cuda")
+        torch.cuda.synchronize()
+        row = {"build_s": time.perf_counter() - t0, "cell_budget": idx.cell_budget,
+               "spilled": idx.spilled}
+        for n_probe in (8, 16, 32):
+            reset_counts()
+            s_raw, got_raw = idx.search(q, k=k, n_probe=n_probe, refine_factor=0)
+            s_ref, got_ref = idx.search(q, k=k, n_probe=n_probe, refine_factor=8)
+            if read_counts()["K4"]:
+                fail("IVF-PQ search launched K4")
+            ms = cuda_ms(lambda: idx._device_search(q, k, n_probe), 2)
+            t1 = time.perf_counter()
+            idx.search(q, k=k, n_probe=n_probe, refine_factor=8)
+            ref_ms = (time.perf_counter() - t1) * 1e3
+            ids = lambda g: [[-1 if j is None else j for j in r] for r in g]  # noqa: E731
+            row[f"n_probe_{n_probe}"] = {
+                "recall_at_10_raw": recall_at(ids(got_raw), truth),
+                "recall_at_10_refined_x8": recall_at(ids(got_ref), truth),
+                "ms": ms, "qps": PQ_QUERIES / ms * 1e3, "refined_ms": ref_ms,
+                "refined_qps": PQ_QUERIES / ref_ms * 1e3}
+            r = row[f"n_probe_{n_probe}"]
+            log(f"IVFPQIndex bits={bits} C={PQ_CELLS} L={idx.cell_budget} n_probe={n_probe}: "
+                f"recall@10 raw {r['recall_at_10_raw']:.4f}, refined x8 "
+                f"{r['recall_at_10_refined_x8']:.4f}; Q={PQ_QUERIES}: {ms:.2f} ms = "
+                f"{r['qps']:.0f} QPS on the card, refined {ref_ms:.2f} ms = "
+                f"{r['refined_qps']:.0f} QPS end to end")
+        # full probe = the exact top-k over the reconstructions
+        qf = q[:32]
+        fs, fi = idx._device_search(qf, k, PQ_CELLS)
+        gs, gi = full_probe_golden(idx, qf, k)
+        fs_, fi_, gs_, gi_ = (t.cpu().numpy() for t in (fs, fi, gs, gi))
+        true = ivfpq_candidate_scores(idx, qf, np.concatenate([fi_, gi_], 1))
+        if not ids_match_up_to_ties(fs_, fi_, gs_, gi_, true, 1e-4):
+            fail(f"IVF-PQ bits={bits}: the full probe differs from the exact top-k over the "
+                 f"reconstructions")
+        row["full_probe_max_abs_err"] = float(np.abs(fs_ - gs_).max())
+        log(f"IVFPQIndex bits={bits}: full probe ({PQ_CELLS} cells) equals the exact top-10 over "
+            f"the reconstructions for 32 queries, max|diff| {row['full_probe_max_abs_err']:.2e} "
+            f"(limit 1e-4); built in {row['build_s']:.1f} s, spilled {idx.spilled}")
+        res[f"ivfpq{bits}"] = row
+        del idx
+        torch.cuda.empty_cache()
+
+    # the decode of one 2M-row slice, which the kernels' path runs before
+    # K4: the port's gather (one index a 16-byte codeword), the row gather it
+    # replaced (rows of 8 bf16 elements), the same rows as two 8-byte words
+    # and through F.embedding, beside the bytes it must move (codes in, bf16
+    # rows out)
+    slice_rows = pq_mod.PQ_SUPER_TILE
+    pq = PQIndex.from_codes(torch.randint(0, 256, (slice_rows, 48), dtype=torch.uint8,
+                                          device="cuda", generator=gen),
+                            torch.randn((48, 256, 8), device="cuda", generator=gen))
+    cb = pq.codebooks.to(torch.bfloat16)
+    flat = (pq.codes.long() + torch.arange(48, device="cuda") * 256)
+    forms = {"gather": lambda: pq_mod._decode_rows(pq.codes, cb, "gather"),
+             "element_gather": lambda: cb.reshape(-1, 8)[flat],
+             "int64_words": lambda: cb.reshape(-1, 8).view(torch.int64)[flat].view(torch.bfloat16),
+             "embedding": lambda: torch.nn.functional.embedding(flat, cb.reshape(-1, 8))}
+    want = forms["element_gather"]().reshape(slice_rows, D)
+    for name, f in forms.items():
+        if not torch.equal(f().reshape(slice_rows, D).view(torch.int16), want.view(torch.int16)):
+            fail(f"the {name} decode of a {slice_rows}-row slice differs from the "
+                 "element-wise gather")
+    decode = {n: cuda_ms(f, 3) for n, f in forms.items()}
+    decode.update(bound(slice_rows * 48 + slice_rows * D * 2, 0, "bfloat16"))
+    res["decode_2m_rows"] = decode
+    log(f"decode of one {slice_rows}-row slice (m = 48, bf16 rows): "
+        + ", ".join(f"{n} {decode[n]:.2f} ms" for n in forms)
+        + f"; bound {decode['bound_ms']:.3f} ms by bytes")
+    del pq, cb, flat
+
+    # K4 and K5 at the kernels' path's shapes: one decoded 2M-row bf16 slice
+    tile = rows[:slice_rows].to(torch.bfloat16)
+    del rows
+    torch.cuda.empty_cache()
+    shapes = {}
+    for Q, kk in ((PQ_QUERIES, 80), (4096, 10)):
+        qb = queries[:Q].to(torch.bfloat16)
+        k4 = {"ms": cuda_ms(lambda: topk.bucket_maxima(qb, tile, slice_rows - 77), 10)}
+        k4.update(bound(slice_rows * D * 2 + Q * D * 2 + Q * (slice_rows // 128) * 4,
+                        2.0 * Q * slice_rows * D, "bfloat16"))
+        k4["plain_ms"] = cuda_ms(lambda: [topk.bucket_maxima_plain(qb[lo:lo + 256], tile,
+                                                                   slice_rows - 77)
+                                          for lo in range(0, Q, 256)], 1)
+        bids = topk._hierarchical_top_buckets(topk.bucket_maxima(qb, tile, slice_rows - 77), kk)
+        k5 = {"ms": cuda_ms(lambda: topk.rescore_buckets(qb, tile, bids, kk), 10),
+              "distinct_buckets": bids.unique().numel()}
+        k5.update(bound(k5["distinct_buckets"] * 128 * D * 2 + Q * D * 2 + Q * kk * 4
+                        + Q * kk * 128 * 4, 2.0 * Q * kk * 128 * D, "bfloat16"))
+        k5["plain_ms"] = cuda_ms(lambda: topk.rescore_buckets_plain(qb, tile, bids, kk), 1)
+        got = topk.topk_local(qb, tile, kk, slice_rows - 77)
+        want = topk.topk_local_plain(qb, tile, kk, slice_rows - 77)
+        err = (got[0] - want[0]).abs().max().item()
+        if not err <= 1e-4:
+            fail(f"topk_local Q={Q} k={kk} over a {slice_rows}-row slice: max|err| {err}")
+        shapes[f"Q{Q}_k{kk}"] = {"K4": k4, "K5": k5, "topk_local_max_abs_err": err}
+        log(f"K4 / K5 over a decoded {slice_rows} x {D} bf16 slice, Q={Q}, k={kk}: K4 "
+            f"{k4['ms']:.3f} ms (bound {k4['bound_ms']:.3f} by {k4['bound_by']}, plain "
+            f"{k4['plain_ms']:.2f}), K5 {k5['ms']:.3f} ms (bound {k5['bound_ms']:.3f} by "
+            f"{k5['bound_by']}, plain {k5['plain_ms']:.2f}); topk_local against its plain "
+            f"version max|err| {err:.2e} (limit 1e-4)")
+    report["pq"]["scale"] = res
+    report["K4"]["pq_slice"] = {s: v["K4"] for s, v in shapes.items()}
+    report["K5"]["pq_slice"] = {s: v["K5"] for s, v in shapes.items()}
+    report["pq"]["slice_kernels"] = shapes
+    del tile
+    torch.cuda.empty_cache()
+
+
+def stream_scale(report: dict) -> None:
+    """StreamingExactIndex over a STREAM_ROWS x 384 f32 .npy memmap written to
+    a temporary directory: tile_rows 2^21 and 2^19 (the last tile ragged),
+    bf16 cast on the host, int8 quantized per tile and a pre-quantized
+    int8 corpus; the kernels' path against the plain path and against the
+    top-k over the rows it sends held on the card at once (ExactIndex for
+    bf16), ties judged by scores computed from those rows; GB/s of the
+    stream beside a plain pinned host-to-device copy."""
+    import tempfile
+
+    import torch
+
+    from qst_tpu_torch.ops.distances import l2_normalize
+    from qst_tpu_torch.retrieval import ExactIndex, StreamingExactIndex
+
+    n, D, k = STREAM_ROWS, 384, 10
+    res = {"rows": n}
+    with tempfile.TemporaryDirectory() as tmp:
+        path = f"{tmp}/corpus.npy"
+        t0 = time.perf_counter()
+        mm = np.lib.format.open_memmap(path, mode="w+", dtype=np.float32, shape=(n, D))
+        for lo, chunk in clustered_chunks(n, seed=41):
+            mm[lo:lo + chunk.shape[0]] = chunk.cpu().numpy()
+        mm.flush()
+        del mm
+        res["write_s"] = time.perf_counter() - t0
+        corpus = np.load(path, mmap_mode="r")
+        gen = torch.Generator(device="cuda").manual_seed(42)
+        pick = torch.randint(0, n, (PQ_QUERIES,), generator=gen, device="cuda").cpu().numpy()
+        q = torch.from_numpy(np.array(corpus[np.sort(pick)])).cuda()
+        q = q + 0.03 * torch.randn(q.shape, device="cuda", generator=gen)
+        log(f"streaming: {n} x {D} f32 memmap ({n * D * 4 / 1e9:.2f} GB) written in "
+            f"{res['write_s']:.1f} s")
+
+        # a plain pinned host -> device copy of one 2M-row f32 tile
+        pinned = torch.empty((1 << 21, D), pin_memory=True)
+        on_card = torch.empty((1 << 21, D), device="cuda")
+        copy_ms = cuda_ms(lambda: on_card.copy_(pinned, non_blocking=True), 5)
+        res["pinned_copy_gb_per_s"] = pinned.numel() * 4 / copy_ms / 1e6
+        del pinned, on_card
+
+        # what the bf16 stream sends, as a resident bf16 index
+        sent = torch.empty((n, D), dtype=torch.bfloat16, device="cuda")
+        for lo in range(0, n, GEN_CHUNK):
+            x = torch.from_numpy(np.array(corpus[lo:lo + GEN_CHUNK])).cuda()
+            sent[lo:lo + x.shape[0]] = l2_normalize(x.to(torch.bfloat16).float()).to(
+                torch.bfloat16)
+        exact = ExactIndex(sent, dtype="bfloat16", device="cuda")
+        es, ei = exact.search(l2_normalize(q), k=k, score="dot_score", backend="xla")
+        del exact
+        torch.cuda.empty_cache()
+        qb = l2_normalize(q).to(torch.bfloat16).float()
+
+        prequantized = torch.cat([
+            torch.clamp(torch.round(l2_normalize(torch.from_numpy(np.array(
+                corpus[lo:lo + GEN_CHUNK])).cuda()) * 127), -127, 127).to(torch.int8).cpu()
+            for lo in range(0, n, GEN_CHUNK)]).numpy()
+
+        def resident(idx):
+            """The corpus as ``idx`` sends it, on the card at once: → (rows,
+            per-row descale or None, queries as the search prepares them).
+            int8 rows are the host tiles, each row with its tile's scale."""
+            if idx.transfer_dtype == torch.bfloat16:
+                return sent, None, qb
+            rows = torch.empty((n, D), dtype=torch.int8, device="cuda")
+            scale = torch.empty(n, device="cuda")
+            buf = torch.empty((idx.tile_rows, D), dtype=torch.int8, pin_memory=True)
+            for lo in range(0, n, idx.tile_rows):
+                hi = min(n, lo + idx.tile_rows)
+                scale[lo:hi] = idx._fill_tile(lo // idx.tile_rows, buf)
+                rows[lo:hi] = buf[:hi - lo].cuda()
+            qq = l2_normalize(q)
+            qs = 127.0 / torch.clamp(qq.abs().max(), min=1e-12)
+            return rows, 1.0 / (qs * scale), torch.clamp(torch.round(qq * qs), -127, 127)
+
+        def true_scores(sent_rows, *ids):
+            """The scores of the docs the answers name, from the rows as sent."""
+            rows, inv, qq = sent_rows
+            cand = torch.from_numpy(np.concatenate(ids, 1)).cuda()
+            got = torch.einsum("qd,qkd->qk", qq, rows[cand].float())
+            if inv is not None:
+                got = got * inv[cand]
+            return CandidateScores(cand.cpu().numpy(), got.cpu().numpy())
+
+        def resident_topk(sent_rows):
+            """The top-k over the rows as sent, searched on the card at once."""
+            rows, inv, qq = sent_rows
+            cs = torch.full((qq.shape[0], k), float("-inf"), device="cuda")
+            ci = torch.full((qq.shape[0], k), -1, dtype=torch.int64, device="cuda")
+            for lo in range(0, n, GEN_CHUNK):
+                sc = qq @ rows[lo:lo + GEN_CHUNK].float().T
+                if inv is not None:
+                    sc = sc * inv[lo:lo + GEN_CHUNK]
+                cs, pos = torch.topk(torch.cat([cs, sc], 1), k, dim=1)
+                ci = torch.gather(torch.cat([ci, lo + torch.arange(
+                    sc.shape[1], device="cuda").expand(qq.shape[0], -1)], 1), 1, pos)
+            return cs.cpu().numpy(), ci.cpu().numpy()
+
+        for tile_rows in (1 << 21, 1 << 19):
+            n_tiles = -(-n // tile_rows)
+            for transfer, source in (("bfloat16", corpus), ("int8", corpus),
+                                     ("int8", prequantized)):
+                idx = StreamingExactIndex(source, tile_rows=tile_rows,
+                                          transfer_dtype=transfer, device="cuda")
+                what = (f"streaming {transfer} tile_rows={tile_rows} "
+                        + ("pre-quantized" if source is prequantized else
+                           "cast on the host" if transfer == "bfloat16" else
+                           "quantized per tile"))
+                # the plain path first: it also warms the pinned buffers
+                xs, xi = idx.search(q, k=k, backend="xla")
+                reset_counts()
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                gs, gi = idx.search(q, k=k)
+                wall = time.perf_counter() - t0
+                counts = read_counts()
+                expect_launches(what, counts, n_tiles)
+                add_launches(report, counts)
+                sent_gb = n * D * idx.transfer_dtype.itemsize / 1e9
+                sent_rows = resident(idx)
+                rs, ri = (es, ei) if transfer == "bfloat16" else resident_topk(sent_rows)
+                if not ids_match_up_to_ties(gs, gi, xs, xi, true_scores(sent_rows, gi, xi),
+                                            1e-4):
+                    fail(f"{what}: the kernels' path and the plain path disagree")
+                if not ids_match_up_to_ties(gs, gi, rs, ri, true_scores(sent_rows, gi, ri),
+                                            1e-4):
+                    fail(f"{what}: the answers differ from the top-k over the rows it sends, "
+                         "searched on the card at once")
+                del sent_rows
+                key = f"{transfer}_{tile_rows}_" + ("prequantized" if source is prequantized
+                                                    else "host")
+                res[key] = {"search_s": wall, "gb_sent": sent_gb, "gb_per_s": sent_gb / wall,
+                            "rows_per_s": n / wall, "tiles": n_tiles,
+                            "max_abs_err_vs_plain": float(np.abs(gs - xs).max()),
+                            "max_abs_err_vs_resident": float(np.abs(gs - rs).max())}
+                log(f"{what}: {n_tiles} tiles through K4 + K5 in {wall:.2f} s = "
+                    f"{sent_gb / wall:.2f} GB/s sent ({n / wall / 1e6:.2f} M rows/s; a pinned "
+                    f"copy runs {res['pinned_copy_gb_per_s']:.1f} GB/s); equal to the plain "
+                    "path and to the top-k over the rows it sends, held on the card "
+                    + ("(ExactIndex)" if transfer == "bfloat16" else "(one product a chunk)"))
+        del corpus, prequantized, sent
+    report["pq"]["streaming"] = res
+
+
+def pq(report: dict) -> None:
+    import torch
+
+    report["pq"] = {}
+    parts = {}
+    for name, fn in (("cli", pq_cli), ("scale", pq_scale), ("streaming", stream_scale)):
+        t0 = time.perf_counter()
+        fn(report)
+        parts[name] = time.perf_counter() - t0
+        torch.cuda.empty_cache()
+    report["pq"]["part_s"] = parts
+    log("pq phase by part (s): " + ", ".join(f"{n} {v:.1f}" for n, v in parts.items()))
+
+
 def main() -> None:
     global ABLATION_STEPS
     default_steps = ABLATION_STEPS
@@ -3751,7 +4421,7 @@ def main() -> None:
     for phase, fn in (("check", check_kernels), ("serve", serve), ("ivf", ivf), ("train", train),
                       ("times", times), ("profile", profile_phase), ("evaluate", evaluate),
                       ("dataset", dataset), ("capture", capture), ("ablation", ablation),
-                      ("mpnet", mpnet)):
+                      ("mpnet", mpnet), ("pq", pq)):
         if phase in phases:
             t0 = time.perf_counter()
             fn(report)
@@ -3762,7 +4432,7 @@ def main() -> None:
                     if k in ("encode", "search", "search_q256", "k4_yardsticks", "k5_forms",
                              "train", "train_steps_per_s", "ivf", "ivf_times", "ivf_times_4m", "layer_gemm",
                              "evaluate", "encode_depth", "capture", "ablation", "mpnet",
-                             "mpnet_kernel_names")}))
+                             "mpnet_kernel_names", "pq")}))
     if "dataset" in report:
         log(json.dumps({"dataset": {k: v for k, v in report["dataset"].items() if k != "root"}}))
     log(json.dumps({"K1_training_layer": {k: report["K1"].get(k) for k in (
@@ -3806,6 +4476,10 @@ def main() -> None:
             # error against the plain versions up to S = 512
             row["mpnet_long_s"] = r.get("mpnet_long_s")
             row["mpnet_max_abs_err"] = r.get("mpnet_max_abs_err")
+        if name[:2] in ("K4", "K5"):
+            # the pq phase's shapes: one decoded 2M-row bf16 slice of the
+            # PQ index's kernels' path, Q = 256 at k = 80 and Q = 4096 at 10
+            row["pq_slice"] = r.get("pq_slice")
         rows.append(row)
     log(json.dumps({"kernels": rows}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -4,20 +4,21 @@ counterpart of ``qst_tpu/cli/ir_eval_main.py``.
 Build (or reload) the IR evaluation set from a chunked dataset (use_pos /
 use_part_pos flags), run the full metric grid under multiple score functions,
 and evaluate the BASELINE model and the TRAINED model back-to-back for A/B
-comparison, over an exact or an IVF index (``--eval_index``). Results land in
-an output dir keyed by the sha256 of the config, as JSON + the evaluator's
-CSV. Everything runs on the GPU unless ``--device`` names another device:
+comparison, over an exact, IVF, PQ or IVF-PQ index (``--eval_index``).
+Results land in an output dir keyed by the sha256 of the config, as JSON +
+the evaluator's CSV. Everything runs on the GPU unless ``--device`` names
+another device:
 
   python -m qst_tpu_torch.cli.ir_eval_main --dataset_root data/test \\
-      --model_path trained/exp1 --use_fused_layer [--eval_index ivf]
+      --model_path trained/exp1 --use_fused_layer [--eval_index ivf|pq|ivfpq]
 
 The flags and defaults are the JAX CLI's. ``--hf_checkpoint_dir`` (a local
 sentence-transformers directory, BERT or MPNet) gives the baseline encoder
 and its config, ``--baseline_hf_checkpoint`` the baseline's weights file.
 Not ported yet, and refused with a message: the cross-encoder labels
 (``--use_cross_encoder``, ``--cross_encoder_dir``),
-``--generate_query_variations``, ``--eval_index pq|ivfpq`` and mesh layouts
-(``--mesh_*`` off their defaults).
+``--generate_query_variations`` and mesh layouts (``--mesh_*`` off their
+defaults).
 """
 
 from __future__ import annotations
@@ -84,10 +85,11 @@ def build_parser() -> argparse.ArgumentParser:
     add_bool_flag(p, "use_cross_encoder", False, "(not ported yet)")
     p.add_argument("--eval_index", default="exact",
                    choices=["exact", "ivf", "pq", "ivfpq"],
-                   help="index family the evaluator searches with — ivf "
-                   "measures the approximate index's recall cost directly "
-                   "on the full IR metric grid (cos/dot score functions "
-                   "only); pq and ivfpq are not ported yet")
+                   help="index family the evaluator searches with — ivf / "
+                   "pq / ivfpq measure the approximate index's recall cost "
+                   "directly on the full IR metric grid (cos/dot score "
+                   "functions only; pq and ivfpq keep refine rows and "
+                   "re-rank exactly)")
     p.add_argument("--eval_ivf_clusters", type=int, default=256)
     p.add_argument("--eval_ivf_probe", type=int, default=8)
     p.add_argument("--eval_pq_m", type=int, default=48)
@@ -126,8 +128,6 @@ def main(argv=None) -> int:
          "the cross-encoder"),
         ("--generate_query_variations", args.generate_query_variations,
          "query variations"),
-        (f"--eval_index {args.eval_index}", args.eval_index in ("pq", "ivfpq"),
-         "PQ indexes"),
         ("--mesh_data/--mesh_model", (args.mesh_data, args.mesh_model) != (-1, 1),
          "device meshes"),
     ])
@@ -196,6 +196,17 @@ def main(argv=None) -> int:
         index_factory = lambda emb, ids, m: IVFIndex(  # noqa: E731
             emb, n_clusters=args.eval_ivf_clusters, ids=ids,
             mesh=m, default_n_probe=args.eval_ivf_probe)
+    elif args.eval_index == "pq":
+        from qst_tpu_torch.retrieval import PQIndex
+
+        index_factory = lambda emb, ids, m: PQIndex(  # noqa: E731
+            emb, m=args.eval_pq_m, ids=ids, mesh=m, keep_rows=True)
+    elif args.eval_index == "ivfpq":
+        from qst_tpu_torch.retrieval import IVFPQIndex
+
+        index_factory = lambda emb, ids, m: IVFPQIndex(  # noqa: E731
+            emb, n_clusters=args.eval_ivf_clusters, m=args.eval_pq_m, ids=ids,
+            mesh=m, default_n_probe=args.eval_ivf_probe, keep_rows=True)
     # the encoder's embeddings stay on `device`, and the index with them
     evaluator = InformationRetrievalEvaluator(
         eval_set.queries, eval_set.corpus, eval_set.relevant, cfg=ir_cfg,

@@ -12,6 +12,14 @@ The pipeline (``topk_v2``, counterpart of ``pallas_topk_v2``, ``:385``):
    and scored exactly. Replaces ``_rescore_kernel`` (``topk_pallas.py:251``).
 4. one narrow top-k over (Q, k·128).
 
+``topk_local`` (counterpart of ``pallas_topk_local``, ``:346``) runs the same
+pipeline over a corpus slice with a valid-row count: K4 takes it as
+``n_real``, bucket ids that the selection draws from the −inf padding (a
+slice with fewer than k finite buckets) are clamped and dropped, and rows at
+or past the count are masked after K5, which scores the padding as finite.
+The PQ index's kernels' path and the streamed index run it a slice or tile
+at a time.
+
 Exactness: if e is one of the top-k elements, at most k−1 buckets can have a
 maximum above e's bucket maximum, so the top-k buckets contain the top-k
 elements.
@@ -268,3 +276,50 @@ def topk_v2(queries: torch.Tensor, corpus: torch.Tensor,
                + torch.arange(BUCKET, device=bucket_ids.device)).reshape(Q, k * BUCKET)
     top_s, pos = torch.topk(scores, k, dim=1)
     return top_s, torch.gather(doc_ids, 1, pos)
+
+
+def _topk_local(queries: torch.Tensor, corpus: torch.Tensor, k: int, n_local: int,
+                maxima, rescore) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The body of ``topk_local`` over given K4 / K5 functions (the kernels'
+    wrappers or their plain versions)."""
+    rows = corpus.shape[0]
+    if rows % BUCKET:
+        raise ValueError(f"corpus rows {rows} not a multiple of {BUCKET}")
+    if k > BUCKET:
+        raise ValueError(f"topk_local supports k <= {BUCKET}, got {k}")
+    n_local = max(0, min(int(n_local), rows))
+    bm = maxima(queries, corpus, n_local)                      # (Q, NB)
+    NB = bm.shape[1]
+    ids_raw = _hierarchical_top_buckets(bm, k)                 # (Q, k)
+    # fewer than k finite buckets: the selection can return ids in the −inf
+    # padding past NB — clamp them for the rescore and mask them after
+    valid = ids_raw < NB
+    bucket_ids = ids_raw.clamp_max(NB - 1)
+    scores = rescore(queries, corpus, bucket_ids, k)           # (Q, k·128)
+    Q = scores.shape[0]
+    doc_ids = (bucket_ids[:, :, None] * BUCKET
+               + torch.arange(BUCKET, device=bucket_ids.device))      # (Q, k, 128)
+    # rows at or past n_local are padding that K5 scores as finite
+    ok = (valid[:, :, None] & (doc_ids < n_local)).reshape(Q, k * BUCKET)
+    scores = torch.where(ok, scores, float("-inf"))
+    top_s, pos = torch.topk(scores, k, dim=1)
+    return top_s, torch.gather(doc_ids.reshape(Q, k * BUCKET), 1, pos)
+
+
+def topk_local(queries: torch.Tensor, corpus: torch.Tensor, k: int,
+               n_local: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Exact top-k over the first ``n_local`` rows of a corpus slice whose
+    row count is a multiple of 128 — counterpart of ``pallas_topk_local``
+    (``topk_pallas.py:346``): K4 with ``n_real = n_local`` → bucket
+    selection → K5 → one narrow top-k. Slots past the real rows carry −inf
+    (their ids are arbitrary), so a caller's merge across slices drops them.
+    → (scores (Q, k) f32, local row ids (Q, k) int64). k ≤ 128."""
+    return _topk_local(queries, corpus, k, n_local, bucket_maxima, rescore_buckets)
+
+
+def topk_local_plain(queries: torch.Tensor, corpus: torch.Tensor, k: int,
+                     n_local: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain version of ``topk_local``: the plain K4 and K5 under the same
+    masks, on any device."""
+    return _topk_local(queries, corpus, k, n_local, bucket_maxima_plain,
+                       rescore_buckets_plain)

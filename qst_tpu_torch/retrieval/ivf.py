@@ -56,6 +56,28 @@ def _tensor(x) -> torch.Tensor:
     return torch.as_tensor(x)
 
 
+def row_reader(emb, device: torch.device) -> Callable:
+    """``rows(sel)``: rows of a corpus (a tensor on any device, or a host
+    array such as a memmap, read only where selected) on ``device``, f32
+    for a host array."""
+    def rows(sel) -> torch.Tensor:
+        if isinstance(emb, torch.Tensor):
+            if not isinstance(sel, slice):
+                sel = torch.as_tensor(sel, device=emb.device)
+            return emb[sel].to(device)
+        return _tensor(np.asarray(emb[sel], np.float32)).to(device)
+    return rows
+
+
+def sample_rows(n: int, train_sample: int, rows: Callable,
+                gen: torch.Generator) -> torch.Tensor:
+    """``train_sample`` distinct rows drawn with ``gen`` (in row order), or
+    all n rows when there are no more."""
+    if n <= train_sample:
+        return rows(slice(None))
+    return rows(np.sort(torch.randperm(n, generator=gen)[:train_sample].numpy()))
+
+
 def _product(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """a @ b.T with f32 accumulation whatever the operands' dtype: bf16
     operands are upcast first (exact products, f32 sums)."""
@@ -248,21 +270,11 @@ class IVFIndex:
         if len(self.ids) != n:
             raise ValueError("ids length mismatch")
 
-        def rows(sel) -> torch.Tensor:
-            """Rows of the corpus on the index's device."""
-            if isinstance(emb, torch.Tensor):
-                if not isinstance(sel, slice):
-                    sel = torch.as_tensor(sel, device=emb.device)
-                return emb[sel].to(self.device)
-            return torch.from_numpy(emb[sel]).to(self.device)
+        rows = row_reader(emb, self.device)
 
         # 1) k-means on a device-resident sample
         gen = torch.Generator().manual_seed(seed)
-        if n > train_sample:
-            sample_idx = np.sort(torch.randperm(n, generator=gen)[:train_sample].numpy())
-            sample = rows(sample_idx)
-        else:
-            sample = rows(slice(None))
+        sample = sample_rows(n, train_sample, rows, gen)
         self.centroids, _ = kmeans(
             sample, gen, n_clusters, n_iters,
             compute_dtype="bfloat16" if dtype == "bfloat16" else None)

@@ -1,16 +1,21 @@
 """Text-level retrieval service: encoder + index + persistence —
 counterpart of ``qst_tpu/retrieval/retriever.py``.
 
-Ported: ``Retriever`` over an ``ExactIndex`` (``index_dtype`` float32,
-bfloat16 or int8), an ``IVFIndex`` (``index_dtype="ivf"``) or an
-``UpdatableIndex`` (``build_updatable`` / ``to_updatable``, ``add_docs`` /
-``remove_docs``) — ``build``, ``search``, ``search_async``,
-``search_stream``, ``save`` / ``load`` — and the module's ``save_index`` /
-``load_index``. The artifact layout is the JAX package's (``embeddings.npy``
-or ``ivf_*.npy``, ``ids.json``, ``index_meta.json``, ``docs.json``), so
-either package reloads the other's index. Index kinds pq, ivfpq and
-streaming, mesh sharding and cross-encoder reranking raise
-``NotImplementedError`` until their slice of the port.
+``Retriever`` over an ``ExactIndex`` (``index_dtype`` float32, bfloat16 or
+int8), an ``IVFIndex`` ("ivf"), a ``PQIndex`` ("pq", ``pq_m`` bytes a doc,
+refine rows kept), an ``IVFPQIndex`` ("ivfpq", ``ivfpq_bits`` 8 or 4), a
+``StreamingExactIndex`` ("streaming": ``build_to_disk`` writes the
+embeddings to a memmap, ``load`` streams them) or an ``UpdatableIndex``
+(``build_updatable`` / ``to_updatable``, ``add_docs`` / ``remove_docs``) —
+``build``, ``search``, ``search_async``, ``search_stream``, ``save`` /
+``load`` — and the module's ``save_index`` / ``load_index``. PQ and IVF-PQ
+searches re-rank ``DEFAULT_REFINE·k`` candidates exactly from their refine
+rows by default, in ``search`` and in the finishers of ``search_async`` and
+``search_stream``. The artifact layout is the JAX package's
+(``embeddings.npy``, ``ivf_*.npy``, ``pq_*.npy``, ``ivfpq_*.npy``,
+``ids.json``, ``index_meta.json``, ``docs.json``), so either package
+reloads the other's index. Mesh sharding and cross-encoder reranking raise
+``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -25,6 +30,9 @@ import torch
 from qst_tpu_torch.core.device import resolve_device
 from qst_tpu_torch.retrieval.index import ExactIndex
 from qst_tpu_torch.retrieval.ivf import IVFIndex
+from qst_tpu_torch.retrieval.ivfpq import IVFPQIndex
+from qst_tpu_torch.retrieval.pq import PQIndex, _host_f32, refine_pair
+from qst_tpu_torch.retrieval.streaming import StreamingExactIndex
 from qst_tpu_torch.retrieval.updatable import EmptyIndexError, UpdatableIndex
 
 INDEX_FILE = "embeddings.npy"
@@ -35,14 +43,17 @@ IVF_CENTROIDS_FILE = "ivf_centroids.npy"
 IVF_CELLS_FILE = "ivf_cells.npy"
 IVF_CELL_IDS_FILE = "ivf_cell_ids.npy"
 IVF_FILL_FILE = "ivf_fill.npy"
-INDEX_DTYPES = ("float32", "bfloat16", "int8", "ivf")
-NOT_PORTED = ("pq", "ivfpq", "streaming")
-
-
-def _not_ported(kind: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"index kind {kind!r} is not ported to qst_tpu_torch "
-        f"(ported: {', '.join(INDEX_DTYPES)})")
+PQ_CODES_FILE = "pq_codes.npy"
+PQ_CODEBOOKS_FILE = "pq_codebooks.npy"
+PQ_ROWS_FILE = "pq_refine_rows.npy"
+PQ_ROTATION_FILE = "pq_rotation.npy"
+IVFPQ_CENTROIDS_FILE = "ivfpq_centroids.npy"
+IVFPQ_CODES_FILE = "ivfpq_cell_codes.npy"
+IVFPQ_CELL_IDS_FILE = "ivfpq_cell_ids.npy"
+IVFPQ_CODEBOOKS_FILE = "ivfpq_codebooks.npy"
+IVFPQ_FILL_FILE = "ivfpq_fill.npy"
+IVFPQ_ROWS_FILE = "ivfpq_refine_rows.npy"
+INDEX_DTYPES = ("float32", "bfloat16", "int8", "pq", "ivf", "ivfpq", "streaming")
 
 
 def save_index(path: str, embeddings: np.ndarray, ids: Sequence,
@@ -60,37 +71,61 @@ def save_index(path: str, embeddings: np.ndarray, ids: Sequence,
 def load_index(path: str, mesh: Any = None, dtype: Optional[str] = None,
                device: Any = None) -> Tuple[Any, dict]:
     """``dtype`` overrides the storage dtype at load time (e.g. serve an
-    f32-saved index as bfloat16 or int8). An index saved as int8 carries its
-    quantization scale in the metadata and reloads bit-exactly; one saved as
-    "ivf" reloads its cells, centroids and fill counts into an
-    :class:`IVFIndex` without re-clustering. The index lives on ``device``
-    (default: the GPU)."""
+    f32-saved index as bfloat16 or int8, or stream it with "streaming"). An
+    index saved as int8 carries its quantization scale in the metadata and
+    reloads bit-exactly; one saved as "ivf", "pq" or "ivfpq" reloads its
+    arrays (and refine rows where they were saved) without re-clustering or
+    re-encoding. The index lives on ``device`` (default: the GPU); a
+    streamed corpus stays on disk, memory-mapped."""
     device = resolve_device(device)
     with open(os.path.join(path, IDS_FILE)) as f:
         ids = json.load(f)
     with open(os.path.join(path, META_FILE)) as f:
         meta = json.load(f)
     saved = meta.get("dtype", "float32")
-    for kind in (saved, dtype):
-        if kind is not None and kind not in INDEX_DTYPES:
-            raise _not_ported(kind)
+
+    def npy(name: str, optional: bool = False):
+        full = os.path.join(path, name)
+        return None if optional and not os.path.isfile(full) else np.load(full)
+
+    for kind, saved_as in (("pq", "product-quantized"), ("ivf", "as an IVF index"),
+                           ("ivfpq", "as an IVF-PQ index")):
+        if saved == kind and dtype not in (None, kind):
+            raise ValueError(f"index at {path} was saved {saved_as}; it cannot be "
+                             f"reloaded as {dtype}")
+        if dtype == kind and saved != kind:
+            raise ValueError(f"index at {path} was not saved {saved_as} — rebuild it "
+                             f"with index_dtype='{kind}'")
+    if saved == "pq":
+        return PQIndex.from_codes(npy(PQ_CODES_FILE), npy(PQ_CODEBOOKS_FILE), ids=ids,
+                                  mesh=mesh, refine_rows=npy(PQ_ROWS_FILE, True),
+                                  rotation=npy(PQ_ROTATION_FILE, True), device=device), meta
     if saved == "ivf":
-        if dtype not in (None, "ivf"):
-            raise ValueError(
-                f"index at {path} was saved as an IVF index; it cannot "
-                f"be reloaded as {dtype}")
         return IVFIndex.from_arrays(
-            np.load(os.path.join(path, IVF_CENTROIDS_FILE)),
-            np.load(os.path.join(path, IVF_CELLS_FILE)),
-            np.load(os.path.join(path, IVF_CELL_IDS_FILE)),
-            np.load(os.path.join(path, IVF_FILL_FILE)), ids=ids, mesh=mesh,
+            npy(IVF_CENTROIDS_FILE), npy(IVF_CELLS_FILE), npy(IVF_CELL_IDS_FILE),
+            npy(IVF_FILL_FILE), ids=ids, mesh=mesh,
             default_n_probe=int(meta.get("n_probe", 8)),
             dtype=meta.get("cells_dtype", "float32"), device=device), meta
-    if dtype == "ivf":
-        raise ValueError(
-            f"index at {path} was not saved as an IVF index — rebuild "
-            "it with index_dtype='ivf'")
-    emb = np.load(os.path.join(path, INDEX_FILE))
+    if saved == "ivfpq":
+        return IVFPQIndex.from_arrays(
+            npy(IVFPQ_CENTROIDS_FILE), npy(IVFPQ_CODES_FILE), npy(IVFPQ_CELL_IDS_FILE),
+            npy(IVFPQ_CODEBOOKS_FILE), npy(IVFPQ_FILL_FILE), ids=ids, mesh=mesh,
+            default_n_probe=int(meta.get("n_probe", 8)),
+            residual=bool(meta.get("residual", True)),
+            refine_rows=npy(IVFPQ_ROWS_FILE, True), bits=int(meta.get("bits", 8)),
+            device=device), meta
+    if dtype == "streaming":
+        # a saved corpus larger than device memory: memory-map the matrix and
+        # stream it through double-buffered tiles
+        if saved == "int8":
+            raise ValueError(
+                "an int8-saved index uses its own quantization scale and "
+                "cannot stream verbatim — save float embeddings (or use "
+                "StreamingExactIndex.quantize_host for a streamable int8 "
+                "corpus)")
+        return StreamingExactIndex.from_npy(os.path.join(path, INDEX_FILE), ids=ids,
+                                            mesh=mesh, device=device), meta
+    emb = npy(INDEX_FILE)
     if saved == "int8" and emb.dtype == np.int8:
         if dtype not in (None, "int8"):
             raise ValueError(
@@ -117,12 +152,6 @@ def encode_keep_device(encode: Any, texts: list):
     return encode(texts)
 
 
-def _host_f32(emb) -> np.ndarray:
-    if isinstance(emb, torch.Tensor):
-        return emb.float().cpu().numpy()
-    return np.asarray(emb, np.float32)
-
-
 class Retriever:
     """Encode-and-search by text.
 
@@ -133,22 +162,32 @@ class Retriever:
 
     def __init__(self, encoder: Any, mesh: Any = None, score: str = "cos_sim",
                  index_dtype: str = "float32", ivf_clusters: int = 256,
-                 ivf_probe: int = 8, device: Any = None):
+                 ivf_probe: int = 8, pq_m: int = 48, pq_rotate: bool = False,
+                 ivfpq_bits: int = 8, device: Any = None):
         """index_dtype: storage dtype or kind for built/loaded indexes —
         "bfloat16" for tensor-core scoring, "int8" for half the memory again
-        (quantized-exact ranking; see ExactIndex), or "ivf" for the
-        approximate k-means-cell index (``ivf_clusters`` cells,
-        ``ivf_probe`` of them scanned per query; see IVFIndex)."""
+        (quantized-exact ranking; see ExactIndex), "ivf" for the approximate
+        k-means-cell index (``ivf_clusters`` cells, ``ivf_probe`` of them
+        scanned per query; see IVFIndex), "pq" for a product-quantized index
+        (``pq_m`` bytes a doc on the device, the normalized originals in host
+        memory for the exact re-rank; ``pq_rotate`` quantizes in a random
+        rotation; see PQIndex), "ivfpq" for PQ codes in k-means cells
+        (``ivfpq_bits`` 8, or 4 for packed nibbles at the same bytes a doc;
+        see IVFPQIndex), or "streaming" for a corpus that stays on disk
+        (``build_to_disk``; see StreamingExactIndex)."""
         if mesh is not None:
             raise NotImplementedError("sharded retrieval (mesh=) is not ported")
         if index_dtype not in INDEX_DTYPES:
-            raise _not_ported(index_dtype)
+            raise ValueError(f"index_dtype must be one of {INDEX_DTYPES}, got {index_dtype!r}")
         self.encoder = encoder
         self.mesh = None
         self.score = score
         self.index_dtype = index_dtype
         self.ivf_clusters = ivf_clusters
         self.ivf_probe = ivf_probe
+        self.pq_m = pq_m
+        self.pq_rotate = pq_rotate
+        self.ivfpq_bits = ivfpq_bits
         if device is None:
             device = getattr(encoder, "device", None)
         self.device = resolve_device(device)
@@ -203,7 +242,17 @@ class Retriever:
             raise RuntimeError("no index built or loaded")
         if self._is_updatable():
             return self
-        if isinstance(self.index, IVFIndex):
+        if isinstance(self.index, (PQIndex, IVFPQIndex)):
+            if self.index._refine_rows is not None:
+                emb = self.index.refine_rows_f32()
+            elif isinstance(self.index, IVFPQIndex):
+                emb = self.index.reconstruct_rows()
+            else:
+                raise RuntimeError(
+                    "a PQ index without refine rows holds only codes — "
+                    "rebuild with keep_rows=True (the Retriever build "
+                    "default) to convert to an updatable index")
+        elif isinstance(self.index, IVFIndex):
             emb = self.index.reconstruct_rows()
         else:
             emb = _host_f32(self.index.embeddings)[: self.index.n_docs]
@@ -286,13 +335,55 @@ class Retriever:
         # device-resident handoff: encoder → index with no host round trip
         emb = encode_keep_device(self.encoder.encode, list(docs))
         ids = list(ids) if ids is not None else list(range(len(docs)))
-        if self.index_dtype == "ivf":
+        if self.index_dtype == "pq":
+            self.index = PQIndex(emb, m=self.pq_m, ids=ids, keep_rows=True,
+                                 rotate=self.pq_rotate, device=self.device)
+        elif self.index_dtype == "ivf":
             self.index = IVFIndex(emb, n_clusters=self.ivf_clusters, ids=ids,
                                   default_n_probe=self.ivf_probe, device=self.device)
+        elif self.index_dtype == "ivfpq":
+            self.index = IVFPQIndex(emb, n_clusters=self.ivf_clusters, m=self.pq_m, ids=ids,
+                                    default_n_probe=self.ivf_probe, keep_rows=True,
+                                    bits=self.ivfpq_bits, device=self.device)
         else:
             self.index = ExactIndex(emb, ids=ids, dtype=self.index_dtype,
                                     device=self.device)
         self._doc_texts = list(docs)
+        return self
+
+    def build_to_disk(self, docs: Sequence[str], path: str,
+                      ids: Optional[Sequence] = None,
+                      encode_batch: int = 8192) -> "Retriever":
+        """Build a disk-backed index artifact incrementally: documents are
+        encoded in ``encode_batch``-text chunks and written straight into a
+        memory-mapped ``embeddings.npy`` (the layout of :meth:`save`, texts
+        included), so a corpus whose embedding matrix exceeds host or device
+        memory is indexed end to end. The retriever is left holding the
+        memmap-backed :class:`StreamingExactIndex`."""
+        docs = list(docs)
+        if not docs:
+            raise ValueError("no documents to index")
+        ids = list(ids) if ids is not None else list(range(len(docs)))
+        if len(ids) != len(docs):
+            raise ValueError("ids length mismatch")
+        os.makedirs(path, exist_ok=True)
+        emb_path = os.path.join(path, INDEX_FILE)
+        mm = None
+        for lo in range(0, len(docs), encode_batch):
+            chunk = _host_f32(self.encoder.encode(docs[lo:lo + encode_batch]))
+            if mm is None:
+                mm = np.lib.format.open_memmap(emb_path, mode="w+", dtype=np.float32,
+                                               shape=(len(docs), chunk.shape[1]))
+            mm[lo:lo + chunk.shape[0]] = chunk
+        mm.flush()
+        with open(os.path.join(path, IDS_FILE), "w") as f:
+            json.dump(ids, f)
+        with open(os.path.join(path, META_FILE), "w") as f:
+            json.dump({"n_docs": len(ids), "dim": int(mm.shape[1]), "score": self.score}, f)
+        self._save_docs(path, docs)
+        del mm
+        self.index = StreamingExactIndex.from_npy(emb_path, ids=ids, device=self.device)
+        self._doc_texts = docs
         return self
 
     def _save_docs(self, path: str, texts: list) -> None:
@@ -335,6 +426,14 @@ class Retriever:
                            "score": self.score}, f)
             self._save_docs(path, self._doc_texts)
             return
+        if isinstance(self.index, (PQIndex, IVFPQIndex)):
+            self._save_pq(path)
+            return
+        if isinstance(self.index, StreamingExactIndex):
+            ids = self.index.ids if self.index.ids is not None else range(self.index.n_docs)
+            save_index(path, np.asarray(self.index.embeddings), list(ids), {"score": self.score})
+            self._save_docs(path, self._doc_texts)
+            return
         emb = self.index.embeddings
         meta = {"score": self.score}
         if emb.dtype == torch.int8:
@@ -345,6 +444,42 @@ class Retriever:
             meta["dtype"] = str(emb.dtype).removeprefix("torch.")
             emb = emb.float()
         save_index(path, emb.cpu().numpy(), self.index.ids, meta)
+        self._save_docs(path, self._doc_texts)
+
+    def _save_pq(self, path: str) -> None:
+        """The PQ / IVF-PQ artifact: codes (m bytes a doc), codebooks (and
+        centroids, cell ids and fill counts for IVF-PQ, or the rotation for
+        PQ); refine rows as int8 verbatim or bf16 as f32 (the reload re-cast
+        is exact)."""
+        idx = self.index
+        os.makedirs(path, exist_ok=True)
+        meta = {"n_docs": int(idx.n_docs), "dim": int(idx.dim), "m": int(idx.m),
+                "score": self.score, "refine": idx._refine_rows is not None}
+        if isinstance(idx, IVFPQIndex):
+            files = {IVFPQ_CODES_FILE: idx.cell_codes, IVFPQ_CELL_IDS_FILE: idx.cell_ids,
+                     IVFPQ_CENTROIDS_FILE: idx.centroids, IVFPQ_CODEBOOKS_FILE: idx.codebooks,
+                     IVFPQ_FILL_FILE: idx.fill}
+            rows_file = IVFPQ_ROWS_FILE
+            meta.update(dtype="ivfpq", bits=int(idx.bits), residual=bool(idx.residual),
+                        n_probe=int(idx.default_n_probe), cell_budget=int(idx.cell_budget))
+        else:
+            files = {PQ_CODES_FILE: idx.codes[: idx.n_docs], PQ_CODEBOOKS_FILE: idx.codebooks}
+            if idx._rotation is not None:
+                files[PQ_ROTATION_FILE] = idx._rotation
+            rows_file = PQ_ROWS_FILE
+            meta["dtype"] = "pq"
+        for name, t in files.items():
+            t = t.cpu()
+            np.save(os.path.join(path, name),
+                    t.numpy() if t.dtype in (torch.uint8, torch.int32) else t.float().numpy())
+        if idx._refine_rows is not None:
+            rows = idx._refine_rows
+            np.save(os.path.join(path, rows_file),
+                    rows if isinstance(rows, np.ndarray) else rows.float().numpy())
+        with open(os.path.join(path, IDS_FILE), "w") as f:
+            json.dump(list(idx.ids), f)
+        with open(os.path.join(path, META_FILE), "w") as f:
+            json.dump(meta, f)
         self._save_docs(path, self._doc_texts)
 
     def load(self, path: str) -> "Retriever":
@@ -359,18 +494,44 @@ class Retriever:
         return self
 
     # ---------------- search --------------------------------------------
+    def _single_dispatch(self) -> bool:
+        """Whether one device call answers a batch (an updatable buffer
+        changes between batches; a streamed index is a loop over tiles)."""
+        return not self._is_updatable() and (
+            hasattr(self.index, "_device_search_retriever")
+            or hasattr(self.index, "_device_search"))
+
+    def _default_refine(self) -> int:
+        """The refine factor the index's own ``search`` applies by default:
+        PQ / IVF-PQ indexes with refine rows re-rank ``DEFAULT_REFINE·k``
+        candidates exactly; every other index returns 0."""
+        if getattr(self.index, "_refine_rows", None) is None:
+            return 0
+        return int(getattr(self.index, "DEFAULT_REFINE", 0))
+
     def _dispatch(self, queries: List[str], k: int):
-        """Encode + search without waiting for the device: the returned
-        tensors are still being computed when this returns."""
+        """Encode + search without waiting for the device: → (query
+        embeddings, scores, positions), the tensors still being computed
+        when this returns. With a default refine the search returns
+        ``DEFAULT_REFINE·k`` candidates; :meth:`_rows` re-ranks them."""
         q_emb = encode_keep_device(self.encoder.encode, queries)
+        rf = self._default_refine()
+        kk = min(k * rf, self.index.n_docs) if rf else k
         dev_search = getattr(self.index, "_device_search_retriever",
                              self.index._device_search)
-        return dev_search(q_emb, k, self.score, 131072, "auto")
+        return (q_emb, *dev_search(q_emb, kk, self.score, 131072, "auto"))
 
-    def _rows(self, state, return_texts: bool, pos_of) -> list:
+    def _rows(self, state, k: int, return_texts: bool, pos_of) -> list:
         """Copy one batch's (scores, ids) to the host (this waits for the
-        device) and unpack them into (doc_id, score[, text]) rows."""
-        scores, idx = (t.cpu().numpy() for t in state)
+        device), re-rank them exactly where the index refines by default,
+        and unpack them into (doc_id, score[, text]) rows."""
+        q_emb, scores, idx = state
+        scores, idx = scores.cpu().numpy(), idx.cpu().numpy()
+        if self._default_refine():
+            # the probed pool of IVF-PQ may hold fewer than k
+            scores, idx = refine_pair(q_emb, self.index._refine_rows, idx,
+                                      min(k, idx.shape[1]), self.index._refine_scale,
+                                      self.index.n_docs)
         rows = []
         for qi in range(idx.shape[0]):
             row = []
@@ -394,28 +555,32 @@ class Retriever:
         """Dispatch encode + search for one batch now and return a zero-arg
         callable that materializes the rows — the serving split-phase path
         (``DynamicBatcher(finalize_fn=...)``): the batcher dispatches batch
-        N+1 while batch N's results copy back. An updatable index has no
-        single-dispatch path (its buffer changes between batches): the
-        callable then runs a plain :meth:`search`. Same rows as
-        :meth:`search`."""
+        N+1 while batch N's results copy back and re-rank. An index without
+        a single-dispatch path (updatable, streaming) defers a plain
+        :meth:`search` to the callable. Same rows as :meth:`search`."""
         self._require_index()
         queries = list(queries)
-        if self._is_updatable():
+        if not self._single_dispatch():
             return lambda: self.search(queries, k=k, return_texts=return_texts)
         pos_of = self._pos() if (return_texts and self._doc_texts) else None
         state = self._dispatch(queries, k)
-        return lambda: self._rows(state, return_texts, pos_of)
+        return lambda: self._rows(state, k, return_texts, pos_of)
 
     def search_stream(self, query_batches, k: int = 10, depth: int = 4,
                       return_texts: bool = False):
         """Pipelined text → results loop: yields one result list per batch
         of query texts, in input order, with up to ``depth`` batches queued
-        on the device."""
+        on the device (a batch's refine runs as it is taken off the
+        queue)."""
         self._require_index()
         if self._is_updatable():
             raise RuntimeError(
                 "search_stream needs a static index (the updatable "
                 "buffer mutates between batches); use search()")
+        if not self._single_dispatch():
+            raise RuntimeError(
+                f"{type(self.index).__name__} has no single-dispatch search "
+                "(a streamed index is a loop over tiles); use search()")
         if depth < 1:
             raise ValueError(f"depth must be >= 1, got {depth}")
         pos_of = self._pos() if (return_texts and self._doc_texts) else None
@@ -423,9 +588,9 @@ class Retriever:
         for queries in query_batches:
             pending.append(self._dispatch(list(queries), k))
             if len(pending) >= depth:
-                yield self._rows(pending.pop(0), return_texts, pos_of)
+                yield self._rows(pending.pop(0), k, return_texts, pos_of)
         while pending:
-            yield self._rows(pending.pop(0), return_texts, pos_of)
+            yield self._rows(pending.pop(0), k, return_texts, pos_of)
 
     def _search_updatable(self, queries: List[str], k: int, return_texts: bool):
         # snapshot the text map before the search: removals replace the map
@@ -442,12 +607,28 @@ class Retriever:
             # call (the snapshot decides, not a pre-check): an empty serving
             # corpus answers with no hits, not a 500
             return [[] for _ in queries]
+        return self._id_rows(scores, ids, return_texts and has_texts, text_of)
+
+    def _search_ids(self, queries: List[str], k: int, return_texts: bool):
+        """A static index without a single-dispatch path: its own
+        ``search_ids``."""
+        q_emb = encode_keep_device(self.encoder.encode, queries)
+        scores, ids = self.index.search_ids(q_emb, k=k, score=self.score)
+        with_texts = return_texts and bool(self._doc_texts)
+        pos_of = self._pos() if with_texts else None
+        return self._id_rows(scores, ids, with_texts,
+                             lambda d: self._doc_texts[pos_of[d]])
+
+    @staticmethod
+    def _id_rows(scores, ids, with_texts: bool, text_of) -> list:
         out = []
-        for qi in range(len(queries)):
+        for qi in range(len(ids)):
             row = []
             for doc_id, s in zip(ids[qi], scores[qi]):
+                if doc_id is None:
+                    continue
                 entry = (doc_id, float(s))
-                if return_texts and has_texts:
+                if with_texts:
                     entry = (*entry, text_of(doc_id))
                 row.append(entry)
             out.append(row)
@@ -455,12 +636,14 @@ class Retriever:
 
     def search(self, queries: Sequence[str], k: int = 10,
                return_texts: bool = False, rerank_k: int = 0):
-        """→ list per query of (doc_id, score[, text]) tuples; an IVF row
-        is shorter than k when the probed cells held fewer documents.
-        Cross-encoder reranking (``rerank_k``) is not ported."""
+        """→ list per query of (doc_id, score[, text]) tuples; an IVF or
+        IVF-PQ row is shorter than k when the probed cells held fewer
+        documents. Cross-encoder reranking (``rerank_k``) is not ported."""
         if rerank_k:
             raise NotImplementedError("cross-encoder reranking is not ported")
         self._require_index()
         if self._is_updatable():
             return self._search_updatable(list(queries), k, return_texts)
+        if not self._single_dispatch():
+            return self._search_ids(list(queries), k, return_texts)
         return self.search_async(queries, k=k, return_texts=return_texts)()

@@ -38,7 +38,10 @@ from qst_tpu.evals import create_ir_evaluation_set as jax_create_ir_evaluation_s
 from qst_tpu.models.sentence_encoder import SentenceEncoder as JaxSentenceEncoder
 from qst_tpu.models.sentence_encoder import init_params as jax_init_params
 from qst_tpu.models.tokenizer import HashTokenizer as JaxHashTokenizer
+from qst_tpu.retrieval import IVFPQIndex as JaxIVFPQIndex
+from qst_tpu.retrieval import PQIndex as JaxPQIndex
 from qst_tpu.retrieval import Retriever as JaxRetriever
+from qst_tpu.retrieval.retriever import load_index as jax_load_index
 from qst_tpu_torch.cli import common as tcommon
 from qst_tpu_torch.cli import index_main as tmain
 from qst_tpu_torch.cli import ir_eval_main as tir_main
@@ -47,6 +50,7 @@ from qst_tpu_torch.core.config import EncoderConfig
 from qst_tpu_torch.models.hf_import import state_dict_from_flax_params
 from qst_tpu_torch.models.tokenizer import HashTokenizer
 from qst_tpu_torch.train.checkpoints import _save
+from test_torch_slice import assert_topk_equal_up_to_ties
 
 TOPICS = ["cat", "dog", "pasta", "plane", "river"]
 DOCS = [f"{TOPICS[i % 5]} doc number {i}" for i in range(400)]
@@ -147,15 +151,88 @@ def test_index_cli_input_errors(workdir):
         tmain.main(["build", "--texts", empty, *base])
 
 
+@pytest.fixture(scope="module")
+def built_compressed(workdir):
+    """The pq (m 8), ivfpq (4 bits, 8 cells, all probed) and streaming
+    indexes built by the CLI from the carried weights."""
+    root, texts, exp, _ = workdir
+    dirs = {}
+    for kind in ("pq", "ivfpq", "streaming"):
+        dirs[kind] = str(root / f"idx_{kind}")
+        assert tmain.main(["build", "--texts", texts, "--index_dir", dirs[kind],
+                           "--encoder_preset", "tiny", "--model_path", exp, "--index_dtype", kind,
+                           "--pq_m", "8", "--ivf_clusters", "8", "--ivf_probe", "8",
+                           "--ivfpq_bits", "4", "--device", "cpu"]) == 0
+    return dirs
+
+
 @pytest.mark.parametrize("command", ["build", "serve", "query"])
 @pytest.mark.parametrize("kind", ["pq", "ivfpq", "streaming"])
-def test_unported_index_kinds_exit_with_a_message(workdir, command, kind):
-    root, texts, _, _ = workdir
-    argv = [command, "--index_dir", str(root / "nope"), "--index_dtype", kind, "--device", "cpu"]
-    argv += {"build": ["--texts", texts], "query": ["--queries", "q"], "serve": []}[command]
-    with pytest.raises(SystemExit, match=f"{kind} is not ported"):
-        tmain.main(argv)
-    assert not os.path.exists(root / "nope")
+def test_unported_index_kinds_exit_with_a_message(workdir, built_compressed, command, kind,
+                                                  capsys):
+    """The pq, ivfpq and streaming kinds through ``index_main`` with
+    ``--device cpu``: ``build`` writes the JAX package's artifact, ``query``
+    prints hits whose scores are the documents' cosines (pq and ivfpq
+    re-rank from bf16 rows, and streaming sends bf16 rows: 1e-2), the
+    streamed hits are the JAX streaming index's over the same memmap and
+    weights (1e-3: one bf16 rounding of a query component may differ);
+    ``serve`` answers /search likewise (for streaming the query command's
+    rows up to ties: the server's batch encodes the queries in another
+    padding, which may move an approximate index's candidate pool)."""
+    root, _, exp, jenc = workdir
+    idx = built_compressed[kind]
+    with open(os.path.join(idx, "index_meta.json")) as f:
+        meta = json.load(f)
+    flags = ["--index_dir", idx, "--model_path", exp, "--index_dtype", kind]
+    if command == "build":
+        assert meta["n_docs"] == 400 and meta.get("dtype", "float32") == (
+            "float32" if kind == "streaming" else kind)
+        files = {"pq": ["pq_codes.npy", "pq_codebooks.npy", "pq_refine_rows.npy"],
+                 "ivfpq": ["ivfpq_cell_codes.npy", "ivfpq_codebooks.npy",
+                           "ivfpq_refine_rows.npy"],
+                 "streaming": ["embeddings.npy", "docs.json"]}[kind]
+        assert all(os.path.isfile(os.path.join(idx, f)) for f in files)
+        if kind == "ivfpq":
+            assert (meta["bits"], meta["n_probe"]) == (4, 8)
+        if kind == "streaming":   # the memmap holds the embeddings, as the JAX encoder's
+            np.testing.assert_allclose(np.load(os.path.join(idx, "embeddings.npy")),
+                                       jenc.encode(DOCS), rtol=0, atol=1e-5)
+        jidx, _ = jax_load_index(idx, dtype="streaming" if kind == "streaming" else None)
+        assert jidx.n_docs == 400          # qst_tpu reloads the port's artifact
+        return
+    out = _run(["query", *flags, "--k", "4", "--queries", *QUERIES], capsys)
+    emb = jenc.encode(DOCS)
+    q = jenc.encode(QUERIES)
+    cos = (q / np.linalg.norm(q, axis=1, keepdims=True)) @ (
+        emb / np.linalg.norm(emb, axis=1, keepdims=True)).T
+    got = (np.array([[h["score"] for h in o["hits"]] for o in out]),
+           np.array([[h["id"] for h in o["hits"]] for o in out]))
+
+    def check(s, i, texts):
+        assert s.shape == (len(QUERIES), 4) and all(DOCS[d] == t for d, t in zip(
+            i.ravel(), texts))
+        np.testing.assert_allclose(s, np.take_along_axis(cos, i, 1), rtol=0, atol=1e-2)
+
+    check(*got, [h["text"] for o in out for h in o["hits"]])
+    if kind == "streaming":
+        jidx, _ = jax_load_index(idx, dtype="streaming")
+        assert_topk_equal_up_to_ties(*got, *jidx.search(q, k=4), rtol=0, atol=1e-3)
+    if command == "serve":
+        args = tmain.build_parser().parse_args(
+            ["serve", *flags, "--port", "0", "--encoder_preset", "tiny", "--device", "cpu",
+             "--max_wait_ms", "10"])
+        server = tmain.serving_server(args, tmain.serving_retriever(args))
+        port = server.start()
+        try:
+            rows = _request(port, "/search", {"queries": QUERIES, "k": 4,
+                                              "return_texts": True})["results"]
+        finally:
+            server.stop()
+        served = (np.array([[h[1] for h in row] for row in rows]),
+                  np.array([[h[0] for h in row] for row in rows]))
+        check(*served, [h[2] for row in rows for h in row])
+        if kind == "streaming":
+            assert_topk_equal_up_to_ties(*served, *got, rtol=0, atol=1e-3)
 
 
 def _flags(parser):
@@ -311,18 +388,55 @@ def test_train_cli_mines_evaluates_and_checkpoints(quad_data, mode):
         EncoderConfig.tiny()).keys()
 
 
-@pytest.mark.parametrize("index", ["exact", "ivf"])
-def test_ir_eval_cli_matches_the_jax_evaluator(quad_data, index):
-    """``ir_eval_main`` over the exact and the IVF index: the baseline and
-    the trained model (qst_tpu's weights carried into the port's
-    checkpoint), the trained metrics held to qst_tpu's evaluator over the
-    same weights (exact: within 1e-6; IVF at full probe: the exact search's
-    metrics), euclid dropped for IVF as in the source."""
+def _carried_to_jax(index):
+    """The JAX package's counterpart of a port-built PQ / IVF-PQ index over
+    the same codes, codebooks and refine rows."""
+    host = lambda t: t.cpu().numpy()  # noqa: E731
+    if index.__class__.__name__ == "PQIndex":
+        return lambda emb, ids, m: JaxPQIndex.from_codes(
+            host(index.codes)[: index.n_docs], host(index.codebooks), ids=ids,
+            refine_rows=index.refine_rows_f32())
+    return lambda emb, ids, m: JaxIVFPQIndex.from_arrays(
+        host(index.centroids), host(index.cell_codes), host(index.cell_ids),
+        host(index.codebooks), host(index.fill), ids=ids,
+        default_n_probe=index.default_n_probe, residual=index.residual,
+        refine_rows=index.refine_rows_f32(), bits=index.bits)
+
+
+@pytest.mark.parametrize("index", ["exact", "ivf", "pq", "ivfpq"])
+def test_ir_eval_cli_matches_the_jax_evaluator(quad_data, index, monkeypatch):
+    """``ir_eval_main`` over the exact, IVF, PQ and IVF-PQ indexes: the
+    baseline and the trained model (qst_tpu's weights carried into the
+    port's checkpoint), the trained metrics held to qst_tpu's evaluator over
+    the same weights within 1e-6 (exact; IVF at full probe: the exact
+    search's metrics), euclid dropped for the approximate indexes as in the
+    source. PQ and IVF-PQ: the metrics at k ≤ 5, so the refine ×8 re-ranks
+    40 of the 268 documents that the codes select; qst_tpu's evaluator
+    searches the port-built index's codes, codebooks and refine rows carried
+    into its own PQ / IVF-PQ index (the two packages draw their training
+    differently)."""
+    from qst_tpu_torch import retrieval as tretrieval
+
     root, data, exp, jenc = quad_data
     out = str(root / f"ir_{index}")
+    ks = {}
+    built = []
+    if index in ("pq", "ivfpq"):
+        ks = dict(accuracy_at_k=(1, 3, 5), precision_recall_at_k=(1, 3, 5), mrr_at_k=(5,),
+                  ndcg_at_k=(5,), map_at_k=(5,))
+        cls = getattr(tretrieval, {"pq": "PQIndex", "ivfpq": "IVFPQIndex"}[index])
+
+        def recording(*args, **kw):
+            built.append(cls(*args, **kw))
+            return built[-1]
+
+        monkeypatch.setattr(tretrieval, cls.__name__, recording)
     argv = ["--dataset_root", data, "--model_path", exp, "--encoder_preset", "tiny",
             "--device", "cpu", "--output_root", out, "--eval_index", index,
-            "--eval_ivf_clusters", "4", "--eval_ivf_probe", "4", "--n_queries", "20"]
+            "--eval_ivf_clusters", "4", "--eval_ivf_probe", "4", "--eval_pq_m", "8",
+            "--n_queries", "20"]
+    for name, values in ks.items():
+        argv += [f"--{name}", *map(str, values)]
     assert tir_main.main(argv) == 0
     [hashed] = os.listdir(out)
     with open(os.path.join(out, hashed, "results.json")) as f:
@@ -334,8 +448,19 @@ def test_ir_eval_cli_matches_the_jax_evaluator(quad_data, index):
     jset = jax_create_ir_evaluation_set(list(JaxChunkStore(data).iter_instances()),
                                         n_queries=20, seed=14)
     assert eval_set == jset.to_json()
+    if built:   # baseline then trained; the candidate pool is smaller than the corpus
+        assert len(built) == 2 and 5 * 8 < built[-1].n_docs == len(jset.corpus)
+        # and the pools themselves (the codes' ranking, no refine) are qst_tpu's
+        q = jenc.encode(list(jset.queries.values()))
+        jidx = _carried_to_jax(built[-1])(None, built[-1].ids, None)
+        pos = {d: i for i, d in enumerate(built[-1].ids)}
+        pools = [(np.asarray(s), np.array([[pos[d] for d in row] for row in ids]))
+                 for s, ids in (idx.search_ids(q, k=40, refine_factor=0)
+                                for idx in (built[-1], jidx))]
+        assert_topk_equal_up_to_ties(*pools[0], *pools[1], rtol=1e-6, atol=1e-5)
     ev = JaxIREvaluator(jset.queries, jset.corpus, jset.relevant,
-                        cfg=JaxIREvalConfig(n_queries=20, score_functions=tuple(fns)))
+                        cfg=JaxIREvalConfig(n_queries=20, score_functions=tuple(fns), **ks),
+                        index_factory=_carried_to_jax(built[-1]) if built else None)
     ev(lambda texts: jenc.encode(list(texts)))
     assert list(results["trained"]["metrics"]) == fns
     for fn in fns:
@@ -408,7 +533,7 @@ def test_dataset_parser_keeps_the_source_flags():
 
 @pytest.mark.parametrize("argv", [
     ["--use_cross_encoder"], ["--cross_encoder_dir", "ce"], ["--generate_query_variations"],
-    ["--eval_index", "pq"], ["--eval_index", "ivfpq"], ["--mesh_model", "2"],
+    ["--mesh_model", "2"],
 ])
 def test_ir_eval_cli_refuses_unported_flags(quad_data, argv):
     root, data, _, _ = quad_data

@@ -167,8 +167,5 @@ def test_retriever_paths_agree_and_persist_across_packages(stacks, tmp_path):
 
 def test_unported_retriever_options_raise(stacks):
     _, tenc, _ = stacks
-    for kind in ("pq", "ivfpq", "streaming"):
-        with pytest.raises(NotImplementedError):
-            Retriever(tenc, index_dtype=kind)
     with pytest.raises(NotImplementedError):
         Retriever(tenc, mesh=object())
