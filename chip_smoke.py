@@ -5,6 +5,7 @@
     python3 chip_smoke.py --phases build,check,train
     python3 chip_smoke.py --phases build,check,ivf
     python3 chip_smoke.py --phases build,pq
+    python3 chip_smoke.py --phases build,flash     # the long-document path alone
     python3 chip_smoke.py --phases build,check,train,evaluate
     python3 chip_smoke.py --phases build,dataset,capture,ablation
     python3 chip_smoke.py --phases build,ablation --ablation_steps 2000   # the decisive run
@@ -126,8 +127,28 @@ Phases (any failure exits non-zero and prints no result):
    sentences/s and the MPNet-base train step with its busy share (no
    library GEMM or attention kernel in a profiled encode or train step).
 
-13. pq    — the compressed and streamed indexes, last (run before the
-   profiled phases, it left their traces empty once): index_main build |
+13. flash — the long-document path (use_flash_attention): K7 and K8
+   against their plain versions at hd 16 / 32 / 64, S 128 / 256 / 512 /
+   2,048, f32 and bf16, with a padded and an all-padding sequence, K8
+   bit-equal between calls; MiniLM-L6 at full width and max_seq_length 512
+   behind load_tokenizer's native WordPiece tokenizer (the phase fails
+   without it): 65,536 documents of 300-450 words through Retriever.build
+   (6 K7 launches an encode batch) and 256 queries through Retriever.search
+   (K4 + K5) against the plain scan, the embeddings against the einsum
+   path's (cosine >= 0.999), no library attention kernel and no GEMM for
+   attention in a profiled encode batch; Trainer.train for 10 steps of 8
+   quadruplets at S = 512 (attention dropout 0; K7 and K8 six times a
+   step), the first step's gradients against the plain versions, a falling
+   loss, two captured calls of 2 steps against 4 eager ones; times of K7,
+   K8, their plain versions and scaled_dot_product_attention with the same
+   mask beside the bounds, encode sentences/s at S = 256 and 512 flash
+   against einsum, tokenization docs/s native against Python, and one IR
+   evaluation by part with each tokenizer.
+
+14. pq    — the compressed and streamed indexes, last (run before the
+   profiled phases, it makes their torch.profiler traces lose kernels,
+   although it tears down what it opened; the cause is not known):
+   index_main build |
    serve | query for --index_dtype pq (m 48, refine rows), ivfpq at 8 and 4 bits
    and streaming over the ivf phase's 65,536 docs, 256 queries a batch (pq
    and streaming through K4 + K5, launches exactly one of each a search a
@@ -165,7 +186,7 @@ import urllib.request
 import numpy as np
 
 PHASES = ("build", "check", "serve", "ivf", "train", "times", "profile", "evaluate", "dataset",
-          "capture", "ablation", "mpnet", "pq")
+          "capture", "ablation", "mpnet", "flash", "pq")
 
 
 def fail(msg: str) -> None:
@@ -891,8 +912,9 @@ def ask_concurrently(port: int, queries, k: int) -> dict:
     return answers
 
 
-LIBRARY_KERNEL_MARKS = ("gemm", "gemv", "nvjet", "cutlass", "cublas", "xmma", "flash", "fmha",
-                        "sdpa", "attention")
+LIBRARY_GEMM_MARKS = ("gemm", "gemv", "nvjet", "cutlass", "cublas", "xmma")
+LIBRARY_ATTENTION_MARKS = ("flash", "fmha", "sdpa", "attention")
+LIBRARY_KERNEL_MARKS = LIBRARY_GEMM_MARKS + LIBRARY_ATTENTION_MARKS
 
 
 def library_kernels(prof) -> dict:
@@ -1425,10 +1447,11 @@ def write_quadruplet_chunks(root: str, n: int, seed: int, per_chunk: int = 64) -
 
 class plain_kernels:
     """Within the block, the training path's kernel wrappers are their plain
-    versions (so the same step runs through K1/K2/K3's plain versions on
-    the card, for the gradient comparison); restored on exit."""
+    versions (so the same step runs through K1/K2/K3's, or K7/K8's, plain
+    versions on the card, for the gradient comparison); restored on exit."""
 
     def __enter__(self):
+        from qst_tpu_torch.ops import flash_attention as fa
         from qst_tpu_torch.ops import fused_layer as fl
         from qst_tpu_torch.ops import quadruplet as qd
 
@@ -1436,7 +1459,9 @@ class plain_kernels:
                       (fl, "fused_bert_layer_bwd", fl.fused_bert_layer_bwd_plain),
                       (qd, "fused_gamma_quadruplet_loss_fwd", qd.fused_gamma_quadruplet_loss_plain),
                       (qd, "fused_gamma_quadruplet_loss_bwd",
-                       qd.fused_gamma_quadruplet_loss_bwd_plain)]
+                       qd.fused_gamma_quadruplet_loss_bwd_plain),
+                      (fa, "flash_attention", fa.flash_attention_plain),
+                      (fa, "flash_attention_bwd", fa.flash_attention_bwd_plain)]
         self.saved = [(m, n, getattr(m, n), plain) for m, n, plain in self.saved]
         for m, n, _, plain in self.saved:
             setattr(m, n, plain)
@@ -2830,10 +2855,16 @@ def layer_pieces(kernels: dict) -> dict:
     return out
 
 
+def lib_kernels(names: dict, marks) -> dict:
+    """The library kernels (not the port's: no ``qst::``) among ``names``
+    whose name holds one of ``marks``."""
+    return {n: c for n, c in names.items()
+            if "qst::" not in n and any(mk in n.lower() for mk in marks)}
+
+
 def ban_library_kernels(kernels: dict, what: str) -> None:
     """Fail if a library's GEMM or attention kernel ran (``device_ms``'s names)."""
-    banned = sorted(n for n in kernels if "qst::" not in n
-                    and any(b in n.lower() for b in LIBRARY_KERNEL_MARKS))
+    banned = sorted(lib_kernels(kernels, LIBRARY_KERNEL_MARKS))
     if banned:
         fail(f"library kernels on the path of {what}: {banned}")
 
@@ -4373,18 +4404,697 @@ def stream_scale(report: dict) -> None:
     report["pq"]["streaming"] = res
 
 
-def pq(report: dict) -> None:
+def tear_down() -> dict:
+    """Release what a phase leaves behind for the next one: the device's
+    queued work, collected objects (an index's copy stream, events and
+    buffers), device memory the caching allocator holds, and the
+    page-locked host memory torch's host allocator caches (the streamed
+    index's staging buffers, the pinned copies: gigabytes after ``pq``).
+    Fails if a profiler is still running. → what was released."""
+    import gc
+
     import torch
 
+    torch.cuda.synchronize()
+    gc.collect()
+    before = torch.cuda.memory_reserved()
+    torch.cuda.empty_cache()
+    host_empty = getattr(torch._C, "_host_emptyCache", None)
+    if host_empty is not None:
+        host_empty()
+    if torch.autograd._profiler_enabled():
+        fail("a profiler was left running")
+    return {"device_gb": (before - torch.cuda.memory_reserved()) / 1e9,
+            "host_cache_emptied": host_empty is not None}
+
+
+def pq(report: dict) -> None:
     report["pq"] = {}
     parts = {}
     for name, fn in (("cli", pq_cli), ("scale", pq_scale), ("streaming", stream_scale)):
         t0 = time.perf_counter()
         fn(report)
         parts[name] = time.perf_counter() - t0
-        torch.cuda.empty_cache()
+        released = tear_down()
     report["pq"]["part_s"] = parts
-    log("pq phase by part (s): " + ", ".join(f"{n} {v:.1f}" for n, v in parts.items()))
+    log("pq phase by part (s): " + ", ".join(f"{n} {v:.1f}" for n, v in parts.items())
+        + f"; torn down after it: {released}")
+
+
+# ---------------------------------------------------------------------------
+# flash: the long-document path (use_flash_attention) through K7 and K8
+# ---------------------------------------------------------------------------
+# long documents of the end-to-end encode and search: ExactIndex's dispatch rule
+# takes K4 + K5 from PALLAS_MIN_DOCS (65,536) documents on
+FLASH_DOCS = 65536
+FLASH_QUERIES = 256
+FLASH_SEQS = (128, 256, 512, 2048)
+FLASH_TRAIN_INSTANCES = 80  # 10 steps of 8 quadruplets
+
+
+def flash_counters():
+    from qst_tpu_torch.ops import flash_attention as fa
+
+    return fa.flash_attention, fa.flash_attention_bwd
+
+
+def flash_segments(B: int, S: int, dev, gen):
+    """(B, S) int32 segment ids as the encoder makes them from its masks (1
+    real, 0 padding): sequence 0 all real, 1 padded after two thirds, 2
+    all padding, the rest random lengths from S/4 up."""
+    import torch
+
+    lens = torch.randint(S // 4, S + 1, (B,), generator=gen)
+    lens[0], lens[1] = S, 2 * S // 3
+    if B > 2:
+        lens[2] = 0
+    return (torch.arange(S)[None, :] < lens[:, None]).to(torch.int32).to(dev)
+
+
+def flash_docs(n: int, seed: int) -> list:
+    """n documents of 300-450 words of the synthetic vocabulary (w0 .. w4999):
+    [CLS], the words and [SEP] land in the 512 bucket."""
+    rng = np.random.default_rng(seed)
+    words = np.array([f"w{i}" for i in range(5000)])
+    return [" ".join(words[rng.integers(0, 5000, int(rng.integers(300, 451)))])
+            for _ in range(n)]
+
+
+def check_flash_kernels(report: dict) -> None:
+    """K7 and K8 against their plain versions on the port's (B, S, nh, hd)
+    activations seen as (B, nh, S, hd): hd 16 / 32 / 64, S 128 / 256 / 512 /
+    2,048, f32 and bf16, a padded sequence and an all-padding one; and in
+    bf16 at the main path's own shapes, 12 heads of 32 at S = 512 with the
+    train step's B = 32 and the encode batch's B = 256. f32: o
+    within 1e-4, each gradient within 1e-4 of its largest value; bf16: o
+    within K1's forward bars, each gradient within 2e-2 of its largest value
+    at most and 2^-7 of its mean (K2's); the row statistics within 1e-4
+    relative; K8 bit-equal between two calls."""
+    import torch
+
+    from qst_tpu_torch.ops import flash_attention as fa
+
+    dev = torch.device("cuda")
+    gen = torch.Generator().manual_seed(71)
+    worst = {}
+    cases = [(dtype, 3, 2, S, hd) for dtype in (torch.float32, torch.bfloat16)
+             for hd in (16, 32, 64) for S in FLASH_SEQS]
+    cases += [(torch.bfloat16, 32, 12, 512, 32), (torch.bfloat16, 256, 12, 512, 32)]
+    for dtype, B, nh, S, hd in cases:
+        name, sc = str(dtype).split(".")[-1], hd ** -0.5
+        q, k, v, do = (torch.randn((B, S, nh, hd), generator=gen).to(dev, dtype)
+                       .transpose(1, 2) for _ in range(4))
+        seg = flash_segments(B, S, dev, gen)
+        what = f"K7/K8 {name} B={B} nh={nh} hd={hd} S={S}"
+        o, m, l = fa.flash_attention(q, k, v, seg, seg, sc, return_stats=True)
+        o_p, m_p, l_p = fa.flash_attention_plain(q, k, v, seg, seg, sc,
+                                                 return_stats=True)
+        g = fa.flash_attention_bwd(q, k, v, seg, seg, o, m, l, do, sc)
+        g2 = fa.flash_attention_bwd(q, k, v, seg, seg, o, m, l, do, sc)
+        g_p = fa.flash_attention_bwd_plain(q, k, v, seg, seg, o, m, l, do, sc)
+        torch.cuda.synchronize()
+        stats = max(((m - m_p).abs() / (1 + m_p.abs())).max().item(),
+                    ((l - l_p).abs() / l_p).max().item())
+        if stats > 1e-4:
+            fail(f"{what}: row statistics {stats:.3e} from the plain version's")
+        if not all(torch.equal(a, b) for a, b in zip(g, g2)):
+            fail(f"{what}: two K8 calls differ")
+        if dtype == torch.float32:
+            o_err = (o - o_p).abs().max().item()
+            if o_err > 1e-4:
+                fail(f"{what}: K7 max|err| {o_err:.3e} (limit 1e-4)")
+        else:
+            diff = (o.float() - o_p.float()).abs()
+            o_err = diff.max().item()
+            ulps = (diff / (bf16_ulp(o_p.float()) + 2.0 ** -7)).max().item()
+            mean_rel = (diff.mean() / o_p.float().abs().mean()).item()
+            if not (o_err <= 2e-2 * o_p.float().abs().max().item() and ulps <= 2.0
+                    and mean_rel <= 2.0 ** -10):
+                fail(f"{what}: K7 outside K1's bf16 bars: max|err| {o_err:.3e}, worst "
+                     f"element {ulps:.2f} x (ulp + 2^-7), mean rel {mean_rel:.3e}")
+        g_err = 0.0
+        for gn, a, r in zip("qkv", g, g_p):
+            d, r = (a.float() - r.float()).abs(), r.float().abs()
+            g_err = max(g_err, d.max().item())
+            rel_max = d.max().item() / r.max().item()
+            rel_mean = (d.mean() / r.mean()).item()
+            limit = (1e-4, None) if dtype == torch.float32 else (2e-2, 2.0 ** -7)
+            if rel_max > limit[0] or (limit[1] is not None and rel_mean > limit[1]):
+                fail(f"{what}: d{gn} max|err|/max|ref| {rel_max:.3e}, mean "
+                     f"{rel_mean:.3e} (limits {limit})")
+        w = worst.setdefault(name, {"o": 0.0, "grads": 0.0})
+        w["o"], w["grads"] = max(w["o"], o_err), max(w["grads"], g_err)
+        if nh == 12:   # the main path's shapes: K7 in encode, K8 in train
+            log(f"{what} (the main path's shape): K7 max|err| {o_err:.3e}, K8 "
+                f"max|err| {g_err:.3e}, K8 bit-equal between calls")
+            if B == 256:
+                report["K7"]["max_abs_err"] = o_err
+            else:
+                report["K8"]["max_abs_err"] = g_err
+        del q, k, v, do, o, o_p, g, g2, g_p
+    report["flash"]["kernel_max_abs_err"] = worst
+    log(f"K7/K8 against the plain versions at hd 16/32/64, S {FLASH_SEQS}, f32 and bf16 "
+        f"(padded and all-padding sequences), and bf16 at (32 and 256, 12, 512, 32); K8 "
+        f"bit-equal between calls: worst max|err| {worst}")
+    torch.cuda.empty_cache()
+
+
+def flash_encode_search(report: dict, vocab: str) -> None:
+    """MiniLM-L6 at full width with use_flash_attention and max_seq_length
+    512 behind the native WordPiece tokenizer: 65,536 documents of 300-450
+    words through Retriever.build (SentenceEncoder.encode → ExactIndex,
+    bf16), 256 queries through Retriever.search (K4 + K5); 6 K7 launches an
+    encode batch; the answers against the plain scan over the same query
+    embeddings; the embeddings against the einsum path's (flag off, same
+    weights) at cosine >= 0.999; no library attention kernel, and no GEMM
+    for attention, in a profiled encode batch."""
+    import dataclasses
+
+    import torch
+
+    from qst_tpu_torch.core.config import EncoderConfig
+    from qst_tpu_torch.models.sentence_encoder import SentenceEncoder, init_params
+    from qst_tpu_torch.models.tokenizer import load_tokenizer
+    from qst_tpu_torch.native import FastWordPieceTokenizer, native_available
+    from qst_tpu_torch.ops import topk
+    from qst_tpu_torch.retrieval import Retriever
+
+    cfg = EncoderConfig.minilm_l6(use_flash_attention=True, max_seq_length=512)
+    tok = load_tokenizer(vocab, vocab_size=cfg.vocab_size)
+    if not (native_available() and isinstance(tok, FastWordPieceTokenizer)
+            and tok._handle is not None):
+        fail("load_tokenizer did not give the native WordPiece tokenizer (g++ build failed?)")
+    params = init_params(cfg, torch.Generator().manual_seed(31), device="cuda")
+    enc = SentenceEncoder(cfg, params, tok, device="cuda")
+    t0 = time.perf_counter()
+    docs = flash_docs(FLASH_DOCS, seed=32)
+    rng = np.random.default_rng(33)
+    queries = []
+    for d in rng.integers(0, FLASH_DOCS, FLASH_QUERIES):
+        ws = docs[d].split()
+        lo = int(rng.integers(0, len(ws) - 30))
+        queries.append(" ".join(ws[lo:lo + 30] + [f"w{j}" for j in rng.integers(0, 5000, 2)]))
+    gen_s = time.perf_counter() - t0
+    k7, k8 = flash_counters()
+    counts = (k7, k8, topk.bucket_maxima, topk.rescore_buckets)
+    for c in counts:
+        c.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    retr = Retriever(enc, score="dot_score", index_dtype="bfloat16").build(docs)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    build_launches = [c.launches for c in counts]
+    t0 = time.perf_counter()
+    answers = retr.search(queries, k=10)
+    torch.cuda.synchronize()
+    search_s = time.perf_counter() - t0
+    launches = [c.launches for c in counts]
+    batches = -(-FLASH_DOCS // 256)
+    log(f"flash encode + search: {FLASH_DOCS} docs of 300-450 words ({gen_s:.1f} s to make) "
+        f"encoded and indexed in {build_s:.1f} s ({FLASH_DOCS / build_s:.0f} docs/s, "
+        f"tokenization included), {FLASH_QUERIES} queries searched in {search_s:.3f} s; "
+        f"launches K7 {launches[0]} (build {build_launches[0]}), K8 {launches[1]}, "
+        f"K4 {launches[2]}, K5 {launches[3]}")
+    if build_launches[0] != 6 * batches or launches[0] != build_launches[0]:
+        fail(f"K7 launched {build_launches[0]} times in the encode ({6 * batches} wanted: "
+             f"6 a batch of 256 at S=512) and {launches[0] - build_launches[0]} in the search")
+    if launches[1] or launches[2] - build_launches[2] < 1 or launches[3] - build_launches[3] < 1:
+        fail(f"the search did not take K4 + K5 (or K8 ran): {launches}")
+    report["K7"]["launches"] = report["K7"].get("launches", 0) + launches[0]
+
+    # the answers against the plain scan over the same query embeddings
+    q_emb = enc.encode(queries, convert_to_numpy=False)
+    ps, pi = retr.index.search(q_emb, k=10, backend="xla")
+    true = (q_emb.to(torch.bfloat16).float() @ retr.index.embeddings.float().T).cpu().numpy()
+    ss = np.array([[r[1] for r in row] for row in answers])
+    si = np.array([[r[0] for r in row] for row in answers])
+    if not ids_match_up_to_ties(ss, si, ps, pi, true, 1e-4):
+        fail("the flash path's search answers differ from the plain scan")
+    del true
+
+    # the embeddings against the einsum path's: cosine per document
+    off = dataclasses.replace(cfg, use_flash_attention=False)
+    enc_off = SentenceEncoder(off, params, tok, device="cuda")
+    sub = docs[:4096]
+    e_on = enc.encode(sub, convert_to_numpy=False)
+    e_off = enc_off.encode(sub, convert_to_numpy=False)
+    cos = torch.nn.functional.cosine_similarity(e_on, e_off, dim=1).min().item()
+    log(f"flash embeddings against the einsum path's (flag off, same weights), "
+        f"{len(sub)} documents at S=512: min cosine {cos:.6f} (limit 0.999); search answers "
+        f"equal to the plain scan up to ties")
+    if not cos >= 0.999:
+        fail("the flash path's embeddings disagree with the einsum path's")
+
+    # one encode batch under the profiler: K7 six times, no library attention
+    # kernel; the library GEMMs are the projections' (6 a layer), the einsum
+    # path's two attention products a layer are gone
+    ids, mask = tok.batch_encode(docs[:256], max_length=512)
+    ids = torch.from_numpy(ids.astype(np.int64)).cuda()
+    mask = torch.from_numpy(mask.astype(np.int64)).cuda()
+    names = kernel_names(lambda: enc.encode_ids(ids, mask), want=("flash_fwd_mma_kernel",))
+    names_off = kernel_names(lambda: enc_off.encode_ids(ids, mask))
+    k7_names = {n: c for n, c in names.items() if "flash_fwd_mma_kernel" in n}
+    # the einsum path's softmax counts as library attention here
+    att = lib_kernels(names, LIBRARY_ATTENTION_MARKS + ("softmax",))
+    gemm = lib_kernels(names, LIBRARY_GEMM_MARKS)
+    gemm_off = lib_kernels(names_off, LIBRARY_GEMM_MARKS)
+    n_gemm, n_gemm_off = sum(gemm.values()), sum(gemm_off.values())
+    L = cfg.num_layers
+    log(f"one flash encode batch (256 x 512) under the profiler: K7 {k7_names}; library "
+        f"attention kernels {att or 'none'}; library GEMM launches {n_gemm:g} (the einsum "
+        f"path's {n_gemm_off:g}: {sorted(set(map(short_name, gemm_off)))})")
+    if sum(k7_names.values()) != L or att or n_gemm > 6 * L or n_gemm_off < n_gemm + 2 * L:
+        fail("the flash encode ran library attention or GEMMs for attention, or not K7 "
+             "once a layer")
+    report["flash"].update(encode_search={
+        "docs": FLASH_DOCS, "build_s": build_s, "docs_per_s": FLASH_DOCS / build_s,
+        "search_s": search_s, "launches": dict(zip(("K7", "K8", "K4", "K5"), launches)),
+        "min_cosine_vs_einsum": cos, "library_gemms_per_batch": n_gemm,
+        "einsum_library_gemms_per_batch": n_gemm_off})
+    del retr, e_on, e_off
+    torch.cuda.empty_cache()
+
+
+def flash_train(report: dict, vocab: str, tmp: str) -> None:
+    """Trainer.train with use_flash_attention at S = 512 (MiniLM-L6, bf16,
+    batch 8 quadruplets = 32 sequences, attention dropout 0, hidden dropout
+    0.1 from the host generator, the fused γ loss): 10 steps, K7 and K8
+    each 6 times a step, finite losses; the first step's gradients at
+    dropout 0 against the plain versions (cosine >= 0.999; per tensor 5e-2,
+    or twice the plain versions' distance from an f32 step where that is
+    over 2.5e-2, as the mpnet phase holds them; the key bias, whose true
+    gradient is 0, may instead meet the train phase's rule); a falling loss
+    on a repeated batch; two captured calls of 2 steps at dropout 0 against
+    4 eager steps."""
+    import dataclasses
+
+    import torch
+
+    from qst_tpu_torch.core.config import EncoderConfig, LossConfig, TrainConfig
+    from qst_tpu_torch.core.telemetry import JsonLogSink
+    from qst_tpu_torch.data import QuadrupletCollator, QuadrupletDataset
+    from qst_tpu_torch.models.tokenizer import load_tokenizer
+    from qst_tpu_torch.train import (Trainer, create_train_state, dropout_key, make_multi_step,
+                                     make_train_step)
+    from qst_tpu_torch.train.train_step import encoder_apply_fn, loss_from_config
+
+    dev = torch.device("cuda")
+    enc_cfg = EncoderConfig.minilm_l6(use_flash_attention=True, max_seq_length=512,
+                                      attention_dropout=0.0)
+    loss_cfg = LossConfig(kind="gamma", use_fused_kernel=True)
+    base = TrainConfig(batch_size=8)
+    tok = load_tokenizer(vocab, vocab_size=enc_cfg.vocab_size)
+    root = f"{tmp}/flash_chunks"
+    write_long_chunks(root, FLASH_TRAIN_INSTANCES, seed=35)
+    ds = QuadrupletDataset(root, seed=35)
+    collator = QuadrupletCollator(tok, max_length=enc_cfg.max_seq_length)
+    cfg = dataclasses.replace(base, epochs=1, evaluation_steps=1, checkpoint_save_steps=0,
+                              save_best_model=False, experiment_dir=f"{tmp}/flash_exp")
+    trainer = Trainer(enc_cfg, loss_cfg, cfg, ds, collator, device=dev)
+    k7, k8 = flash_counters()
+    k7.launches = k8.launches = 0
+    t0 = time.perf_counter()
+    result = trainer.train()
+    wall = time.perf_counter() - t0
+    launches = [k7.launches, k8.launches]
+    losses = [e["loss"] for e in JsonLogSink(f"{cfg.experiment_dir}/train_loss.json").read()]
+    steps = result.state.step
+    log(f"flash Trainer.train: {steps} steps of MiniLM-L6 (8 quadruplets = 32 sequences of "
+        f"S=512, bf16, attention dropout 0, hidden 0.1) in {wall:.1f} s, "
+        f"{result.steps_per_sec:.2f} steps/s in the loop; launches K7 {launches[0]}, K8 "
+        f"{launches[1]}; losses {['%.4f' % v for v in losses]}")
+    if steps != FLASH_TRAIN_INSTANCES // 8 or len(losses) != steps or not all(np.isfinite(losses)):
+        fail(f"flash Trainer.train: {steps} steps, losses {losses}")
+    if launches != [6 * steps, 6 * steps]:
+        fail(f"flash Trainer.train: K7 / K8 launched {launches}, want 6 a step each")
+    report["K7"]["launches"] = report["K7"].get("launches", 0) + launches[0]
+    report["K8"]["launches"] = report["K8"].get("launches", 0) + launches[1]
+    batch = collator(ds.sample_batch(range(8), step=0))
+    steps_per_s = result.steps_per_sec
+    del trainer, result
+
+    # the first step's gradients at dropout 0: K7/K8 against the plain versions
+    cfg0 = dataclasses.replace(enc_cfg, hidden_dropout=0.0)
+    state, _ = create_train_state(cfg0, base, torch.Generator().manual_seed(36), 10, loss_cfg,
+                                  device=dev)
+    ids = torch.from_numpy(batch.input_ids.reshape(32, -1).astype(np.int64)).to(dev)
+    mask = torch.from_numpy(batch.attention_mask.reshape(32, -1).astype(np.int64)).to(dev)
+    grads = []
+    for plain in (False, True):
+        state.model.zero_grad(set_to_none=True)
+        with plain_kernels() if plain else contextlib.nullcontext():
+            emb = encoder_apply_fn(cfg0)(state.model, ids, mask, None).reshape(4, 8, -1)
+            loss_from_config(loss_cfg)(*emb.unbind(0)).backward()
+        torch.cuda.synchronize()
+        grads.append({n: p.grad.detach().clone() for n, p in state.model.named_parameters()})
+    # the same step in f32 through the plain versions: the reference both
+    # bf16 paths round away from
+    m32 = type(state.model)(dataclasses.replace(cfg0, dtype="float32")).to(dev)
+    m32.load_state_dict(state.model.state_dict())
+    with plain_kernels():
+        emb = encoder_apply_fn(cfg0)(m32, ids, mask, None).reshape(4, 8, -1)
+        loss_from_config(loss_cfg)(*emb.unbind(0)).backward()
+    torch.cuda.synchronize()
+    exact = {n: p.grad.detach() for n, p in m32.named_parameters()}
+    kern, ref = grads
+    cos = torch.nn.functional.cosine_similarity(
+        torch.cat([g.flatten() for g in kern.values()]),
+        torch.cat([g.flatten() for g in ref.values()]), dim=0).item()
+    # Per tensor |g_k - g_p| <= 5e-2 |g_p|, as the train phase holds, where
+    # the plain bf16 gradient is itself within 2.5e-2 of the f32 one; where
+    # it is not, the tensor's gradient is bf16 rounding noise of a sum that
+    # cancels (each row of dS sums to 0, so a key component common to the
+    # tokens drops out of dQ but its rounding does not), and the kernels'
+    # distance from the f32 gradient is held to twice the plain versions'
+    # own (the mpnet phase's rule). The key bias's true gradient is 0, so
+    # it is that noise alone; it may instead meet the train phase's rule,
+    # within 5e-2 of the plain versions' at the query bias's scale
+    def rel(a, b):
+        return ((a - b).norm() / b.norm().clamp_min(1e-30)).item()
+
+    worst, noisy = (0.0, ""), []
+    for n, g in ref.items():
+        e_kp, e_p32, e_k32 = rel(kern[n], g), rel(g, exact[n]), rel(kern[n], exact[n])
+        if e_p32 <= 2.5e-2:
+            worst = max(worst, (e_kp, n))
+        else:
+            noisy.append((n, e_k32, e_p32))
+            q_bias = ref[n.replace("key", "query")] if n.endswith("self.key.bias") else None
+            if e_k32 > 2 * e_p32 and not (
+                    q_bias is not None
+                    and (kern[n] - g).norm().item() <= 5e-2 * q_bias.norm().item()):
+                fail(f"flash gradient {n}: {e_k32:.3e} from the f32 one, the plain "
+                     f"versions' {e_p32:.3e}")
+    log(f"flash first step's gradients (S=512, dropout 0), K7/K8 against the plain versions: "
+        f"cosine {cos:.6f} (limit 0.999); worst per-tensor |g_k - g_p|/|g_p| {worst[0]:.3e} "
+        f"({worst[1]}; limit 5e-2) over {len(ref) - len(noisy)} tensors; {len(noisy)} "
+        f"tensors whose plain bf16 gradient is > 2.5e-2 from the f32 one, distance from f32 "
+        f"kernels / plain (limit 2x): "
+        + ", ".join(f"{n.removeprefix('encoder.layer.')} {a:.3f}/{b:.3f}" for n, a, b in noisy))
+    if not (cos >= 0.999 and worst[0] <= 5e-2):
+        fail("the flash path's gradients disagree with the plain versions")
+    report["flash"]["noise_dominated_grads"] = len(noisy)
+    del state, grads, kern, ref, exact, m32
+
+    # a falling loss: 10 steps on one repeated batch, hidden dropout 0.1
+    state, _ = create_train_state(enc_cfg, dataclasses.replace(base, learning_rate=1e-4,
+                                                               warmup_steps=2),
+                                  torch.Generator().manual_seed(37), 10, loss_cfg, device=dev)
+    step = make_train_step(enc_cfg, loss_cfg)
+    rep = []
+    for i in range(10):
+        state, loss = step(state, batch.input_ids, batch.attention_mask, dropout_key(38, i + 1))
+        rep.append(loss.item())
+    log(f"flash: 10 steps on one repeated batch (lr 1e-4, warmup 2): loss {rep[0]:.4f} -> "
+        f"{rep[-1]:.4f}")
+    if not (all(np.isfinite(rep)) and np.mean(rep[-3:]) < np.mean(rep[:3])):
+        fail(f"flash: the loss did not fall: {rep}")
+    del state
+
+    # two captured calls of K = 2 steps at dropout 0 (K7/K8 in the graph)
+    # against 4 eager steps from the same state
+    K = 2
+    cfg00 = dataclasses.replace(cfg0, attention_dropout=0.0)
+    cids = torch.from_numpy(np.stack([batch.input_ids] * 2 * K).astype(np.int64))
+    cmask = torch.from_numpy(np.stack([batch.attention_mask] * 2 * K).astype(np.int64))
+
+    def state_for():
+        return create_train_state(cfg00, base, torch.Generator().manual_seed(39), 100,
+                                  loss_cfg, device=dev)[0]
+
+    graph_st, eager_st = state_for(), state_for()
+    multi = make_multi_step(cfg00, loss_cfg, None, K)
+    k7.launches = k8.launches = 0
+    graph_losses = []
+    for call in range(2):
+        graph_st, ls = multi(graph_st, cids[call * K:(call + 1) * K],
+                             cmask[call * K:(call + 1) * K], None)
+        graph_losses.append(ls)
+    torch.cuda.synchronize()
+    graph_launches = [k7.launches, k8.launches]
+    step = make_train_step(cfg00, loss_cfg)
+    eager_losses = []
+    for j in range(2 * K):
+        eager_st, loss = step(eager_st, cids[j], cmask[j])
+        eager_losses.append(loss)
+    torch.cuda.synchronize()
+    graph_losses, eager_losses = torch.cat(graph_losses), torch.stack(eager_losses)
+    tensors = list(zip(graph_st.optimizer.state_tensors(), eager_st.optimizer.state_tensors()))
+    names = [f"{n}{part}" for n, p in graph_st.model.named_parameters()
+             for part in ("", ".mu", ".nu")]
+    differ = [n for n, (a, b) in zip(names, tensors) if not torch.equal(a, b)]
+    unequal = len(differ)
+    same = torch.equal(graph_losses, eager_losses)
+    diff = (graph_losses - eager_losses).abs().max().item()
+    log(f"flash captured steps (S=512, dropout 0): 2 calls of {K} against {2 * K} eager "
+        f"steps: losses {'bit-equal' if same else f'DIFFER by {diff:.3e}'}, "
+        f"{len(tensors) - unequal} of {len(tensors)} state tensors bit-equal"
+        + (f" (differ: {differ})" if differ else "") + f"; K7 / K8 "
+        f"launches {graph_launches} (the warm-up's and one replay's: want {[6 * 2 * K] * 2})")
+    if multi._graph is None or not same or unequal or graph_launches != [12 * K, 12 * K]:
+        fail("flash: the captured steps differ from the eager ones")
+    report["flash"]["train"] = {"trainer_steps_per_s": steps_per_s,
+                                "grad_cosine": cos, "captured_bit_equal": True}
+    del graph_st, eager_st, multi
+    torch.cuda.empty_cache()
+
+
+def ir_eval_by_part(enc, ir_set) -> dict:
+    """One IR evaluation as the evaluator runs it, timed by part on the host
+    clock (synchronised): tokenizing every query and document alone, the
+    encode of queries and corpus (tokenization included) into an
+    ExactIndex, the cos and dot searches at k = 100 and the metrics."""
+    import torch
+
+    from qst_tpu_torch.evals import ir_metrics
+    from qst_tpu_torch.retrieval.index import ExactIndex
+
+    qids = [q for q in ir_set.queries if ir_set.relevant.get(q)]
+    queries, cids = [ir_set.queries[q] for q in qids], list(ir_set.corpus)
+    corpus = [ir_set.corpus[c] for c in cids]
+    rel = [ir_set.relevant[q] for q in qids]
+    enc.encode(queries[:256], convert_to_numpy=False)          # warm
+    out = {}
+    t0 = time.perf_counter()
+    for texts in (queries, corpus):
+        for i in range(0, len(texts), 256):
+            enc.tokenizer.batch_encode(texts[i:i + 256], max_length=enc.cfg.max_seq_length)
+    out["tokenize_s"] = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    q_emb = enc.encode(queries, convert_to_numpy=False)
+    index = ExactIndex(enc.encode(corpus, convert_to_numpy=False), ids=cids)
+    torch.cuda.synchronize()
+    out["encode_s"] = time.perf_counter() - t0
+    out["search_s"] = out["metrics_s"] = 0.0
+    for fn in ("cos_sim", "dot_score"):
+        index.search_ids(q_emb, k=100, score=fn)                # warm
+        t0 = time.perf_counter()
+        _, ranked = index.search_ids(q_emb, k=100, score=fn)
+        t1 = time.perf_counter()
+        ir_metrics(ranked, rel, accuracy_at_k=(1, 3, 5, 10), precision_recall_at_k=(1, 3, 5, 10),
+                   mrr_at_k=(10,), ndcg_at_k=(10,), map_at_k=(100,))
+        out["search_s"] += t1 - t0
+        out["metrics_s"] += time.perf_counter() - t1
+    return out
+
+
+def flash_times(report: dict, vocab: str, tmp: str) -> None:
+    """K7 and K8 at B = 64, S = 512, 12 heads of 32 (bf16) beside their
+    plain versions, torch's scaled_dot_product_attention with the same
+    segment mask (forward, and forward + backward) and their bounds; K7 at
+    the encode batch (256 x 256 and 256 x 512); encode sentences/s at S = 256
+    and 512, flash against the einsum nn.Module path in turns; tokenization
+    docs/s at S = 512, native against Python; one IR evaluation by part
+    with the Python and the native tokenizer, in turns."""
+    import dataclasses
+
+    import torch
+    import torch.nn.functional as F
+
+    from qst_tpu_torch.core.config import EncoderConfig
+    from qst_tpu_torch.evals import create_ir_evaluation_set
+    from qst_tpu_torch.data import ChunkStore
+    from qst_tpu_torch.models.sentence_encoder import SentenceEncoder, init_params
+    from qst_tpu_torch.models.tokenizer import WordPieceTokenizer, load_tokenizer
+    from qst_tpu_torch.ops import flash_attention as fa
+
+    dev = torch.device("cuda")
+    gen = torch.Generator().manual_seed(40)
+    B, nh, S, hd = 64, 12, 512, 32
+    H, sc = nh * hd, hd ** -0.5
+    q, k, v, do = (torch.randn((B, S, nh, hd), generator=gen).to(dev, torch.bfloat16)
+                   .transpose(1, 2) for _ in range(4))
+    seg = flash_segments(B, S, dev, gen)
+    allowed = (seg[:, None, :, None] == seg[:, None, None, :])
+    o, m, l = fa.flash_attention(q, k, v, seg, seg, sc, return_stats=True)
+    r7, r8 = report["K7"], report["K8"]
+    r7["ms"] = cuda_ms(lambda: fa.flash_attention(q, k, v, seg, seg, sc), 20)
+    r7["plain_ms"] = cuda_ms(lambda: fa.flash_attention_plain(q, k, v, seg, seg, sc), 3)
+    r7["library_ms"] = cuda_ms(lambda: F.scaled_dot_product_attention(
+        q, k, v, attn_mask=allowed, scale=sc), 20)
+    r8["ms"] = cuda_ms(lambda: fa.flash_attention_bwd(q, k, v, seg, seg, o, m, l, do, sc), 20)
+    r8["plain_ms"] = cuda_ms(lambda: fa.flash_attention_bwd_plain(
+        q, k, v, seg, seg, o, m, l, do, sc), 3)
+    leaves = [t.detach().requires_grad_(True) for t in (q, k, v)]
+    r8["library_ms"] = cuda_ms(lambda: torch.autograd.grad(F.scaled_dot_product_attention(
+        *leaves, attn_mask=allowed, scale=sc), leaves, do), 20)
+    r8["library_call"] = "scaled_dot_product_attention forward + backward"
+    r8["k7_k8_autograd_ms"] = cuda_ms(lambda: torch.autograd.grad(fa.FlashAttention.apply(
+        *leaves, seg, seg, sc), leaves, do), 20)
+    # bounds: K7 reads q, k, v and the ids, writes o and (m, l); two products
+    # of S x S x hd a (sequence, head). K8 reads q, k, v, o, dO, (m, l) and
+    # the ids, writes dq, dk, dv; five products (s again, dV, dP, dK, dQ)
+    qkv_bytes, ids_bytes, stat_bytes = 3 * B * S * H * 2, 2 * B * S * 4, 2 * B * nh * S * 4
+    r7.update(bound(qkv_bytes + ids_bytes + B * S * H * 2 + stat_bytes,
+                    4.0 * B * nh * S * S * hd, "bfloat16"))
+    r8.update(bound(qkv_bytes + 2 * B * S * H * 2 + stat_bytes + ids_bytes + 3 * B * S * H * 2,
+                    10.0 * B * nh * S * S * hd, "bfloat16"))
+    r7["shape"] = r8["shape"] = [B, nh, S, hd]
+    log(f"K7 at (B={B}, 12 heads, S={S}, hd={hd}) bf16: {r7['ms']:.3f} ms (bound "
+        f"{r7['bound_ms']:.3f} ms by {r7['bound_by']}), plain {r7['plain_ms']:.3f} ms, SDPA "
+        f"{r7['library_ms']:.3f} ms; K8 {r8['ms']:.3f} ms (bound {r8['bound_ms']:.3f} ms by "
+        f"{r8['bound_by']}), plain {r8['plain_ms']:.3f} ms, SDPA forward + backward "
+        f"{r8['library_ms']:.3f} ms against K7 + K8 through autograd "
+        f"{r8['k7_k8_autograd_ms']:.3f} ms")
+    del q, k, v, do, o, m, l, leaves, allowed
+    enc_shapes = {}
+    for Se in (256, 512):
+        qe, ke, ve = (torch.randn((256, Se, nh, hd), generator=gen).to(dev, torch.bfloat16)
+                      .transpose(1, 2) for _ in range(3))
+        sege = flash_segments(256, Se, dev, gen)
+        ms = cuda_ms(lambda: fa.flash_attention(qe, ke, ve, sege, sege, sc), 10)
+        bd = bound(4 * 256 * Se * H * 2 + 2 * 256 * Se * 4 + 2 * 256 * nh * Se * 4,
+                   4.0 * 256 * nh * Se * Se * hd, "bfloat16")
+        enc_shapes[f"256x{Se}"] = {"ms": ms, **bd}
+    r7["encode_shapes"] = enc_shapes
+    log(f"K7 at the encode batch: {enc_shapes}")
+    torch.cuda.empty_cache()
+
+    # encode sentences/s, B = 256: flash against the einsum nn.Module path,
+    # in turns (flash, einsum, einsum, flash)
+    cfg = EncoderConfig.minilm_l6(use_flash_attention=True, max_seq_length=512)
+    tok = load_tokenizer(vocab, vocab_size=cfg.vocab_size)
+    params = init_params(cfg, torch.Generator().manual_seed(41), device="cuda")
+    enc = SentenceEncoder(cfg, params, tok, device="cuda")
+    enc_off = SentenceEncoder(dataclasses.replace(cfg, use_flash_attention=False), params, tok,
+                              device="cuda")
+    rates = {}
+    for Se in (256, 512):
+        ids = torch.randint(5, cfg.vocab_size, (256, Se), generator=gen).to(dev)
+        mask = flash_segments(256, Se, dev, gen).long()
+        mask[2, 0] = 1                       # the encoder's pad-row rule: never all zero
+        turns = {"flash": [], "einsum": []}
+        for name in ("flash", "einsum", "einsum", "flash"):
+            e = enc if name == "flash" else enc_off
+            turns[name].append(cuda_ms(lambda: e.encode_ids(ids, mask), 5))
+        rates[f"S={Se}"] = {n: 256e3 / min(t) for n, t in turns.items()}
+    log(f"encode sentences/s at B=256 (flash against the einsum path, in turns): {rates}")
+    report["flash"]["encode_sentences_per_s"] = rates
+    del enc_off
+    torch.cuda.empty_cache()
+    embedding_forms(report, gen)
+
+    # tokenization docs/s at S = 512: native against Python
+    docs = flash_docs(2048, seed=42)
+    py_tok = WordPieceTokenizer.from_vocab_file(vocab)
+    tok_rates = {}
+    for name, t, texts in (("native", tok, docs), ("python", py_tok, docs[:512]),
+                           ("native ", tok, docs)):
+        t0 = time.perf_counter()
+        for i in range(0, len(texts), 256):
+            t.batch_encode(texts[i:i + 256], max_length=512)
+        tok_rates.setdefault(name.strip(), []).append(len(texts) / (time.perf_counter() - t0))
+    tok_rates = {n: max(v) for n, v in tok_rates.items()}
+    log(f"tokenization at S=512, 300-450 words a doc: native {tok_rates['native']:.0f} docs/s, "
+        f"Python {tok_rates['python']:.0f} docs/s")
+    report["flash"]["tokenize_docs_per_s"] = tok_rates
+
+    # one IR evaluation by part, the Python and the native tokenizer in turns
+    # (the evaluate phase's recipe: MiniLM-L6 through K1 at S = 128)
+    root = f"{tmp}/flash_ir"
+    write_quadruplet_chunks(root, 2800, seed=43)
+    ir_set = create_ir_evaluation_set(list(ChunkStore(root).iter_instances()))
+    ecfg = EncoderConfig.minilm_l6(use_fused_layer=True)
+    eparams = init_params(ecfg, torch.Generator().manual_seed(44), device="cuda")
+    parts = {"python": [], "native": []}
+    for name in ("python", "native", "native", "python"):
+        t = py_tok if name == "python" else tok
+        parts[name].append(ir_eval_by_part(SentenceEncoder(ecfg, eparams, t, device="cuda"),
+                                           ir_set))
+    best = {n: min(runs, key=lambda r: r["encode_s"]) for n, runs in parts.items()}
+    log(f"one IR evaluation ({len(ir_set.queries)} queries x {len(ir_set.corpus)} docs, "
+        f"MiniLM-L6 through K1) by part, Python tokenizer: "
+        + ", ".join(f"{k} {v:.3f} s" for k, v in best["python"].items())
+        + "; native: " + ", ".join(f"{k} {v:.3f} s" for k, v in best["native"].items()))
+    report["flash"]["ir_eval_by_part"] = {"runs": parts, "n_queries": len(ir_set.queries),
+                                          "n_docs": len(ir_set.corpus)}
+
+
+def embedding_forms(report: dict, gen) -> None:
+    """The nn.Module BERT embeddings' forward + backward (bf16, hidden
+    dropout off) as they read positions and token types — one (1, S)
+    position lookup and a selection among the type rows, so the backward
+    is reproducible — against the F.embedding lookups of (B, S) ids they
+    replaced, in turns, at the nn.Module train step's rows (128 x 128) and
+    the flash train step's (32 x 512)."""
+    import torch
+
+    from qst_tpu_torch.core.config import EncoderConfig
+    from qst_tpu_torch.models.bert import BertEmbeddings, _layer_norm_f32
+
+    dev = torch.device("cuda")
+    emb = BertEmbeddings(EncoderConfig.minilm_l6()).to(dev)
+
+    def lookups(ids, types, pos):
+        dt = torch.bfloat16
+        x = (emb.word_embeddings(ids).to(dt) + emb.position_embeddings(pos).to(dt)
+             + emb.token_type_embeddings(types).to(dt))
+        return _layer_norm_f32(emb.LayerNorm, x).to(dt)
+
+    out = {}
+    for B, S in ((128, 128), (32, 512)):
+        ids = torch.randint(5, 30522, (B, S), generator=gen).to(dev)
+        types = torch.zeros_like(ids)
+        types[:, S // 2:] = 1
+        pos = torch.arange(S, device=dev)[None, :]
+        g = torch.randn((B, S, 384), generator=gen).to(dev, torch.bfloat16)
+        forms = {"selection": lambda: emb(ids, types, pos).backward(g),
+                 "lookup": lambda: lookups(ids, types, pos.expand(B, S)).backward(g)}
+        turns = {"selection": [], "lookup": []}
+        for name in ("selection", "lookup", "lookup", "selection"):
+            turns[name].append(cuda_ms(forms[name], 20, 3))
+        out[f"{B}x{S}"] = {n: min(t) for n, t in turns.items()}
+    log("BERT embeddings forward + backward (ms, in turns): selection form (the nn.Module "
+        "path's) against the F.embedding lookups it replaced: " + "; ".join(
+            f"{k} {v['selection']:.4f} / {v['lookup']:.4f}" for k, v in out.items()))
+    report["flash"]["embedding_forms_ms"] = out
+
+
+def flash(report: dict) -> None:
+    """The long-document path: K7/K8 against their plain versions, encode +
+    search and train through them behind the native tokenizer, times."""
+    import tempfile
+
+    import torch
+
+    report["flash"] = {}
+    parts = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        vocab = f"{tmp}/vocab.txt"
+        with open(vocab, "w") as f:
+            f.write("\n".join(checkpoint_vocab(30522)) + "\n")
+        for name, fn in (("kernels", lambda: check_flash_kernels(report)),
+                         ("encode_search", lambda: flash_encode_search(report, vocab)),
+                         ("train", lambda: flash_train(report, vocab, tmp)),
+                         ("times", lambda: flash_times(report, vocab, tmp))):
+            t0 = time.perf_counter()
+            fn()
+            parts[name] = time.perf_counter() - t0
+            torch.cuda.empty_cache()
+    report["flash"]["part_s"] = parts
+    log("flash phase by part (s): " + ", ".join(f"{n} {v:.1f}" for n, v in parts.items()))
 
 
 def main() -> None:
@@ -4415,16 +5125,15 @@ def main() -> None:
     t0 = time.perf_counter()
     build.load()
     log(f"build: {time.perf_counter() - t0:.1f} s")
-    report = {n: {} for n in ("K1", "K2", "K3", "K4", "K5", "K6")}
-    # evaluate last: its trainer threads and profiled steps come after the
-    # timing phases' profiles
-    for phase, fn in (("check", check_kernels), ("serve", serve), ("ivf", ivf), ("train", train),
-                      ("times", times), ("profile", profile_phase), ("evaluate", evaluate),
-                      ("dataset", dataset), ("capture", capture), ("ablation", ablation),
-                      ("mpnet", mpnet), ("pq", pq)):
-        if phase in phases:
+    report = {n: {} for n in ("K1", "K2", "K3", "K4", "K5", "K6", "K7", "K8")}
+    # the phases run in the order given (PHASES' by default)
+    fns = {"check": check_kernels, "serve": serve, "ivf": ivf, "train": train, "times": times,
+           "profile": profile_phase, "evaluate": evaluate, "dataset": dataset,
+           "capture": capture, "ablation": ablation, "mpnet": mpnet, "flash": flash, "pq": pq}
+    for phase in phases:
+        if phase in fns:
             t0 = time.perf_counter()
-            fn(report)
+            fns[phase](report)
             log(f"phase {phase}: {time.perf_counter() - t0:.1f} s")
     if "tree" in _WORK:
         _WORK.pop("tree").cleanup()
@@ -4432,7 +5141,7 @@ def main() -> None:
                     if k in ("encode", "search", "search_q256", "k4_yardsticks", "k5_forms",
                              "train", "train_steps_per_s", "ivf", "ivf_times", "ivf_times_4m", "layer_gemm",
                              "evaluate", "encode_depth", "capture", "ablation", "mpnet",
-                             "mpnet_kernel_names", "pq")}))
+                             "mpnet_kernel_names", "pq", "flash")}))
     if "dataset" in report:
         log(json.dumps({"dataset": {k: v for k, v in report["dataset"].items() if k != "root"}}))
     log(json.dumps({"K1_training_layer": {k: report["K1"].get(k) for k in (
@@ -4460,8 +5169,27 @@ def main() -> None:
             ("K5 rescore_buckets", "qst_tpu_torch/kernels/csrc/topk.cu",
              "qst_tpu/ops/topk_pallas.py:251"),
             ("K6 ivf_cell_scores", "qst_tpu_torch/kernels/csrc/ivf.cu",
-             "qst_tpu/ops/ivf_pallas.py:34")):
+             "qst_tpu/ops/ivf_pallas.py:34"),
+            ("K7 flash_attention", "qst_tpu_torch/kernels/csrc/flash_attention.cu",
+             "jax/experimental/pallas/ops/tpu/flash_attention.py:758"),
+            ("K8 flash_attention_bwd", "qst_tpu_torch/kernels/csrc/flash_attention.cu",
+             "jax/experimental/pallas/ops/tpu/flash_attention.py:1121")):
         r = report[name[:2]]
+        if name[:2] in ("K7", "K8"):
+            # the library kernel qst_tpu calls at qst_tpu/models/bert.py:96;
+            # one PyTorch call computes the same function:
+            # scaled_dot_product_attention with the segment mask
+            rows.append({"name": name, "route": "cuda", "source": src, "replaces": replaces,
+                         "launches": r.get("launches"), "max_abs_err": r.get("max_abs_err"),
+                         "ms": r.get("ms"), "plain_ms": r.get("plain_ms"),
+                         "bound_ms": r.get("bound_ms"), "bound_by": r.get("bound_by"),
+                         "library_ms": r.get("library_ms"), "shape": r.get("shape"),
+                         **({"also_replaces": "jax/experimental/pallas/ops/tpu/"
+                             "flash_attention.py:1456", "library_call": r.get("library_call"),
+                             "k7_k8_autograd_ms": r.get("k7_k8_autograd_ms")}
+                            if name[:2] == "K8" else
+                            {"encode_shapes": r.get("encode_shapes")})})
+            continue
         # library_ms: no single PyTorch call computes any of these functions
         # (a layer, its backward, the quadruplet loss, a product fused with
         # bucket maxima, two gathers fused with a product), so none is timed

@@ -14,11 +14,12 @@ another device:
 
 The flags and defaults are the JAX CLI's. ``--hf_checkpoint_dir`` (a local
 sentence-transformers directory, BERT or MPNet) gives the baseline encoder
-and its config, ``--baseline_hf_checkpoint`` the baseline's weights file.
-Not ported yet, and refused with a message: the cross-encoder labels
-(``--use_cross_encoder``, ``--cross_encoder_dir``),
-``--generate_query_variations`` and mesh layouts (``--mesh_*`` off their
-defaults).
+and its config, ``--baseline_hf_checkpoint`` the baseline's weights file;
+``--generate_query_variations`` replaces each query by one compressed
+variation (``data/sentence_compression.py``), as the JAX CLI does. Not ported
+yet, and refused with a message: the cross-encoder labels
+(``--use_cross_encoder``, ``--cross_encoder_dir``) and mesh layouts
+(``--mesh_*`` off their defaults).
 """
 
 from __future__ import annotations
@@ -126,8 +127,6 @@ def main(argv=None) -> int:
     refuse_not_ported([
         ("--use_cross_encoder", args.use_cross_encoder or args.cross_encoder_dir,
          "the cross-encoder"),
-        ("--generate_query_variations", args.generate_query_variations,
-         "query variations"),
         ("--mesh_data/--mesh_model", (args.mesh_data, args.mesh_model) != (-1, 1),
          "device meshes"),
     ])
@@ -181,11 +180,19 @@ def main(argv=None) -> int:
         n_test = max(1, int(len(instances) * args.test_fraction))
         instances = [instances[int(i)] for i in order[:n_test]]
 
+    query_variation_fn = None
+    if args.generate_query_variations:
+        from qst_tpu_torch.data.sentence_compression import generate_variations
+
+        query_variation_fn = lambda text: generate_variations(  # noqa: E731
+            text, n=1, seed=args.seed)[0]
+
     eval_set = create_ir_evaluation_set(
         instances, n_queries=args.n_queries,
         use_pos_examples=args.use_pos_examples,
         use_part_pos_examples=args.use_part_pos_examples,
         cross_encoder_threshold=args.cross_encoder_threshold,
+        query_variation_fn=query_variation_fn,
         seed=args.seed,
         cache_path=os.path.join(out_dir, "ir_eval_set.json"))
 

@@ -5,7 +5,8 @@
 hooks: each phase is a ``torch.profiler.record_function`` span (so it shows
 in a profiler trace, as ``jax.profiler.TraceAnnotation`` did), and ``sync``
 — a tensor the phase produced — waits for its CUDA device before the clock
-stops, as ``jax.block_until_ready`` did.
+stops, as ``jax.block_until_ready`` did. ``profile_trace`` takes
+``torch.profiler`` where the source starts ``jax.profiler``'s trace.
 """
 
 from __future__ import annotations
@@ -15,7 +16,7 @@ import json
 import os
 import time
 from contextlib import contextmanager
-from typing import Any, Dict, List, Sequence
+from typing import Any, Dict, List, Optional, Sequence
 
 import torch
 
@@ -88,3 +89,30 @@ class StepTimer:
 
     def summary(self) -> Dict[str, float]:
         return {k: self.mean(k) for k in self.totals}
+
+
+@contextmanager
+def profile_trace(log_dir: Optional[str]):
+    """Optionally capture a ``torch.profiler`` trace around a block (the
+    source's ``jax.profiler`` trace, ``qst_tpu/core/telemetry.py:96-105``):
+    host activity, and the CUDA device's where one is present, written as a
+    Chrome trace ``trace_<pid>_<ns>.json`` into ``log_dir`` when the block
+    ends, also when it raises. Yields the profiler (None without a
+    ``log_dir``)."""
+    if not log_dir:
+        yield None
+        return
+    from torch.profiler import ProfilerActivity, profile
+
+    activities = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(ProfilerActivity.CUDA)
+    os.makedirs(log_dir, exist_ok=True)
+    prof = profile(activities=activities)
+    prof.start()
+    try:
+        yield prof
+    finally:
+        prof.stop()
+        prof.export_chrome_trace(
+            os.path.join(log_dir, f"trace_{os.getpid()}_{time.time_ns()}.json"))

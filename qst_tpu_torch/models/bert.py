@@ -17,11 +17,16 @@ dict loads as it is. The forward keeps the Flax path's semantics:
   ``where(keep, x / keep_prob, 0)``; the bits are the generator's, not
   JAX's).
 
-``use_flash_attention`` (a library kernel on the TPU) has no counterpart yet:
-a config that sets it raises rather than run another attention than it asked
-for. ``remat`` recomputes each layer in the backward instead of keeping its
-activations (Flax's ``nn.remat``): the same values and gradients for less
-memory. MPNet is ``models/mpnet.py``; RoBERTa waits for a later slice.
+``use_flash_attention`` routes the self-attention as qst_tpu's gate does
+(``_flash_attention_available``: S ≥ 128, a multiple of 128, and no active
+attention dropout) through ``ops/flash_attention.py``'s ``FlashAttention``
+(K7 forward, K8 backward; their plain versions on the CPU), with the
+library's segment-id semantics: seg = the attention mask, so a padded query
+row attends to the padded keys only (its ``token_embeddings`` row differs
+from the einsum path's; the pooled embedding does not). ``remat``
+recomputes each layer in the backward instead of keeping its activations
+(Flax's ``nn.remat``): the same values and gradients for less memory.
+MPNet is ``models/mpnet.py``; RoBERTa waits for a later slice.
 """
 
 from __future__ import annotations
@@ -41,6 +46,20 @@ MASK_BIAS = -1e9
 
 def compute_dtype(cfg: EncoderConfig) -> torch.dtype:
     return getattr(torch, cfg.dtype)
+
+
+def _flash_attention_available(cfg: EncoderConfig, seq_len: int,
+                               deterministic: bool) -> bool:
+    """qst_tpu/models/bert.py:59-70: the flash path applies when S fits the
+    kernel's 128-key tiling and attention dropout (not in the kernel) is
+    inactive."""
+    if not cfg.use_flash_attention:
+        return False
+    if seq_len < 128 or seq_len % 128 != 0:
+        return False
+    if not deterministic and cfg.attention_dropout > 0.0:
+        return False
+    return True
 
 
 class _Linear(nn.Linear):
@@ -79,18 +98,30 @@ class BertEmbeddings(nn.Module):
     def forward(self, input_ids: torch.Tensor, token_type_ids: torch.Tensor,
                 position_ids: torch.Tensor,
                 dropout_generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        """``position_ids`` (B or 1, S). The position and token-type rows
+        are read so that their gradients come back the same on every run:
+        positions shared by the batch as one (1, S) lookup, whose backward
+        sums the batch in a fixed order, and the few token types by a
+        selection, not a lookup — on the card ``F.embedding``'s backward
+        adds a row repeated across the batch in no fixed order (a captured
+        train step must repeat its eager steps bit for bit). The values are
+        the lookups'."""
         dt = compute_dtype(self.cfg)
         word = self.word_embeddings(input_ids).to(dt)
         pos = self.position_embeddings(position_ids).to(dt)
-        typ = self.token_type_embeddings(
-            torch.clamp(token_type_ids, max=self.cfg.type_vocab_size - 1)).to(dt)
-        x = _layer_norm_f32(self.LayerNorm, word + pos + typ)
+        types = torch.clamp(token_type_ids, max=self.cfg.type_vocab_size - 1)[..., None]
+        table = self.token_type_embeddings.weight
+        typ = table[0]
+        for t in range(1, self.cfg.type_vocab_size):
+            typ = torch.where(types == t, table[t], typ)
+        x = _layer_norm_f32(self.LayerNorm, word + pos + typ.to(dt))
         return _dropout(self, x, self.cfg.hidden_dropout, dropout_generator).to(dt)
 
 
 class BertSelfAttention(nn.Module):
     def __init__(self, cfg: EncoderConfig):
         super().__init__()
+        self.cfg = cfg
         self.num_heads = cfg.num_heads
         self.rate = cfg.attention_dropout
         H = cfg.hidden_size
@@ -99,10 +130,22 @@ class BertSelfAttention(nn.Module):
         self.value = _Linear(H, H)
 
     def forward(self, hidden: torch.Tensor, bias: torch.Tensor,
-                dropout_generator: Optional[torch.Generator] = None) -> torch.Tensor:
+                dropout_generator: Optional[torch.Generator] = None,
+                attention_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
         B, S, H = hidden.shape
         nh = self.num_heads
         hd = H // nh
+        deterministic = not self.training or dropout_generator is None
+        if attention_mask is not None and _flash_attention_available(self.cfg, S, deterministic):
+            from qst_tpu_torch.ops.flash_attention import FlashAttention
+
+            def heads_t(t):   # (B, nh, S, hd) in the compute dtype, as it lies
+                return t.reshape(B, S, nh, hd).transpose(1, 2)
+
+            seg = attention_mask.to(torch.int32)
+            ctx = FlashAttention.apply(heads_t(self.query(hidden)), heads_t(self.key(hidden)),
+                                       heads_t(self.value(hidden)), seg, seg, float(hd) ** -0.5)
+            return ctx.transpose(1, 2).reshape(B, S, H).to(hidden.dtype)
 
         def heads(t):
             return t.reshape(B, S, nh, hd).float()
@@ -135,8 +178,9 @@ class BertAttention(nn.Module):
         self.output = BertSelfOutput(cfg)
 
     def forward(self, hidden: torch.Tensor, bias: torch.Tensor,
-                dropout_generator: Optional[torch.Generator] = None) -> torch.Tensor:
-        return self.output(self.self(hidden, bias, dropout_generator), hidden,
+                dropout_generator: Optional[torch.Generator] = None,
+                attention_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+        return self.output(self.self(hidden, bias, dropout_generator, attention_mask), hidden,
                            dropout_generator)
 
 
@@ -170,8 +214,10 @@ class BertLayer(nn.Module):
         self.output = BertOutput(cfg)
 
     def forward(self, hidden: torch.Tensor, bias: torch.Tensor,
-                dropout_generator: Optional[torch.Generator] = None) -> torch.Tensor:
-        hidden = self.attention(hidden, bias, dropout_generator)
+                dropout_generator: Optional[torch.Generator] = None,
+                attention_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """``attention_mask`` (B, S): the segment ids of the flash path."""
+        hidden = self.attention(hidden, bias, dropout_generator, attention_mask)
         return self.output(self.intermediate(hidden), hidden, dropout_generator)
 
 
@@ -193,10 +239,6 @@ class BertEncoder(nn.Module):
         if cfg.arch != "bert":
             raise NotImplementedError(
                 f"arch={cfg.arch!r} is not ported to qst_tpu_torch (bert only)")
-        if cfg.use_flash_attention:
-            raise NotImplementedError(
-                "use_flash_attention=True: the blocked attention kernel for long sequences "
-                "is not ported to qst_tpu_torch yet; the flag is not ignored")
         self.cfg = cfg
         self.embeddings = BertEmbeddings(cfg)
         self.encoder = _LayerStack(cfg)
@@ -206,44 +248,45 @@ class BertEncoder(nn.Module):
                 dropout_generator: Optional[torch.Generator] = None) -> torch.Tensor:
         """``dropout_generator``: in train() mode, apply the config's dropout
         with masks drawn from it (Flax's ``deterministic=False``)."""
-        B, S = input_ids.shape
+        S = input_ids.shape[1]
         input_ids = input_ids.long()
         if token_type_ids is None:
             token_type_ids = torch.zeros_like(input_ids)
-        position_ids = torch.arange(S, device=input_ids.device)[None, :].expand(B, S)
+        position_ids = torch.arange(S, device=input_ids.device)[None, :]
         hidden = self.embeddings(input_ids, token_type_ids.long(), position_ids,
                                  dropout_generator)
         bias = torch.where(attention_mask[:, None, None, :] > 0, 0.0, MASK_BIAS).float()
         remat = self.cfg.remat and torch.is_grad_enabled() and hidden.requires_grad
         for layer in self.encoder.layer:
             if remat:
-                hidden = _remat_layer(layer, hidden, bias, dropout_generator)
+                hidden = _remat_layer(layer, hidden, bias, dropout_generator, attention_mask)
             else:
-                hidden = layer(hidden, bias, dropout_generator)
+                hidden = layer(hidden, bias, dropout_generator, attention_mask)
         return hidden
 
 
 def _remat_layer(layer: nn.Module, hidden: torch.Tensor, bias: torch.Tensor,
-                 gen: Optional[torch.Generator]) -> torch.Tensor:
+                 gen: Optional[torch.Generator], *extra: torch.Tensor) -> torch.Tensor:
     """One layer under ``torch.utils.checkpoint``: its activations are
     recomputed in the backward. The dropout masks come from ``gen``, whose
     state checkpoint does not keep: the recomputation starts from the state
     the forward started from (and puts back the one it found), so it draws
-    the same masks."""
+    the same masks. ``extra``: the layer's arguments after the generator
+    (BERT's attention mask)."""
     if gen is None:
-        return checkpoint(layer, hidden, bias, None, use_reentrant=False)
+        return checkpoint(layer, hidden, bias, None, *extra, use_reentrant=False)
     start = gen.get_state()
     first = [True]
 
-    def run(h, b):
+    def run(h, b, *e):
         if first[0]:
             first[0] = False
-            return layer(h, b, gen)
+            return layer(h, b, gen, *e)
         now = gen.get_state()
         gen.set_state(start)
         try:
-            return layer(h, b, gen)
+            return layer(h, b, gen, *e)
         finally:
             gen.set_state(now)
 
-    return checkpoint(run, hidden, bias, use_reentrant=False)
+    return checkpoint(run, hidden, bias, *extra, use_reentrant=False)

@@ -266,10 +266,6 @@ class MPNetEncoder(nn.Module):
         super().__init__()
         if cfg.arch != "mpnet":
             raise ValueError(f"MPNetEncoder needs arch='mpnet', got {cfg.arch!r}")
-        if cfg.use_flash_attention:
-            raise NotImplementedError(
-                "use_flash_attention=True: the nn.Module path does not run the key-blocked "
-                "attention kernel yet; the flag is not ignored")
         self.cfg = cfg
         self.embeddings = MPNetEmbeddings(cfg)
         self.encoder = _MPNetStack(cfg)

@@ -2,10 +2,11 @@
 
 Numpy and the standard library only. ``WordPieceTokenizer`` and
 ``HashTokenizer`` are copied as they are; ``tests/test_torch_ops.py`` holds
-them to their source on the same texts. ``load_tokenizer`` differs in what it
-cannot reach yet: the native C++ WordPiece batch tokenizer
-(``qst_tpu/native``) and the byte-level BPE vocab (``.json`` paths) wait for a
-later slice of the port.
+them to their source on the same texts. ``load_tokenizer`` picks the native
+C++ WordPiece batch tokenizer (``qst_tpu_torch/native``, the port's copy of
+``qst_tpu/native``) where g++ builds it, as the source does; it differs in
+what it cannot reach yet: the byte-level BPE vocab (``.json`` paths) waits
+for a later slice of the port.
 """
 
 from __future__ import annotations
@@ -227,11 +228,18 @@ class HashTokenizer:
 
 
 def load_tokenizer(path_or_mock: str, vocab_size: int = 512, **kw):
-    """Load a WordPiece vocab if a path exists (pure Python), otherwise a
-    HashTokenizer mock. A ``.json`` path (byte-level BPE) is not ported yet."""
+    """Load a WordPiece vocab if a path exists (native C++ batch tokenizer
+    when buildable, else pure Python), otherwise a HashTokenizer mock.
+    A ``.json`` path (byte-level BPE) is not ported yet."""
     if path_or_mock and os.path.isfile(path_or_mock):
         if path_or_mock.endswith(".json"):
             raise NotImplementedError(
                 "byte-level BPE vocabularies are not ported to qst_tpu_torch")
+        # the source's broad ``except`` is left out: native_available() is
+        # False when g++ fails, and any other error is a fault to see
+        from qst_tpu_torch.native import FastWordPieceTokenizer, native_available
+
+        if native_available():
+            return FastWordPieceTokenizer.from_vocab_file(path_or_mock, **kw)
         return WordPieceTokenizer.from_vocab_file(path_or_mock, **kw)
     return HashTokenizer(vocab_size=vocab_size)

@@ -200,14 +200,20 @@ class StreamingExactIndex:
                 dev[b].copy_(pinned[b], non_blocking=True)
                 copied[b].record(copy_stream)
 
-        send(0)
-        for t in range(n_tiles):
-            b = t % 2
-            compute.wait_event(copied[b])
-            yield t, dev[b], scales[b]
-            read[b].record(compute)
-            if t + 1 < n_tiles:
-                send(t + 1)
+        try:
+            send(0)
+            for t in range(n_tiles):
+                b = t % 2
+                compute.wait_event(copied[b])
+                yield t, dev[b], scales[b]
+                read[b].record(compute)
+                if t + 1 < n_tiles:
+                    send(t + 1)
+        finally:
+            # torn down with the pass, also when the caller stops early: no
+            # copy left in flight into buffers that are about to be freed
+            # (the pinned ones go back to torch's host cache)
+            copy_stream.synchronize()
 
     def search(self, queries, k: int = 10, score: str = "cos_sim",
                backend: str = "auto") -> Tuple[np.ndarray, np.ndarray]:

@@ -532,7 +532,7 @@ def test_dataset_parser_keeps_the_source_flags():
 
 
 @pytest.mark.parametrize("argv", [
-    ["--use_cross_encoder"], ["--cross_encoder_dir", "ce"], ["--generate_query_variations"],
+    ["--use_cross_encoder"], ["--cross_encoder_dir", "ce"], ["--mesh_data", "2"],
     ["--mesh_model", "2"],
 ])
 def test_ir_eval_cli_refuses_unported_flags(quad_data, argv):
@@ -540,6 +540,39 @@ def test_ir_eval_cli_refuses_unported_flags(quad_data, argv):
     with pytest.raises(SystemExit, match="not ported"):
         tir_main.main(["--dataset_root", data, "--output_root", str(root / "refused_ir"),
                        "--device", "cpu", *argv])
+
+
+def test_ir_eval_cli_generates_query_variations_as_the_jax_cli(quad_data):
+    """``--generate_query_variations`` (refused before it was ported): the
+    eval set is qst_tpu's with its variations (the JAX CLI's
+    ``generate_variations(text, n=1, seed)``), and the trained metrics are
+    qst_tpu's evaluator's over the same weights within 1e-6."""
+    from qst_tpu.data.sentence_compression import generate_variations as jgen
+
+    root, data, exp, jenc = quad_data
+    out = str(root / "ir_variations")
+    assert tir_main.main(["--dataset_root", data, "--model_path", exp, "--encoder_preset",
+                          "tiny", "--device", "cpu", "--output_root", out, "--n_queries", "20",
+                          "--generate_query_variations"]) == 0
+    [hashed] = os.listdir(out)
+    with open(os.path.join(out, hashed, "ir_eval_set.json")) as f:
+        eval_set = json.load(f)
+    jset = jax_create_ir_evaluation_set(
+        list(JaxChunkStore(data).iter_instances()), n_queries=20, seed=14,
+        query_variation_fn=lambda text: jgen(text, n=1, seed=14)[0])
+    assert eval_set == jset.to_json()
+    plain = jax_create_ir_evaluation_set(list(JaxChunkStore(data).iter_instances()),
+                                         n_queries=20, seed=14)
+    assert jset.queries != plain.queries
+    with open(os.path.join(out, hashed, "results.json")) as f:
+        results = json.load(f)
+    fns = ("cos_sim", "dot_score", "euclid_score")
+    ev = JaxIREvaluator(jset.queries, jset.corpus, jset.relevant,
+                        cfg=JaxIREvalConfig(n_queries=20, score_functions=fns))
+    ev(lambda texts: jenc.encode(list(texts)))
+    for fn in fns:
+        for name, value in ev.last_results[fn].items():
+            assert results["trained"]["metrics"][fn][name] == pytest.approx(value, abs=1e-6)
 
 
 def _tiny_dir(root, arch: str, weights: str = "model.safetensors"):

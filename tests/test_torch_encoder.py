@@ -120,9 +120,34 @@ def test_unported_arch_raises():
         tse.SentenceEncoderModule(EncoderConfig.tiny(arch="roberta"))
 
 
-def test_flash_attention_flag_raises_instead_of_being_ignored():
-    with pytest.raises(NotImplementedError, match="use_flash_attention"):
-        tse.SentenceEncoderModule(EncoderConfig.tiny(use_flash_attention=True))
+def test_flash_attention_flag_is_honoured(weights, monkeypatch):
+    """The flag routes the attention through ``FlashAttention`` (its plain
+    versions on the CPU, one call a layer) at S = 128: the pooled embedding
+    is the einsum path's, the pad rows' token embeddings are not (segment-id
+    semantics; tests/test_torch_flash.py holds both to JAX)."""
+    from qst_tpu_torch.ops import flash_attention as tfa
+
+    _, _, sd = weights
+    over = dict(max_seq_length=128, max_position_embeddings=128)
+    sd = {k: (v if k != "embeddings.position_embeddings.weight"
+              else torch.cat([v, v])) for k, v in sd.items()}
+    calls = []
+    plain = tfa.flash_attention_plain
+    monkeypatch.setattr(tfa, "flash_attention_plain",
+                        lambda *a, **kw: calls.append(1) or plain(*a, **kw))
+    ids, mask = _ids_mask(EncoderConfig.tiny(), B=3, S=128)
+    outs = {}
+    for flag in (False, True):
+        model = _model(EncoderConfig.tiny(use_flash_attention=flag, **over), sd)
+        with torch.no_grad():
+            outs[flag] = model(torch.from_numpy(ids), torch.from_numpy(mask))
+    assert len(calls) == EncoderConfig.tiny().num_layers
+    np.testing.assert_allclose(outs[True]["sentence_embedding"].numpy(),
+                               outs[False]["sentence_embedding"].numpy(), rtol=0, atol=ATOL)
+    pad = mask == 0
+    assert pad.any()
+    assert (outs[True]["token_embeddings"] - outs[False]["token_embeddings"]).abs().numpy()[
+        pad].max() > 0.05
 
 
 @pytest.mark.parametrize("dropout", [0.0, 0.25])

@@ -351,3 +351,55 @@ def test_init_params_follow_the_jax_distribution(preset):
             assert cut(g) < 2.31 and cut(w.float()) < 2.31, name
         elif n >= 4096:         # uncut: draws beyond 2.4 standard deviations appear
             assert cut(g) > 2.4 and cut(w.float()) > 2.4, name
+
+
+def test_synchronized_is_the_source():
+    """utils/sync.py's decorator is the source's code, and it serialises
+    calls: one lock a decorated function, kept on ``__lock__``."""
+    import threading
+
+    from qst_tpu.utils import sync as jsync
+    from qst_tpu_torch.utils import sync as tsync
+
+    def dump(fn):
+        return ast.dump(ast.parse(textwrap.dedent(inspect.getsource(fn))))
+
+    assert dump(tsync.synchronized) == dump(jsync.synchronized)
+    inside, most = [0], [0]
+
+    @tsync.synchronized
+    def work():
+        inside[0] += 1
+        most[0] = max(most[0], inside[0])
+        threading.Event().wait(0.002)
+        inside[0] -= 1
+        return 7
+
+    threads = [threading.Thread(target=work) for _ in range(8)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    assert most[0] == 1 and work() == 7 and isinstance(work.__lock__, type(threading.Lock()))
+
+
+def test_profile_trace_writes_a_torch_profiler_trace(tmp_path):
+    """profile_trace (qst_tpu/core/telemetry.py:96-105) on torch.profiler:
+    a Chrome trace of the block's operations in ``log_dir``, even when the
+    block raises; nothing without a directory."""
+    import json
+
+    from qst_tpu_torch.core.telemetry import profile_trace
+
+    with profile_trace(None) as prof:
+        assert prof is None
+    with profile_trace(str(tmp_path / "a")):
+        torch.ones(64, 64).matmul(torch.ones(64, 64))
+    [name] = os.listdir(tmp_path / "a")
+    with open(tmp_path / "a" / name) as f:
+        events = json.load(f)["traceEvents"]
+    assert any("mm" in e.get("name", "") for e in events)
+    with pytest.raises(RuntimeError, match="inside"):
+        with profile_trace(str(tmp_path / "b")):
+            raise RuntimeError("inside")
+    assert len(os.listdir(tmp_path / "b")) == 1
