@@ -127,10 +127,12 @@ Phases (any failure exits non-zero and prints no result):
    sentences/s and the MPNet-base train step with its busy share (no
    library GEMM or attention kernel in a profiled encode or train step).
 
-13. flash — the long-document path (use_flash_attention): K7 and K8
-   against their plain versions at hd 16 / 32 / 64, S 128 / 256 / 512 /
-   2,048, f32 and bf16, with a padded and an all-padding sequence, K8
-   bit-equal between calls; MiniLM-L6 at full width and max_seq_length 512
+13. flash — the long-document path (use_flash_attention): ptxas's
+   registers and spills for K7/K8's bf16 kernels; K7 and K8 against their
+   plain versions at hd 16 / 32 / 64, S 128 / 256 / 512 / 2,048, f32 and
+   bf16, with a padded and an all-padding sequence and (S = 256) seg_q !=
+   seg_kv rows that match no key, K8 bit-equal between calls; MiniLM-L6 at
+   full width and max_seq_length 512
    behind load_tokenizer's native WordPiece tokenizer (the phase fails
    without it): 65,536 documents of 300-450 words through Retriever.build
    (6 K7 launches an encode batch) and 256 queries through Retriever.search
@@ -138,10 +140,12 @@ Phases (any failure exits non-zero and prints no result):
    path's (cosine >= 0.999), no library attention kernel and no GEMM for
    attention in a profiled encode batch; Trainer.train for 10 steps of 8
    quadruplets at S = 512 (attention dropout 0; K7 and K8 six times a
-   step), the first step's gradients against the plain versions, a falling
-   loss, two captured calls of 2 steps against 4 eager ones; times of K7,
-   K8, their plain versions and scaled_dot_product_attention with the same
-   mask beside the bounds, encode sentences/s at S = 256 and 512 flash
+   step, their CUDA kernels by name in a profiled step), the first step's
+   gradients against the plain versions, a falling loss, two captured calls
+   of 2 steps against 4 eager ones; times of K7 and K8 (padded and all-real
+   rows), their plain versions and scaled_dot_product_attention with the
+   same mask (forward; backward alone) beside the bounds, encode
+   sentences/s at S = 256 and 512 flash
    against einsum, tokenization docs/s native against Python, and one IR
    evaluation by part with each tokenizer.
 
@@ -177,6 +181,7 @@ import argparse
 import contextlib
 import json
 import os
+import re
 import subprocess
 import sys
 import threading
@@ -3233,6 +3238,33 @@ def kernel_names(fn, want=()) -> dict:
     return out
 
 
+def kernel_counts(fn, done=lambda counts: True, reps: int = 4, tries: int = 3) -> dict:
+    """{device kernel name: launches a call} of ``fn``, for checks that count
+    launches exactly. Every call of ``fn`` launches the same kernels, so a
+    name's launches a call are its count in the window over ``reps``, rounded
+    up: that is exact while the trace loses fewer than ``reps`` of the name's
+    records (a whole run lost one record of a window now and then, which the
+    plain mean of ``kernel_names`` turns into x.5 and a failed count), and it
+    can never exceed the true count. Until ``done(counts)`` holds, the window
+    is profiled again, up to ``tries`` times, each name keeping its largest
+    count."""
+    import math
+
+    out = {}
+    for t in range(tries):
+        seen = {}
+        for e in profiled(fn, reps).events():
+            if is_kernel(e):
+                seen[e.name] = seen.get(e.name, 0) + 1
+        for n, c in seen.items():
+            out[n] = max(out.get(n, 0), math.ceil(c / reps))
+        if done(out) or t + 1 == tries:
+            break
+        log(f"kernel_counts: the window's counts fall short of the check's (try {t + 1} of "
+            f"{tries}); profiling again")
+    return out
+
+
 def check_mpnet_kernels(report: dict) -> None:
     """K1 with rel_bias and K2 with drel at MPNet-base width (H 768, 12
     heads, F 3072), S = 128, 200 (no multiple of 16), 384 and 512, f32 and
@@ -4450,6 +4482,9 @@ FLASH_DOCS = 65536
 FLASH_QUERIES = 256
 FLASH_SEQS = (128, 256, 512, 2048)
 FLASH_TRAIN_INSTANCES = 80  # 10 steps of 8 quadruplets
+# the CUDA kernels of K7 and K8 (bf16), as the profiler names them
+K7_KERNEL = "flash_fwd_wgmma_kernel"
+K8_KERNELS = ("flash_bwd_prep_kernel", "flash_bwd_wgmma_kernel")
 
 
 def flash_counters():
@@ -4471,6 +4506,19 @@ def flash_segments(B: int, S: int, dev, gen):
     return (torch.arange(S)[None, :] < lens[:, None]).to(torch.int32).to(dev)
 
 
+def flash_no_match(seg_kv):
+    """seg_q for seg_kv from ``flash_segments`` in which some query rows
+    match no key: sequence 0's row 5 and sequence 1's first three rows get
+    segments no key has, and sequence 2 (all padding) gets real queries in
+    its second half."""
+    seg = seg_kv.clone()
+    seg[0, 5] = 7
+    seg[1, :3] = 3
+    if seg.shape[0] > 2:
+        seg[2, seg.shape[1] // 2:] = 1
+    return seg
+
+
 def flash_docs(n: int, seed: int) -> list:
     """n documents of 300-450 words of the synthetic vocabulary (w0 .. w4999):
     [CLS], the words and [SEP] land in the 512 bucket."""
@@ -4483,8 +4531,10 @@ def flash_docs(n: int, seed: int) -> list:
 def check_flash_kernels(report: dict) -> None:
     """K7 and K8 against their plain versions on the port's (B, S, nh, hd)
     activations seen as (B, nh, S, hd): hd 16 / 32 / 64, S 128 / 256 / 512 /
-    2,048, f32 and bf16, a padded sequence and an all-padding one; and in
-    bf16 at the main path's own shapes, 12 heads of 32 at S = 512 with the
+    2,048, f32 and bf16, a padded sequence and an all-padding one; at S =
+    256 with seg_q != seg_kv and query rows that match no key (the library's
+    uniform average over every key, which a skipped masked tile would
+    break); and in bf16 at the main path's own shapes, 12 heads of 32 at S = 512 with the
     train step's B = 32 and the encode batch's B = 256. f32: o
     within 1e-4, each gradient within 1e-4 of its largest value; bf16: o
     within K1's forward bars, each gradient within 2e-2 of its largest value
@@ -4497,21 +4547,26 @@ def check_flash_kernels(report: dict) -> None:
     dev = torch.device("cuda")
     gen = torch.Generator().manual_seed(71)
     worst = {}
-    cases = [(dtype, 3, 2, S, hd) for dtype in (torch.float32, torch.bfloat16)
+    cases = [(dtype, 3, 2, S, hd, False) for dtype in (torch.float32, torch.bfloat16)
              for hd in (16, 32, 64) for S in FLASH_SEQS]
-    cases += [(torch.bfloat16, 32, 12, 512, 32), (torch.bfloat16, 256, 12, 512, 32)]
-    for dtype, B, nh, S, hd in cases:
+    cases += [(dtype, 3, 2, 256, hd, True) for dtype in (torch.float32, torch.bfloat16)
+              for hd in (16, 32, 64)]
+    cases += [(torch.bfloat16, 32, 12, 512, 32, False), (torch.bfloat16, 256, 12, 512, 32, False)]
+    for dtype, B, nh, S, hd, no_match in cases:
         name, sc = str(dtype).split(".")[-1], hd ** -0.5
         q, k, v, do = (torch.randn((B, S, nh, hd), generator=gen).to(dev, dtype)
                        .transpose(1, 2) for _ in range(4))
-        seg = flash_segments(B, S, dev, gen)
-        what = f"K7/K8 {name} B={B} nh={nh} hd={hd} S={S}"
-        o, m, l = fa.flash_attention(q, k, v, seg, seg, sc, return_stats=True)
-        o_p, m_p, l_p = fa.flash_attention_plain(q, k, v, seg, seg, sc,
+        seg = seg_kv = flash_segments(B, S, dev, gen)
+        if no_match:   # seg_q != seg_kv: query rows whose segment no key has
+            seg = flash_no_match(seg_kv)
+        what = (f"K7/K8 {name} B={B} nh={nh} hd={hd} S={S}"
+                + (" seg_q != seg_kv, rows matching no key" if no_match else ""))
+        o, m, l = fa.flash_attention(q, k, v, seg, seg_kv, sc, return_stats=True)
+        o_p, m_p, l_p = fa.flash_attention_plain(q, k, v, seg, seg_kv, sc,
                                                  return_stats=True)
-        g = fa.flash_attention_bwd(q, k, v, seg, seg, o, m, l, do, sc)
-        g2 = fa.flash_attention_bwd(q, k, v, seg, seg, o, m, l, do, sc)
-        g_p = fa.flash_attention_bwd_plain(q, k, v, seg, seg, o, m, l, do, sc)
+        g = fa.flash_attention_bwd(q, k, v, seg, seg_kv, o, m, l, do, sc)
+        g2 = fa.flash_attention_bwd(q, k, v, seg, seg_kv, o, m, l, do, sc)
+        g_p = fa.flash_attention_bwd_plain(q, k, v, seg, seg_kv, o, m, l, do, sc)
         torch.cuda.synchronize()
         stats = max(((m - m_p).abs() / (1 + m_p.abs())).max().item(),
                     ((l - l_p).abs() / l_p).max().item())
@@ -4554,8 +4609,9 @@ def check_flash_kernels(report: dict) -> None:
         del q, k, v, do, o, o_p, g, g2, g_p
     report["flash"]["kernel_max_abs_err"] = worst
     log(f"K7/K8 against the plain versions at hd 16/32/64, S {FLASH_SEQS}, f32 and bf16 "
-        f"(padded and all-padding sequences), and bf16 at (32 and 256, 12, 512, 32); K8 "
-        f"bit-equal between calls: worst max|err| {worst}")
+        f"(padded and all-padding sequences; seg_q != seg_kv with rows that match no key at "
+        f"S = 256), and bf16 at (32 and 256, 12, 512, 32); K8 bit-equal between calls: "
+        f"worst max|err| {worst}")
     torch.cuda.empty_cache()
 
 
@@ -4652,15 +4708,20 @@ def flash_encode_search(report: dict, vocab: str) -> None:
     ids, mask = tok.batch_encode(docs[:256], max_length=512)
     ids = torch.from_numpy(ids.astype(np.int64)).cuda()
     mask = torch.from_numpy(mask.astype(np.int64)).cuda()
-    names = kernel_names(lambda: enc.encode_ids(ids, mask), want=("flash_fwd_mma_kernel",))
-    names_off = kernel_names(lambda: enc_off.encode_ids(ids, mask))
-    k7_names = {n: c for n, c in names.items() if "flash_fwd_mma_kernel" in n}
+    L = cfg.num_layers
+
+    def n_lib_gemms(counts: dict) -> int:
+        return sum(lib_kernels(counts, LIBRARY_GEMM_MARKS).values())
+
+    names = kernel_counts(lambda: enc.encode_ids(ids, mask),
+                          done=lambda c: sum(v for n, v in c.items() if K7_KERNEL in n) == L)
+    names_off = kernel_counts(lambda: enc_off.encode_ids(ids, mask),
+                              done=lambda c: n_lib_gemms(c) >= n_lib_gemms(names) + 2 * L)
+    k7_names = {n: c for n, c in names.items() if K7_KERNEL in n}
     # the einsum path's softmax counts as library attention here
     att = lib_kernels(names, LIBRARY_ATTENTION_MARKS + ("softmax",))
-    gemm = lib_kernels(names, LIBRARY_GEMM_MARKS)
     gemm_off = lib_kernels(names_off, LIBRARY_GEMM_MARKS)
-    n_gemm, n_gemm_off = sum(gemm.values()), sum(gemm_off.values())
-    L = cfg.num_layers
+    n_gemm, n_gemm_off = n_lib_gemms(names), n_lib_gemms(names_off)
     log(f"one flash encode batch (256 x 512) under the profiler: K7 {k7_names}; library "
         f"attention kernels {att or 'none'}; library GEMM launches {n_gemm:g} (the einsum "
         f"path's {n_gemm_off:g}: {sorted(set(map(short_name, gemm_off)))})")
@@ -4685,8 +4746,8 @@ def flash_train(report: dict, vocab: str, tmp: str) -> None:
     or twice the plain versions' distance from an f32 step where that is
     over 2.5e-2, as the mpnet phase holds them; the key bias, whose true
     gradient is 0, may instead meet the train phase's rule); a falling loss
-    on a repeated batch; two captured calls of 2 steps at dropout 0 against
-    4 eager steps."""
+    on a repeated batch; K7's and K8's kernels by name in one profiled step;
+    two captured calls of 2 steps at dropout 0 against 4 eager steps."""
     import dataclasses
 
     import torch
@@ -4810,6 +4871,20 @@ def flash_train(report: dict, vocab: str, tmp: str) -> None:
         f"{rep[-1]:.4f}")
     if not (all(np.isfinite(rep)) and np.mean(rep[-3:]) < np.mean(rep[:3])):
         fail(f"flash: the loss did not fall: {rep}")
+    # one step under the profiler: K7's and K8's CUDA kernels by name, once a
+    # layer each (K8 is the statistics pre-pass and the key-block sweep)
+    def per_kernel(counts: dict) -> dict:
+        return {w: sum(c for n, c in counts.items() if w in n)
+                for w in (K7_KERNEL,) + K8_KERNELS}
+
+    names = kernel_counts(
+        lambda: step(state, batch.input_ids, batch.attention_mask, dropout_key(38, 11)),
+        done=lambda c: all(v == enc_cfg.num_layers for v in per_kernel(c).values()))
+    per = per_kernel(names)
+    log(f"one flash train step under the profiler: {per} (want {enc_cfg.num_layers} each)")
+    if any(c != enc_cfg.num_layers for c in per.values()):
+        fail("the flash train step did not run K7's and K8's kernels once a layer")
+    report["flash"]["train_step_kernels"] = per
     del state
 
     # two captured calls of K = 2 steps at dropout 0 (K7/K8 in the graph)
@@ -4901,9 +4976,11 @@ def ir_eval_by_part(enc, ir_set) -> dict:
 
 
 def flash_times(report: dict, vocab: str, tmp: str) -> None:
-    """K7 and K8 at B = 64, S = 512, 12 heads of 32 (bf16) beside their
-    plain versions, torch's scaled_dot_product_attention with the same
-    segment mask (forward, and forward + backward) and their bounds; K7 at
+    """K7 and K8 at B = 64, S = 512, 12 heads of 32 (bf16), on the
+    ``flash_segments`` ids and with every row real, beside their plain
+    versions, torch's scaled_dot_product_attention with the same segment
+    mask (forward; backward alone, K8's yardstick; forward + backward) and
+    their bounds (the full S² count either way); K7 at
     the encode batch (256 x 256 and 256 x 512); encode sentences/s at S = 256
     and 512, flash against the einsum nn.Module path in turns; tokenization
     docs/s at S = 512, native against Python; one IR evaluation by part
@@ -4938,11 +5015,23 @@ def flash_times(report: dict, vocab: str, tmp: str) -> None:
     r8["plain_ms"] = cuda_ms(lambda: fa.flash_attention_bwd_plain(
         q, k, v, seg, seg, o, m, l, do, sc), 3)
     leaves = [t.detach().requires_grad_(True) for t in (q, k, v)]
-    r8["library_ms"] = cuda_ms(lambda: torch.autograd.grad(F.scaled_dot_product_attention(
-        *leaves, attn_mask=allowed, scale=sc), leaves, do), 20)
-    r8["library_call"] = "scaled_dot_product_attention forward + backward"
+    # K8's yardstick: SDPA's backward alone, over a retained graph
+    out = F.scaled_dot_product_attention(*leaves, attn_mask=allowed, scale=sc)
+    r8["library_ms"] = cuda_ms(lambda: torch.autograd.grad(out, leaves, do, retain_graph=True),
+                               20)
+    r8["library_call"] = "scaled_dot_product_attention backward (autograd.grad, retained graph)"
+    del out
+    r8["library_fwd_bwd_ms"] = cuda_ms(lambda: torch.autograd.grad(
+        F.scaled_dot_product_attention(*leaves, attn_mask=allowed, scale=sc), leaves, do), 20)
     r8["k7_k8_autograd_ms"] = cuda_ms(lambda: torch.autograd.grad(fa.FlashAttention.apply(
         *leaves, seg, seg, sc), leaves, do), 20)
+    # every row real: every tile one segment, so no tile's mask can hide in the times
+    real = torch.ones_like(seg)
+    o_r, m_r, l_r = fa.flash_attention(q, k, v, real, real, sc, return_stats=True)
+    r7["all_real_ms"] = cuda_ms(lambda: fa.flash_attention(q, k, v, real, real, sc), 20)
+    r8["all_real_ms"] = cuda_ms(lambda: fa.flash_attention_bwd(
+        q, k, v, real, real, o_r, m_r, l_r, do, sc), 20)
+    del o_r, m_r, l_r
     # bounds: K7 reads q, k, v and the ids, writes o and (m, l); two products
     # of S x S x hd a (sequence, head). K8 reads q, k, v, o, dO, (m, l) and
     # the ids, writes dq, dk, dv; five products (s again, dV, dP, dK, dQ)
@@ -4952,12 +5041,13 @@ def flash_times(report: dict, vocab: str, tmp: str) -> None:
     r8.update(bound(qkv_bytes + 2 * B * S * H * 2 + stat_bytes + ids_bytes + 3 * B * S * H * 2,
                     10.0 * B * nh * S * S * hd, "bfloat16"))
     r7["shape"] = r8["shape"] = [B, nh, S, hd]
-    log(f"K7 at (B={B}, 12 heads, S={S}, hd={hd}) bf16: {r7['ms']:.3f} ms (bound "
-        f"{r7['bound_ms']:.3f} ms by {r7['bound_by']}), plain {r7['plain_ms']:.3f} ms, SDPA "
-        f"{r7['library_ms']:.3f} ms; K8 {r8['ms']:.3f} ms (bound {r8['bound_ms']:.3f} ms by "
-        f"{r8['bound_by']}), plain {r8['plain_ms']:.3f} ms, SDPA forward + backward "
-        f"{r8['library_ms']:.3f} ms against K7 + K8 through autograd "
-        f"{r8['k7_k8_autograd_ms']:.3f} ms")
+    log(f"K7 at (B={B}, 12 heads, S={S}, hd={hd}) bf16: {r7['ms']:.4f} ms (all rows real "
+        f"{r7['all_real_ms']:.4f}; bound {r7['bound_ms']:.4f} ms by {r7['bound_by']}), plain "
+        f"{r7['plain_ms']:.3f} ms, SDPA {r7['library_ms']:.4f} ms; K8 {r8['ms']:.4f} ms (all "
+        f"rows real {r8['all_real_ms']:.4f}; bound {r8['bound_ms']:.4f} ms by "
+        f"{r8['bound_by']}), plain {r8['plain_ms']:.3f} ms, SDPA backward alone "
+        f"{r8['library_ms']:.4f} ms, SDPA forward + backward {r8['library_fwd_bwd_ms']:.4f} ms "
+        f"against K7 + K8 through autograd {r8['k7_k8_autograd_ms']:.4f} ms")
     del q, k, v, do, o, m, l, leaves, allowed
     enc_shapes = {}
     for Se in (256, 512):
@@ -5079,7 +5169,19 @@ def flash(report: dict) -> None:
 
     import torch
 
+    from qst_tpu_torch.kernels import build
+
     report["flash"] = {}
+    # the bf16 kernels' resources as ptxas reported them in the build
+    res = {}
+    for name, line in build.resource_report("flash_").items():
+        m = re.search(r"(flash_\w+?_kernel)ILi(\d+)E", name)
+        if m and ("wgmma" in m.group(1) or "prep" in m.group(1)):
+            res[f"{m.group(1)}<{m.group(2)}>"] = line
+    log("K7/K8 kernels, ptxas -v: " + "; ".join(f"{n}: {v}" for n, v in sorted(res.items())))
+    if len(res) != 9:
+        fail(f"ptxas reported {len(res)} of K7/K8's 9 bf16 kernels")
+    report["flash"]["ptxas"] = res
     parts = {}
     with tempfile.TemporaryDirectory() as tmp:
         vocab = f"{tmp}/vocab.txt"
@@ -5184,8 +5286,10 @@ def main() -> None:
                          "ms": r.get("ms"), "plain_ms": r.get("plain_ms"),
                          "bound_ms": r.get("bound_ms"), "bound_by": r.get("bound_by"),
                          "library_ms": r.get("library_ms"), "shape": r.get("shape"),
+                         "all_real_ms": r.get("all_real_ms"),
                          **({"also_replaces": "jax/experimental/pallas/ops/tpu/"
                              "flash_attention.py:1456", "library_call": r.get("library_call"),
+                             "library_fwd_bwd_ms": r.get("library_fwd_bwd_ms"),
                              "k7_k8_autograd_ms": r.get("k7_k8_autograd_ms")}
                             if name[:2] == "K8" else
                             {"encode_shapes": r.get("encode_shapes")})})

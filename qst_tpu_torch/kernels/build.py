@@ -12,7 +12,9 @@ one link::
 The library is built at first use into ``kernels/_build/`` (listed in
 ``.gitignore``), named by a hash of the sources and flags, so a checkout
 builds everything from its own sources and an edit rebuilds. A failed build
-raises with nvcc's stderr. Nothing here runs at import time.
+raises with nvcc's stderr; a build that succeeds keeps ptxas's report of
+each kernel's registers, shared memory and spills (``-Xptxas -v``) beside the
+library (``resource_report``). Nothing here runs at import time.
 
 Each C entry point returns a ``cudaError_t`` (0 on success); ``check``
 raises on anything else with CUDA's own message.
@@ -32,7 +34,7 @@ from typing import Dict, Optional, Sequence
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
 ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
-NVCC_FLAGS = (*ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC")
+NVCC_FLAGS = (*ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 # dtype codes of the C entry points (csrc/common.cuh QstDType)
 DTYPE_CODES = {"float32": 0, "bfloat16": 1, "int8": 2}
@@ -69,17 +71,20 @@ def library_path() -> Path:
     return BUILD_DIR / f"libqst_kernels_{h.hexdigest()[:16]}.so"
 
 
-def _run_all(cmds: Sequence[Sequence[str]]) -> None:
-    """Run the commands at once; raise with the first failure's stderr."""
+def _run_all(cmds: Sequence[Sequence[str]]) -> str:
+    """Run the commands at once → their output (ptxas reports on either
+    stream), joined; raise with every failure's stderr."""
     procs = [subprocess.Popen(c, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
              for c in cmds]
-    failed = []
+    failed, errs = [], []
     for cmd, proc in zip(cmds, procs):
-        _, err = proc.communicate()
+        out, err = proc.communicate()
+        errs.append(out + err)
         if proc.returncode != 0:
             failed.append(f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{err}")
     if failed:
         raise RuntimeError("\n".join(failed))
+    return "".join(errs)
 
 
 def build() -> Path:
@@ -93,13 +98,32 @@ def build() -> Path:
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
     try:
         objs = [objdir / f"{src.stem}.o" for src in _sources()]
-        _run_all([[nvcc, *NVCC_FLAGS, "-c", str(src), "-o", str(obj)]
-                  for src, obj in zip(_sources(), objs)])
+        report = _run_all([[nvcc, *NVCC_FLAGS, "-c", str(src), "-o", str(obj)]
+                           for src, obj in zip(_sources(), objs)])
         _run_all([[nvcc, *ARCH, "-shared", "-o", str(tmp), *map(str, objs), "-ldl"]])
+        out.with_suffix(".ptxas.txt").write_text(report)
         os.replace(tmp, out)   # atomic: a concurrent build sees all or nothing
     finally:
         shutil.rmtree(objdir, ignore_errors=True)
         tmp.unlink(missing_ok=True)
+    return out
+
+
+def resource_report(kernel: str) -> Dict[str, str]:
+    """{mangled name: ptxas's lines} of every compiled kernel whose name holds
+    ``kernel``, from the built library's report (registers, barriers,
+    shared memory, stack frame, spills, and ptxas's notes where it had to
+    serialise a kernel's wgmma)."""
+    path = library_path().with_suffix(".ptxas.txt")
+    out: Dict[str, str] = {}
+    name = None
+    for line in path.read_text().splitlines() if path.is_file() else ():
+        if "Compiling entry function" in line:
+            name = line.split("'")[1] if "'" in line else None
+        elif name is not None and kernel in name and (
+                "Used" in line or "spill" in line or "stack frame" in line
+                or "Performance Loss" in line):
+            out[name] = (out.get(name, "") + " " + line.split(":", 1)[-1].strip()).strip()
     return out
 
 

@@ -1,10 +1,12 @@
 // Hopper (sm_90a) building blocks as inline PTX, shared by the tensor-core
-// kernels of K1, K2, K4, K5 and K6: mbarriers, TMA tile loads with their
-// host-side tensor maps, wgmma (m64n128k16 bf16 → f32 and m64n128k32 int8 →
-// int32, both operands from 128-byte-swizzled shared memory), cp.async with
-// its commit groups, the warp-level ldmatrix / mma.sync.m16n8k16 pair the
-// attention kernels, K5 and K6 use (and its int8 form), and two host helpers
-// (SM count, large dynamic shared memory).
+// kernels of K1, K2, K4-K8: mbarriers, TMA tile loads (2-D and the 4-D maps
+// of K7/K8's (B, nh, S, hd) views) and bulk copies with their host-side
+// tensor maps, wgmma (m64n128k16 bf16 → f32 and m64n128k32 int8 → int32 from
+// 128-byte-swizzled shared memory; m64n{16,32,64}k16 bf16 with A from shared
+// memory or registers, in any swizzle), cp.async with its commit groups, the
+// warp-level ldmatrix / mma.sync.m16n8k16 pair the attention kernels, K5 and
+// K6 use (and its int8 form), and two host helpers (SM count, large dynamic
+// shared memory).
 #pragma once
 
 #include <cuda.h>  // CUtensorMap and its enums (types only: nothing links against libcuda)
@@ -117,6 +119,64 @@ __device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map, u
       : "memory");
 }
 
+// The swizzle a row of `row_bytes` (32, 64 or 128) takes: its full width, so
+// a box row is one swizzle line and wgmma reads the tile where TMA put it.
+inline CUtensorMapSwizzle swizzle_for_row(int row_bytes) {
+  return row_bytes == 32 ? CU_TENSOR_MAP_SWIZZLE_32B
+         : row_bytes == 64 ? CU_TENSOR_MAP_SWIZZLE_64B
+                           : CU_TENSOR_MAP_SWIZZLE_128B;
+}
+
+// The tensor map of a 4-D bf16 tensor whose innermost axis (dims[0]
+// elements) is contiguous and the others lie at byte strides strides[0..2]
+// (multiples of 16), cut into boxes of box[0..3] elements; rows of
+// 2·box[0] bytes in the swizzle of that width.
+inline bool make_tensor_map_4d(CUtensorMap* map, const void* base, const cuuint64_t (&dims)[4],
+                               const cuuint64_t (&strides)[3], const cuuint32_t (&box)[4]) {
+  const TensorMapEncodeTiled encode = tensor_map_encoder();
+  if (encode == nullptr) return false;
+  const cuuint32_t elem[4] = {1u, 1u, 1u, 1u};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base), dims,
+                strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                swizzle_for_row((int)box[0] * 2), CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+__device__ __forceinline__ void tma_load_4d(uint32_t dst, const CUtensorMap* map, uint32_t bar,
+                                            int c0, int c1, int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4, %5, %6}], [%2];"
+      ::"r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1), "r"(c2),
+        "r"(c3)
+      : "memory");
+}
+
+// `bytes` (a multiple of 16) from global `src` (16-byte aligned) to shared
+// `dst`, completing on `bar` like a TMA load
+__device__ __forceinline__ void bulk_load(uint32_t dst, const void* src, uint32_t bytes,
+                                          uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];"
+      ::"r"(dst), "l"(src), "r"(bytes), "r"(bar)
+      : "memory");
+}
+
+// Shared-memory writes of this thread made visible to the async proxy
+// (wgmma's operand reads, TMA) — after st.shared, before the barrier that
+// lets a wgmma read them.
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+}
+
+// 2^x on the special-function unit (MUFU.EX2: about 2 ulp; subnormal
+// inputs and results flush to zero)
+__device__ __forceinline__ float ex2_approx(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
 // ---------------------------------------------------------------------------
 // wgmma. A shared-memory operand is described by its start address, a
 // "leading" and a "stride" byte offset and the swizzle mode (1 = 128 bytes):
@@ -131,6 +191,20 @@ __device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map, u
 __device__ __forceinline__ uint64_t wgmma_desc(uint32_t addr, uint32_t lbo, uint32_t sbo) {
   return (uint64_t)((addr & 0x3FFFFu) >> 4) | ((uint64_t)(lbo >> 4) << 16) |
          ((uint64_t)(sbo >> 4) << 32) | (1ull << 62);
+}
+
+// The same for lines of ROW_BYTES (32, 64 or 128) in the swizzle of that
+// width (layout codes 3, 2, 1): 8 lines make a group, so `sbo` = 8 ·
+// ROW_BYTES where the groups lie back to back; a K-major operand moves 32
+// bytes along its line for 16 further k, an MN-major one 16 lines. A tile
+// narrower than a line needs no `lbo`.
+template <int ROW_BYTES>
+__device__ __forceinline__ uint64_t wgmma_desc_sw(uint32_t addr) {
+  static_assert(ROW_BYTES == 32 || ROW_BYTES == 64 || ROW_BYTES == 128, "swizzle width");
+  constexpr uint64_t layout = ROW_BYTES == 128 ? 1 : ROW_BYTES == 64 ? 2 : 3;
+  constexpr uint32_t sbo = 8 * ROW_BYTES;
+  return (uint64_t)((addr & 0x3FFFFu) >> 4) | ((uint64_t)1 << 16) |
+         ((uint64_t)(sbo >> 4) << 32) | (layout << 62);
 }
 
 __device__ __forceinline__ void wgmma_fence() {
@@ -205,6 +279,145 @@ __device__ __forceinline__ void wgmma_m64n128k32_s8(int (&d)[64], uint64_t a, ui
         "+r"(d[55]), "+r"(d[56]), "+r"(d[57]), "+r"(d[58]), "+r"(d[59]), "+r"(d[60]),
         "+r"(d[61]), "+r"(d[62]), "+r"(d[63])
       : "l"(a), "l"(b), "r"(accumulate));
+}
+
+// m64nNk16 bf16 → f32, N = 16, 32 or 64 (d: N/2 f32 a thread, the fragment
+// layout of m64n128k16 cut at column N). wgmma_ss: both operands from
+// shared memory (TA, TB: the transpose bits, 1 = MN-major); wgmma_rs: A from
+// registers, a[0..3] as mma.sync.m16n8k16's A fragment for the thread's
+// warp's 16 rows — so the accumulator of a product, rounded to bf16 pairs
+// (d[8c .. 8c+7] → k-step c), is the next product's A as it lies.
+template <int N, int TA, int TB>
+struct WgmmaSS;
+template <int N, int TB>
+struct WgmmaRS;
+
+template <int TA, int TB>
+struct WgmmaSS<16, TA, TB> {
+  static __device__ __forceinline__ void run(float (&d)[8], uint64_t a, uint64_t b, int acc) {
+    asm volatile(
+        "{\n"
+        ".reg .pred p;\n"
+        "setp.ne.b32 p, %10, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7}, "
+        "%8, %9, p, 1, 1, %11, %12;\n"
+        "}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+          "+f"(d[7])
+        : "l"(a), "l"(b), "r"(acc), "n"(TA), "n"(TB));
+  }
+};
+
+template <int TA, int TB>
+struct WgmmaSS<32, TA, TB> {
+  static __device__ __forceinline__ void run(float (&d)[16], uint64_t a, uint64_t b, int acc) {
+    asm volatile(
+        "{\n"
+        ".reg .pred p;\n"
+        "setp.ne.b32 p, %18, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
+        "%16, %17, p, 1, 1, %19, %20;\n"
+        "}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+          "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]),
+          "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+        : "l"(a), "l"(b), "r"(acc), "n"(TA), "n"(TB));
+  }
+};
+
+template <int TA, int TB>
+struct WgmmaSS<64, TA, TB> {
+  static __device__ __forceinline__ void run(float (&d)[32], uint64_t a, uint64_t b, int acc) {
+    asm volatile(
+        "{\n"
+        ".reg .pred p;\n"
+        "setp.ne.b32 p, %34, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+        "%32, %33, p, 1, 1, %35, %36;\n"
+        "}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+          "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]),
+          "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]),
+          "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+          "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),
+          "+f"(d[31])
+        : "l"(a), "l"(b), "r"(acc), "n"(TA), "n"(TB));
+  }
+};
+
+template <int TB>
+struct WgmmaRS<16, TB> {
+  static __device__ __forceinline__ void run(float (&d)[8], const uint32_t (&a)[4], uint64_t b,
+                                             int acc) {
+    asm volatile(
+        "{\n"
+        ".reg .pred p;\n"
+        "setp.ne.b32 p, %13, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7}, "
+        "{%8, %9, %10, %11}, %12, p, 1, 1, %14;\n"
+        "}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+          "+f"(d[7])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(acc), "n"(TB));
+  }
+};
+
+template <int TB>
+struct WgmmaRS<32, TB> {
+  static __device__ __forceinline__ void run(float (&d)[16], const uint32_t (&a)[4], uint64_t b,
+                                             int acc) {
+    asm volatile(
+        "{\n"
+        ".reg .pred p;\n"
+        "setp.ne.b32 p, %21, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
+        "{%16, %17, %18, %19}, %20, p, 1, 1, %22;\n"
+        "}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+          "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]),
+          "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(acc), "n"(TB));
+  }
+};
+
+template <int TB>
+struct WgmmaRS<64, TB> {
+  static __device__ __forceinline__ void run(float (&d)[32], const uint32_t (&a)[4], uint64_t b,
+                                             int acc) {
+    asm volatile(
+        "{\n"
+        ".reg .pred p;\n"
+        "setp.ne.b32 p, %37, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+        "{%32, %33, %34, %35}, %36, p, 1, 1, %38;\n"
+        "}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+          "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]),
+          "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]),
+          "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+          "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),
+          "+f"(d[31])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(acc), "n"(TB));
+  }
+};
+
+template <int N, int TA, int TB>
+__device__ __forceinline__ void wgmma_ss(float (&d)[N / 2], uint64_t a, uint64_t b, int acc) {
+  WgmmaSS<N, TA, TB>::run(d, a, b, acc);
+}
+
+template <int N, int TB>
+__device__ __forceinline__ void wgmma_rs(float (&d)[N / 2], const uint32_t (&a)[4], uint64_t b,
+                                         int acc) {
+  WgmmaRS<N, TB>::run(d, a, b, acc);
 }
 
 // Named barrier `id` (1..15; 0 is __syncthreads) over `threads` threads:

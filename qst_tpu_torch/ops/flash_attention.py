@@ -5,9 +5,11 @@ qst_tpu calls ``jax.experimental.pallas.ops.tpu.flash_attention.flash_attention`
 at ``qst_tpu/models/bert.py:87-101``; it reaches ``pl.pallas_call`` three
 times (``flash_attention.py:758`` forward, ``:1121`` dK/dV, ``:1456`` dQ,
 with di = Σ o·dO in XLA at ``:254-275``). ``kernels/csrc/flash_attention.cu``
-holds both directions as hand-written CUDA: K7 the forward, one sweep over
-the keys; K8 the backward, a dQ kernel then a dK/dV kernel. The function is
-the library's exactly, rounding points included: see the CUDA file's header.
+holds both directions as hand-written CUDA for Hopper (wgmma fed by TMA,
+warp-specialised): K7 the forward, one sweep over the keys; K8 the backward,
+a statistics pre-pass then one sweep over the key blocks that computes each
+logit's exponential once. The function is the library's, rounding points
+included: see the CUDA file's header for the two that moved by f32 ulps.
 
 - ``flash_attention(q, k, v, seg_q, seg_kv, sm_scale)``: K7. q, k, v are
   (B, nh, S, hd) in any strides with d contiguous (the port's (B, S, nh, hd)
@@ -147,6 +149,13 @@ def _as_layout(x: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
     return torch.empty_like(like).copy_(x)
 
 
+def _aligned_ids(seg: torch.Tensor) -> torch.Tensor:
+    """Segment ids as contiguous int32 on a 16-byte boundary (K7 reads a
+    block's ids as int4)."""
+    seg = seg.to(torch.int32).contiguous()
+    return seg if seg.data_ptr() % 16 == 0 else seg.clone()
+
+
 def _cuda_args(q, k, v, seg_q, seg_kv):
     """The operands as the kernels take them → (q, k, v, seg_q, seg_kv,
     dtype code, strides (sb, sh, ss))."""
@@ -166,8 +175,7 @@ def _cuda_args(q, k, v, seg_q, seg_kv):
         raise ValueError(f"flash attention runs in float32 or bfloat16, got {q.dtype}")
     q = _kernel_layout(q)
     k, v = _as_layout(k, q), _as_layout(v, q)
-    seg_q = seg_q.to(torch.int32).contiguous()
-    seg_kv = seg_kv.to(torch.int32).contiguous()
+    seg_q, seg_kv = _aligned_ids(seg_q), _aligned_ids(seg_kv)
     code = build.DTYPE_CODES[str(q.dtype).split(".")[-1]]
     return q, k, v, seg_q, seg_kv, code, tuple(q.stride()[:-1])
 
@@ -202,8 +210,10 @@ flash_attention.launches = 0
 def flash_attention_bwd(q, k, v, seg_q, seg_kv, o, m, l, do, sm_scale: float
                         ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """K8: (dq, dk, dv) in q's dtype from the forward's o and (m, l) and the
-    upstream gradient ``do``; two CUDA kernels (dQ with di, then dK/dV),
-    counted as one launch. A CPU tensor takes ``flash_attention_bwd_plain``."""
+    upstream gradient ``do``; two CUDA kernels (bf16: the statistics
+    pre-pass, then dQ, dK and dV in one sweep; f32: dQ with di, then dK/dV)
+    and a scratch buffer, counted as one launch. A CPU tensor takes
+    ``flash_attention_bwd_plain``."""
     if q.device.type == "cpu":
         return flash_attention_bwd_plain(q, k, v, seg_q, seg_kv, o, m, l, do, sm_scale)
     from qst_tpu_torch.kernels import build
@@ -214,12 +224,15 @@ def flash_attention_bwd(q, k, v, seg_q, seg_kv, o, m, l, do, sm_scale: float
         raise ValueError("o and do must be q's shape and dtype")
     o, do = _as_layout(o, q), _as_layout(do.to(q.dtype), q)
     stats = torch.stack([m.float(), l.float()]).contiguous()
-    di = torch.empty((B, nh, S), dtype=torch.float32, device=q.device)
     dq, dk, dv = torch.empty_like(q), torch.empty_like(q), torch.empty_like(q)
     fn = build.function("qst_flash_backward", _BWD_ARGTYPES)
     with build.device_guard(q.device):
+        scratch = torch.empty(build.function("qst_flash_backward_scratch_bytes",
+                                             [ctypes.c_int] * 5, ctypes.c_longlong)(
+                                                 code, B, nh, S, hd),
+                              dtype=torch.uint8, device=q.device)
         err = fn(code, q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), do.data_ptr(),
-                 seg_q.data_ptr(), seg_kv.data_ptr(), stats.data_ptr(), di.data_ptr(),
+                 seg_q.data_ptr(), seg_kv.data_ptr(), stats.data_ptr(), scratch.data_ptr(),
                  dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), B, nh, S, hd, sb, sh, ss,
                  _f32(sm_scale), MASK_VALUE, torch.cuda.current_stream(q.device).cuda_stream)
     build.count_launch(flash_attention_bwd)

@@ -14,7 +14,8 @@ behind the main thread's next operation, which waited for the kernel that
 waited for them (a hang seen under a loaded pytest-xdist run).
 
 INPUTS holds the op cases ``<case>_{q,k,v,do,seg}`` (their names in
-``cases``) and the encoder's config (``enc_cfg``, JSON), weight seed
+``cases``; ``<case>_segkv``, where present, the keys' segment ids, else
+``seg``) and the encoder's config (``enc_cfg``, JSON), weight seed
 (``enc_seed``), ids, mask and loss weights ``enc_w``. OUTPUTS gets, for each
 op case, the library's o, l, m and the gradients of Σ o·dO (``<case>_dq`` ...);
 for the encoder its ``token_embeddings`` and ``sentence_embedding`` and the
@@ -44,9 +45,10 @@ from jax.experimental.pallas.ops.tpu import flash_attention as jfa  # noqa: E402
 
 def op_case(inp, case: str, out: dict) -> None:
     q, k, v, do, seg = (inp[f"{case}_{n}"] for n in ("q", "k", "v", "do", "seg"))
+    seg_kv = inp[f"{case}_segkv"] if f"{case}_segkv" in inp else seg
     B, nh, S, hd = q.shape
     sc = hd ** -0.5
-    ids = jfa.SegmentIds(jnp.asarray(seg), jnp.asarray(seg))
+    ids = jfa.SegmentIds(jnp.asarray(seg), jnp.asarray(seg_kv))
 
     def lib(q, k, v):
         return jfa.flash_attention(q, k, v, segment_ids=ids, sm_scale=sc)

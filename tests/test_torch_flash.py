@@ -52,10 +52,24 @@ def _op_inputs(B, nh, S, hd, seed):
     return q, k, v, do, seg
 
 
-def _port_fwd_bwd(q, k, v, do, seg, dtype=torch.float32, device="cpu"):
+NO_MATCH = (256, 32)   # S, hd of the case with query rows that match no key
+
+
+def _no_match_q(seg):
+    """seg_q for the keys' ``seg`` of ``_op_inputs`` in which query rows
+    match no key: sequence 0's row 5 and sequence 1's first three rows (its
+    keys are all padding) get segments no key has."""
+    seg_q = seg.copy()
+    seg_q[0, 5] = 7
+    seg_q[1, :3] = 3
+    return seg_q
+
+
+def _port_fwd_bwd(q, k, v, do, seg, dtype=torch.float32, device="cpu", seg_q=None):
     t = [torch.from_numpy(x).to(device, dtype).requires_grad_() for x in (q, k, v)]
     s = torch.from_numpy(seg).to(device)
-    o = tfa.FlashAttention.apply(*t, s, s, q.shape[-1] ** -0.5)
+    sq = s if seg_q is None else torch.from_numpy(seg_q).to(device)
+    o = tfa.FlashAttention.apply(*t, sq, s, q.shape[-1] ** -0.5)
     (o.float() * torch.from_numpy(do).to(device)).sum().backward()
     return o.detach().float().cpu().numpy(), [x.grad.float().cpu().numpy() for x in t]
 
@@ -90,6 +104,32 @@ def test_plain_versions_are_the_library_kernel(library, S, hd):
                                         return_stats=True)
     np.testing.assert_allclose(m.numpy(), library[f"{case}_m"], rtol=1e-6, atol=ATOL)
     np.testing.assert_allclose(l.numpy(), library[f"{case}_l"], rtol=1e-5, atol=0)
+
+
+def test_plain_versions_are_the_library_kernel_for_rows_that_match_no_key(library):
+    """seg_q != seg_kv with query rows whose segment no key has: the
+    library's forward gives such a row the plain average of v over every key
+    (each logit is the mask value), and its backward the matching
+    gradients; the plain versions through ``FlashAttention`` against both,
+    and (m, l) against the library's residuals. The CUDA kernels are held to
+    these plain versions on the card (a skipped masked tile would break
+    exactly these rows)."""
+    q, k, v, do, seg = _op_inputs(2, 2, *NO_MATCH, seed=5)
+    seg_q = _no_match_q(seg)
+    got_o, got_g = _port_fwd_bwd(q, k, v, do, seg, seg_q=seg_q)
+    np.testing.assert_allclose(got_o, library["nomatch_o"], rtol=0, atol=ATOL)
+    for n, g in zip("qkv", got_g):
+        w = library[f"nomatch_d{n}"]
+        np.testing.assert_allclose(g, w, rtol=0, atol=ATOL * np.abs(w).max())
+    for b, r in ((0, [5]), (1, [0, 1, 2])):
+        np.testing.assert_allclose(got_o[b][:, r], np.broadcast_to(
+            v[b].mean(axis=1, keepdims=True), got_o[b][:, r].shape), rtol=0, atol=ATOL)
+    sc = NO_MATCH[1] ** -0.5
+    _, m, l = tfa.flash_attention_plain(*(torch.from_numpy(x) for x in (q, k, v)),
+                                        torch.from_numpy(seg_q), torch.from_numpy(seg), sc,
+                                        return_stats=True)
+    np.testing.assert_allclose(m.numpy(), library["nomatch_m"], rtol=1e-6, atol=ATOL)
+    np.testing.assert_allclose(l.numpy(), library["nomatch_l"], rtol=1e-5, atol=0)
 
 
 @pytest.mark.parametrize("flag", [False, True])
@@ -141,14 +181,18 @@ def _encoder_loss_weights(cfg, B):
 @pytest.fixture(scope="module")
 def library(tmp_path_factory):
     """The library kernel's results in interpret mode, from one subprocess
-    (``tests/flash_library_side.py``): each op case of OP_CASES, and JAX's
+    (``tests/flash_library_side.py``): each op case of OP_CASES, the case
+    with query rows that match no key (``nomatch``), and JAX's
     tiny flash encoder at S = 128 (its outputs and the gradient of
     Σ w·sentence_embedding w.r.t. every parameter, as the port's names)."""
     d = tmp_path_factory.mktemp("flash_library")
-    inp = {"cases": np.array([f"op{S}_{hd}" for S, hd in OP_CASES])}
+    inp = {"cases": np.array([f"op{S}_{hd}" for S, hd in OP_CASES] + ["nomatch"])}
     for S, hd in OP_CASES:
         for n, x in zip(("q", "k", "v", "do", "seg"), _op_inputs(2, 2, S, hd, seed=S + hd)):
             inp[f"op{S}_{hd}_{n}"] = x
+    q, k, v, do, seg = _op_inputs(2, 2, *NO_MATCH, seed=5)
+    inp.update(nomatch_q=q, nomatch_k=k, nomatch_v=v, nomatch_do=do, nomatch_seg=_no_match_q(seg),
+               nomatch_segkv=seg)
     jcfg, cfg = _flash_cfg()
     ids, mask = _enc_inputs(cfg)
     inp.update(enc_cfg=np.array(json.dumps(dataclasses.asdict(jcfg))), enc_seed=np.array(11),
@@ -377,6 +421,24 @@ def cuda():
     return torch.device("cuda")
 
 
+def _bf16_close_to_plain(q, k, v, do, seg_q, seg_kv, sc):
+    """bf16 K7 and K8 against their plain versions on the same inputs: o
+    within 2e-2 of max|o|, gradients within 2e-2 of their largest value at
+    most and 2^-7 of their mean, K8 bit-equal between two calls."""
+    o, m, l = tfa.flash_attention(q, k, v, seg_q, seg_kv, sc, return_stats=True)
+    o_ref = tfa.flash_attention_plain(q, k, v, seg_q, seg_kv, sc)
+    d = (o.float() - o_ref.float()).abs()
+    assert d.max().item() <= 2e-2 * o_ref.float().abs().max().item()
+    g1 = tfa.flash_attention_bwd(q, k, v, seg_q, seg_kv, o, m, l, do, sc)
+    g2 = tfa.flash_attention_bwd(q, k, v, seg_q, seg_kv, o, m, l, do, sc)
+    ref = tfa.flash_attention_bwd_plain(q, k, v, seg_q, seg_kv, o, m, l, do, sc)
+    for a, b, r in zip(g1, g2, ref):
+        assert torch.equal(a, b)
+        d = (a.float() - r.float()).abs()
+        assert d.max().item() <= 2e-2 * r.float().abs().max().item()
+        assert d.mean().item() <= 2.0 ** -7 * r.float().abs().mean().item()
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("S,hd", [(128, 16), (256, 32), (512, 64), (2048, 32)])
 def test_k7_k8_f32_against_the_plain_versions_on_the_card(cuda, S, hd):
@@ -399,16 +461,34 @@ def test_k7_k8_bf16_against_the_plain_versions_on_the_card(cuda, S, hd):
     q, k, v, do, seg = _op_inputs(2, 3, S, hd, seed=S + 1)
     bf = [torch.from_numpy(x).to(cuda, torch.bfloat16) for x in (q, k, v, do)]
     s = torch.from_numpy(seg).to(cuda)
-    sc = hd ** -0.5
-    o, m, l = tfa.flash_attention(*bf[:3], s, s, sc, return_stats=True)
-    o_ref, m_ref, l_ref = tfa.flash_attention_plain(*bf[:3], s, s, sc, return_stats=True)
-    d = (o.float() - o_ref.float()).abs()
-    assert d.max().item() <= 2e-2 * o_ref.float().abs().max().item()
-    g1 = tfa.flash_attention_bwd(*bf[:3], s, s, o, m, l, bf[3], sc)
-    g2 = tfa.flash_attention_bwd(*bf[:3], s, s, o, m, l, bf[3], sc)
-    ref = tfa.flash_attention_bwd_plain(*bf[:3], s, s, o, m, l, bf[3], sc)
-    for a, b, r in zip(g1, g2, ref):
-        assert torch.equal(a, b)
-        d = (a.float() - r.float()).abs()
-        assert d.max().item() <= 2e-2 * r.float().abs().max().item()
-        assert d.mean().item() <= 2.0 ** -7 * r.float().abs().mean().item()
+    _bf16_close_to_plain(*bf, s, s, hd ** -0.5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hd", [16, 32, 64])
+def test_k7_k8_bf16_rows_that_match_no_key_on_the_card(cuda, hd):
+    """seg_q != seg_kv with query rows that match no key (the library's
+    uniform average, which a skipped masked tile would break), bf16, held to
+    the plain versions."""
+    q, k, v, do, seg = _op_inputs(2, 3, NO_MATCH[0], hd, seed=hd)
+    bf = [torch.from_numpy(x).to(cuda, torch.bfloat16) for x in (q, k, v, do)]
+    seg_q = torch.from_numpy(_no_match_q(seg)).to(cuda)
+    _bf16_close_to_plain(*bf, seg_q, torch.from_numpy(seg).to(cuda), hd ** -0.5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("S,hd", [(384, 16), (512, 32), (640, 64)])
+def test_k7_k8_bf16_on_strided_activations_on_the_card(cuda, S, hd):
+    """bf16 K7 and K8 on the encoder's (B, S, nh, hd) activations seen as
+    (B, nh, S, hd) (the tensor maps' axes in stride order), at a query-tile
+    count that is odd (S = 384, 640) and where dQ's sums leave shared
+    memory for the scratch (hd 64 at S = 640)."""
+    rng = np.random.default_rng(S + hd)
+    B, nh = 3, 4
+    q, k, v, do = (torch.from_numpy(rng.standard_normal((B, S, nh, hd)).astype(np.float32))
+                   .to(cuda, torch.bfloat16).transpose(1, 2) for _ in range(4))
+    seg = np.ones((B, S), np.int32)
+    seg[0, S - 100:] = 0
+    seg[1, :] = 0
+    s = torch.from_numpy(seg).to(cuda)
+    _bf16_close_to_plain(q, k, v, do, s, s, hd ** -0.5)
