@@ -6,6 +6,7 @@
     python3 chip_smoke.py --phases build,check,ivf
     python3 chip_smoke.py --phases build,pq
     python3 chip_smoke.py --phases build,flash     # the long-document path alone
+    python3 chip_smoke.py --phases build,roberta   # RoBERTa, the cross-encoder, the MLM head
     python3 chip_smoke.py --phases build,check,train,evaluate
     python3 chip_smoke.py --phases build,dataset,capture,ablation
     python3 chip_smoke.py --phases build,ablation --ablation_steps 2000   # the decisive run
@@ -149,7 +150,30 @@ Phases (any failure exits non-zero and prints no result):
    against einsum, tokenization docs/s native against Python, and one IR
    evaluation by part with each tokenizer.
 
-14. pq    — the compressed and streamed indexes, last (run before the
+14. roberta — RoBERTa, byte-level BPE, the cross-encoder and the MLM head:
+   a random RoBERTa-large cross-encoder (the reference labeler's width, H
+   1,024, 24 layers, 16 heads of 64) written from a seed as an HF
+   RobertaForSequenceClassification directory with a BPE vocabulary learned
+   from seeded text, loaded through load_cross_encoder_dir and
+   load_tokenizer; K7 at its (128, 16, 128, 64) view (sequence stride
+   1,024) against its plain version first, f32 and bf16; CrossEncoder.predict
+   at batch 128, S = 128 over 1,024 pairs of 300-450 characters, einsum
+   bf16, flash bf16 (24 K7 a batch) and f32 (bf16 within 1e-2 of f32, on the
+   same side of 0.4 away from near ties; f32 within 1e-4 of the CPU on 8
+   pairs), pairs/s; K7's time there beside plain, SDPA and its bound; a
+   Retriever (MiniLM-L6, bf16 index, dot_score: K4 + K5) over 65,536 docs
+   with the cross-encoder as reranker, 64 queries at k = 10, rerank_k = 100,
+   answers equal to predict over the first stage's candidates, ms a query;
+   ir_eval_main --use_cross_encoder --cross_encoder_dir labeling 32 queries
+   x 512 docs (relevant sets equal to the thresholded scores), its wall
+   time; an all-distilroberta-v1-width directory (H 768, 6 layers) loaded
+   through load_hf_checkpoint_dir, bf16 encode held to f32, two flash
+   Trainer steps at S = 256 (K7 and K8 6 a step), the first step's
+   gradients against the einsum path; MLMAugmenter (substitute and insert)
+   at MiniLM-L6 width over 1,024 captions, texts/s, its mask-slot logits
+   held to f32.
+
+15. pq    — the compressed and streamed indexes, last (run before the
    profiled phases, it makes their torch.profiler traces lose kernels,
    although it tears down what it opened; the cause is not known):
    index_main build |
@@ -191,7 +215,7 @@ import urllib.request
 import numpy as np
 
 PHASES = ("build", "check", "serve", "ivf", "train", "times", "profile", "evaluate", "dataset",
-          "capture", "ablation", "mpnet", "flash", "pq")
+          "capture", "ablation", "mpnet", "flash", "roberta", "pq")
 
 
 def fail(msg: str) -> None:
@@ -5199,6 +5223,668 @@ def flash(report: dict) -> None:
     log("flash phase by part (s): " + ", ".join(f"{n} {v:.1f}" for n, v in parts.items()))
 
 
+# ------------------------------------------------------------------ roberta
+ROBERTA_DOCS = 65536        # the reranked Retriever's corpus
+ROBERTA_QUERIES = 64
+ROBERTA_PAIRS = 1024        # pairs each predict form scores (8 batches of 128)
+ROBERTA_IR_INSTANCES = 136  # 32 queries; 104 references + 3 x 136 positives = 512 docs
+ROBERTA_MERGES = 2000
+ROBERTA_SPECIAL = ["<s>", "<pad>", "</s>", "<unk>", "<mask>"]
+
+
+def pseudo_words(n: int, seed: int) -> list:
+    """n distinct lower-case words of one to three consonant-vowel
+    syllables: text a byte-level BPE and a WordPiece vocabulary can both
+    learn, unlike the w0 .. w4999 ids of the other phases."""
+    rng = np.random.default_rng(seed)
+    cons = list("bcdfghjklmnprstvwz") + ["ch", "sh", "th", "st", "tr", "br"]
+    vows = ["a", "e", "i", "o", "u", "ea", "ou", "ai"]
+    out = set()
+    while len(out) < n:
+        syl = "".join(cons[int(rng.integers(len(cons)))] + vows[int(rng.integers(len(vows)))]
+                      for _ in range(int(rng.integers(1, 4))))
+        out.add(syl + (cons[int(rng.integers(len(cons)))] if rng.random() < 0.5 else ""))
+    return sorted(out)
+
+
+def pseudo_texts(words: list, n: int, seed: int, lo: int = 300, hi: int = 450) -> list:
+    """n sentences of lo-hi characters drawn from ``words``, capitalised and
+    ended with a full stop, with a comma now and then."""
+    rng = np.random.default_rng(seed)
+    arr = np.array(words)
+    per = hi // 3
+    picks = arr[rng.integers(0, len(words), (n, per))]
+    lens = rng.integers(lo, hi + 1, n)
+    out = []
+    for row, L in zip(picks, lens):
+        text = " ".join(row)[:L].rsplit(" ", 1)[0]
+        cut = text.find(" ", len(text) // 2)
+        if cut > 0:
+            text = text[:cut] + "," + text[cut:]
+        out.append(text[:1].upper() + text[1:] + ".")
+    return out
+
+
+def learn_bpe(texts: list, n_merges: int) -> list:
+    """The ``n_merges`` most frequent adjacent-symbol merges of the GPT-2
+    pre-tokenized byte symbols of ``texts``, greedily, as a BPE vocabulary
+    is learned (each merge recounts only the words that held the pair)."""
+    import collections
+
+    from qst_tpu_torch.models.bpe_tokenizer import bytes_to_unicode, pretokenize_pattern
+
+    bm, pat = bytes_to_unicode(), pretokenize_pattern()
+    counted = collections.Counter(tuple(bm[b] for b in piece.encode("utf-8"))
+                                  for t in texts for piece in pat.findall(t))
+    words = [[list(w), c] for w, c in counted.items()]
+    pairs, where = collections.Counter(), collections.defaultdict(set)
+    for i, (w, c) in enumerate(words):
+        for a, b in zip(w, w[1:]):
+            pairs[a, b] += c
+            where[a, b].add(i)
+    merges = []
+    for _ in range(n_merges):
+        if not pairs:
+            break
+        best = max(pairs, key=lambda p: (pairs[p], p))
+        merges.append(best)
+        for i in list(where[best]):
+            w, c = words[i]
+            for a, b in zip(w, w[1:]):
+                pairs[a, b] -= c
+                if pairs[a, b] <= 0:
+                    del pairs[a, b]
+            out, j = [], 0
+            while j < len(w):
+                if j + 1 < len(w) and (w[j], w[j + 1]) == best:
+                    out.append(w[j] + w[j + 1])
+                    j += 2
+                else:
+                    out.append(w[j])
+                    j += 1
+            words[i][0] = out
+            for a, b in zip(out, out[1:]):
+                pairs[a, b] += c
+                where[a, b].add(i)
+    return merges
+
+
+def bpe_vocab(merges: list, size: int) -> dict:
+    """A RoBERTa vocab.json of ``size`` entries: the specials at RoBERTa's
+    ids (<s> 0, <pad> 1, </s> 2, <unk> 3), the 256 byte symbols, the merged
+    tokens, and unused fillers up to the model's vocabulary size."""
+    from qst_tpu_torch.models.bpe_tokenizer import bytes_to_unicode
+
+    tokens = list(dict.fromkeys(ROBERTA_SPECIAL + list(bytes_to_unicode().values())
+                                + [a + b for a, b in merges]))
+    tokens += [f"<unused{i}>" for i in range(size - len(tokens))]
+    return {t: i for i, t in enumerate(tokens)}
+
+
+def wordpiece_list(words: list, size: int) -> list:
+    return (["[PAD]", "[UNK]", "[CLS]", "[SEP]", "[MASK]", ".", ","] + words
+            + [f"t{i}" for i in range(size - len(words) - 7)])
+
+
+def roberta_pairs(words: list, n: int, seed: int) -> list:
+    return list(zip(pseudo_texts(words, n, seed), pseudo_texts(words, n, seed + 1)))
+
+
+def k7_against_plain(what: str, q, k, v, seg) -> float:
+    """K7 against its plain version on one view: f32 within 1e-4, bf16
+    within K1's forward bars, the row statistics within 1e-4 relative
+    (check_flash_kernels' bars). → max|err|."""
+    import torch
+
+    from qst_tpu_torch.ops import flash_attention as fa
+
+    sc = q.shape[-1] ** -0.5
+    o, m, l = fa.flash_attention(q, k, v, seg, seg, sc, return_stats=True)
+    o_p, m_p, l_p = fa.flash_attention_plain(q, k, v, seg, seg, sc, return_stats=True)
+    torch.cuda.synchronize()
+    stats = max(((m - m_p).abs() / (1 + m_p.abs())).max().item(),
+                ((l - l_p).abs() / l_p).max().item())
+    diff = (o.float() - o_p.float()).abs()
+    err = diff.max().item()
+    if stats > 1e-4:
+        fail(f"{what}: row statistics {stats:.3e} from the plain version's")
+    if q.dtype == torch.float32:
+        if err > 1e-4:
+            fail(f"{what}: K7 max|err| {err:.3e} (limit 1e-4)")
+    else:
+        ulps = (diff / (bf16_ulp(o_p.float()) + 2.0 ** -7)).max().item()
+        mean_rel = (diff.mean() / o_p.float().abs().mean()).item()
+        if not (err <= 2e-2 * o_p.float().abs().max().item() and ulps <= 2.0
+                and mean_rel <= 2.0 ** -10):
+            fail(f"{what}: K7 outside K1's bf16 bars: max|err| {err:.3e}, worst element "
+                 f"{ulps:.2f} x (ulp + 2^-7), mean rel {mean_rel:.3e}")
+    return err
+
+
+def roberta_segments(tok, pairs: list, S: int, dev):
+    """The (B, S) int32 attention mask of a predict batch of ``pairs``,
+    padded as predict pads its last chunk (pad rows keep their first
+    token) — K7's segment ids in the cross-encoder."""
+    import torch
+
+    _, mask, _ = tok.batch_encode_pairs(pairs, max_length=S)
+    mask[:, 0] = 1
+    return torch.from_numpy(mask).to(dev, torch.int32)
+
+
+def roberta_cross_encoder_dir(tmp: str, words: list) -> dict:
+    """A random RoBERTa-large cross-encoder (seeded) written as an HF
+    RobertaForSequenceClassification directory with a BPE vocabulary learned
+    from seeded text, and loaded back through load_cross_encoder_dir and
+    load_tokenizer on the card. The head's bias is set so that the median
+    f32 score of 256 pairs is the relevance threshold 0.4 (a random trunk
+    scores every pair alike; this splits them)."""
+    import dataclasses
+
+    import torch
+
+    from qst_tpu_torch.core.config import EncoderConfig
+    from qst_tpu_torch.models.bpe_tokenizer import RobertaBPETokenizer
+    from qst_tpu_torch.models.cross_encoder import CrossEncoder, init_cross_encoder
+    from qst_tpu_torch.models.hf_export import save_cross_encoder_dir
+    from qst_tpu_torch.models.hf_import import load_cross_encoder_dir
+    from qst_tpu_torch.models.tokenizer import load_tokenizer
+
+    t0 = time.perf_counter()
+    cfg = EncoderConfig.roberta_large()
+    merges = learn_bpe(pseudo_texts(words, 512, seed=61), ROBERTA_MERGES)
+    vocab = bpe_vocab(merges, cfg.vocab_size)
+    learn_s = time.perf_counter() - t0
+    sd = init_cross_encoder(cfg, torch.Generator().manual_seed(62), device="cuda")
+    ce32 = CrossEncoder(dataclasses.replace(cfg, dtype="float32"), sd,
+                        RobertaBPETokenizer(vocab, merges), device="cuda")
+    s = ce32.predict(roberta_pairs(words, 256, seed=63)).astype(np.float64)
+    logits = np.log(s / (1 - s))
+    sd["classifier.out_proj.bias"] += float(np.log(0.4 / 0.6) - np.median(logits))
+    del ce32
+    t1 = time.perf_counter()
+    d = save_cross_encoder_dir({k: v.cpu() for k, v in sd.items()}, cfg, f"{tmp}/stsb_roberta",
+                               vocab=vocab, merges=merges)
+    write_s = time.perf_counter() - t1
+    t1 = time.perf_counter()
+    cfg_l, sd_l, vocab_path = load_cross_encoder_dir(d)
+    tok = load_tokenizer(vocab_path, vocab_size=cfg_l.vocab_size)
+    load_s = time.perf_counter() - t1
+    want = ("roberta", 1024, 24, 16, 4096, 50265, 1, 1e-5, 1, 514, 128)
+    got = (cfg_l.arch, cfg_l.hidden_size, cfg_l.num_layers, cfg_l.num_heads,
+           cfg_l.intermediate_size, cfg_l.vocab_size, cfg_l.type_vocab_size, cfg_l.layer_norm_eps,
+           cfg_l.pad_token_id, cfg_l.max_position_embeddings, cfg_l.max_seq_length)
+    if got != want or not isinstance(tok, RobertaBPETokenizer):
+        fail(f"RoBERTa-large directory: config {got} (want {want}), tokenizer {type(tok)}")
+    if sd_l.keys() != sd.keys() or not all(torch.equal(sd_l[k], sd[k].cpu()) for k in sd):
+        fail("RoBERTa-large directory: the loaded weights are not the written ones")
+    n_params = sum(v.numel() for v in sd_l.values())
+    log(f"RoBERTa-large cross-encoder directory: {n_params / 1e6:.1f} M parameters, "
+        f"{len(merges)} BPE merges learned in {learn_s:.1f} s, written in {write_s:.1f} s, "
+        f"loaded (load_cross_encoder_dir + load_tokenizer) in {load_s:.1f} s; init head's "
+        f"logits over 256 pairs: mean {logits.mean():.4f}, std {logits.std():.4f}")
+    del sd
+    return {"dir": d, "cfg": cfg_l, "sd": {k: v.to("cuda") for k, v in sd_l.items()},
+            "tok": tok, "vocab": vocab, "merges": merges, "logit_std": float(logits.std())}
+
+
+def roberta_predict(report: dict, ce: dict, words: list) -> dict:
+    """CrossEncoder.predict at batch 128, S = 128 over 1,024 pairs of
+    300-450-character texts in three forms: (a) bf16 einsum attention, (b)
+    bf16 with use_flash_attention (K7, 24 launches a batch), (c) f32. (a)
+    and (b) within 1e-2 of (c) on the sigmoid scores and on the same side of
+    the threshold 0.4 where (c) is 1e-2 or more from it; (c) within 1e-4 of
+    the CPU plain path on 8 pairs."""
+    import dataclasses
+
+    import torch
+
+    from qst_tpu_torch.models.cross_encoder import CrossEncoder
+
+    k7, _ = flash_counters()
+    cfg, sd, tok = ce["cfg"], ce["sd"], ce["tok"]
+    pairs = roberta_pairs(words, ROBERTA_PAIRS, seed=64)
+    forms = {"einsum": cfg, "flash": dataclasses.replace(cfg, use_flash_attention=True),
+             "f32": dataclasses.replace(cfg, dtype="float32")}
+    enc = tok.batch_encode_pairs(pairs[:128], max_length=128)
+    ids, mask, types = (torch.from_numpy(a.astype(np.int64)).cuda() for a in enc)
+    scores, out = {}, {}
+    for name, c in forms.items():
+        model = CrossEncoder(c, sd, tok, device="cuda")
+        model.predict(pairs[:128])                       # warm-up
+        k7.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        scores[name] = model.predict(pairs)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = k7.launches
+        with torch.no_grad():
+            fwd_ms = cuda_ms(lambda: model.model(ids, mask, types), 5)
+        want = 24 * ROBERTA_PAIRS // 128 if name == "flash" else 0
+        if launches != want:
+            fail(f"RoBERTa-large predict ({name}): K7 launched {launches} times, want {want}")
+        if name == "flash":
+            report["K7"]["launches"] = report["K7"].get("launches", 0) + launches
+        out[name] = {"pairs_per_s": ROBERTA_PAIRS / wall, "forward_ms_per_batch": fwd_ms,
+                     "k7_launches": launches}
+        del model
+        torch.cuda.empty_cache()
+    ref = scores["f32"]
+    near = np.abs(ref - 0.4) < 1e-2
+    for name in ("einsum", "flash"):
+        err = float(np.abs(scores[name] - ref).max())
+        flips = int(((scores[name] >= 0.4) != (ref >= 0.4))[~near].sum())
+        out[name].update(max_abs_err_vs_f32=err, threshold_flips_away_from_ties=flips)
+        if not (np.isfinite(scores[name]).all() and err <= 1e-2 and flips == 0):
+            fail(f"RoBERTa-large predict ({name}): {err:.3e} from f32 (limit 1e-2), {flips} "
+                 f"pairs on the other side of 0.4 away from near ties")
+    cpu = CrossEncoder(forms["f32"], {k: v.cpu() for k, v in sd.items()}, tok, device="cpu")
+    t0 = time.perf_counter()
+    plain = cpu.predict(pairs[:8], batch_size=8)
+    cpu_s = time.perf_counter() - t0
+    cpu_err = float(np.abs(plain - ref[:8]).max())
+    if cpu_err > 1e-4:
+        fail(f"RoBERTa-large predict: f32 on the card {cpu_err:.3e} from the CPU (limit 1e-4)")
+    del cpu
+    log(f"RoBERTa-large CrossEncoder.predict, {ROBERTA_PAIRS} pairs at batch 128, S=128 "
+        f"(tokenization included): einsum bf16 {out['einsum']['pairs_per_s']:.0f} pairs/s, flash "
+        f"bf16 {out['flash']['pairs_per_s']:.0f} pairs/s, f32 {out['f32']['pairs_per_s']:.0f} "
+        f"pairs/s; forward alone a batch {out['einsum']['forward_ms_per_batch']:.2f} / "
+        f"{out['flash']['forward_ms_per_batch']:.2f} / {out['f32']['forward_ms_per_batch']:.2f} "
+        f"ms; K7 launches (flash) {out['flash']['k7_launches']}; bf16 against f32: einsum "
+        f"{out['einsum']['max_abs_err_vs_f32']:.3e}, flash {out['flash']['max_abs_err_vs_f32']:.3e}"
+        f" (limit 1e-2; {int(near.sum())} of {len(ref)} pairs within 1e-2 of 0.4, "
+        f"{int((ref >= 0.4).sum())} at or above it); f32 against the CPU on 8 pairs "
+        f"{cpu_err:.3e} (limit 1e-4, {cpu_s:.1f} s on the host)")
+    out["cpu_max_abs_err"] = cpu_err
+    out["scores_f32"] = {"min": float(ref.min()), "max": float(ref.max()),
+                         "at_or_above_0.4": int((ref >= 0.4).sum()), "near_0.4": int(near.sum())}
+    return out
+
+
+def roberta_k7(report: dict, ce: dict, words: list, times: bool) -> None:
+    """K7 at the cross-encoder's own view: (B, S, 16, 64) activations of
+    H = 1,024 seen as (128, 16, 128, 64), head stride 64, sequence stride
+    1,024, one 128-key block a row, on a predict batch's masks. Before the
+    rest of the phase: against its plain version in f32 and bf16. With
+    ``times``: its time beside the plain version's,
+    scaled_dot_product_attention's with the segment mask and its bound."""
+    import torch
+    import torch.nn.functional as F
+
+    from qst_tpu_torch.ops import flash_attention as fa
+
+    dev = torch.device("cuda")
+    gen = torch.Generator().manual_seed(65)
+    B, S, nh, hd = 128, 128, 16, 64
+    seg = roberta_segments(ce["tok"], roberta_pairs(words, 120, seed=66), S, dev)
+    seg = torch.cat([seg, torch.zeros((8, S), dtype=torch.int32, device=dev)])
+    seg[120:, 0] = 1                                   # predict's pad rows
+    errs = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        q, k, v = (torch.randn((B, S, nh * hd), generator=gen).to(dev, dtype)
+                   .reshape(B, S, nh, hd).transpose(1, 2) for _ in range(3))
+        if q.stride() != (S * nh * hd, hd, nh * hd, 1):
+            fail(f"K7 view strides {q.stride()}")
+        name = str(dtype).split(".")[-1]
+        errs[name] = k7_against_plain(f"K7 {name} at the cross-encoder's view {B, nh, S, hd}",
+                                      q, k, v, seg)
+    r = report["K7"].setdefault("roberta_shape", {"shape": [B, nh, S, hd]})
+    r["max_abs_err"] = errs
+    log(f"K7 at the RoBERTa-large cross-encoder's view (128, 16, 128, 64), strides "
+        f"{tuple(q.stride())}, a predict batch's masks: max|err| against plain {errs}")
+    if not times:
+        return
+    sc = hd ** -0.5
+    allowed = seg[:, None, :, None] == seg[:, None, None, :]
+    r["ms"] = cuda_ms(lambda: fa.flash_attention(q, k, v, seg, seg, sc), 50)
+    r["plain_ms"] = cuda_ms(lambda: fa.flash_attention_plain(q, k, v, seg, seg, sc), 5)
+    r["library_ms"] = cuda_ms(lambda: F.scaled_dot_product_attention(
+        q, k, v, attn_mask=allowed, scale=sc), 50)
+    r.update(bound(4 * B * S * nh * hd * 2 + 2 * B * S * 4 + 2 * B * nh * S * 4,
+                   4.0 * B * nh * S * S * hd, "bfloat16"))
+    r["share_of_bound"] = r["bound_ms"] / r["ms"]
+    log(f"K7 at (128, 16, 128, 64) bf16: {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, "
+        f"SDPA with the segment mask {r['library_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms by "
+        f"{r['bound_by']} ({100 * r['share_of_bound']:.1f}% of it)")
+
+
+def roberta_rerank(report: dict, ce: dict, words: list, tmp: str) -> dict:
+    """Retriever with the MiniLM-L6 bi-encoder (random, a WordPiece vocab of
+    the phase's words, bf16 index, dot_score: K4 + K5) over 65,536 docs and
+    reranker= the RoBERTa-large CrossEncoder: search(k=10, rerank_k=100)
+    for 64 queries, each answer held to the first stage's 100 candidates
+    scored directly by predict."""
+    import torch
+
+    from qst_tpu_torch.core.config import EncoderConfig
+    from qst_tpu_torch.models.cross_encoder import CrossEncoder
+    from qst_tpu_torch.models.sentence_encoder import SentenceEncoder, init_params
+    from qst_tpu_torch.models.tokenizer import load_tokenizer
+    from qst_tpu_torch.ops import topk
+    from qst_tpu_torch.retrieval import Retriever
+
+    vocab = f"{tmp}/wordpiece.txt"
+    with open(vocab, "w") as f:
+        f.write("\n".join(wordpiece_list(words, 30522)) + "\n")
+    cfg = EncoderConfig.minilm_l6()
+    enc = SentenceEncoder(cfg, init_params(cfg, torch.Generator().manual_seed(67), device="cuda"),
+                          load_tokenizer(vocab, vocab_size=cfg.vocab_size), device="cuda")
+    reranker = CrossEncoder(ce["cfg"], ce["sd"], ce["tok"], device="cuda")
+    docs = pseudo_texts(words, ROBERTA_DOCS, seed=68)
+    rng = np.random.default_rng(69)
+    queries = [docs[int(i)][:int(rng.integers(60, 120))].rsplit(" ", 1)[0]
+               for i in rng.integers(0, ROBERTA_DOCS, ROBERTA_QUERIES)]
+    t0 = time.perf_counter()
+    retr = Retriever(enc, score="dot_score", reranker=reranker,
+                     index_dtype="bfloat16").build(docs)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    retr.search(queries[:2], k=10, rerank_k=100)           # warm-up
+    k7, _ = flash_counters()
+    for c in (topk.bucket_maxima, topk.rescore_buckets, k7):
+        c.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    rows = retr.search(queries, k=10, rerank_k=100)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {"K4": topk.bucket_maxima.launches, "K5": topk.rescore_buckets.launches,
+                "K7": k7.launches}
+    if launches["K4"] < 1 or launches["K5"] < 1 or launches["K7"]:
+        fail(f"reranked search: launches {launches} (the first stage through K4 + K5, no K7)")
+    for n in ("K4", "K5"):
+        report[n]["launches"] = report[n].get("launches", 0) + launches[n]
+    first = retr.search(queries, k=100)
+    worst = 0.0
+    for q, row, cand in zip(queries, rows, first):
+        ids = [i for i, _ in cand]
+        s = reranker.predict([(q, docs[i]) for i in ids])
+        order = np.argsort(-s)[:10]
+        want = [(ids[int(j)], float(s[int(j)])) for j in order]
+        got_s, want_s = np.array([x[1] for x in row]), np.array([x[1] for x in want])
+        worst = max(worst, float(np.abs(got_s - want_s).max()))
+        if len(row) != 10 or worst > 1e-6:
+            fail(f"reranked answer for {q[:30]!r}: scores {got_s} against predict's {want_s}")
+        for (gi, gs), (wi, _) in zip(row, want):
+            # an id may differ from predict's only where its score ties another's
+            if gi != wi and np.sum(np.abs(s - gs) <= 1e-6) < 2:
+                fail(f"reranked answer for {q[:30]!r}: {row} against predict's {want}")
+    log(f"reranked Retriever (MiniLM-L6 first stage, bf16 index, dot_score, over "
+        f"{ROBERTA_DOCS} docs built in {build_s:.1f} s; RoBERTa-large bf16 reranker): "
+        f"{ROBERTA_QUERIES} queries at k=10, rerank_k=100 in {wall:.2f} s = "
+        f"{1e3 * wall / ROBERTA_QUERIES:.1f} ms a query; launches {launches}; answers equal to "
+        f"predict over the first stage's candidates (max score diff {worst:.1e})")
+    del retr, reranker, enc
+    torch.cuda.empty_cache()
+    return {"ms_per_query": 1e3 * wall / ROBERTA_QUERIES, "build_s": build_s,
+            "launches": launches}
+
+
+def roberta_ir_eval(report: dict, ce: dict, words: list, tmp: str) -> dict:
+    """``python -m qst_tpu_torch.cli.ir_eval_main --use_cross_encoder
+    --cross_encoder_dir <dir>`` over 136 instances (32 queries x 512 docs,
+    16,384 pairs labeled): the relevant sets are the positives and the docs
+    whose captured scores reach 0.4, and the first four queries' scores are
+    predict's on a CrossEncoder of the directory as the phase loaded it."""
+    import torch
+
+    from qst_tpu_torch.cli import ir_eval_main
+    from qst_tpu_torch.data import write_chunk, write_meta
+    from qst_tpu_torch.models import cross_encoder as mce
+
+    root = f"{tmp}/roberta_ir"
+    texts = pseudo_texts(words, 4 * ROBERTA_IR_INSTANCES, seed=70)
+    insts = [{"id": i, "reference": texts[4 * i], "positive": texts[4 * i + 1:4 * i + 3],
+              "part_positive": [texts[4 * i + 3]]} for i in range(ROBERTA_IR_INSTANCES)]
+    for c in range(0, ROBERTA_IR_INSTANCES, 64):
+        write_chunk(root, c // 64, insts[c:c + 64], dataset_name="synthetic-roberta")
+    write_meta(root, -(-ROBERTA_IR_INSTANCES // 64))
+    captured = []
+    predict = mce.CrossEncoder.predict
+
+    def timed(self, pairs, batch_size=128):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = predict(self, pairs, batch_size)
+        captured.append((list(pairs), out, time.perf_counter() - t0))
+        return out
+
+    mce.CrossEncoder.predict = timed
+    out_root = f"{tmp}/roberta_ir_out"
+    t0 = time.perf_counter()
+    try:
+        rc = ir_eval_main.main(["--dataset_root", root, "--output_root", out_root,
+                                "--use_cross_encoder", "--cross_encoder_dir", ce["dir"],
+                                "--n_queries", "32", "--score_functions", "cos_sim",
+                                "dot_score", *IR_GRID])
+    finally:
+        mce.CrossEncoder.predict = predict
+    wall = time.perf_counter() - t0
+    if rc != 0 or len(captured) != 1:
+        fail(f"ir_eval_main --use_cross_encoder: rc {rc}, {len(captured)} predict calls")
+    pairs, scores, label_s = captured[0]
+    [out] = os.listdir(out_root)
+    with open(f"{out_root}/{out}/ir_eval_set.json") as f:
+        ir_set = json.load(f)
+    qids, dids = list(ir_set["queries"]), list(ir_set["corpus"])
+    if (len(qids), len(dids), len(pairs)) != (32, 512, 16384):
+        fail(f"ir_eval_main: {len(qids)} queries x {len(dids)} docs, {len(pairs)} pairs")
+    grid = scores.reshape(len(qids), len(dids))
+    for qi, q in enumerate(qids):
+        iid = q[1:]
+        own = {f"pos{iid}_0", f"pos{iid}_1", f"part{iid}_0"}
+        want = own | {dids[j] for j in np.nonzero(grid[qi] >= 0.4)[0]}
+        if set(ir_set["relevant"][q]) != want:
+            fail(f"ir_eval_main: relevant set of {q} is not the threshold of its scores")
+    direct = mce.CrossEncoder(ce["cfg"], ce["sd"], ce["tok"], device="cuda").predict(pairs[:2048])
+    err = float(np.abs(direct - scores[:2048]).max())
+    if err > 1e-6:
+        fail(f"ir_eval_main: the labeling's scores are {err:.3e} from a direct predict")
+    labeled = int((grid >= 0.4).sum())
+    log(f"ir_eval_main --use_cross_encoder --cross_encoder_dir (RoBERTa-large, bf16): 32 queries "
+        f"x 512 docs = 16,384 pairs labeled in {label_s:.1f} s ({16384 / label_s:.0f} pairs/s, "
+        f"BPE tokenization included), {labeled} pairs at or above 0.4; the whole CLI (baseline "
+        f"MiniLM-L6 evaluation included) {wall:.1f} s; relevant sets equal the thresholded "
+        f"scores, the first 2,048 scores {err:.1e} from a direct predict")
+    return {"label_s": label_s, "pairs_per_s": 16384 / label_s, "cli_s": wall,
+            "labeled": labeled}
+
+
+def roberta_bi_encoder(report: dict, ce: dict, words: list, tmp: str) -> dict:
+    """A RoBERTa bi-encoder directory at all-distilroberta-v1's published
+    width (H 768, 6 layers, 12 heads, FFN 3,072, vocab 50,265, pad 1, mean
+    pooling) written by the port's exporter and loaded by
+    load_hf_checkpoint_dir: bf16 encode at S = 128 held to f32 (cosine >=
+    0.999 a row); two Trainer steps with use_flash_attention at S = 256
+    (K7 and K8 six times a step); the first step's gradients, flash against
+    the einsum path, at dropout 0 (cosine >= 0.999)."""
+    import dataclasses
+
+    import torch
+
+    from qst_tpu_torch.core.config import EncoderConfig, LossConfig, TrainConfig
+    from qst_tpu_torch.data import (QuadrupletCollator, QuadrupletDataset, write_chunk,
+                                    write_meta)
+    from qst_tpu_torch.models.hf_export import save_checkpoint_dir
+    from qst_tpu_torch.models.hf_import import load_hf_checkpoint_dir
+    from qst_tpu_torch.models.sentence_encoder import SentenceEncoder, init_params
+    from qst_tpu_torch.models.tokenizer import load_tokenizer
+    from qst_tpu_torch.train import Trainer, create_train_state
+    from qst_tpu_torch.train.train_step import encoder_apply_fn, loss_from_config
+
+    dev = torch.device("cuda")
+    width = EncoderConfig(name="all-distilroberta-v1", arch="roberta", vocab_size=50265,
+                          hidden_size=768, num_layers=6, num_heads=12, intermediate_size=3072,
+                          max_position_embeddings=514, type_vocab_size=1, layer_norm_eps=1e-5,
+                          pad_token_id=1, max_seq_length=128)
+    sd0 = init_params(width, torch.Generator().manual_seed(71), device="cpu")
+    d = save_checkpoint_dir(sd0, width, f"{tmp}/distilroberta", vocab=ce["vocab"],
+                            merges=ce["merges"])
+    cfg, sd, vocab = load_hf_checkpoint_dir(d)
+    if (cfg.arch, cfg.hidden_size, cfg.num_layers, cfg.pooling, cfg.max_seq_length) != (
+            "roberta", 768, 6, "mean", 128):
+        fail(f"distilroberta directory: config {cfg}")
+    tok = load_tokenizer(vocab)
+    texts = pseudo_texts(words, 64, seed=72)
+    e16 = SentenceEncoder(cfg, sd, tok, device="cuda").encode(texts)
+    e32 = SentenceEncoder(dataclasses.replace(cfg, dtype="float32"), sd, tok,
+                          device="cuda").encode(texts)
+    cos = float((e16 * e32).sum(1).min())              # unit-norm rows
+    if not (np.isfinite(e16).all() and cos >= 0.999):
+        fail(f"distilroberta bf16 encode against f32: worst row cosine {cos:.6f}")
+
+    root = f"{tmp}/roberta_train"
+    long = pseudo_texts(words, 16 * 6, seed=73, lo=900, hi=1200)
+    insts = [{"id": i, "reference": long[6 * i], "positive": long[6 * i + 1:6 * i + 4],
+              "part_positive": long[6 * i + 4:6 * i + 6]} for i in range(16)]
+    write_chunk(root, 0, insts, dataset_name="synthetic-roberta-long")
+    write_meta(root, 1)
+    enc_cfg = dataclasses.replace(cfg, use_flash_attention=True, max_seq_length=256,
+                                  attention_dropout=0.0)
+    loss_cfg = LossConfig(kind="gamma", use_fused_kernel=True)
+    base = TrainConfig(batch_size=8)
+    ds = QuadrupletDataset(root, seed=74)
+    collator = QuadrupletCollator(tok, max_length=256)
+    tcfg = dataclasses.replace(base, epochs=1, evaluation_steps=1, checkpoint_save_steps=0,
+                               save_best_model=False, experiment_dir=f"{tmp}/roberta_exp")
+    trainer = Trainer(enc_cfg, loss_cfg, tcfg, ds, collator, initial_params=sd, device=dev)
+    k7, k8 = flash_counters()
+    k7.launches = k8.launches = 0
+    t0 = time.perf_counter()
+    result = trainer.train()
+    wall = time.perf_counter() - t0
+    launches = [k7.launches, k8.launches]
+    steps = result.state.step
+    if steps != 2 or launches != [12, 12]:
+        fail(f"distilroberta flash Trainer: {steps} steps, K7 / K8 launched {launches} "
+             f"(want 2 steps, 6 each a step)")
+    report["K7"]["launches"] = report["K7"].get("launches", 0) + launches[0]
+    report["K8"]["launches"] = report["K8"].get("launches", 0) + launches[1]
+    batch = collator(ds.sample_batch(range(8), step=0))
+    full = int(batch.attention_mask.sum(-1).max())
+    del trainer, result
+
+    cfg0 = dataclasses.replace(enc_cfg, hidden_dropout=0.0)
+    ids = torch.from_numpy(batch.input_ids.reshape(32, -1).astype(np.int64)).to(dev)
+    mask = torch.from_numpy(batch.attention_mask.reshape(32, -1).astype(np.int64)).to(dev)
+    grads = []
+    for flash in (True, False):
+        c = dataclasses.replace(cfg0, use_flash_attention=flash)
+        state, _ = create_train_state(c, base, torch.Generator().manual_seed(75), 10, loss_cfg,
+                                      initial_params=sd, device=dev)
+        emb = encoder_apply_fn(c)(state.model, ids, mask, None).reshape(4, 8, -1)
+        loss_from_config(loss_cfg)(*emb.unbind(0)).backward()
+        grads.append(torch.cat([p.grad.flatten() for p in state.model.parameters()]))
+        del state
+    gcos = torch.nn.functional.cosine_similarity(grads[0], grads[1], dim=0).item()
+    if not gcos >= 0.999:
+        fail(f"distilroberta: flash gradients against the einsum path's: cosine {gcos:.6f}")
+    log(f"all-distilroberta-v1-width directory (RoBERTa, H 768, 6 layers, vocab 50,265): "
+        f"bf16 encode at S=128 against f32, worst row cosine {cos:.6f} (limit 0.999); "
+        f"Trainer with use_flash_attention at S=256 (longest row {full} tokens): {steps} steps "
+        f"in {wall:.1f} s, K7 / K8 launches {launches}; first step's gradients, flash against "
+        f"einsum: cosine {gcos:.6f} (limit 0.999)")
+    del grads
+    torch.cuda.empty_cache()
+    return {"encode_cosine": cos, "train_s": wall, "grad_cosine": gcos}
+
+
+def roberta_mlm(report: dict, words: list, tmp: str) -> dict:
+    """MLMAugmenter (substitute and insert) at MiniLM-L6 width (vocab
+    30,522, S = 128, bf16) over 1,024 captions in chunks of 256: texts/s;
+    the mask-slot logits held to the f32 head's (within 2e-2 of their
+    largest magnitude, cosine >= 0.999 a row) and, in f32, to the rows of
+    mlm_logits_fn's full (B, S, V) logits (1e-4)."""
+    import dataclasses
+
+    import torch
+
+    from qst_tpu_torch.augment import MLMAugmenter
+    from qst_tpu_torch.core.config import EncoderConfig
+    from qst_tpu_torch.models.mlm import init_mlm_params, mlm_logits_fn
+    from qst_tpu_torch.models.tokenizer import WordPieceTokenizer
+
+    cfg = EncoderConfig.minilm_l6()
+    vocab = wordpiece_list(words, cfg.vocab_size)
+    tok = WordPieceTokenizer({w: i for i, w in enumerate(vocab)})
+    params = init_mlm_params(cfg, torch.Generator().manual_seed(76), device="cuda")
+    caps = pseudo_texts(words, 1024, seed=77, lo=40, hi=90)
+    rates, changed = {}, {}
+    for action in ("substitute", "insert"):
+        aug = MLMAugmenter(cfg, params, tok, action=action, seed=78)
+        aug.augment(caps[:256])                          # warm-up
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = [t for i in range(0, len(caps), 256) for t in aug.augment(caps[i:i + 256])]
+        torch.cuda.synchronize()
+        rates[action] = len(caps) / (time.perf_counter() - t0)
+        changed[action] = sum(a != b for a, b in zip(out, caps))
+        if len(out) != len(caps) or changed[action] < len(caps) // 2:
+            fail(f"MLMAugmenter {action}: {len(out)} texts, {changed[action]} changed")
+    ids, mask = tok.batch_encode(caps[:64], max_length=cfg.max_seq_length)
+    rng = np.random.default_rng(79)
+    lens = mask.sum(1)
+    rows = np.repeat(np.arange(64), 2)
+    slots = np.array([int(rng.integers(1, n - 1)) for n in np.repeat(lens, 2)])
+    ids[rows, slots] = tok.mask_id
+    got = aug._slot_logits(ids, mask, rows, slots)
+    aug32 = MLMAugmenter(dataclasses.replace(cfg, dtype="float32"), params, tok)
+    ref = aug32._slot_logits(ids, mask, rows, slots)
+    full = mlm_logits_fn(dataclasses.replace(cfg, dtype="float32"))(params, ids, mask)
+    full_err = float(np.abs(full[torch.from_numpy(rows), torch.from_numpy(slots)].cpu().numpy()
+                            - ref).max())
+    err = float(np.abs(got - ref).max())
+    cos = float(((got * ref).sum(1) / (np.linalg.norm(got, axis=1)
+                                       * np.linalg.norm(ref, axis=1))).min())
+    if not (err <= 2e-2 * np.abs(ref).max() and cos >= 0.999 and full_err <= 1e-4):
+        fail(f"MLM logits: bf16 {err:.3e} from f32 (max |ref| {np.abs(ref).max():.3f}), row "
+             f"cosine {cos:.6f}; f32 slot rows {full_err:.3e} from the full logits")
+    log(f"MLMAugmenter at MiniLM-L6 width (vocab 30,522, S=128, bf16), 1,024 captions in chunks "
+        f"of 256: substitute {rates['substitute']:.0f} texts/s, insert {rates['insert']:.0f} "
+        f"texts/s ({changed}); mask-slot logits bf16 against f32 max|err| {err:.3e} (max |ref| "
+        f"{np.abs(ref).max():.3f}), worst row cosine {cos:.6f}; f32 slot rows against the full "
+        f"(B, S, V) logits {full_err:.1e}")
+    return {"texts_per_s": rates, "logits_max_abs_err": err, "logits_cosine": cos}
+
+
+def roberta(report: dict) -> None:
+    """RoBERTa, byte-level BPE, the cross-encoder and the MLM head: K7 at
+    the cross-encoder's view first, then the RoBERTa-large directory,
+    predict in three forms, K7's times, reranking, ir_eval_main's labeling,
+    the distilroberta-width bi-encoder and the MLM augmenter."""
+    import tempfile
+
+    import torch
+
+    report["roberta"] = {}
+    words = pseudo_words(3000, seed=60)
+    parts = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        ce = roberta_cross_encoder_dir(tmp, words)
+        parts["directory"] = time.perf_counter() - t0
+        steps = (("k7_check", lambda: roberta_k7(report, ce, words, times=False)),
+                 ("predict", lambda: roberta_predict(report, ce, words)),
+                 ("k7_times", lambda: roberta_k7(report, ce, words, times=True)),
+                 ("rerank", lambda: roberta_rerank(report, ce, words, tmp)),
+                 ("ir_eval", lambda: roberta_ir_eval(report, ce, words, tmp)),
+                 ("bi_encoder", lambda: roberta_bi_encoder(report, ce, words, tmp)),
+                 ("mlm", lambda: roberta_mlm(report, words, tmp)))
+        for name, fn in steps:
+            t0 = time.perf_counter()
+            got = fn()
+            if got is not None:
+                report["roberta"][name] = got
+            parts[name] = time.perf_counter() - t0
+            torch.cuda.empty_cache()
+        del ce
+    torch.cuda.empty_cache()
+    report["roberta"]["part_s"] = parts
+    log("roberta phase by part (s): " + ", ".join(f"{n} {v:.1f}" for n, v in parts.items()))
+
+
 def main() -> None:
     global ABLATION_STEPS
     default_steps = ABLATION_STEPS
@@ -5231,7 +5917,8 @@ def main() -> None:
     # the phases run in the order given (PHASES' by default)
     fns = {"check": check_kernels, "serve": serve, "ivf": ivf, "train": train, "times": times,
            "profile": profile_phase, "evaluate": evaluate, "dataset": dataset,
-           "capture": capture, "ablation": ablation, "mpnet": mpnet, "flash": flash, "pq": pq}
+           "capture": capture, "ablation": ablation, "mpnet": mpnet, "flash": flash,
+           "roberta": roberta, "pq": pq}
     for phase in phases:
         if phase in fns:
             t0 = time.perf_counter()
@@ -5243,7 +5930,7 @@ def main() -> None:
                     if k in ("encode", "search", "search_q256", "k4_yardsticks", "k5_forms",
                              "train", "train_steps_per_s", "ivf", "ivf_times", "ivf_times_4m", "layer_gemm",
                              "evaluate", "encode_depth", "capture", "ablation", "mpnet",
-                             "mpnet_kernel_names", "pq", "flash")}))
+                             "mpnet_kernel_names", "pq", "flash", "roberta")}))
     if "dataset" in report:
         log(json.dumps({"dataset": {k: v for k, v in report["dataset"].items() if k != "root"}}))
     log(json.dumps({"K1_training_layer": {k: report["K1"].get(k) for k in (
@@ -5292,7 +5979,8 @@ def main() -> None:
                              "library_fwd_bwd_ms": r.get("library_fwd_bwd_ms"),
                              "k7_k8_autograd_ms": r.get("k7_k8_autograd_ms")}
                             if name[:2] == "K8" else
-                            {"encode_shapes": r.get("encode_shapes")})})
+                            {"encode_shapes": r.get("encode_shapes"),
+                             "roberta_shape": r.get("roberta_shape")})})
             continue
         # library_ms: no single PyTorch call computes any of these functions
         # (a layer, its backward, the quadruplet loss, a product fused with

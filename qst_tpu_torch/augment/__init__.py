@@ -1,8 +1,9 @@
 """Dataset augmentation (counterpart of ``qst_tpu/augment``): POS tagging,
 synonym replacement, backtranslation backends, partial-positive synthesis,
-positive mining and the LLM client — host code, copied from the JAX package.
-``MLMAugmenter`` and the on-device Marian wait for their models
-(``ROADMAP.md`` A11)."""
+positive mining and the LLM client — host code, copied from the JAX package
+— and ``MLMAugmenter``, the MLM insert/substitute augmentation over the
+port's MLM head. The on-device Marian waits for its model (``ROADMAP.md``
+A11)."""
 
 from qst_tpu_torch.augment.pos_tagger import pos_tag_universal
 from qst_tpu_torch.augment.synonyms import SynonymAugmenter, DEFAULT_LEXICON
@@ -16,6 +17,7 @@ from qst_tpu_torch.augment.backtranslation import (
     format_batch_texts,
 )
 from qst_tpu_torch.augment.llm_client import OpenAICompatibleClient, get_llm_fn
+from qst_tpu_torch.augment.mlm import MLMAugmenter
 from qst_tpu_torch.augment.partial_positive import (
     ADAPTIVE_CROP,
     ADAPTIVE_CROP_AUGMENT,
@@ -52,6 +54,7 @@ __all__ = [
     "MOCK",
     "OpenAICompatibleClient",
     "get_llm_fn",
+    "MLMAugmenter",
     "mock_llm_response",
     "build_llm_prompt",
     "parse_llm_response",

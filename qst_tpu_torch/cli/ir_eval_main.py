@@ -16,10 +16,14 @@ The flags and defaults are the JAX CLI's. ``--hf_checkpoint_dir`` (a local
 sentence-transformers directory, BERT or MPNet) gives the baseline encoder
 and its config, ``--baseline_hf_checkpoint`` the baseline's weights file;
 ``--generate_query_variations`` replaces each query by one compressed
-variation (``data/sentence_compression.py``), as the JAX CLI does. Not ported
-yet, and refused with a message: the cross-encoder labels
-(``--use_cross_encoder``, ``--cross_encoder_dir``) and mesh layouts
-(``--mesh_*`` off their defaults).
+variation (``data/sentence_compression.py``), as the JAX CLI does.
+``--use_cross_encoder`` labels the relevant docs with a cross-encoder's
+scores at ``--cross_encoder_threshold``: the checkpoint of
+``--cross_encoder_dir`` (an HF ``*ForSequenceClassification`` directory,
+such as a clone of cross-encoder/stsb-roberta-large, with its own
+tokenizer), or without one a random-init scorer of the encoder's
+architecture and tokenizer. Not ported yet, and refused with a message: mesh
+layouts (``--mesh_*`` off their defaults).
 """
 
 from __future__ import annotations
@@ -83,7 +87,7 @@ def build_parser() -> argparse.ArgumentParser:
                    default=[100, 200, 500, 900])
     add_bool_flag(p, "use_pos_examples", True)
     add_bool_flag(p, "use_part_pos_examples", True)
-    add_bool_flag(p, "use_cross_encoder", False, "(not ported yet)")
+    add_bool_flag(p, "use_cross_encoder", False)
     p.add_argument("--eval_index", default="exact",
                    choices=["exact", "ivf", "pq", "ivfpq"],
                    help="index family the evaluator searches with — ivf / "
@@ -96,10 +100,11 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--eval_pq_m", type=int, default=48)
     p.add_argument("--cross_encoder_dir", default=None,
                    help="local HF *ForSequenceClassification checkpoint "
-                   "dir for relevance labels (not ported yet)")
+                   "dir (e.g. a clone of cross-encoder/stsb-roberta-large) "
+                   "for REAL relevance labels; default: random-init scorer "
+                   "of the encoder architecture (structural path)")
     add_bool_flag(p, "generate_query_variations", False,
-                  "paraphrase queries with the augmentation stack "
-                  "(not ported yet)")
+                  "paraphrase queries with the augmentation stack")
     add_bool_flag(p, "use_test_set", False,
                   "hold out a test split of instances for the eval set")
     add_bool_flag(p, "use_fused_layer", False,
@@ -125,8 +130,6 @@ def main(argv=None) -> int:
     from qst_tpu_torch.models.sentence_encoder import SentenceEncoder, init_params
 
     refuse_not_ported([
-        ("--use_cross_encoder", args.use_cross_encoder or args.cross_encoder_dir,
-         "the cross-encoder"),
         ("--mesh_data/--mesh_model", (args.mesh_data, args.mesh_model) != (-1, 1),
          "device meshes"),
     ])
@@ -180,6 +183,27 @@ def main(argv=None) -> int:
         n_test = max(1, int(len(instances) * args.test_fraction))
         instances = [instances[int(i)] for i in order[:n_test]]
 
+    cross_encoder_predict = None
+    if args.use_cross_encoder:
+        from qst_tpu_torch.models.cross_encoder import CrossEncoder, init_cross_encoder
+
+        if args.cross_encoder_dir:
+            # weights-present path: the reference's stsb-roberta-large
+            # labeler, or any bert/roberta num_labels=1 classification
+            # checkpoint
+            from qst_tpu_torch.models.hf_import import load_cross_encoder_dir
+            from qst_tpu_torch.models.tokenizer import load_tokenizer
+
+            ce_cfg, ce_params, ce_vocab = load_cross_encoder_dir(args.cross_encoder_dir)
+            ce_tok = load_tokenizer(ce_vocab or "", vocab_size=ce_cfg.vocab_size)
+            ce = CrossEncoder(ce_cfg, ce_params, ce_tok, device=device)
+        else:
+            ce = CrossEncoder(
+                encoder_cfg,
+                init_cross_encoder(encoder_cfg, torch.Generator().manual_seed(1), device=device),
+                tokenizer, device=device)
+        cross_encoder_predict = ce.predict
+
     query_variation_fn = None
     if args.generate_query_variations:
         from qst_tpu_torch.data.sentence_compression import generate_variations
@@ -191,6 +215,7 @@ def main(argv=None) -> int:
         instances, n_queries=args.n_queries,
         use_pos_examples=args.use_pos_examples,
         use_part_pos_examples=args.use_part_pos_examples,
+        cross_encoder_predict=cross_encoder_predict,
         cross_encoder_threshold=args.cross_encoder_threshold,
         query_variation_fn=query_variation_fn,
         seed=args.seed,

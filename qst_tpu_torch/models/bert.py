@@ -26,7 +26,12 @@ row attends to the padded keys only (its ``token_embeddings`` row differs
 from the einsum path's; the pooled embedding does not). ``remat``
 recomputes each layer in the backward instead of keeping its activations
 (Flax's ``nn.remat``): the same values and gradients for less memory.
-MPNet is ``models/mpnet.py``; RoBERTa waits for a later slice.
+MPNet is ``models/mpnet.py``. RoBERTa (``arch="roberta"``) is this trunk
+with BERT's state-dict layout and two changes, as in the source: its
+positions are the padding-aware (B, S) ids of ``padding_aware_position_ids``
+(counted from ``pad_token_id`` + 1 over the non-pad tokens), and its one
+token-type row takes every segment (the ids are clamped to
+``type_vocab_size - 1``).
 """
 
 from __future__ import annotations
@@ -99,13 +104,14 @@ class BertEmbeddings(nn.Module):
                 position_ids: torch.Tensor,
                 dropout_generator: Optional[torch.Generator] = None) -> torch.Tensor:
         """``position_ids`` (B or 1, S). The position and token-type rows
-        are read so that their gradients come back the same on every run:
+        are read so that BERT's gradients come back the same on every run:
         positions shared by the batch as one (1, S) lookup, whose backward
         sums the batch in a fixed order, and the few token types by a
         selection, not a lookup — on the card ``F.embedding``'s backward
         adds a row repeated across the batch in no fixed order (a captured
         train step must repeat its eager steps bit for bit). The values are
-        the lookups'."""
+        the lookups'. RoBERTa's (B, S) positions are a lookup, as MPNet's
+        are."""
         dt = compute_dtype(self.cfg)
         word = self.word_embeddings(input_ids).to(dt)
         pos = self.position_embeddings(position_ids).to(dt)
@@ -236,9 +242,8 @@ class BertEncoder(nn.Module):
 
     def __init__(self, cfg: EncoderConfig):
         super().__init__()
-        if cfg.arch != "bert":
-            raise NotImplementedError(
-                f"arch={cfg.arch!r} is not ported to qst_tpu_torch (bert only)")
+        if cfg.arch not in ("bert", "roberta"):
+            raise ValueError(f"BertEncoder runs arch 'bert' and 'roberta', got {cfg.arch!r}")
         self.cfg = cfg
         self.embeddings = BertEmbeddings(cfg)
         self.encoder = _LayerStack(cfg)
@@ -252,7 +257,14 @@ class BertEncoder(nn.Module):
         input_ids = input_ids.long()
         if token_type_ids is None:
             token_type_ids = torch.zeros_like(input_ids)
-        position_ids = torch.arange(S, device=input_ids.device)[None, :]
+        if self.cfg.arch == "roberta":
+            # fairseq-style padding-aware positions offset by pad_token_id
+            # (HF RobertaEmbeddings.create_position_ids_from_input_ids)
+            from qst_tpu_torch.models.mpnet import padding_aware_position_ids
+
+            position_ids = padding_aware_position_ids(input_ids, self.cfg.pad_token_id)
+        else:
+            position_ids = torch.arange(S, device=input_ids.device)[None, :]
         hidden = self.embeddings(input_ids, token_type_ids.long(), position_ids,
                                  dropout_generator)
         bias = torch.where(attention_mask[:, None, None, :] > 0, 0.0, MASK_BIAS).float()

@@ -6,14 +6,17 @@ files and directories).
   tree (nested mappings of arrays; only ``np.asarray`` is called on the
   leaves) and returns the port's state dict, with the key names and
   transposes of ``export_bert_state_dict`` / ``export_mpnet_state_dict``
-  (``hf_export.py:23-108``).
+  (``hf_export.py:23-108``; RoBERTa has BERT's), and the heads of a
+  ``CrossEncoderModule`` or a ``BertMLMModule`` when the tree has them.
 - ``load_torch_state_dict(path)`` loads a ``pytorch_model.bin`` or a
   ``model.safetensors`` file (read by ``read_safetensors``, the port's own
-  reader: no ``safetensors`` package is needed) and keeps the BERT or MPNet
-  trunk keys the port's modules hold.
+  reader: no ``safetensors`` package is needed) and keeps the BERT, RoBERTa
+  or MPNet trunk keys the port's modules hold, and a classifier's.
 - ``load_hf_checkpoint_dir(dir)`` loads a local sentence-transformers / HF
   directory into (EncoderConfig, state dict, vocab path), as
-  ``qst_tpu/models/hf_import.py:422`` does; RoBERTa raises.
+  ``qst_tpu/models/hf_import.py:422`` does; ``load_cross_encoder_dir(dir)``
+  loads an HF ``*ForSequenceClassification`` directory (num_labels 1) into
+  a ``CrossEncoderModule``'s (``:205``).
 """
 
 from __future__ import annotations
@@ -36,14 +39,31 @@ def _t(x) -> torch.Tensor:
 
 def state_dict_from_flax_params(params: Mapping[str, Any],
                                 cfg: EncoderConfig) -> Dict[str, torch.Tensor]:
-    """Flax ``SentenceEncoderModule`` / ``BertEncoder`` / ``MPNetEncoder``
-    params → the port's (HF ``BertModel`` / ``MPNetModel``) state dict,
-    float32 on the CPU."""
+    """Flax ``SentenceEncoderModule`` / ``BertEncoder`` / ``MPNetEncoder`` /
+    ``CrossEncoderModule`` / ``BertMLMModule`` params → the port's state
+    dict (HF ``BertModel`` / ``MPNetModel`` trunk names, and the heads of
+    ``models/cross_encoder.py`` and ``models/mlm.py``), float32 on the CPU."""
     p = params["encoder"] if "encoder" in params else params
     if cfg.arch == "mpnet":
-        return _mpnet_state_dict(p, cfg)
-    if cfg.arch != "bert":
-        raise NotImplementedError(f"arch={cfg.arch!r} is not ported (bert and mpnet are)")
+        sd = _mpnet_state_dict(p, cfg)
+    elif cfg.arch in ("bert", "roberta"):
+        sd = _bert_state_dict(p, cfg)
+    else:
+        raise ValueError(f"unknown arch {cfg.arch!r}")
+    heads = (("head_dense", "classifier.dense"), ("out_proj", "classifier.out_proj"),
+             ("classifier", "classifier"), ("transform", "transform"), ("decoder", "decoder"))
+    for flax_name, name in heads:
+        if flax_name in params:
+            sd[f"{name}.weight"] = _t(np.asarray(params[flax_name]["kernel"]).T)
+            sd[f"{name}.bias"] = _t(params[flax_name]["bias"])
+    if "transform_layer_norm" in params:
+        sd["transform_layer_norm.weight"] = _t(params["transform_layer_norm"]["scale"])
+        sd["transform_layer_norm.bias"] = _t(params["transform_layer_norm"]["bias"])
+    return sd
+
+
+def _bert_state_dict(p: Mapping[str, Any], cfg: EncoderConfig) -> Dict[str, torch.Tensor]:
+    """``export_bert_state_dict`` (``hf_export.py:23``) into torch tensors."""
     H = cfg.hidden_size
     emb = p["embeddings"]
     sd: Dict[str, torch.Tensor] = {
@@ -163,12 +183,20 @@ _PREFIXES = ("bert.", "mpnet.", "roberta.", "0.auto_model.", "auto_model.")
 def load_torch_state_dict(path: str) -> Dict[str, torch.Tensor]:
     """Load a checkpoint file (``pytorch_model.bin`` or ``model.safetensors``)
     as the port's state dict, float32 on the CPU: a trunk prefix (``bert.``,
-    ``mpnet.``, ``0.auto_model.``, ...) is stripped from each key, and the
-    pooler and the ``position_ids``/``token_type_ids`` buffers are dropped."""
+    ``roberta.``, ``mpnet.``, ``0.auto_model.``, ...) is stripped from each
+    key, and the pooler and the ``position_ids``/``token_type_ids`` buffers
+    are dropped. Keys without a prefix (a ``*ForSequenceClassification``
+    file's ``classifier.*``) stay as they are."""
     if path.endswith(".safetensors"):
         sd = {k: torch.from_numpy(v) for k, v in read_safetensors(path).items()}
     else:
         sd = torch.load(path, map_location="cpu", weights_only=True)
+    return import_state_dict(sd)
+
+
+def import_state_dict(sd: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """An HF state dict (tensors or arrays) → the port's names, float32 on
+    the CPU (``load_torch_state_dict``'s rules)."""
     out: Dict[str, torch.Tensor] = {}
     for key, value in sd.items():
         for prefix in _PREFIXES:
@@ -178,7 +206,7 @@ def load_torch_state_dict(path: str) -> Dict[str, torch.Tensor]:
         if key.startswith("pooler.") or key in ("embeddings.position_ids",
                                                   "embeddings.token_type_ids"):
             continue
-        out[key] = value.float()
+        out[key] = torch.as_tensor(value).float()
     return out
 
 
@@ -213,12 +241,9 @@ def _resolve_checkpoint_files(ckpt_dir: str):
 
 def _encoder_cfg_kwargs(ckpt_dir: str, hf_cfg: dict) -> dict:
     model_type = hf_cfg.get("model_type", "bert")
-    if model_type == "roberta":
-        raise NotImplementedError(
-            f"{ckpt_dir}: model_type 'roberta' is not ported to qst_tpu_torch: it needs the "
-            "byte-level BPE tokenizer and the RoBERTa trunk (ROADMAP A8, A9)")
-    if model_type not in ("bert", "mpnet"):
-        raise ValueError(f"unsupported model_type {model_type!r} (bert and mpnet trunks load)")
+    if model_type not in ("bert", "mpnet", "roberta"):
+        raise ValueError(f"unsupported model_type {model_type!r} "
+                         "(bert, roberta and mpnet trunks are supported)")
     kw = dict(
         name=os.path.basename(os.path.normpath(ckpt_dir)),
         arch=model_type,
@@ -233,7 +258,49 @@ def _encoder_cfg_kwargs(ckpt_dir: str, hf_cfg: dict) -> dict:
     )
     if model_type == "bert":
         kw["type_vocab_size"] = int(hf_cfg.get("type_vocab_size", 2))
+    elif model_type == "roberta":
+        kw["type_vocab_size"] = int(hf_cfg.get("type_vocab_size", 1))
     return kw
+
+
+def _vocab_path(find) -> Optional[str]:
+    """``vocab.txt`` (WordPiece), else ``vocab.json`` (byte-level BPE, with
+    ``merges.txt`` beside it): ``load_tokenizer`` dispatches on the suffix."""
+    return find("vocab.txt") or find("vocab.json")
+
+
+def import_cross_encoder_params(state_dict: Mapping[str, Any],
+                                cfg: EncoderConfig) -> Dict[str, torch.Tensor]:
+    """An HF ``*ForSequenceClassification`` state dict (num_labels 1) → a
+    ``CrossEncoderModule`` state dict: the trunk with its prefix stripped and
+    the architecture's head (RoBERTa: ``classifier.dense`` +
+    ``classifier.out_proj``; BERT: ``classifier``), as
+    ``qst_tpu/models/hf_import.py:99-125`` maps it."""
+    sd = import_state_dict(state_dict)
+    heads = (("classifier.dense", "classifier.out_proj") if cfg.arch == "roberta"
+             else ("classifier",))
+    keep = tuple(f"{h}.{w}" for h in heads for w in ("weight", "bias"))
+    missing = [k for k in keep if k not in sd]
+    if missing:
+        raise KeyError(f"no {missing} in the state dict: not a {cfg.arch} "
+                       "*ForSequenceClassification checkpoint")
+    return {k: v for k, v in sd.items() if not k.startswith("classifier") or k in keep}
+
+
+def load_cross_encoder_dir(ckpt_dir: str, max_seq_length: Optional[int] = None
+                           ) -> Tuple[EncoderConfig, Dict[str, torch.Tensor], Optional[str]]:
+    """Load a local HF ``*ForSequenceClassification`` checkpoint directory
+    (num_labels 1) — the layout of sentence-transformers CrossEncoder
+    checkpoints such as the reference's ``cross-encoder/stsb-roberta-large``
+    — into (EncoderConfig, ``CrossEncoderModule`` state dict on the CPU,
+    vocab path or None)."""
+    weights, hf_cfg, find = _resolve_checkpoint_files(ckpt_dir)
+    kw = _encoder_cfg_kwargs(ckpt_dir, hf_cfg)
+    if max_seq_length is not None:
+        kw["max_seq_length"] = int(max_seq_length)
+    cfg = EncoderConfig(**kw)
+    sd = import_cross_encoder_params(load_torch_state_dict(weights), cfg)
+    return cfg, sd, _vocab_path(find)
 
 
 def load_hf_checkpoint_dir(ckpt_dir: str
@@ -245,11 +312,11 @@ def load_hf_checkpoint_dir(ckpt_dir: str
     Resolution (no network), as the source resolves it:
     - weights: ``model.safetensors`` or ``pytorch_model.bin`` at the root or
       under a ``0_*``-style module subdirectory;
-    - architecture: ``config.json`` (model_type bert or mpnet; roberta
-      raises ``NotImplementedError``);
+    - architecture: ``config.json`` (model_type bert, roberta or mpnet);
     - ``sentence_bert_config.json`` → max_seq_length when present;
     - ``1_Pooling/config.json`` → pooling mode when present;
-    - ``vocab.txt`` (WordPiece) → the tokenizer."""
+    - ``vocab.txt`` (WordPiece) or ``vocab.json`` (byte-level BPE) → the
+      tokenizer."""
     weights, hf_cfg, find = _resolve_checkpoint_files(ckpt_dir)
     kw = _encoder_cfg_kwargs(ckpt_dir, hf_cfg)
     sbert_cfg = find("sentence_bert_config.json")
@@ -267,4 +334,4 @@ def load_hf_checkpoint_dir(ckpt_dir: str
         else:
             kw["pooling"] = "mean"
     cfg = EncoderConfig(**kw)
-    return cfg, load_torch_state_dict(weights), find("vocab.txt")
+    return cfg, load_torch_state_dict(weights), _vocab_path(find)

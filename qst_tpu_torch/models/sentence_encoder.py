@@ -1,8 +1,8 @@
 """Sentence encoder — counterpart of ``qst_tpu/models/sentence_encoder.py``.
 
 Transformer forward → masked mean pooling → optional L2 normalization.
-``SentenceEncoderModule`` is the trunk chosen by ``cfg.arch`` (BERT or MPNet,
-with HF ``BertModel`` / ``MPNetModel`` names) with the pooling head;
+``SentenceEncoderModule`` is the trunk chosen by ``cfg.arch`` (BERT, RoBERTa
+or MPNet, with HF ``BertModel`` / ``MPNetModel`` names) with the pooling head;
 ``embed_fn(cfg)`` gives the forward (module, ids, mask) → embeddings, through
 the fused layer (K1) when ``cfg.use_fused_layer`` is set; ``SentenceEncoder``
 owns tokenization and shape bucketing on the host.
@@ -29,25 +29,22 @@ from qst_tpu_torch.ops.distances import l2_normalize
 from qst_tpu_torch.ops.pooling import POOLERS
 
 
-TRUNKS = {"bert": BertEncoder, "mpnet": MPNetEncoder}
+TRUNKS = {"bert": BertEncoder, "roberta": BertEncoder, "mpnet": MPNetEncoder}
 
 
 class SentenceEncoderModule(torch.nn.Module):
     """ids/mask → pooled (and optionally normalized) sentence embedding.
 
     The trunk is chosen by ``cfg.arch``, as ``qst_tpu/models/sentence_encoder.py:45-49``
-    chooses it: ``BertEncoder`` or ``MPNetEncoder``. Its ``embeddings`` and
-    ``encoder`` sit at the top level of this module and its forward runs on
-    them, so the state dict is HF ``BertModel``'s or ``MPNetModel``'s.
-    RoBERTa raises: it needs the byte-level BPE tokenizer and the RoBERTa
-    trunk (``ROADMAP.md`` A8, A9)."""
+    chooses it: ``BertEncoder`` (for ``bert`` and ``roberta``) or
+    ``MPNetEncoder``. Its ``embeddings`` and ``encoder`` sit at the top level
+    of this module and its forward runs on them, so the state dict is HF
+    ``BertModel``'s (RoBERTa's has the same keys) or ``MPNetModel``'s."""
 
     def __init__(self, cfg: EncoderConfig):
         super().__init__()
         if cfg.arch not in TRUNKS:
-            raise NotImplementedError(
-                f"arch={cfg.arch!r} is not ported to qst_tpu_torch (bert and mpnet are; "
-                "roberta waits for the byte-level BPE tokenizer and its trunk, ROADMAP A8/A9)")
+            raise ValueError(f"unknown arch {cfg.arch!r} (one of {sorted(TRUNKS)})")
         trunk = TRUNKS[cfg.arch](cfg)
         self.cfg = cfg
         self.embeddings = trunk.embeddings
@@ -71,24 +68,27 @@ class SentenceEncoderModule(torch.nn.Module):
 _TRUNCATED_STD = 0.87962566103423978
 
 
-def init_params(cfg: EncoderConfig, generator: torch.Generator,
-                device: Any = None) -> Dict[str, torch.Tensor]:
-    """Random weights from ``generator`` (a CPU generator), as a state dict
-    on ``device`` (default: the GPU, ``core/device.py``), drawn from the
-    distribution of qst_tpu's ``init_params`` (Flax's defaults): embeddings
-    normal(0, 1/√H), every dense kernel lecun-normal — a normal cut at two
-    standard deviations and scaled to variance 1/fan_in — zero biases, unit
-    LayerNorm scales (MPNet's relative-bias table is an embedding too). The
-    draws are torch's, not ``jax.random``'s."""
+def init_state_dict(model: torch.nn.Module, generator: torch.Generator,
+                    device: Any = None) -> Dict[str, torch.Tensor]:
+    """Random weights for every tensor of ``model``'s state dict, drawn from
+    ``generator`` (a CPU generator) in the state dict's order, on ``device``
+    (default: the GPU, ``core/device.py``), from the distribution of Flax's
+    defaults: embeddings normal(0, 1/√H), every dense kernel lecun-normal —
+    a normal cut at two standard deviations and scaled to variance 1/fan_in
+    — zero biases, unit LayerNorm scales. The draws are torch's, not
+    ``jax.random``'s."""
     device = resolve_device(device)
-    model = SentenceEncoderModule(cfg)
+    owner = {f"{m_name}.{p_name}" if m_name else p_name: m
+             for m_name, m in model.named_modules()
+             for p_name, _ in m.named_parameters(recurse=False)}
     sd = {}
     for name, p in model.state_dict().items():
-        if name.endswith("LayerNorm.weight"):
+        m = owner[name]
+        if isinstance(m, torch.nn.LayerNorm) and name.endswith(".weight"):
             t = torch.ones_like(p)
         elif name.endswith(".bias"):
             t = torch.zeros_like(p)
-        elif name.startswith("embeddings.") or name.endswith("relative_attention_bias.weight"):
+        elif isinstance(m, torch.nn.Embedding):
             t = torch.normal(0.0, p.shape[-1] ** -0.5, p.shape, generator=generator)
         else:          # an nn.Linear weight, (out, in)
             std = p.shape[1] ** -0.5 / _TRUNCATED_STD
@@ -98,13 +98,23 @@ def init_params(cfg: EncoderConfig, generator: torch.Generator,
     return sd
 
 
+def init_params(cfg: EncoderConfig, generator: torch.Generator,
+                device: Any = None) -> Dict[str, torch.Tensor]:
+    """Random weights of a ``SentenceEncoderModule`` from ``generator``, as
+    qst_tpu's ``init_params`` draws them (``init_state_dict``; MPNet's
+    relative-bias table is an embedding too)."""
+    return init_state_dict(SentenceEncoderModule(cfg), generator, device)
+
+
 def embed_fn(cfg: EncoderConfig) -> Callable:
     """The forward: (module, ids, mask) → (B, D) f32 embeddings.
 
-    With ``cfg.use_fused_layer`` the trunk runs through the fused layer
-    (``ops/fused_layer.py``: K1 on a CUDA tensor, its plain version on a CPU
-    tensor); otherwise through the ``nn.Module`` path."""
-    if cfg.use_fused_layer:
+    With ``cfg.use_fused_layer`` (bert/mpnet arch) the trunk runs through
+    the fused layer (``ops/fused_layer.py``: K1 on a CUDA tensor, its plain
+    version on a CPU tensor); otherwise through the ``nn.Module`` path — as
+    qst_tpu's ``embed_fn`` routes it, so RoBERTa encodes on the module path
+    whatever the flag (its train step refuses the flag, in both packages)."""
+    if cfg.use_fused_layer and cfg.arch in ("bert", "mpnet"):
         from qst_tpu_torch.ops.fused_layer import fused_embed_fn
 
         return fused_embed_fn(cfg)

@@ -4,9 +4,9 @@ Numpy and the standard library only. ``WordPieceTokenizer`` and
 ``HashTokenizer`` are copied as they are; ``tests/test_torch_ops.py`` holds
 them to their source on the same texts. ``load_tokenizer`` picks the native
 C++ WordPiece batch tokenizer (``qst_tpu_torch/native``, the port's copy of
-``qst_tpu/native``) where g++ builds it, as the source does; it differs in
-what it cannot reach yet: the byte-level BPE vocab (``.json`` paths) waits
-for a later slice of the port.
+``qst_tpu/native``) where g++ builds it, as the source does, and the
+byte-level BPE tokenizer (``models/bpe_tokenizer.py``) for a ``.json``
+vocabulary.
 """
 
 from __future__ import annotations
@@ -230,11 +230,13 @@ class HashTokenizer:
 def load_tokenizer(path_or_mock: str, vocab_size: int = 512, **kw):
     """Load a WordPiece vocab if a path exists (native C++ batch tokenizer
     when buildable, else pure Python), otherwise a HashTokenizer mock.
-    A ``.json`` path (byte-level BPE) is not ported yet."""
+    A ``.json`` path loads a byte-level BPE vocab (roberta-family
+    checkpoints: ``vocab.json`` + sibling ``merges.txt``)."""
     if path_or_mock and os.path.isfile(path_or_mock):
         if path_or_mock.endswith(".json"):
-            raise NotImplementedError(
-                "byte-level BPE vocabularies are not ported to qst_tpu_torch")
+            from qst_tpu_torch.models.bpe_tokenizer import RobertaBPETokenizer
+
+            return RobertaBPETokenizer.from_files(path_or_mock, **kw)
         # the source's broad ``except`` is left out: native_available() is
         # False when g++ fails, and any other error is a fault to see
         from qst_tpu_torch.native import FastWordPieceTokenizer, native_available

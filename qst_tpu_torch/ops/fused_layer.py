@@ -818,8 +818,8 @@ def fused_encoder_forward(cfg: EncoderConfig, model: torch.nn.Module,
     output and FFN output, all derived on the device by ``step_draws`` (their
     bits are not ``jax.random``'s)."""
     if cfg.arch not in ("bert", "mpnet"):
-        raise NotImplementedError(
-            f"fused layer port covers arch='bert' and 'mpnet', got {cfg.arch}")
+        # qst_tpu/ops/fused_layer_pallas.py:713-715 refuses RoBERTa the same way
+        raise ValueError(f"fused layer supports arch='bert'/'mpnet', {cfg.arch} given")
     dt = getattr(torch, cfg.dtype)
     train = dropout_key is not None and (cfg.hidden_dropout > 0 or cfg.attention_dropout > 0)
     attn_drop = cfg.attention_dropout if train else 0.0

@@ -14,8 +14,10 @@ rows by default, in ``search`` and in the finishers of ``search_async`` and
 ``search_stream``. The artifact layout is the JAX package's
 (``embeddings.npy``, ``ivf_*.npy``, ``pq_*.npy``, ``ivfpq_*.npy``,
 ``ids.json``, ``index_meta.json``, ``docs.json``), so either package
-reloads the other's index. Mesh sharding and cross-encoder reranking raise
-``NotImplementedError``.
+reloads the other's index. ``reranker=`` (a ``CrossEncoder``) and
+``search(..., rerank_k=)`` give two-stage retrieval: the index's top
+``max(k, rerank_k)`` candidates re-scored by the cross-encoder. Mesh sharding
+raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -161,10 +163,14 @@ class Retriever:
     Corpus docs may carry external ids."""
 
     def __init__(self, encoder: Any, mesh: Any = None, score: str = "cos_sim",
-                 index_dtype: str = "float32", ivf_clusters: int = 256,
+                 reranker: Any = None, index_dtype: str = "float32", ivf_clusters: int = 256,
                  ivf_probe: int = 8, pq_m: int = 48, pq_rotate: bool = False,
                  ivfpq_bits: int = 8, device: Any = None):
-        """index_dtype: storage dtype or kind for built/loaded indexes —
+        """reranker: optional cross-encoder with ``predict(pairs) -> scores``
+        (``models/cross_encoder.py``'s ``CrossEncoder``) for two-stage
+        retrieval: dense top-N candidates → pair re-scoring.
+
+        index_dtype: storage dtype or kind for built/loaded indexes —
         "bfloat16" for tensor-core scoring, "int8" for half the memory again
         (quantized-exact ranking; see ExactIndex), "ivf" for the approximate
         k-means-cell index (``ivf_clusters`` cells, ``ivf_probe`` of them
@@ -182,6 +188,7 @@ class Retriever:
         self.encoder = encoder
         self.mesh = None
         self.score = score
+        self.reranker = reranker
         self.index_dtype = index_dtype
         self.ivf_clusters = ivf_clusters
         self.ivf_probe = ivf_probe
@@ -634,14 +641,56 @@ class Retriever:
             out.append(row)
         return out
 
+    def _search_reranked(self, queries: List[str], k: int, return_texts: bool,
+                         rerank_k: int):
+        """The index's top ``max(k, rerank_k)`` (None ids dropped), each
+        (query, doc) pair scored by the reranker, the top ``k`` by that
+        score (``qst_tpu/retrieval/retriever.py:728-800``)."""
+        fetch_k = max(k, rerank_k)
+        if self._is_updatable():
+            # the text map is taken before the search, as _search_updatable
+            # takes it: a racing DELETE replaces the map, so the snapshot
+            # keeps the texts of the docs the index snapshot returns
+            text_of = self._texts_by_id.get
+            q_emb = encode_keep_device(self.encoder.encode, queries)
+            try:
+                scores, ids = self.index.search(q_emb, k=fetch_k)
+            except EmptyIndexError:
+                return [[] for _ in queries]
+            rows = self._id_rows(scores, ids, False, None)
+        else:
+            rows = self.search(queries, k=fetch_k)
+            pos_of = self._pos()
+            text_of = lambda d: self._doc_texts[pos_of[d]]  # noqa: E731
+        out = []
+        for query, cand in zip(queries, rows):
+            # `or ""`: an add racing an updatable search can surface a doc
+            # whose text is not in the snapshotted map yet — the reranker
+            # gets an empty string rather than failing the batch
+            texts = [text_of(i) or "" for i, _ in cand]
+            ce_scores = np.asarray(self.reranker.predict([(query, t) for t in texts]))
+            order = np.argsort(-ce_scores)[:k]
+            cand = [(cand[int(j)][0], float(ce_scores[int(j)])) for j in order]
+            out.append([(d, s, text_of(d)) if return_texts else (d, s) for d, s in cand])
+        return out
+
     def search(self, queries: Sequence[str], k: int = 10,
                return_texts: bool = False, rerank_k: int = 0):
         """→ list per query of (doc_id, score[, text]) tuples; an IVF or
         IVF-PQ row is shorter than k when the probed cells held fewer
-        documents. Cross-encoder reranking (``rerank_k``) is not ported."""
-        if rerank_k:
-            raise NotImplementedError("cross-encoder reranking is not ported")
+        documents.
+
+        rerank_k > 0 enables two-stage retrieval: the index returns
+        ``max(k, rerank_k)`` candidates, the reranker re-scores each
+        (query, doc) pair, and the top ``k`` by its score are returned."""
         self._require_index()
+        if rerank_k:
+            has_texts = bool(self._texts_by_id if self._is_updatable() else self._doc_texts)
+            if self.reranker is None:
+                raise RuntimeError("rerank_k given but no reranker configured")
+            if not has_texts:
+                raise RuntimeError("reranking needs doc texts (build() them)")
+            return self._search_reranked(list(queries), k, return_texts, rerank_k)
         if self._is_updatable():
             return self._search_updatable(list(queries), k, return_texts)
         if not self._single_dispatch():

@@ -531,10 +531,7 @@ def test_dataset_parser_keeps_the_source_flags():
     assert got == want
 
 
-@pytest.mark.parametrize("argv", [
-    ["--use_cross_encoder"], ["--cross_encoder_dir", "ce"], ["--mesh_data", "2"],
-    ["--mesh_model", "2"],
-])
+@pytest.mark.parametrize("argv", [["--mesh_data", "2"], ["--mesh_model", "2"]])
 def test_ir_eval_cli_refuses_unported_flags(quad_data, argv):
     root, data, _, _ = quad_data
     with pytest.raises(SystemExit, match="not ported"):

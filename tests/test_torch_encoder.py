@@ -113,13 +113,6 @@ def test_init_params_is_seeded_and_device_bound():
             tse.init_params(cfg, torch.Generator().manual_seed(1), device="cuda")
 
 
-def test_unported_arch_raises():
-    """RoBERTa waits for its tokenizer and trunk (MPNet is ported:
-    tests/test_torch_mpnet.py)."""
-    with pytest.raises(NotImplementedError, match="A8/A9"):
-        tse.SentenceEncoderModule(EncoderConfig.tiny(arch="roberta"))
-
-
 def test_flash_attention_flag_is_honoured(weights, monkeypatch):
     """The flag routes the attention through ``FlashAttention`` (its plain
     versions on the CPU, one call a layer) at S = 128: the pooled embedding

@@ -10,7 +10,7 @@
 - a directory written by ``transformers``' ``save_pretrained`` (BERT and
   MPNet, random weights) loads into the port and gives the HF model's
   hidden states (skipped without ``transformers``);
-- a RoBERTa directory raises, naming the roadmap items it waits for.
+- RoBERTa directories: tests/test_torch_roberta.py.
 
 BERT and MPNet at tiny widths, f32, on the CPU.
 """
@@ -154,16 +154,6 @@ def test_load_torch_state_dict_strips_prefixes_and_drops_the_pooler(tmp_path):
     torch.save(raw, path)
     got = hf_import.load_torch_state_dict(path)
     assert got.keys() == sd.keys()
-
-
-def test_roberta_directory_raises_naming_the_roadmap_items(tmp_path):
-    with open(tmp_path / "config.json", "w") as f:
-        json.dump({"model_type": "roberta", "vocab_size": 10, "hidden_size": 8,
-                   "num_hidden_layers": 1, "num_attention_heads": 2, "intermediate_size": 8,
-                   "max_position_embeddings": 16}, f)
-    torch.save({}, str(tmp_path / "pytorch_model.bin"))
-    with pytest.raises(NotImplementedError, match="A8, A9"):
-        hf_import.load_hf_checkpoint_dir(str(tmp_path))
 
 
 @pytest.mark.parametrize("arch", ["bert", "mpnet"])

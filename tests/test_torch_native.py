@@ -9,6 +9,7 @@ library is never built or loaded here: it belongs to the JAX package.
 """
 
 import ast
+import json
 import os
 
 import numpy as np
@@ -118,7 +119,10 @@ def test_load_tokenizer_picks_the_native_tokenizer(tmp_path):
     tok = ttok.load_tokenizer(_vocab_file(tmp_path))
     assert isinstance(tok, fw.FastWordPieceTokenizer) and tok._handle is not None
     assert fw._lib_path().startswith(os.path.join(_ROOT, "qst_tpu_torch", "native", "_build"))
-    with pytest.raises(NotImplementedError, match="byte-level BPE"):
-        json_path = tmp_path / "vocab.json"
-        json_path.write_text("{}")
-        ttok.load_tokenizer(str(json_path))
+    # a .json vocabulary is byte-level BPE (with merges.txt beside it)
+    from qst_tpu_torch.models.bpe_tokenizer import RobertaBPETokenizer
+
+    json_path = tmp_path / "vocab.json"
+    json_path.write_text(json.dumps({"<s>": 0, "<pad>": 1, "</s>": 2, "<unk>": 3}))
+    (tmp_path / "merges.txt").write_text("#version: 0.2\n")
+    assert isinstance(ttok.load_tokenizer(str(json_path)), RobertaBPETokenizer)

@@ -201,15 +201,22 @@ def test_load_torch_state_dict_strips_prefix_and_pooler(tmp_path):
 
 def test_port_imports_no_jax_flax_or_qst_tpu():
     """Every qst_tpu_torch module imports in a fresh interpreter without
-    pulling in jax, flax or qst_tpu (this process already imported them)."""
+    pulling in jax, flax or qst_tpu (this process already imported them),
+    nor regex or transformers, which the GPU machine does not have; the BPE
+    tokenizer, the cross-encoder and the MLM modules are driven through a
+    first call as well (the BPE pre-tokenizer builds its pattern there)."""
     code = textwrap.dedent("""
         import importlib, pkgutil, sys
         import qst_tpu_torch
         names = [m.name for m in pkgutil.walk_packages(qst_tpu_torch.__path__, "qst_tpu_torch.")]
         for n in names:
             importlib.import_module(n)
-        bad = sorted(m for m in sys.modules
-                     if m.split(".")[0] in ("jax", "jaxlib", "flax", "qst_tpu"))
+        from qst_tpu_torch.models.bpe_tokenizer import RobertaBPETokenizer, bytes_to_unicode
+        tok = RobertaBPETokenizer({t: i for i, t in enumerate(
+            ["<s>", "<pad>", "</s>", "<unk>"] + list(bytes_to_unicode().values()))}, [])
+        tok.batch_encode_pairs([("it's 12 words", "x\u00b2")], max_length=16)
+        bad = sorted(m for m in sys.modules if m.split(".")[0] in (
+            "jax", "jaxlib", "flax", "qst_tpu", "regex", "transformers"))
         print(len(names), bad)
         new = {"core.device", "ops.ivf", "retrieval.ivf", "retrieval.updatable", "cli.common",
                "cli.index_main", "core.config", "core.telemetry", "core.rng",
@@ -220,7 +227,8 @@ def test_port_imports_no_jax_flax_or_qst_tpu():
                "augment.partial_positive", "augment.pos_tagger", "augment.positive_mining",
                "augment.synonyms", "data.coco", "data.sentence_compression",
                "cli.dataset_main", "experiments", "experiments.ablation", "retrieval.pq",
-               "retrieval.pq4", "retrieval.ivfpq", "retrieval.streaming"}
+               "retrieval.pq4", "retrieval.ivfpq", "retrieval.streaming",
+               "models.bpe_tokenizer", "models.cross_encoder", "models.mlm", "augment.mlm"}
         missing = sorted(n for n in new if "qst_tpu_torch." + n not in names)
         print(missing)
         sys.exit(1 if bad or missing or len(names) < 15 else 0)
