@@ -7,6 +7,7 @@
     python3 chip_smoke.py --phases build,pq
     python3 chip_smoke.py --phases build,flash     # the long-document path alone
     python3 chip_smoke.py --phases build,roberta   # RoBERTa, the cross-encoder, the MLM head
+    python3 chip_smoke.py --phases build,marian    # Marian and the on-card backtranslator
     python3 chip_smoke.py --phases build,check,train,evaluate
     python3 chip_smoke.py --phases build,dataset,capture,ablation
     python3 chip_smoke.py --phases build,ablation --ablation_steps 2000   # the decisive run
@@ -173,7 +174,23 @@ Phases (any failure exits non-zero and prints no result):
    at MiniLM-L6 width over 1,024 captions, texts/s, its mask-slot logits
    held to f32.
 
-15. pq    — the compressed and streamed indexes, last (run before the
+15. marian — Marian seq2seq and the on-card backtranslator at opus-mt width
+   (d_model 512, 6 + 6 layers, 8 heads, FFN 2,048, vocab 58,101; no kernel
+   of the port runs on this path): en->fr and fr->en directories written
+   from two seeds with the published generation settings (4 beams,
+   max_length 512, PAD as a bad word, forced EOS), read back through
+   load_marian_dir bit for bit; 64 caption pairs of 8-24 words through a
+   hashing word-level tokenizer, encode + full-prefix decode logits on the
+   card against the CPU and decode_token against the full decode (1e-4 of
+   the largest magnitude); greedy and 4-beam decode at max_length 128,
+   cached against uncached on 8 rows, and the card's beams on 16 rows
+   scored on the CPU against the CPU's own beam search (near ties counted);
+   get_backtranslator(backend="jax") over 256 captions at batch 32:
+   translations/s a hop and round trip, ms a decode step, busy share and
+   launches a step; dataset_main with adaptive_crop_augment over 32 images,
+   every part-positive a Marian roundtrip on the card.
+
+16. pq    — the compressed and streamed indexes, last (run before the
    profiled phases, it makes their torch.profiler traces lose kernels,
    although it tears down what it opened; the cause is not known):
    index_main build |
@@ -215,7 +232,7 @@ import urllib.request
 import numpy as np
 
 PHASES = ("build", "check", "serve", "ivf", "train", "times", "profile", "evaluate", "dataset",
-          "capture", "ablation", "mpnet", "flash", "roberta", "pq")
+          "capture", "ablation", "mpnet", "flash", "roberta", "marian", "pq")
 
 
 def fail(msg: str) -> None:
@@ -2224,7 +2241,8 @@ def add_train_launches(report: dict, launches) -> None:
 
 def window(run, steps: int) -> dict:
     """Wall time (host clock, synchronised) and device time (torch.profiler's
-    kernels) of ``run()``, per step, and the device's busy share."""
+    kernels) of ``run()``, per step, the device's busy share, and each
+    kernel's (launches, device ms) over the run."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -2236,9 +2254,11 @@ def window(run, steps: int) -> dict:
         run()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    dev_ms = sum(device_us(e) for e in prof.key_averages() if is_kernel(e)) / 1e3
+    kernels = {e.key: (e.count, device_us(e) / 1e3)
+               for e in prof.key_averages() if is_kernel(e)}
+    dev_ms = sum(ms for _, ms in kernels.values())
     return {"wall_ms_per_step": wall * 1e3 / steps, "device_ms_per_step": dev_ms / steps,
-            "busy": dev_ms / (wall * 1e3)}
+            "busy": dev_ms / (wall * 1e3), "kernels": kernels}
 
 
 def capture(report: dict) -> None:
@@ -2408,7 +2428,8 @@ def capture(report: dict) -> None:
             for _ in batches:            # the rest of the epoch: the thread ends here
                 pass
             add_train_launches(report, [c.launches - b for c, b in zip(counters, before)])
-            busy[f"{'mined' if mined else 'plain'} K={K_call}"] = w
+            busy[f"{'mined' if mined else 'plain'} K={K_call}"] = {
+                k: w[k] for k in ("wall_ms_per_step", "device_ms_per_step", "busy")}
             del state
     log("captured against eager, 20 steps of train_main's trainer after warm-up: " + "; ".join(
         f"{n}: {b['wall_ms_per_step']:.2f} ms a step ({1e3 / b['wall_ms_per_step']:.1f} "
@@ -5885,6 +5906,401 @@ def roberta(report: dict) -> None:
     log("roberta phase by part (s): " + ", ".join(f"{n} {v:.1f}" for n, v in parts.items()))
 
 
+# ---------------------------------------------------------------- marian
+MARIAN_PAIRS = 64          # teacher-forced pairs, card against CPU
+MARIAN_GEN_ROWS = 8        # rows through the uncached decoders too
+MARIAN_CPU_ROWS = 16       # rows beam-searched on the CPU as well
+MARIAN_CAPTIONS = 256      # the roundtrip's captions (8 batches of 32)
+MARIAN_IMAGES = 32         # dataset_main's images with Marian part-positives
+MARIAN_TOL = 1e-4          # relative to the largest magnitude / the best score
+
+
+class HashWordTok:
+    """A word-level tokenizer with the HF Marian surface (``__call__`` →
+    input_ids / attention_mask, ``batch_decode``), on the pattern of
+    tests/test_marian_backend.py's WordTok over the full vocabulary: the
+    language prefix is id 2, ``tok<N>`` is id N, any other word an id by a
+    fixed hash (never EOS or PAD); EOS appended, right-padded. It decodes an
+    id to ``tok<N>``, so the fr→en hop reads what the en→fr hop wrote."""
+
+    def __init__(self, cfg):
+        self.cfg = cfg
+        self.special = (cfg.pad_token_id, cfg.eos_token_id)
+
+    def _id(self, word: str) -> int:
+        import zlib
+
+        if word.startswith(">>"):
+            return 2
+        if word.startswith("tok") and word[3:].isdigit() and int(word[3:]) < self.cfg.vocab_size:
+            return int(word[3:])
+        return 1 + zlib.crc32(word.encode()) % (self.cfg.vocab_size - 2)
+
+    def __call__(self, texts, padding=True, truncation=True, max_length=128,
+                 return_tensors="np"):
+        rows = [[self._id(w) for w in t.split()][: max_length - 1] + [self.cfg.eos_token_id]
+                for t in texts]
+        width = max(map(len, rows))
+        ids = np.full((len(rows), width), self.cfg.pad_token_id, np.int64)
+        mask = np.zeros((len(rows), width), np.int64)
+        for i, r in enumerate(rows):
+            ids[i, :len(r)], mask[i, :len(r)] = r, 1
+        return {"input_ids": ids, "attention_mask": mask}
+
+    def batch_decode(self, ids, skip_special_tokens=True):
+        return [" ".join(f"tok{int(t)}" for t in row if int(t) not in self.special)
+                for row in np.asarray(ids)]
+
+
+def marian_captions(n: int, seed: int) -> list:
+    """n captions of 8-24 pseudo-English words."""
+    words = pseudo_words(3000, seed)
+    rng = np.random.default_rng(seed)
+    return [" ".join(words[int(i)] for i in rng.integers(0, len(words), int(rng.integers(8, 25))))
+            for _ in range(n)]
+
+
+def marian_dirs(report: dict, tmp: str) -> dict:
+    """The en→fr and fr→en directories at Seq2SeqConfig()'s width (the
+    published opus-mt one) with the published generation settings, written
+    from two seeds through save_marian_dir; loaded through load_marian_dir
+    and moved to the card, each parameter bit-equal to the written one."""
+    import torch
+
+    from qst_tpu_torch.models.hf_export import save_marian_dir
+    from qst_tpu_torch.models.hf_import import load_marian_dir
+    from qst_tpu_torch.models.seq2seq import Seq2SeqConfig, init_seq2seq
+
+    cfg = Seq2SeqConfig()
+    gen = {"num_beams": 4, "max_length": 512, "bad_words_ids": [[cfg.pad_token_id]],
+           "forced_eos_token_id": 0}
+    out = {"cfg": cfg}
+    for name, seed in (("opus-mt-en-fr", 140), ("opus-mt-fr-en", 141)):
+        written = init_seq2seq(cfg, torch.Generator().manual_seed(seed), device="cpu")
+        path = save_marian_dir(written, cfg, os.path.join(tmp, name), generation=gen)
+        got_cfg, sd, got_gen = load_marian_dir(path)
+        params = {k: v.cuda() for k, v in sd.items()}
+        bad = [k for k in written if not torch.equal(params[k].cpu(), written[k])]
+        if got_cfg != cfg or bad or set(params) != set(written) or (
+                got_gen["num_beams"], got_gen["max_length"], got_gen["suppress_tokens"],
+                got_gen["forced_eos"]) != (4, 512, (cfg.pad_token_id,), 0):
+            fail(f"{name}: load_marian_dir read back {got_cfg}, {got_gen}; {len(bad)} "
+                 f"parameters differ from the written ones ({bad[:3]})")
+        out[name] = {"path": path, "cpu": sd, "cuda": params, "gen": got_gen}
+    n = sum(v.numel() for k, v in sd.items() if "embed_positions" not in k)
+    log(f"marian: two directories at d_model {cfg.d_model}, {cfg.encoder_layers} + "
+        f"{cfg.decoder_layers} layers, {cfg.num_heads} heads, FFN {cfg.ffn_dim}, vocab "
+        f"{cfg.vocab_size}: {n / 1e6:.1f} M parameters each, read back bit for bit; "
+        f"generation {got_gen}")
+    report["marian"]["parameters"] = n
+    return out
+
+
+def marian_scores(model, ids, mask, seqs, cfg, length_penalty: float):
+    """Each generated sequence's score as beam_decode ranks it, by teacher
+    forcing: the processed log-probs (log_softmax, the suppress bias, the
+    forced EOS at the last slot) of its tokens up to its first EOS, summed,
+    over (1 + their count) ** length_penalty."""
+    import torch
+
+    from qst_tpu_torch.models.seq2seq import _forced_eos_mask, _suppress_bias
+
+    with torch.no_grad():
+        dec, tgt = seqs[:, :-1], seqs[:, 1:]
+        hidden = model._decode_hidden(dec, torch.ones_like(dec), model.encode(ids, mask), mask)
+        sup = _suppress_bias(cfg.vocab_size, (cfg.pad_token_id,), seqs.device)
+        logp = torch.log_softmax(model._logits(hidden), dim=-1) + sup
+        last = seqs.shape[1] - 2
+        logp[:, last] = _forced_eos_mask(logp[:, last], last, seqs.shape[1], 0)
+        tok = logp.gather(-1, tgt[..., None])[..., 0]
+        eos = (tgt == cfg.eos_token_id).long()
+        live = (eos.cumsum(1) - eos) == 0
+        return (tok * live).sum(1) / (1.0 + live.sum(1)).pow(length_penalty)
+
+
+def marian_parity(report: dict, dirs: dict, tok, caps: list) -> None:
+    """Teacher forcing at full width: encode + full-prefix decode logits on
+    the card against the same code on the CPU, and decode_token step by step
+    against the full decode on the card (f32, 1e-4 of the largest
+    magnitude); the next-token logits' spread."""
+    import torch
+
+    from qst_tpu_torch.augment.backtranslation import format_batch_texts
+    from qst_tpu_torch.models.seq2seq import marian_module
+
+    cfg, d = dirs["cfg"], dirs["opus-mt-en-fr"]
+    src = tok(format_batch_texts(caps[:MARIAN_PAIRS]))
+    tgt = tok(caps[MARIAN_PAIRS:2 * MARIAN_PAIRS])
+    n = len(caps[:MARIAN_PAIRS])
+    start = np.full((n, 1), cfg.decoder_start_token_id)
+    dec = np.concatenate([start, tgt["input_ids"][:, :-1]], 1)
+    dmask = np.concatenate([np.ones((n, 1), np.int64), tgt["attention_mask"][:, :-1]], 1)
+    args = [torch.from_numpy(a) for a in (src["input_ids"], src["attention_mask"], dec, dmask)]
+    card, cpu = marian_module(cfg, d["cuda"]), marian_module(cfg, d["cpu"])
+    with torch.no_grad():
+        got = card(*(a.cuda() for a in args))
+        ref = cpu(*args)
+        real = torch.from_numpy(dmask).bool()
+        err = float((got.cpu() - ref)[real].abs().max())
+        top = float(ref[real].abs().max())
+        enc = card.encode(args[0].cuda(), args[1].cuda())
+        caches = card.init_decode_cache(enc, dec.shape[1])
+        step_err = 0.0
+        for t in range(dec.shape[1]):
+            logits, caches = card.decode_token(args[2][:, t:t + 1].cuda(), t, args[1].cuda(),
+                                               caches)
+            rows = real[:, t].cuda()
+            step_err = max(step_err, float((logits - got[:, t])[rows].abs().max()))
+        spread = float(got[:, 0].std(dim=-1).mean())
+    log(f"marian teacher forcing, {n} pairs of 8-24 words (source {args[0].shape[1]} / target "
+        f"{dec.shape[1]} wide), f32: card against CPU max|err| {err:.3e} (max|ref| "
+        f"{top:.3f}); decode_token against the full decode {step_err:.3e}; next-token logits "
+        f"spread (std over the vocabulary) {spread:.3f} nats")
+    if not (err <= MARIAN_TOL * top and step_err <= MARIAN_TOL * top):
+        fail(f"marian logits: card {err:.3e}, decode_token {step_err:.3e} against "
+             f"{MARIAN_TOL} x {top:.3f}")
+    report["marian"]["teacher_forced"] = {"max_abs_err": err, "max_ref": top,
+                                          "decode_token_err": step_err, "logit_spread": spread}
+
+
+def marian_generate(report: dict, dirs: dict, tok, caps: list) -> None:
+    """greedy_decode_cached and beam_decode_cached (4 beams, max_length 128,
+    PAD suppressed, forced EOS) on the card against the uncached forms on 8
+    rows, and the card's beams on 16 rows scored on the CPU against the CPU's
+    own beam search; rows that differ must do so at a near tie."""
+    import torch
+
+    from qst_tpu_torch.augment.backtranslation import format_batch_texts
+    from qst_tpu_torch.models import seq2seq as ts
+
+    cfg, d = dirs["cfg"], dirs["opus-mt-en-fr"]
+    kw = dict(max_length=128, suppress_tokens=(cfg.pad_token_id,), forced_eos=0)
+    src = tok(format_batch_texts(caps[:MARIAN_CPU_ROWS]))
+    ids, mask = (torch.from_numpy(src[k]) for k in ("input_ids", "attention_mask"))
+    ids8, mask8 = ids[:MARIAN_GEN_ROWS].cuda(), mask[:MARIAN_GEN_ROWS].cuda()
+    card = ts.marian_module(cfg, d["cuda"])
+    out, ties = {}, {}
+    for name in ("greedy_decode", "beam_decode"):
+        beam = {"num_beams": 4} if name == "beam_decode" else {}
+        cached = getattr(ts, name + "_cached")(d["cuda"], ids8, mask8, cfg, **kw, **beam)
+        plain = getattr(ts, name)(d["cuda"], ids8, mask8, cfg, **kw, **beam)
+        if not (cached.is_cuda and cached.shape == (MARIAN_GEN_ROWS, 128)):
+            fail(f"{name}_cached gave {tuple(cached.shape)} on {cached.device}")
+        differ = [i for i in range(MARIAN_GEN_ROWS) if not torch.equal(cached[i], plain[i])]
+        for i in differ:
+            if beam:
+                s = marian_scores(card, ids8[i:i + 1].expand(2, -1), mask8[i:i + 1].expand(2, -1),
+                                  torch.stack([cached[i], plain[i]]), cfg, 1.0)
+                ok = float(s[0]) >= float(s[1]) - MARIAN_TOL * abs(float(s[1]))
+            else:                # the first differing token: its logit margin
+                t = int((cached[i] != plain[i]).nonzero()[0])
+                with torch.no_grad():
+                    h = card._decode_hidden(plain[i:i + 1, :t], torch.ones_like(plain[i:i + 1, :t]),
+                                            card.encode(ids8[i:i + 1], mask8[i:i + 1]),
+                                            mask8[i:i + 1])
+                    row = card._logits(h[:, -1])[0]
+                ok = abs(float(row[cached[i, t]] - row[plain[i, t]])) <= (
+                    MARIAN_TOL * float(row.abs().max()))
+            if not ok:
+                fail(f"{name}: cached and uncached row {i} differ beyond a near tie")
+        ties[name] = len(differ)
+        out[name] = cached
+    # card against CPU: the CPU's own beam search at this width, both scored there
+    t0 = time.perf_counter()
+    cpu_beams = ts.beam_decode_cached(d["cpu"], ids, mask, cfg, num_beams=4, **kw)
+    cpu_s = time.perf_counter() - t0
+    card_beams = ts.beam_decode_cached(d["cuda"], ids.cuda(), mask.cuda(), cfg, num_beams=4,
+                                       **kw).cpu()
+    cpu = ts.marian_module(cfg, d["cpu"])
+    s_card = marian_scores(cpu, ids, mask, card_beams, cfg, 1.0)
+    s_cpu = marian_scores(cpu, ids, mask, cpu_beams, cfg, 1.0)
+    same = [bool(torch.equal(a, b)) for a, b in zip(card_beams, cpu_beams)]
+    short = (s_cpu - MARIAN_TOL * s_cpu.abs()) - s_card
+    log(f"marian generation at max_length 128, PAD suppressed, forced EOS: cached against "
+        f"uncached on {MARIAN_GEN_ROWS} rows, greedy {MARIAN_GEN_ROWS - ties['greedy_decode']} "
+        f"token-identical + {ties['greedy_decode']} at near ties, 4 beams "
+        f"{MARIAN_GEN_ROWS - ties['beam_decode']} + {ties['beam_decode']}; card against the "
+        f"CPU's own beam search ({cpu_s:.1f} s on the host) on {MARIAN_CPU_ROWS} rows: "
+        f"{sum(same)} token-identical, {len(same) - sum(same)} differ at near ties; worst "
+        f"score shortfall {float((s_cpu - s_card).max()):.3e} (scores {float(s_cpu.min()):.3f} "
+        f"to {float(s_cpu.max()):.3f})")
+    if bool((short > 0).any()):
+        fail(f"marian: the card's beams score below the CPU's by more than {MARIAN_TOL} of "
+             f"the best: {(s_cpu - s_card).tolist()}")
+    report["marian"]["generation"] = {
+        "cached_vs_uncached_near_ties": ties, "card_vs_cpu_identical": sum(same),
+        "card_vs_cpu_near_ties": len(same) - sum(same), "cpu_beam_s": cpu_s,
+        "worst_shortfall": float((s_cpu - s_card).max())}
+
+
+def marian_roundtrip(report: dict, dirs: dict, tok, caps: list) -> object:
+    """get_backtranslator(backend="jax") over 256 captions at batch 32, f32:
+    translations/s a hop and for the round trip, ms a cached decode step,
+    the busy share and the kernel launches of a decode step; the same
+    memoized instance on a second call. → the backtranslator."""
+    import torch
+
+    from qst_tpu_torch.augment import backtranslation as bt_mod
+    from qst_tpu_torch.models import seq2seq as ts
+
+    en_fr, fr_en = dirs["opus-mt-en-fr"]["path"], dirs["opus-mt-fr-en"]["path"]
+    bt_mod.reset_backtranslator()
+    bt = bt_mod.get_backtranslator(en_fr, fr_en, backend="jax", tokenizers=(tok, tok))
+    if not isinstance(bt, bt_mod.JaxMarianBacktranslator) or bt_mod.get_backtranslator(
+            en_fr, fr_en, backend="jax", tokenizers=(tok, tok)) is not bt:
+        fail(f"get_backtranslator(backend='jax') gave {type(bt).__name__}, not one memoized "
+             "on-card Marian")
+    if not all(v.is_cuda for p in (bt.fwd_params, bt.bwd_params) for v in p.values()):
+        fail("the backtranslator's parameters are not on the card")
+    bt.backtranslate(caps[:32])                          # warm-up
+    t0 = time.perf_counter()
+    fr = bt._translate(bt_mod.format_batch_texts(caps), bt.fwd_cfg, bt.fwd_params, bt.tok_fwd,
+                       bt.fwd_gen)
+    t1 = time.perf_counter()
+    back = bt._translate(fr, bt.bwd_cfg, bt.bwd_params, bt.tok_bwd, bt.bwd_gen)
+    t2 = time.perf_counter()
+    if len(back) != len(caps) or not all(t.startswith("tok") for t in back):
+        fail(f"the roundtrip gave {len(back)} texts: {back[:2]}")
+    # one batch of the first hop, 127 steps and 1
+    enc = tok(bt_mod.format_batch_texts(caps[:32]), max_length=128)
+    S = bt._bucket(enc["input_ids"].shape[1], 128)
+    ids = np.pad(enc["input_ids"], ((0, 0), (0, S - enc["input_ids"].shape[1])),
+                 constant_values=bt.fwd_cfg.pad_token_id)
+    mask = np.pad(enc["attention_mask"], ((0, 0), (0, S - enc["input_ids"].shape[1])))
+    ids, mask = torch.from_numpy(ids).cuda(), torch.from_numpy(mask).cuda()
+    kw = dict(num_beams=4, suppress_tokens=(bt.fwd_cfg.pad_token_id,), forced_eos=0)
+
+    def run(length):
+        def go():
+            toks = ts.beam_decode_cached(bt.fwd_params, ids, mask, bt.fwd_cfg,
+                                         max_length=length, **kw)
+            if not toks.is_cuda:
+                fail("the generated tokens are not on the card")
+        return go
+
+    times = {}
+    for length in (2, 128, 2, 128):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        run(length)()
+        torch.cuda.synchronize()
+        times.setdefault(length, []).append(time.perf_counter() - t)
+    step_ms = (min(times[128]) - min(times[2])) * 1e3 / 126
+    # one decode step by kernel: 33 steps less 1, profiled
+    (wall_a, a), (wall_b, b) = ((w["wall_ms_per_step"], w["kernels"])
+                                for w in (window(run(34), 1), window(run(2), 1)))
+    by_name = {k: ((a[k][0] - b.get(k, (0, 0.0))[0]) / 32, (a[k][1] - b.get(k, (0, 0.0))[1]) / 32)
+               for k in a}
+    per_step = sum(n for n, _ in by_name.values())
+    dev_ms = sum(ms for _, ms in by_name.values())
+    wall_ms = (wall_a - wall_b) / 32
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:12]
+    rates = {"en_fr": len(caps) / (t1 - t0), "fr_en": len(caps) / (t2 - t1),
+             "roundtrip": len(caps) / (t2 - t0)}
+    log(f"marian roundtrip, get_backtranslator(backend='jax'), {len(caps)} captions at batch "
+        f"32 x 4 beams, max_length 128, f32: en->fr {rates['en_fr']:.1f}, fr->en "
+        f"{rates['fr_en']:.1f}, round trip {rates['roundtrip']:.1f} translations/s; a cached "
+        f"decode step {step_ms:.3f} ms (batch of 32 at 128 steps {1e3 * min(times[128]):.1f} "
+        f"ms, at 1 step {1e3 * min(times[2]):.1f} ms); profiled, a step {wall_ms:.3f} ms of "
+        f"wall, {dev_ms:.3f} ms on the device (busy {100 * dev_ms / wall_ms:.1f}%), "
+        f"{per_step:.1f} kernel launches; by kernel (launches, device ms a step): "
+        + "; ".join(f"{short_name(k)} {n:.1f} {ms:.4f}" for k, (n, ms) in top))
+    report["marian"]["roundtrip"] = {
+        "translations_per_s": rates, "step_ms": step_ms, "busy": dev_ms / wall_ms,
+        "device_ms_per_step": dev_ms, "profiled_wall_ms_per_step": wall_ms,
+        "launches_per_step": per_step,
+        "batch_ms": {n: 1e3 * min(v) for n, v in times.items()},
+        "kernels_per_step": {short_name(k): v for k, v in top}}
+    return bt
+
+
+def marian_dataset(report: dict, bt) -> None:
+    """dataset_main with adaptive_crop_augment over 32 synthetic images while
+    the on-card Marian is the memoized backtranslator: its chunks, every
+    part-positive a Marian roundtrip (counted by wrapping backtranslate),
+    images/s and backtranslation's share of the wall."""
+    from qst_tpu_torch.augment import backtranslation as bt_mod
+    from qst_tpu_torch.cli import dataset_main
+    from qst_tpu_torch.data import QuadrupletDataset
+    from qst_tpu_torch.data.chunks import discover_chunks, read_meta
+    from qst_tpu_torch.experiments.ablation import make_coco_annotations
+
+    tmp = work_dir("marian_dataset")
+    ann = f"{tmp}/captions.json"
+    make_coco_annotations(ann, MARIAN_IMAGES, np.random.default_rng(142))
+    cls, spent = bt_mod.JaxMarianBacktranslator, {"calls": 0, "rows": 0, "s": 0.0}
+    backtranslate = cls.backtranslate
+
+    def counted(self, texts):
+        t0 = time.perf_counter()
+        out = backtranslate(self, texts)
+        spent["s"] += time.perf_counter() - t0
+        spent["calls"] += 1
+        spent["rows"] += len(texts)
+        return out
+
+    cls.backtranslate = counted
+    try:
+        if bt_mod.get_backtranslator() is not bt:
+            fail("the memoized backtranslator is not the on-card Marian")
+        t0 = time.perf_counter()
+        code = dataset_main.main(["--ann_file", ann, "--output_root", f"{tmp}/out",
+                                  "--chunk_dim", "16", "--part_pos_algorithm",
+                                  "adaptive_crop_augment"])
+        wall = time.perf_counter() - t0
+    finally:
+        cls.backtranslate = backtranslate
+        bt_mod.reset_backtranslator()
+    root = f"{tmp}/out/CoCoCaptionDataset"
+    insts = list(QuadrupletDataset(root, seed=14).store.iter_instances())
+    parts = [p for i in insts for p in i["part_positive"]]
+    marian = sum(all(w.startswith("tok") for w in p.split()) and bool(p) for p in parts)
+    log(f"marian in dataset_main (adaptive_crop_augment): {MARIAN_IMAGES} images in "
+        f"{wall:.1f} s = {MARIAN_IMAGES / wall:.2f} images/s; backtranslate called "
+        f"{spent['calls']} times on {spent['rows']} rows, {spent['s']:.1f} s "
+        f"({100 * spent['s'] / wall:.1f}% of the wall); {marian} of {len(parts)} part-positives "
+        f"are Marian roundtrips; chunks {discover_chunks(root)}")
+    if (code != 0 or read_meta(root) != 2 or discover_chunks(root) != [0, 1]
+            or len(insts) != MARIAN_IMAGES or spent["rows"] < len(parts) or not parts
+            or marian != len(parts)):
+        fail("dataset_main with the on-card Marian did not write the expected chunks")
+    report["marian"]["dataset"] = {"wall_s": wall, "images_per_s": MARIAN_IMAGES / wall,
+                                   "backtranslate_calls": spent["calls"],
+                                   "rows": spent["rows"], "backtranslate_s": spent["s"],
+                                   "share": spent["s"] / wall}
+
+
+def marian(report: dict) -> None:
+    """Marian seq2seq and the on-card backtranslator at opus-mt width:
+    directories, teacher-forced parity, generation, the roundtrip's rates
+    and dataset_main's use of it. No kernel of the port runs here:
+    the JAX package computes Marian in plain XLA."""
+    import torch
+
+    report["marian"] = {}
+    parts = {}
+    t0 = time.perf_counter()
+    dirs = marian_dirs(report, work_dir("marian"))
+    parts["directories"] = time.perf_counter() - t0
+    tok = HashWordTok(dirs["cfg"])
+    caps = marian_captions(MARIAN_CAPTIONS, seed=143)
+
+    def timed(name, fn, *args):
+        t0 = time.perf_counter()
+        out = fn(report, *args)
+        parts[name] = time.perf_counter() - t0
+        return out
+
+    timed("parity", marian_parity, dirs, tok, caps)
+    timed("generation", marian_generate, dirs, tok, caps)
+    bt = timed("roundtrip", marian_roundtrip, dirs, tok, caps)
+    timed("dataset", marian_dataset, bt)
+    del dirs, bt
+    torch.cuda.empty_cache()
+    report["marian"]["part_s"] = parts
+    log("marian phase by part (s): " + ", ".join(f"{n} {v:.1f}" for n, v in parts.items()))
+
+
 def main() -> None:
     global ABLATION_STEPS
     default_steps = ABLATION_STEPS
@@ -5918,7 +6334,7 @@ def main() -> None:
     fns = {"check": check_kernels, "serve": serve, "ivf": ivf, "train": train, "times": times,
            "profile": profile_phase, "evaluate": evaluate, "dataset": dataset,
            "capture": capture, "ablation": ablation, "mpnet": mpnet, "flash": flash,
-           "roberta": roberta, "pq": pq}
+           "roberta": roberta, "marian": marian, "pq": pq}
     for phase in phases:
         if phase in fns:
             t0 = time.perf_counter()
@@ -5930,7 +6346,7 @@ def main() -> None:
                     if k in ("encode", "search", "search_q256", "k4_yardsticks", "k5_forms",
                              "train", "train_steps_per_s", "ivf", "ivf_times", "ivf_times_4m", "layer_gemm",
                              "evaluate", "encode_depth", "capture", "ablation", "mpnet",
-                             "mpnet_kernel_names", "pq", "flash", "roberta")}))
+                             "mpnet_kernel_names", "pq", "flash", "roberta", "marian")}))
     if "dataset" in report:
         log(json.dumps({"dataset": {k: v for k, v in report["dataset"].items() if k != "root"}}))
     log(json.dumps({"K1_training_layer": {k: report["K1"].get(k) for k in (

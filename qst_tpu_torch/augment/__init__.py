@@ -1,9 +1,10 @@
 """Dataset augmentation (counterpart of ``qst_tpu/augment``): POS tagging,
 synonym replacement, backtranslation backends, partial-positive synthesis,
 positive mining and the LLM client — host code, copied from the JAX package
-— and ``MLMAugmenter``, the MLM insert/substitute augmentation over the
-port's MLM head. The on-device Marian waits for its model (``ROADMAP.md``
-A11)."""
+— and the two model-backed augmenters: ``MLMAugmenter``, the MLM
+insert/substitute augmentation over the port's MLM head, and
+``JaxMarianBacktranslator``, the on-card Marian roundtrip over
+``models/seq2seq.py`` (the JAX package's name, kept)."""
 
 from qst_tpu_torch.augment.pos_tagger import pos_tag_universal
 from qst_tpu_torch.augment.synonyms import SynonymAugmenter, DEFAULT_LEXICON
@@ -11,6 +12,7 @@ from qst_tpu_torch.augment.backtranslation import (
     IdentityBacktranslator,
     ParaphraseBacktranslator,
     MarianBacktranslator,
+    JaxMarianBacktranslator,
     get_backtranslator,
     reset_backtranslator,
     perform_back_translation,
@@ -44,6 +46,7 @@ __all__ = [
     "IdentityBacktranslator",
     "ParaphraseBacktranslator",
     "MarianBacktranslator",
+    "JaxMarianBacktranslator",
     "get_backtranslator",
     "reset_backtranslator",
     "perform_back_translation",

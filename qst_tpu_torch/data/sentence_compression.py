@@ -68,8 +68,10 @@ def generate_variations(
     seed: int = 14,
 ) -> List[str]:
     """n paraphrases of ``sentence`` via the configured augmentation stages.
-    MLM stages are injected callables, skipped when absent (the port has no
-    MLM augmenter of its own yet: ``ROADMAP.md`` A11)."""
+    MLM stages are injected callables, skipped when absent, as in the source
+    (``augment.MLMAugmenter``'s ``insert`` / ``substitute`` fit them);
+    backtranslation goes through ``get_backtranslator``'s memoized backend,
+    the on-card Marian when its checkpoints are set."""
     if n <= 0:
         return []
     sentences = list(np.repeat(sentence, n))

@@ -12,7 +12,9 @@ weights as ``model.safetensors`` or ``pytorch_model.bin``, the vocabulary
 ``models/hf_import.load_hf_checkpoint_dir`` and the JAX package's loader
 read; ``save_cross_encoder_dir`` writes a ``CrossEncoderModule``'s as an HF
 ``*ForSequenceClassification`` directory (num_labels 1) for
-``load_cross_encoder_dir``.
+``load_cross_encoder_dir``; ``save_marian_dir`` writes a ``MarianModule``'s
+(``models/seq2seq.py``) as an HF ``MarianMTModel`` directory for
+``load_marian_dir``.
 """
 
 from __future__ import annotations
@@ -152,4 +154,38 @@ def save_cross_encoder_dir(state_dict: Mapping[str, torch.Tensor], cfg: EncoderC
           for k, v in export_state_dict(state_dict, cfg).items()}
     _write_weights(sd, os.path.join(ckpt_dir, weights))
     _write_vocab(ckpt_dir, vocab, merges)
+    return ckpt_dir
+
+
+def save_marian_dir(state_dict: Mapping[str, torch.Tensor], cfg, ckpt_dir: str,
+                    generation: Optional[dict] = None,
+                    weights: str = "model.safetensors") -> str:
+    """Write a ``MarianModule`` state dict (``models/seq2seq.py``) as an HF
+    ``MarianMTModel`` directory: ``config.json`` with cfg's widths, the
+    weights under their HF names, and ``generation_config.json`` holding
+    ``generation`` when given (``num_beams``, ``max_length``,
+    ``bad_words_ids``, ``forced_eos_token_id``, ...). ``load_marian_dir``
+    and the JAX package's loader read it. → ``ckpt_dir``."""
+    _check_weights_name(weights)
+    os.makedirs(ckpt_dir, exist_ok=True)
+    config = {
+        "architectures": ["MarianMTModel"], "model_type": "marian",
+        "vocab_size": cfg.vocab_size, "decoder_vocab_size": cfg.vocab_size,
+        "d_model": cfg.d_model, "encoder_layers": cfg.encoder_layers,
+        "decoder_layers": cfg.decoder_layers, "encoder_attention_heads": cfg.num_heads,
+        "decoder_attention_heads": cfg.num_heads, "encoder_ffn_dim": cfg.ffn_dim,
+        "decoder_ffn_dim": cfg.ffn_dim, "max_position_embeddings": cfg.max_position_embeddings,
+        "pad_token_id": cfg.pad_token_id, "eos_token_id": cfg.eos_token_id,
+        "decoder_start_token_id": cfg.decoder_start_token_id,
+        "scale_embedding": cfg.scale_embedding, "activation_function": cfg.activation,
+        "share_encoder_decoder_embeddings": True, "tie_word_embeddings": True,
+        "dropout": 0.0, "attention_dropout": 0.0, "activation_dropout": 0.0,
+    }
+    with open(os.path.join(ckpt_dir, "config.json"), "w") as f:
+        json.dump(config, f, indent=2)
+    if generation is not None:
+        with open(os.path.join(ckpt_dir, "generation_config.json"), "w") as f:
+            json.dump(generation, f, indent=2)
+    sd = {k: v.detach().float().cpu().numpy().copy() for k, v in state_dict.items()}
+    _write_weights(sd, os.path.join(ckpt_dir, weights))
     return ckpt_dir

@@ -17,6 +17,11 @@ files and directories).
   ``qst_tpu/models/hf_import.py:422`` does; ``load_cross_encoder_dir(dir)``
   loads an HF ``*ForSequenceClassification`` directory (num_labels 1) into
   a ``CrossEncoderModule``'s (``:205``).
+- ``load_marian_dir(dir)`` loads a local HF MarianMT directory into
+  (Seq2SeqConfig, ``MarianModule`` state dict, generation defaults), as
+  ``qst_tpu/models/hf_import.py:272`` does;
+  ``marian_state_dict_from_flax_params(params, cfg)`` carries the JAX
+  package's Marian tree over.
 """
 
 from __future__ import annotations
@@ -335,3 +340,114 @@ def load_hf_checkpoint_dir(ckpt_dir: str
             kw["pooling"] = "mean"
     cfg = EncoderConfig(**kw)
     return cfg, load_torch_state_dict(weights), _vocab_path(find)
+
+
+# ---------------------------------------------------------------------------
+# MarianMT (qst_tpu/models/hf_import.py:272-345)
+# ---------------------------------------------------------------------------
+def marian_state_dict_from_flax_params(params: Mapping[str, Any], cfg) -> Dict[str, torch.Tensor]:
+    """The JAX package's ``MarianModule`` params (``init_seq2seq`` /
+    ``import_marian_params``; only ``np.asarray`` is called on the leaves)
+    → the port's ``MarianModule`` state dict, float32 on the CPU."""
+    def dense(p, name):
+        return {f"{name}.weight": _t(np.asarray(p["kernel"]).T), f"{name}.bias": _t(p["bias"])}
+
+    def ln(p, name):
+        return {f"{name}.weight": _t(p["scale"]), f"{name}.bias": _t(p["bias"])}
+
+    def layer(p, name, attns):
+        out = {}
+        for a in attns:
+            for proj in ("q_proj", "k_proj", "v_proj", "out_proj"):
+                out.update(dense(p[a][proj], f"{name}.{a}.{proj}"))
+            out.update(ln(p[f"{a}_layer_norm"], f"{name}.{a}_layer_norm"))
+        for n in ("fc1", "fc2"):
+            out.update(dense(p[n], f"{name}.{n}"))
+        out.update(ln(p["final_layer_norm"], f"{name}.final_layer_norm"))
+        return out
+
+    positions = _t(params["embed_positions"])
+    sd = {"model.shared.weight": _t(params["shared"]["embedding"]),
+          "model.encoder.embed_positions.weight": positions,
+          "model.decoder.embed_positions.weight": positions.clone(),
+          "final_logits_bias": _t(params["final_logits_bias"]).reshape(1, -1)}
+    for i in range(cfg.encoder_layers):
+        sd.update(layer(params[f"encoder_layer_{i}"], f"model.encoder.layers.{i}",
+                        ("self_attn",)))
+    for i in range(cfg.decoder_layers):
+        sd.update(layer(params[f"decoder_layer_{i}"], f"model.decoder.layers.{i}",
+                        ("self_attn", "encoder_attn")))
+    return sd
+
+
+def load_marian_dir(ckpt_dir: str):
+    """Load a local HF MarianMT checkpoint DIRECTORY (the layout of
+    ``Helsinki-NLP/opus-mt-en-fr`` clones — the models the reference's
+    backtranslation downloads at reference dataset/backtranslation.py:8-49)
+    into ``(Seq2SeqConfig, the port's state dict on the CPU, generation
+    defaults dict)``.
+
+    The state dict loads into :class:`qst_tpu_torch.models.seq2seq.MarianModule`;
+    the generation defaults capture the checkpoint's
+    ``generation_config.json`` / ``config.json`` decode settings
+    (``num_beams``, ``max_length``, ``length_penalty``, pad suppression via
+    single-token ``bad_words_ids``, ``forced_eos_token_id``) as the source
+    reads them.
+    """
+    from qst_tpu_torch.models.seq2seq import Seq2SeqConfig, import_marian_params
+
+    weights, hf_cfg, find = _resolve_checkpoint_files(ckpt_dir)
+    if hf_cfg.get("model_type", "marian") != "marian":
+        raise ValueError(
+            f"{ckpt_dir}: model_type {hf_cfg.get('model_type')!r} is not a "
+            "MarianMT checkpoint")
+    cfg = Seq2SeqConfig(
+        vocab_size=int(hf_cfg["vocab_size"]),
+        d_model=int(hf_cfg["d_model"]),
+        encoder_layers=int(hf_cfg["encoder_layers"]),
+        decoder_layers=int(hf_cfg["decoder_layers"]),
+        num_heads=int(hf_cfg["encoder_attention_heads"]),
+        ffn_dim=int(hf_cfg["encoder_ffn_dim"]),
+        max_position_embeddings=int(hf_cfg["max_position_embeddings"]),
+        pad_token_id=int(hf_cfg["pad_token_id"]),
+        eos_token_id=int(hf_cfg["eos_token_id"]),
+        decoder_start_token_id=int(hf_cfg["decoder_start_token_id"]),
+        scale_embedding=bool(hf_cfg.get("scale_embedding", True)),
+        activation=hf_cfg.get("activation_function", "swish"),
+    )
+    sd = import_marian_params(load_torch_state_dict(weights), cfg)
+
+    # generation defaults: generation_config.json overrides config.json
+    gen = dict(hf_cfg)
+    gen_path = find("generation_config.json")
+    if gen_path:
+        with open(gen_path) as f:
+            gen.update(json.load(f))
+    suppress = []
+    dropped = []
+    for word in gen.get("bad_words_ids") or []:
+        if len(word) == 1:  # Marian ships [[pad_token_id]]
+            suppress.append(int(word[0]))
+        else:
+            dropped.append(word)
+    if dropped:
+        import warnings
+
+        warnings.warn(
+            f"{ckpt_dir}: {len(dropped)} multi-token bad_words_ids entries "
+            f"(e.g. {dropped[0]}) are not supported by the on-device decode "
+            "and were DROPPED — generation may differ from torch for this "
+            "checkpoint (only single-token suppression is implemented)",
+            stacklevel=2)
+    feos = gen.get("forced_eos_token_id")
+    defaults = {
+        "num_beams": int(gen.get("num_beams") or 1),
+        "max_length": int(gen.get("max_length") or 512),
+        "length_penalty": float(gen.get("length_penalty") or 1.0),
+        "suppress_tokens": tuple(suppress),
+        # the forced token itself: HF allows forced_eos_token_id !=
+        # eos_token_id, so a bool would force the wrong token
+        "forced_eos": int(feos) if feos is not None else False,
+        "name": os.path.basename(os.path.normpath(ckpt_dir)),
+    }
+    return cfg, sd, defaults

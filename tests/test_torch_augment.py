@@ -18,6 +18,7 @@ from http.server import BaseHTTPRequestHandler, HTTPServer
 
 import numpy as np
 import pytest
+import torch
 
 import qst_tpu.augment as jaug
 import qst_tpu_torch.augment as taug
@@ -34,6 +35,8 @@ from qst_tpu_torch.augment import partial_positive as tpp
 from qst_tpu_torch.augment import pos_tagger as tpos
 from qst_tpu_torch.augment import positive_mining as tpm
 from qst_tpu_torch.augment import synonyms as tsyn
+from qst_tpu_torch.models.hf_export import save_marian_dir
+from qst_tpu_torch.models.seq2seq import Seq2SeqConfig, init_seq2seq
 from test_torch_data import _code
 
 CAPTION = "a man riding a brown horse next to a red barn on a sunny day"
@@ -148,9 +151,10 @@ def test_constants_and_lexicons_match_the_source():
 
 
 def test_all_is_the_source_less_the_model_backed_augmenters():
-    """Every name but the on-device Marian backtranslator (MLMAugmenter is
-    ported: tests/test_torch_mlm.py)."""
-    assert set(taug.__all__) == set(jaug.__all__) - {"JaxMarianBacktranslator"}
+    """Every name of the source: both model-backed augmenters are ported
+    (MLMAugmenter: tests/test_torch_mlm.py; the on-card Marian:
+    tests/test_torch_marian_backend.py)."""
+    assert set(taug.__all__) == set(jaug.__all__)
 
 
 # ------------------------------------------------------------- POS tagging
@@ -203,7 +207,9 @@ def test_format_batch_texts():
 
 def test_backend_selection_matches_the_source(tmp_path, monkeypatch):
     """Auto choice, memoization, forced backends and their errors as in
-    qst_tpu; where qst_tpu takes its on-device Marian the port raises."""
+    qst_tpu; where qst_tpu builds its on-device Marian (forced, or both
+    checkpoint directories with a tokenizer) the port builds its on-card
+    one, here on the CPU."""
     for mod in (tbt, jbt):
         mod.reset_backtranslator()
         assert isinstance(mod.get_backtranslator(), mod.ParaphraseBacktranslator)
@@ -223,14 +229,16 @@ def test_backend_selection_matches_the_source(tmp_path, monkeypatch):
         mod.reset_backtranslator()
         assert isinstance(mod.get_backtranslator(), mod.IdentityBacktranslator)
         monkeypatch.delenv("QST_BACKTRANSLATION_BACKEND")
-    ckpt = [str(tmp_path / "en_fr"), str(tmp_path / "fr_en")]
-    for d in ckpt:
-        (tmp_path / d).mkdir()
-    tbt.reset_backtranslator()
-    with pytest.raises(NotImplementedError, match="A11"):
-        tbt.get_backtranslator(*ckpt, backend="jax")
-    with pytest.raises(NotImplementedError, match="A11"):   # qst_tpu: its on-device Marian
-        tbt.get_backtranslator(*ckpt, tokenizers=(object(), object()))
+    cfg = Seq2SeqConfig.tiny()
+    ckpt = [save_marian_dir(init_seq2seq(cfg, torch.Generator().manual_seed(seed), device="cpu"),
+                            cfg, str(tmp_path / name))
+            for name, seed in (("en_fr", 0), ("fr_en", 1))]
+    toks = (object(), object())
+    for mod, kw in ((tbt, {"device": "cpu"}), (jbt, {})):
+        for forced in ("jax", None):
+            mod.reset_backtranslator()
+            assert isinstance(mod.get_backtranslator(*ckpt, backend=forced, tokenizers=toks, **kw),
+                              mod.JaxMarianBacktranslator)
 
 
 # ------------------------------------------------------------------- crops
