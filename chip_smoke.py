@@ -8,6 +8,7 @@
     python3 chip_smoke.py --phases build,flash     # the long-document path alone
     python3 chip_smoke.py --phases build,roberta   # RoBERTa, the cross-encoder, the MLM head
     python3 chip_smoke.py --phases build,marian    # Marian and the on-card backtranslator
+    python3 chip_smoke.py --phases build,mesh      # the sharded serving path
     python3 chip_smoke.py --phases build,check,train,evaluate
     python3 chip_smoke.py --phases build,dataset,capture,ablation
     python3 chip_smoke.py --phases build,ablation --ablation_steps 2000   # the decisive run
@@ -190,7 +191,21 @@ Phases (any failure exits non-zero and prints no result):
    launches a step; dataset_main with adaptive_crop_augment over 32 images,
    every part-positive a Marian roundtrip on the card.
 
-16. pq    — the compressed and streamed indexes, last (run before the
+16. mesh  — the sharded serving path on a 4 x 2 mesh of eight positions of
+   one card (core/meshes.py): ExactIndex over 1M x 384 bf16 and int8 at Q =
+   4,096 through K4 + K5 in every shard (8 launches each a search, 8 of each
+   by name in a profile) against the unsharded search, a 129-row index with
+   six empty shards against the plain scan; IVF over 1,024 bf16 cells of
+   2,048 x 384 with K6 in every shard at Q = 256 / 64 / 8, before and after
+   compact(); PQ, IVF-PQ (8 and 4 bits) and the streamed index over 2M
+   clustered rows against their unsharded selves; the data-parallel
+   MiniLM-L6 encode (4 data shards, 24 K1 a batch of 256); a sharded
+   Retriever built, saved and reloaded; ir_eval_main --mesh_data 4
+   --mesh_model 2 against the run without; context-parallel and ring
+   attention at (8, 12, 4,096, 32) f32 with a backward; each sharded time
+   beside its unsharded one (the shard structure's cost on one card).
+
+17. pq    — the compressed and streamed indexes, last (run before the
    profiled phases, it makes their torch.profiler traces lose kernels,
    although it tears down what it opened; the cause is not known):
    index_main build |
@@ -232,7 +247,7 @@ import urllib.request
 import numpy as np
 
 PHASES = ("build", "check", "serve", "ivf", "train", "times", "profile", "evaluate", "dataset",
-          "capture", "ablation", "mpnet", "flash", "roberta", "marian", "pq")
+          "capture", "ablation", "mpnet", "flash", "roberta", "marian", "mesh", "pq")
 
 
 def fail(msg: str) -> None:
@@ -3876,9 +3891,11 @@ def clustered_chunks(n: int, seed: int, dim: int = 384, rank: int = 64, noise: f
 
 def launch_counts():
     from qst_tpu_torch.ops import fused_layer as fl
+    from qst_tpu_torch.ops import ivf as ops_ivf
     from qst_tpu_torch.ops import topk
 
-    return {"K1": fl.fused_bert_layer, "K4": topk.bucket_maxima, "K5": topk.rescore_buckets}
+    return {"K1": fl.fused_bert_layer, "K4": topk.bucket_maxima, "K5": topk.rescore_buckets,
+            "K6": ops_ivf.ivf_cell_scores}
 
 
 def reset_counts() -> None:
@@ -3931,6 +3948,10 @@ class CandidateScores:
                      zip(np.asarray(ids), np.asarray(scores))]
 
     def __getitem__(self, key):
+        if isinstance(key, slice):          # rows, as rows_match_up_to_ties reads them
+            out = CandidateScores.__new__(CandidateScores)
+            out.rows = self.rows[key]
+            return out
         row, ids = key
         return np.array([self.rows[row][int(j)] for j in np.atleast_1d(ids)], np.float32)
 
@@ -4516,6 +4537,503 @@ def pq(report: dict) -> None:
     report["pq"]["part_s"] = parts
     log("pq phase by part (s): " + ", ".join(f"{n} {v:.1f}" for n, v in parts.items())
         + f"; torn down after it: {released}")
+
+
+# ---------------------------------------------------------------------------
+# mesh: the sharded serving path on a mesh of positions of one card
+# ---------------------------------------------------------------------------
+MESH_ROWS = 1 << 20          # bench.py's corpus: 1M x 384 bf16, Q = 4096, k = 10
+MESH_QUERIES = 4096
+MESH_CELLS = 1024            # the ivf phase's cells: 1,024 of 2,048 x 384 bf16
+MESH_BUDGET = 2048
+MESH_PQ_ROWS = 1 << 21       # the pq phase's widths (m = 48, D = 384), 2M rows
+MESH_PQ_CELLS = 2048
+MESH_DOCS = 16384            # the sharded Retriever's corpus
+MESH_EVAL_INSTANCES = 960    # ir_eval_main's dataset: the evaluate phase's small cut
+MESH_ATTENTION = (8, 12, 4096, 32)
+
+
+def counted(report: dict, what: str, fn, want: dict):
+    """Run ``fn`` with every count set to 0 just before and read just after
+    (synchronized); fail unless the counts are ``want`` (kernels it names)
+    and 0 (the others); add them to the kernels' totals. → fn's result."""
+    import torch
+
+    reset_counts()
+    out = fn()
+    torch.cuda.synchronize()
+    got = read_counts()
+    expect = {n: want.get(n, 0) for n in got}
+    if got != expect:
+        fail(f"mesh {what}: launches {got}, want {expect}")
+    for n, v in got.items():
+        report[n]["launches"] = report[n].get("launches", 0) + v
+    return out
+
+
+def sharded_beside_plain(plain, sharded, reps: int, queries: int) -> dict:
+    """cuda_ms of the unsharded and the sharded call in turns (plain,
+    sharded, sharded, plain): the cost of the shard structure on one card,
+    not scaling."""
+    ms = {"plain": [], "sharded": []}
+    for who in ("plain", "sharded", "sharded", "plain"):
+        ms[who].append(cuda_ms(plain if who == "plain" else sharded, reps, warmup=2))
+    out = {f"{w}_ms": min(v) for w, v in ms.items()}
+    out.update({f"{w}_qps": queries / out[f"{w}_ms"] * 1e3 for w in ms})
+    out["sharded_over_plain"] = out["sharded_ms"] / out["plain_ms"]
+    return out
+
+
+def by_mark(counts: dict, mark: str) -> float:
+    """The launches a call of the device kernels whose names hold ``mark``."""
+    return sum(v for n, v in counts.items() if mark in n)
+
+
+def busy(fn, wall_ms: float) -> dict:
+    """Device ms and launches a call of ``fn`` (torch.profiler) beside its
+    wall ms: the device's busy share, and the five longest kernels."""
+    dev, launches = device_profile(fn, 5)
+    top = sorted(dev.items(), key=lambda kv: -kv[1])[:5]
+    return {"device_ms": sum(dev.values()), "launches_per_call": launches,
+            "busy": sum(dev.values()) / wall_ms,
+            "top_ms": {short_name(n)[:60]: round(v, 4) for n, v in top}}
+
+
+def truth_of(q, rows, ids):
+    """CandidateScores: each query against the rows its answers name, in
+    f32 (exact products of the stored dtype)."""
+    import torch
+
+    cand = torch.cat(ids, 1)
+    got = torch.einsum("qd,qkd->qk", q.float(), rows[cand].float())
+    return CandidateScores(cand.cpu().numpy(), got.cpu().numpy())
+
+
+def mesh_exact(report: dict, mesh) -> None:
+    """ExactIndex over 1M x 384 (bf16 and int8) at Q = 4096, k = 10: the
+    8-shard search through K4 + K5 in every shard against the unsharded
+    one; a 129-row index whose shards 2-7 hold no document against the
+    plain scan."""
+    import torch
+
+    from qst_tpu_torch.retrieval import ExactIndex
+
+    N, D, Q, k = MESH_ROWS, 384, MESH_QUERIES, 10
+    gen = torch.Generator(device="cuda").manual_seed(41)
+    unit = torch.nn.functional.normalize
+    rows = unit(torch.randn((N, D), device="cuda", generator=gen), dim=1)
+    queries = unit(torch.randn((Q, D), device="cuda", generator=gen), dim=1)
+    res = {}
+    for dtype in ("bfloat16", "int8"):
+        plain = ExactIndex(rows, dtype=dtype)
+        shard = ExactIndex(rows, dtype=dtype, mesh=mesh)
+        if shard.shard_rows != N // mesh.size:
+            fail(f"mesh exact: shard_rows {shard.shard_rows}, want {N // mesh.size}")
+        search = lambda idx: idx._device_search(queries, k, "dot_score", 131072, "auto")  # noqa: E731
+        s1, i1 = counted(report, f"exact {dtype} Q={Q}", lambda: search(shard),
+                         {"K4": mesh.size, "K5": mesh.size})
+        s0, i0 = search(plain)
+        if dtype == "int8":
+            # the integer products of the quantized queries and rows, descaled
+            qs = 127.0 / queries.abs().max()
+            qi = torch.clamp(torch.round(queries * qs), -127, 127)
+            true = truth_of(qi / (qs * plain._int8_scale), plain.embeddings, (i0, i1))
+            tol = 1e-6
+        else:
+            true = truth_of(queries.to(torch.bfloat16), plain.embeddings, (i0, i1))
+            tol = 1e-4
+        if not ids_match_up_to_ties(s1.cpu(), i1.cpu(), s0.cpu(), i0.cpu(), true, tol):
+            fail(f"mesh exact {dtype}: the 8-shard search differs from the unsharded one")
+        bit_equal = bool(torch.equal(s0, s1) and torch.equal(i0, i1))
+        t = sharded_beside_plain(lambda: search(plain), lambda: search(shard), 10, Q)
+        res[dtype] = {"max_abs_err": (s1 - s0).abs().max().item(), "bit_equal": bit_equal, **t}
+        if dtype == "bfloat16":
+            # the device's view: K4 and K5 by name (records over 4 calls, rounded
+            # up: a lost record cannot move it), device ms and busy share
+            names = kernel_counts(lambda: search(shard), done=lambda c: by_mark(
+                c, "bucket_max") >= mesh.size and by_mark(c, "rescore_") >= mesh.size)
+            if (by_mark(names, "bucket_max"), by_mark(names, "rescore_")) != (mesh.size,) * 2:
+                fail(f"mesh exact: the profiled search ran {by_mark(names, 'bucket_max')} K4 "
+                     f"and {by_mark(names, 'rescore_')} K5 kernels, want {mesh.size} each")
+            res[dtype]["sharded_profile"] = busy(lambda: search(shard), t["sharded_ms"])
+            res[dtype]["plain_profile"] = busy(lambda: search(plain), t["plain_ms"])
+            log(f"mesh exact bf16 profiled: {mesh.size} K4 and {mesh.size} K5 kernels by name; "
+                f"sharded {res[dtype]['sharded_profile']}, unsharded {res[dtype]['plain_profile']}")
+        log(f"mesh exact {dtype} over {N} x {D}, Q={Q}, k={k}, {mesh.size} shards of "
+            f"{shard.shard_rows}: K4 {mesh.size} / K5 {mesh.size} launches, answers "
+            f"{'bit-equal to' if bit_equal else 'equal up to ties to'} the unsharded search; "
+            f"{t['sharded_ms']:.3f} ms ({t['sharded_qps']:.0f} QPS) against "
+            f"{t['plain_ms']:.3f} ms ({t['plain_qps']:.0f} QPS) unsharded: "
+            f"x{t['sharded_over_plain']:.2f}, the shard structure's cost on one card")
+        del plain, shard
+    # 129 rows over 8 shards of 128: shard 1 holds one row, shards 2-7 none
+    small = ExactIndex(rows[:129], dtype="bfloat16", mesh=mesh)
+    q = queries[:256]
+    s1, i1 = counted(report, "exact 129 rows", lambda: small._device_search(
+        q, k, "dot_score", 131072, "pallas"), {"K4": mesh.size, "K5": mesh.size})
+    # the plain scan unsharded (the sharded scan scores unrounded queries, as in qst_tpu)
+    s0, i0 = ExactIndex(rows[:129], dtype="bfloat16")._device_search(q, k, "dot_score", 131072,
+                                                                      "xla")
+    true = truth_of(q.to(torch.bfloat16), small.embeddings.gather(), (i0, i1))
+    if not (ids_match_up_to_ties(s1.cpu(), i1.cpu(), s0.cpu(), i0.cpu(), true, 1e-4)
+            and int(i1.max()) < 129):
+        fail("mesh exact: the 129-row index through K4 + K5 differs from the plain scan")
+    res["rows_129"] = {"shards_without_rows": sum(
+        1 for i in range(mesh.size) if i * small.shard_rows >= 129)}
+    log(f"mesh exact: 129 rows over {mesh.size} shards of {small.shard_rows} "
+        f"({res['rows_129']['shards_without_rows']} shards without a row): K4 + K5 in every "
+        "shard equal the plain scan")
+    report["mesh"]["exact"] = res
+
+
+def mesh_ivf(report: dict, mesh) -> None:
+    """IVFIndex over 1,024 bf16 cells of 2,048 x 384 (fill counts from 0 to
+    2,048), 128 cells a shard: K6 once a shard at Q = 256 / 64 / 8, n_probe
+    8, against the unsharded search, before and after compact()."""
+    import torch
+
+    from qst_tpu_torch.retrieval import IVFIndex
+
+    C, L, D, P, k = MESH_CELLS, MESH_BUDGET, 384, 8, 10
+    gen = torch.Generator(device="cuda").manual_seed(43)
+    unit = torch.nn.functional.normalize
+    centroids = unit(torch.randn((C, D), device="cuda", generator=gen), dim=1)
+    fill = torch.randint(0, L + 1, (C,), device="cuda", generator=gen, dtype=torch.int32)
+    fill[0], fill[1] = 0, L                                 # an empty and a full cell
+    cells = torch.zeros((C, L, D), dtype=torch.bfloat16, device="cuda")
+    for c0 in range(0, C, 64):
+        x = centroids[c0:c0 + 64, None, :] + 0.3 * torch.randn((64, L, D), device="cuda",
+                                                               generator=gen)
+        live = torch.arange(L, device="cuda")[None, :] < fill[c0:c0 + 64, None]
+        cells[c0:c0 + 64] = torch.where(live[..., None], unit(x, dim=2), 0).to(torch.bfloat16)
+    slot = torch.arange(L, device="cuda")[None, :]
+    first = torch.cumsum(fill, 0) - fill
+    cell_ids = torch.where(slot < fill[:, None], first[:, None] + slot, -1).to(torch.int32)
+    plain = IVFIndex.from_arrays(centroids, cells, cell_ids, fill)
+    shard = IVFIndex.from_arrays(centroids, cells, cell_ids, fill, mesh=mesh)
+    del cells
+    flat = plain.cells.reshape(-1, D)
+    where = torch.full((plain.n_docs,), -1, dtype=torch.int64, device="cuda")
+    live = cell_ids.reshape(-1) >= 0
+    where[cell_ids.reshape(-1)[live].long()] = torch.arange(C * L, device="cuda")[live]
+    res = {"cells_per_shard": shard.cells_per_shard, "docs": plain.n_docs}
+    for Q in (256, 64, 8):
+        pick = torch.randint(0, C, (Q,), device="cuda", generator=gen)
+        q = unit(centroids[pick] + 0.3 * torch.randn((Q, D), device="cuda", generator=gen), dim=1)
+        search = lambda idx: idx._device_search(q, k, P, "auto")  # noqa: E731
+        s1, i1 = counted(report, f"ivf Q={Q}", lambda: search(shard), {"K6": mesh.size})
+        s0, i0 = search(plain)
+        # the true score of each answer's doc: the query against its stored row
+        cand = torch.cat([i0, i1], 1)
+        got = torch.einsum("qd,qkd->qk", q.to(torch.bfloat16).float(),
+                           flat[where[cand.clamp_min(0)]].float())
+        true = CandidateScores(cand.cpu().numpy(), got.cpu().numpy())
+        if not rows_match_up_to_ties((s1.cpu(), i1.cpu()), (s0.cpu(), i0.cpu()), true, 1e-4):
+            fail(f"mesh ivf Q={Q}: the sharded search differs from the unsharded one")
+        ids_equal = bool(torch.equal(i0, i1))
+        res[f"Q{Q}"] = {"ids_equal": ids_equal,
+                        **sharded_beside_plain(lambda: search(plain), lambda: search(shard),
+                                               20, Q)}
+        if Q == 256:
+            before = (s1.clone(), i1.clone())
+            shard.compact()
+            after = search(shard)
+            if not (torch.equal(after[0], before[0]) and torch.equal(after[1], before[1])):
+                fail("mesh ivf: compact() changed the sharded search's results")
+        t = res[f"Q{Q}"]
+        t["sharded_profile"] = busy(lambda: search(shard), t["sharded_ms"])
+        t["plain_profile"] = busy(lambda: search(plain), t["plain_ms"])
+        log(f"mesh ivf Q={Q}: sharded {t['sharded_profile']}, unsharded {t['plain_profile']}")
+        log(f"mesh ivf Q={Q} P={P} over {C} cells of {L} x {D} bf16 ({plain.n_docs} docs), "
+            f"{shard.cells_per_shard} cells a shard: K6 {mesh.size} launches, ids "
+            f"{'equal' if ids_equal else 'equal up to ties'}; {t['sharded_ms']:.3f} ms against "
+            f"{t['plain_ms']:.3f} ms unsharded (x{t['sharded_over_plain']:.2f})"
+            + ("; compact() kept the results" if Q == 256 else ""))
+    report["mesh"]["ivf"] = res
+
+
+def mesh_compressed(report: dict, mesh) -> None:
+    """PQ (m = 48) and IVF-PQ (2,048 cells, 8 and 4 bits) over 2M clustered
+    rows of D = 384, and the streamed index over them as a host array
+    (tile_rows 2^19: four tiles), each sharded over the mesh against its
+    unsharded self at Q = 256 (PQ also 4,096)."""
+    import torch
+
+    from qst_tpu_torch.ops.distances import l2_normalize
+    from qst_tpu_torch.retrieval import IVFPQIndex, PQIndex, StreamingExactIndex
+    from qst_tpu_torch.retrieval import pq as pq_mod
+
+    n, D, k = MESH_PQ_ROWS, 384, 10
+    rows = torch.empty((n, D), device="cuda")
+    for lo, chunk in clustered_chunks(n, seed=51):
+        rows[lo:lo + chunk.shape[0]] = l2_normalize(chunk)
+    gen = torch.Generator(device="cuda").manual_seed(52)
+    pick = torch.randint(0, n, (4096,), device="cuda", generator=gen)
+    queries = l2_normalize(rows[pick] + 0.03 * torch.randn((4096, D), device="cuda",
+                                                           generator=gen))
+    res = {"rows": n}
+    t0 = time.perf_counter()
+    pq = PQIndex(rows, m=48)
+    torch.cuda.synchronize()
+    res["pq_build_s"] = time.perf_counter() - t0
+    pqs = PQIndex.from_codes(pq.codes[:n], pq.codebooks, mesh=mesh)
+    cd = pq_mod._compute_dtype(pq.device)
+    for Q in (256, 4096):
+        q = queries[:Q]
+        search = lambda idx: idx._device_search(q, k, "dot_score", 0, "auto")  # noqa: E731
+        s1, i1 = counted(report, f"pq Q={Q}", lambda: search(pqs),
+                         {"K4": mesh.size, "K5": mesh.size})
+        s0, i0 = counted(report, f"pq unsharded Q={Q}", lambda: search(pq), {"K4": 1, "K5": 1})
+        cand = torch.cat([i0, i1], 1)
+        recon = pq_mod._decode_rows(pq.codes[cand.reshape(-1)], pq.codebooks.to(cd), "gather")
+        got = torch.einsum("qd,qkd->qk", l2_normalize(q.float()).to(cd).float(),
+                           recon.float().reshape(Q, -1, D))
+        true = CandidateScores(cand.cpu().numpy(), got.cpu().numpy())
+        if not ids_match_up_to_ties(s1.cpu(), i1.cpu(), s0.cpu(), i0.cpu(), true, 1e-4):
+            fail(f"mesh pq Q={Q}: the sharded search differs from the unsharded one")
+        res[f"pq_q{Q}"] = {"bit_equal": bool(torch.equal(s0, s1) and torch.equal(i0, i1)),
+                           **sharded_beside_plain(lambda: search(pq), lambda: search(pqs), 5, Q)}
+        t = res[f"pq_q{Q}"]
+        log(f"mesh pq Q={Q} over {n} rows, m=48, {mesh.size} shards of {pqs.shard_rows}: K4 / "
+            f"K5 {mesh.size} launches (unsharded 1), {t['sharded_ms']:.3f} ms against "
+            f"{t['plain_ms']:.3f} ms unsharded (x{t['sharded_over_plain']:.2f})")
+    del pq, pqs
+    torch.cuda.empty_cache()
+    q = queries[:256]
+    for bits in (8, 4):
+        t0 = time.perf_counter()
+        idx = IVFPQIndex(rows, n_clusters=MESH_PQ_CELLS, m=48, bits=bits)
+        torch.cuda.synchronize()
+        build_s = time.perf_counter() - t0
+        sh = IVFPQIndex.from_arrays(idx.centroids, idx.cell_codes, idx.cell_ids, idx.codebooks,
+                                    idx.fill, mesh=mesh, bits=bits)
+        for P in (8, 32):
+            s1, i1 = sh._device_search(q, k, P)
+            s0, i0 = idx._device_search(q, k, P)
+            true = ivfpq_candidate_scores(idx, q, torch.cat([i0, i1], 1).cpu().numpy())
+            if not ids_match_up_to_ties(s1.cpu(), i1.cpu(), s0.cpu(), i0.cpu(), true, 1e-4):
+                fail(f"mesh ivfpq {bits} bits n_probe {P}: the sharded search differs")
+            res[f"ivfpq{bits}_p{P}"] = {
+                "build_s": build_s, "bit_equal": bool(torch.equal(s0, s1)),
+                **sharded_beside_plain(lambda: idx._device_search(q, k, P),
+                                       lambda: sh._device_search(q, k, P), 5, 256)}
+            t = res[f"ivfpq{bits}_p{P}"]
+            log(f"mesh ivfpq {bits} bits, {MESH_PQ_CELLS} cells, n_probe {P}, Q=256: "
+                f"{sh.cells_per_shard} cells a shard, {t['sharded_ms']:.3f} ms against "
+                f"{t['plain_ms']:.3f} ms unsharded (x{t['sharded_over_plain']:.2f})")
+        del idx, sh
+        torch.cuda.empty_cache()
+    # the streamed index over the rows as a host array: four tiles of 2^19
+    host = rows.cpu().numpy()
+    del rows
+    torch.cuda.empty_cache()
+    plain = StreamingExactIndex(host, tile_rows=1 << 19)
+    shard = StreamingExactIndex(host, tile_rows=1 << 19, mesh=mesh)
+    tiles = -(-n // (1 << 19))
+    s1, i1 = counted(report, "streaming", lambda: shard.search(q, k=k),
+                     {"K4": mesh.size * tiles, "K5": mesh.size * tiles})
+    s0, i0 = plain.search(q, k=k)
+    cand = np.concatenate([i0, i1], 1)
+    sent = l2_normalize(torch.from_numpy(host[cand.reshape(-1)]).cuda().to(
+        torch.bfloat16).float()).to(torch.bfloat16).float()
+    got = torch.einsum("qd,qkd->qk", l2_normalize(q).to(torch.bfloat16).float(),
+                       sent.reshape(256, -1, D))
+    if not ids_match_up_to_ties(s1, i1, s0, i0, CandidateScores(cand, got.cpu().numpy()), 1e-4):
+        fail("mesh streaming: the sharded stream differs from the unsharded one")
+    res["streaming"] = {"tiles": tiles, "bit_equal": bool(np.array_equal(s0, s1)),
+                        **sharded_beside_plain(lambda: plain.search(q, k=k),
+                                               lambda: shard.search(q, k=k), 2, 256)}
+    t = res["streaming"]
+    log(f"mesh streaming over {n} x {D} f32 host rows, {tiles} tiles of 2^19, bf16: "
+        f"K4 / K5 {mesh.size} a tile, {t['sharded_ms']:.1f} ms against {t['plain_ms']:.1f} ms "
+        f"unsharded (x{t['sharded_over_plain']:.2f})")
+    report["mesh"]["compressed"] = res
+
+
+def mesh_encode(report: dict, mesh) -> None:
+    """Data-parallel encode: MiniLM-L6 through K1, B = 256, S = 128,
+    SentenceEncoder(mesh=) over the data axis (4 shards of 64 rows) against
+    the unsharded encode."""
+    import torch
+
+    from qst_tpu_torch.core.config import EncoderConfig
+    from qst_tpu_torch.models.sentence_encoder import SentenceEncoder, init_params
+    from qst_tpu_torch.models.tokenizer import HashTokenizer
+
+    cfg = EncoderConfig.minilm_l6(use_fused_layer=True)
+    params = init_params(cfg, torch.Generator().manual_seed(53), device="cuda")
+    tok = HashTokenizer(vocab_size=cfg.vocab_size)
+    plain = SentenceEncoder(cfg, params, tok)
+    shard = SentenceEncoder(cfg, params, tok, mesh=mesh)
+    n_data = mesh.shape["data"]
+    ids, mask = tok.batch_encode(synthetic_docs(256, seed=54), max_length=128)
+    ids = torch.from_numpy(ids.astype(np.int64)).cuda()
+    mask = torch.from_numpy(mask.astype(np.int64)).cuda()
+    got = counted(report, "encode", lambda: shard.encode_ids(ids, mask),
+                  {"K1": cfg.num_layers * n_data})
+    want = plain.encode_ids(ids, mask)
+    bit_equal = bool(torch.equal(got, want))
+    err = bf16_limits("mesh encode: data-parallel against unsharded", got, want)
+    t = sharded_beside_plain(lambda: plain.encode_ids(ids, mask),
+                             lambda: shard.encode_ids(ids, mask), 10, 256)
+    report["mesh"]["encode"] = {"bit_equal": bit_equal, "max_abs_err": err,
+                                "sentences_per_s": t["sharded_qps"],
+                                "plain_sentences_per_s": t["plain_qps"], **t,
+                                "sharded_profile": busy(lambda: shard.encode_ids(ids, mask),
+                                                        t["sharded_ms"]),
+                                "plain_profile": busy(lambda: plain.encode_ids(ids, mask),
+                                                      t["plain_ms"])}
+    log(f"mesh encode MiniLM-L6 B=256 S={ids.shape[1]}: {n_data} data shards, K1 "
+        f"{cfg.num_layers * n_data} launches, embeddings "
+        f"{'bit-equal to' if bit_equal else 'within the bf16 limits of'} the unsharded "
+        f"encode; {t['sharded_qps']:.0f} against {t['plain_qps']:.0f} sentences/s unsharded; "
+        f"sharded {report['mesh']['encode']['sharded_profile']}, unsharded "
+        f"{report['mesh']['encode']['plain_profile']}")
+
+
+def mesh_retriever(report: dict, mesh) -> None:
+    """Retriever(mesh=) at MiniLM-L6 width over MESH_DOCS docs (an f32
+    index: below PALLAS_MIN_SHARD_DOCS rows a shard both take the plain
+    scan, which for a bf16 index rounds the queries only unsharded, as in
+    qst_tpu): build, search, save, reload sharded and search, against the
+    unsharded Retriever; ir_eval_main --mesh_data 4 --mesh_model 2 (eight positions of
+    $QST_TORCH_VIRTUAL_DEVICES on the card) against the same run without a
+    mesh."""
+    import torch
+
+    from qst_tpu_torch.cli import ir_eval_main
+    from qst_tpu_torch.core.config import EncoderConfig
+    from qst_tpu_torch.core.meshes import VIRTUAL_DEVICES_ENV
+    from qst_tpu_torch.models.sentence_encoder import SentenceEncoder, init_params
+    from qst_tpu_torch.models.tokenizer import HashTokenizer
+    from qst_tpu_torch.retrieval import Retriever
+
+    cfg = EncoderConfig.minilm_l6(use_fused_layer=True)
+    params = init_params(cfg, torch.Generator().manual_seed(55), device="cuda")
+    enc = SentenceEncoder(cfg, params, HashTokenizer(vocab_size=cfg.vocab_size), mesh=mesh)
+    docs = synthetic_docs(MESH_DOCS, seed=56)
+    queries = [docs[j] for j in range(0, MESH_DOCS, MESH_DOCS // 64)]
+    tmp = work_dir("mesh")
+    t0 = time.perf_counter()
+    shard = Retriever(enc, mesh=mesh, score="dot_score").build(docs)
+    build_s = time.perf_counter() - t0
+    plain = Retriever(enc, score="dot_score").build(docs)
+    want = plain.search(queries, k=10)
+    got = shard.search(queries, k=10)
+
+    def pairs(rows):
+        return (np.array([[r[1] for r in row] for row in rows]),
+                np.array([[r[0] for r in row] for row in rows]))
+
+    emb = plain.index.embeddings
+    qe = enc.encode(queries, convert_to_numpy=False)
+    cand = np.concatenate([pairs(want)[1], pairs(got)[1]], 1)
+    true = CandidateScores(cand, torch.einsum(
+        "qd,qkd->qk", qe, emb[torch.from_numpy(cand).cuda()]).cpu().numpy())
+    if not ids_match_up_to_ties(*pairs(got), *pairs(want), true, 1e-4):
+        fail("mesh Retriever: the sharded answers differ from the unsharded ones")
+    shard.save(f"{tmp}/idx")
+    saved = np.load(f"{tmp}/idx/embeddings.npy", mmap_mode="r").shape[0]
+    again = Retriever(enc, mesh=mesh).load(f"{tmp}/idx")
+    if saved != len(docs) or again.index.mesh is not mesh or again.search(queries, k=10) != got:
+        fail(f"mesh Retriever: {saved} rows saved for {len(docs)} docs, or the reloaded "
+             "sharded index answers differently")
+    res = {"docs": len(docs), "build_s": build_s}
+    log(f"mesh Retriever over {len(docs)} docs: built sharded in {build_s:.1f} s, answers "
+        f"equal to the unsharded Retriever's up to ties, saved {saved} rows, reloaded "
+        "sharded with the same answers")
+    # ir_eval_main with and without the mesh flags on one dataset
+    data = f"{tmp}/data"
+    write_quadruplet_chunks(data, MESH_EVAL_INSTANCES, seed=57)
+    runs = {}
+    for name, flags in (("plain", []), ("mesh", ["--mesh_data", "4", "--mesh_model", "2"])):
+        os.environ[VIRTUAL_DEVICES_ENV] = "8" if flags else ""
+        try:
+            t0 = time.perf_counter()
+            argv = ["--dataset_root", data, "--output_root", f"{tmp}/ir_{name}",
+                    "--use_fused_layer", "--score_functions", "cos_sim", "dot_score",
+                    *IR_GRID, *flags]
+            if ir_eval_main.main(argv) != 0:
+                fail(f"ir_eval_main {' '.join(flags)} failed")
+            torch.cuda.synchronize()
+            runs[name] = time.perf_counter() - t0
+        finally:
+            os.environ.pop(VIRTUAL_DEVICES_ENV, None)
+        [out] = os.listdir(f"{tmp}/ir_{name}")
+        with open(f"{tmp}/ir_{name}/{out}/results.json") as f:
+            res[f"ir_{name}"] = json.load(f)["baseline"]["metrics"]
+    worst = max(abs(v - res["ir_mesh"][fn][m]) for fn, ms in res["ir_plain"].items()
+                for m, v in ms.items())
+    # equal embeddings give equal metrics; else the evaluate phase's limit
+    limit = 1e-6 if report["mesh"].get("encode", {}).get("bit_equal") else 5e-3
+    if not worst <= limit:
+        fail(f"ir_eval_main --mesh_data 4 --mesh_model 2: metrics differ by {worst} "
+             f"(limit {limit})")
+    res.update(ir_wall_s=runs, ir_max_abs_diff=worst)
+    for name in ("ir_plain", "ir_mesh"):
+        res[name] = {fn: ms["map@100"] for fn, ms in res[name].items()}
+    log(f"mesh ir_eval_main --mesh_data 4 --mesh_model 2 over {MESH_EVAL_INSTANCES} instances: "
+        f"metrics within {worst:.1e} of the run without a mesh; map@100 {res['ir_mesh']}; "
+        f"wall {runs['mesh']:.1f} s against {runs['plain']:.1f} s")
+    report["mesh"]["retriever"] = res
+
+
+def mesh_attention(report: dict, mesh) -> None:
+    """Context-parallel and ring attention over the data axis (4 shards) at
+    (B 8, 12 heads, S 4,096, head 32) f32 against full_attention, and one
+    backward of each against full attention's."""
+    import torch
+
+    from qst_tpu_torch.parallel import context_parallel_attention, full_attention, ring_attention
+
+    B, H, S, Dh = MESH_ATTENTION
+    gen = torch.Generator(device="cuda").manual_seed(58)
+    q, k, v = (torch.randn((B, H, S, Dh), device="cuda", generator=gen) for _ in range(3))
+    g = torch.randn((B, H, S, Dh), device="cuda", generator=gen)
+    res = {"shards": mesh.shape["data"]}
+    ref = [t.clone().requires_grad_() for t in (q, k, v)]
+    full = full_attention(*ref)
+    full.backward(g)
+    full, grads = full.detach(), [t.grad for t in ref]
+    del ref
+    torch.cuda.empty_cache()
+    for name, fn in (("context_parallel", context_parallel_attention), ("ring", ring_attention)):
+        xs = [t.clone().requires_grad_() for t in (q, k, v)]
+        out = fn(*xs, mesh)
+        out.backward(g)
+        err = (out.detach() - full).abs().max().item()
+        gerr = max((x.grad - r).abs().max().item() / r.abs().max().item()
+                   for x, r in zip(xs, grads))
+        res[name] = {"max_abs_err": err, "grad_max_rel_err": gerr,
+                     "ms": cuda_ms(lambda: fn(q, k, v, mesh), 3)}
+        log(f"mesh {name} attention (B {B}, {H} heads, S {S}, head {Dh}) f32 over "
+            f"{res['shards']} shards: max|err| {err:.2e} against full_attention (limit 1e-4), "
+            f"gradients within {gerr:.2e} of full attention's (limit 1e-4 of the largest), "
+            f"{res[name]['ms']:.1f} ms forward")
+        if not (err <= 1e-4 and gerr <= 1e-4):
+            fail(f"mesh {name} attention: outside the limits")
+        del xs, out
+        torch.cuda.empty_cache()
+    res["full_ms"] = cuda_ms(lambda: full_attention(q, k, v), 3)
+    report["mesh"]["attention"] = res
+
+
+def mesh(report: dict) -> None:
+    """The sharded serving path on a 4 x 2 mesh of positions of one card."""
+    from qst_tpu_torch.core.meshes import make_mesh
+
+    report["mesh"] = {}
+    m = make_mesh(4, 2, devices=["cuda:0"] * 8)
+    parts = {}
+    for name, fn in (("exact", mesh_exact), ("ivf", mesh_ivf), ("compressed", mesh_compressed),
+                     ("encode", mesh_encode), ("retriever", mesh_retriever),
+                     ("attention", mesh_attention)):
+        t0 = time.perf_counter()
+        fn(report, m)
+        parts[name] = time.perf_counter() - t0
+        tear_down()
+    report["mesh"]["part_s"] = parts
+    log("mesh phase by part (s): " + ", ".join(f"{n} {v:.1f}" for n, v in parts.items()))
 
 
 # ---------------------------------------------------------------------------
@@ -6334,7 +6852,7 @@ def main() -> None:
     fns = {"check": check_kernels, "serve": serve, "ivf": ivf, "train": train, "times": times,
            "profile": profile_phase, "evaluate": evaluate, "dataset": dataset,
            "capture": capture, "ablation": ablation, "mpnet": mpnet, "flash": flash,
-           "roberta": roberta, "marian": marian, "pq": pq}
+           "roberta": roberta, "marian": marian, "mesh": mesh, "pq": pq}
     for phase in phases:
         if phase in fns:
             t0 = time.perf_counter()
@@ -6346,7 +6864,8 @@ def main() -> None:
                     if k in ("encode", "search", "search_q256", "k4_yardsticks", "k5_forms",
                              "train", "train_steps_per_s", "ivf", "ivf_times", "ivf_times_4m", "layer_gemm",
                              "evaluate", "encode_depth", "capture", "ablation", "mpnet",
-                             "mpnet_kernel_names", "pq", "flash", "roberta", "marian")}))
+                             "mpnet_kernel_names", "pq", "flash", "roberta", "marian",
+                             "mesh")}))
     if "dataset" in report:
         log(json.dumps({"dataset": {k: v for k, v in report["dataset"].items() if k != "root"}}))
     log(json.dumps({"K1_training_layer": {k: report["K1"].get(k) for k in (

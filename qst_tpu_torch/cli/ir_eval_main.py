@@ -22,8 +22,11 @@ scores at ``--cross_encoder_threshold``: the checkpoint of
 ``--cross_encoder_dir`` (an HF ``*ForSequenceClassification`` directory,
 such as a clone of cross-encoder/stsb-roberta-large, with its own
 tokenizer), or without one a random-init scorer of the encoder's
-architecture and tokenizer. Not ported yet, and refused with a message: mesh
-layouts (``--mesh_*`` off their defaults).
+architecture and tokenizer. ``--mesh_data`` / ``--mesh_model`` lay a
+``core/meshes.py`` mesh over the devices of ``--device`` (every card by
+default; ``$QST_TORCH_VIRTUAL_DEVICES=n`` repeats them n long, as the tests
+and one card do): the encoder runs data-parallel and the index is sharded
+over it.
 """
 
 from __future__ import annotations
@@ -123,17 +126,30 @@ def main(argv=None) -> int:
 
     import torch
 
-    from qst_tpu_torch.core.device import resolve_device
+    from qst_tpu_torch.core.meshes import (
+        COORDINATOR_ENV,
+        initialize_distributed,
+        make_mesh,
+        visible_devices,
+    )
     from qst_tpu_torch.data.chunks import ChunkStore
     from qst_tpu_torch.evals.eval_set import create_ir_evaluation_set
     from qst_tpu_torch.evals.ir_evaluator import InformationRetrievalEvaluator
     from qst_tpu_torch.models.sentence_encoder import SentenceEncoder, init_params
 
-    refuse_not_ported([
-        ("--mesh_data/--mesh_model", (args.mesh_data, args.mesh_model) != (-1, 1),
-         "device meshes"),
-    ])
-    device = resolve_device(args.device)
+    if initialize_distributed(device=args.device):
+        import torch.distributed as dist
+
+        logger.info("multi-process runtime: process %d/%d", dist.get_rank(),
+                    dist.get_world_size())
+        if dist.get_world_size() > 1:
+            # the mesh below spans this process's devices only: every
+            # process would run the whole evaluation into --output_root
+            dist.destroy_process_group()
+            refuse_not_ported([(f"${COORDINATOR_ENV} with more than one process", True,
+                                "meshes across processes")])
+    mesh = make_mesh(args.mesh_data, args.mesh_model, devices=visible_devices(args.device))
+    device = mesh.devices[0]
 
     if args.eval_index != "exact":
         kept = [s for s in args.score_functions
@@ -242,10 +258,11 @@ def main(argv=None) -> int:
     # the encoder's embeddings stay on `device`, and the index with them
     evaluator = InformationRetrievalEvaluator(
         eval_set.queries, eval_set.corpus, eval_set.relevant, cfg=ir_cfg,
-        log_dir=out_dir, index_factory=index_factory)
+        mesh=mesh, log_dir=out_dir, index_factory=index_factory)
 
     def encode_with(params):
-        return SentenceEncoder(encoder_cfg, params, tokenizer, device=device).encode
+        return SentenceEncoder(encoder_cfg, params, tokenizer, device=device,
+                               mesh=mesh).encode
 
     # baseline model (random-init, the checkpoint directory's or a weights file's)
     if hf_baseline_params is not None:

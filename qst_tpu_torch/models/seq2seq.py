@@ -23,7 +23,7 @@ zero cost). Known differences from the source:
   up to summation order); caches are (B, heads, L, head_dim), written in
   place, and the beam search reorders all layers' self-attention caches
   with one ``index_select`` a step;
-- ``_top_k`` keeps ``lax.top_k``'s order (descending, the lower index
+- ``_top_k`` (``core/meshes.py:top_k``) keeps ``lax.top_k``'s order (descending, the lower index
   first among equal values), which decides the beam slots that masked
   candidates at -1e9 fill;
 - ``init_seq2seq`` draws the source's distribution from a
@@ -42,6 +42,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from qst_tpu_torch.core.device import resolve_device
+from qst_tpu_torch.core.meshes import top_k as _top_k
 
 NEG = -1e9
 # the decoders read "every row done" once this many steps (0: never) and
@@ -254,21 +255,6 @@ def _forced_eos_id(forced_eos, cfg) -> Optional[int]:
     if forced_eos is True:
         return cfg.eos_token_id
     return int(forced_eos)
-
-
-def _top_k(x: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
-    """``lax.top_k`` over the last axis: the k largest, descending, the
-    lower index first among equal values (``torch.topk`` promises no order
-    among ties). Each f32 becomes an int64 key that orders by value, then
-    by index: its bits made order-preserving (negative floats' magnitude
-    bits flipped) times 2^32, plus 2^32 - 1 - index."""
-    bits = x.contiguous().view(torch.int32)
-    ordered = torch.where(bits < 0, bits ^ 0x7FFFFFFF, bits).long()
-    index = torch.arange(x.shape[-1], device=x.device)
-    key = ordered * (1 << 32) + (0xFFFFFFFF - index)
-    top = key.topk(k, dim=-1).values
-    top_i = 0xFFFFFFFF - (top & 0xFFFFFFFF)
-    return x.gather(-1, top_i), top_i
 
 
 class MarianModule(nn.Module):

@@ -10,8 +10,20 @@
   unit-norm corpus for cos) with "the index's device is not the CPU" in
   place of "the platform is not cpu".
 
-Sharding over a mesh (``mesh=``) is not ported. All score functions are
-"larger is better" (cos / dot / 1/(1+euclid)).
+``mesh=`` (a ``core/meshes.py`` mesh of more than one position) splits the
+corpus into 128-row-aligned shards of ``shard_rows`` rows, shard i on
+``mesh.devices[i]`` (the JAX package's ``P((DATA_AXIS, MODEL_AXIS))``), and
+a search is one loop over the shards: on the kernels' path each runs
+``ops/topk.py:topk_local`` (K4 → selection → K5) over its block with its
+host-int count of real rows, on the plain path the masked product and
+``_local_topk``; the candidates merge in shard order on the mesh's first
+device (``core/meshes.py:merge_topk``: ``all_gather`` + ``lax.top_k``).
+``"auto"`` takes the kernels from ``PALLAS_MIN_SHARD_DOCS`` rows a shard.
+The sharded plain path scores with ``SCORE_FUNCTIONS`` (f32 queries against
+the stored rows), as the JAX package's sharded path does, where the
+unsharded scan rounds the queries to a bf16 corpus's dtype. The int8 path quantizes each batch of queries under one scale before the
+shards see it. All score functions are "larger is better" (cos / dot /
+1/(1+euclid)).
 """
 
 from __future__ import annotations
@@ -22,6 +34,15 @@ import numpy as np
 import torch
 
 from qst_tpu_torch.core.device import device_of
+from qst_tpu_torch.core.meshes import (
+    RowShards,
+    as_mesh,
+    merge_topk,
+    replicate,
+    shard_loop,
+    shard_rows_for,
+    sharded,
+)
 from qst_tpu_torch.ops.distances import SCORE_FUNCTIONS, l2_normalize
 
 BUCKET = 128
@@ -105,11 +126,23 @@ def _local_topk(s: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
     return top_s, bucket * BUCKET + pos % BUCKET
 
 
+def _plain_local(score_fn, k: int):
+    """A shard's plain search: the product over its block, rows at or past
+    its real count masked to −inf, then ``_local_topk``."""
+    def local(q: torch.Tensor, block: torch.Tensor, n_local: int):
+        s = score_fn(q, block)
+        col = torch.arange(block.shape[0], device=s.device)
+        s = torch.where(col[None, :] < n_local, s, float("-inf"))
+        return _local_topk(s, min(k, block.shape[0]))
+    return local
+
+
 class ExactIndex:
-    """Single-device exact index over an embedding matrix. Use
-    :meth:`search` for top-k ids + scores."""
+    """Exact index over an embedding matrix, on one device or sharded over a
+    mesh. Use :meth:`search` for top-k ids + scores."""
 
     PALLAS_MIN_DOCS = 65536        # below this the plain scan is used
+    PALLAS_MIN_SHARD_DOCS = 16384  # the per-shard threshold
 
     def __init__(self, embeddings: Any, ids: Optional[list] = None,
                  mesh: Any = None, normalize: bool = False,
@@ -125,8 +158,9 @@ class ExactIndex:
         corpus verbatim (the reload path). ``cache_cos_corpus=True`` keeps a
         unit-norm copy for cos searches through the kernels on a
         non-normalized index."""
-        if mesh is not None:
-            raise NotImplementedError("sharded ExactIndex (mesh=) is not ported")
+        mesh = as_mesh(mesh)
+        if mesh is not None and device is None:
+            device = mesh.devices[0]
         self.device = device_of(embeddings, device)
         pre_quantized = (dtype == "int8" and int8_scale is not None
                          and str(getattr(embeddings, "dtype", "")).endswith("int8"))
@@ -164,22 +198,34 @@ class ExactIndex:
         else:
             emb = emb.to(getattr(torch, dtype))
             self._normalized = normalize
-        self.embeddings = emb.contiguous()
         self.n_docs, self.dim = emb.shape
         self.ids = list(ids) if ids is not None else list(range(self.n_docs))
         if len(self.ids) != self.n_docs:
             raise ValueError("ids length mismatch")
-        self.mesh = None
+        self.mesh = sharded(mesh)
+        self._dtype = emb.dtype
+        if self.mesh is not None:
+            # 128-row-aligned shards: topk_local takes whole buckets
+            self.shard_rows = shard_rows_for(self.n_docs, self.mesh.size, BUCKET)
+            emb = torch.nn.functional.pad(
+                emb, (0, 0, 0, self.shard_rows * self.mesh.size - self.n_docs))
+            # the padded rows, split: readers take .blocks or .gather()
+            self.embeddings = RowShards(emb.contiguous(), self.mesh, self.shard_rows)
+            self.device = self.mesh.devices[0]
+        else:
+            self.embeddings = emb.contiguous()
         self._cache_cos_corpus = bool(cache_cos_corpus)
-        self._cos_corpus: Optional[torch.Tensor] = None
+        self._cos_corpus = None   # a unit-norm copy (a list of blocks with a mesh)
 
     def _pallas_eligible(self, k: int, score: str) -> bool:
         needs_copy = (score == "cos_sim" and not self._normalized
                       and not self._cache_cos_corpus)
+        big_enough = (self.n_docs >= self.PALLAS_MIN_DOCS if self.mesh is None
+                      else self.shard_rows >= self.PALLAS_MIN_SHARD_DOCS)
         return (k <= 128
                 and score in ("cos_sim", "dot_score")
                 and not needs_copy
-                and self.n_docs >= self.PALLAS_MIN_DOCS
+                and big_enough
                 and self.device.type != "cpu")
 
     def search(self, queries, k: int = 10, score: str = "cos_sim",
@@ -208,16 +254,19 @@ class ExactIndex:
         k = min(k, self.n_docs)
         use_kernels = (backend == "pallas"
                        or (backend == "auto" and self._pallas_eligible(k, score)))
-        if self.embeddings.dtype == torch.int8:
+        if self._dtype == torch.int8:
             return self._device_search_int8(queries, k, score, tile, use_kernels)
         q = self._queries(queries)
         if not use_kernels:
+            if self.mesh is not None:
+                return self._sharded_search(q, k, self.embeddings.blocks,
+                                            _plain_local(SCORE_FUNCTIONS[score], k))
             return exact_topk(q, self.embeddings, k, score, tile)
         if score not in ("cos_sim", "dot_score"):
             raise ValueError("pallas backend supports cos/dot scores")
-        from qst_tpu_torch.ops.topk import topk_v2
+        from qst_tpu_torch.ops.topk import topk_local, topk_v2
 
-        cc = self.embeddings
+        cc = self.embeddings if self.mesh is None else self.embeddings.blocks
         if score == "cos_sim":
             q = l2_normalize(q)
             if not self._normalized:
@@ -226,10 +275,30 @@ class ExactIndex:
                 if self._cos_corpus is not None:
                     cc = self._cos_corpus
                 else:
-                    cc = l2_normalize(cc.float()).to(cc.dtype)
+                    unit = lambda c: l2_normalize(c.float()).to(c.dtype)  # noqa: E731
+                    cc = unit(cc) if self.mesh is None else [unit(c) for c in cc]
                     if self._cache_cos_corpus:
                         self._cos_corpus = cc
-        return topk_v2(q.to(cc.dtype), cc, k)
+        q = q.to(self._dtype)
+        if self.mesh is not None:
+            return self._sharded_search(q, k, cc, lambda qd, c, n: topk_local(qd, c, k, n))
+        return topk_v2(q, cc, k)
+
+    def _sharded_search(self, q: torch.Tensor, k: int, blocks, local
+                        ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """The shard loop: ``local(queries, block, n_local)`` → (scores, local
+        row ids) on each shard, offset by the shard's first row, merged in
+        shard order on the index's device. Every offset and count is a host
+        int: no shard waits for another."""
+        qs = replicate(q, self.mesh)
+
+        def shard(i: int, dev) -> Tuple[torch.Tensor, torch.Tensor]:
+            base = i * self.shard_rows
+            s, idx = local(qs[dev], blocks[i],
+                           max(0, min(self.n_docs - base, self.shard_rows)))
+            return s, idx + base
+
+        return merge_topk(shard_loop(self.mesh, shard), k, self.device)
 
     def _device_search_int8(self, queries, k: int, score: str, tile: int,
                             use_kernels: bool) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -245,7 +314,13 @@ class ExactIndex:
             qf = l2_normalize(qf)
         qscale = 127.0 / torch.clamp(qf.abs().max(), min=1e-12)
         qi = torch.clamp(torch.round(qf * qscale), -127, 127).to(torch.int8)
-        if use_kernels:
+        if self.mesh is not None:
+            from qst_tpu_torch.ops.topk import topk_local
+
+            local = ((lambda qd, c, n: topk_local(qd, c, k, n)) if use_kernels
+                     else _plain_local(_score_fn(torch.int8, "dot_score"), k))
+            s, i = self._sharded_search(qi, k, self.embeddings.blocks, local)
+        elif use_kernels:
             from qst_tpu_torch.ops.topk import topk_v2
 
             s, i = topk_v2(qi, self.embeddings, k)

@@ -23,11 +23,19 @@ only the documents of its ``n_probe`` closest cells:
   rule (cell budget a multiple of 128) with "the index's device is not the
   CPU" in place of "the platform is not cpu".
 
+**A mesh** (``mesh=``, ``core/meshes.py``) splits the cells: padded to a
+multiple of the shard count (ids −1), ``cells_per_shard`` a shard. The
+probe list is computed once from the replicated centroids; each shard
+scans the probed cells it owns — on the K6 path K6 over its probes, a probe
+that another shard owns pointed at a sentinel cell whose fill is 0 (on the
+card it scores −inf without a read), on the scan path the masked
+clamp-gather of the source — and the candidates merge in shard order
+(``core/meshes.py:merge_topk``).
+
 What differs from the source: the k-means init and the training sample come
 from a ``torch.Generator`` (``jax.random.choice`` has no torch twin), so a
 built index is statistically, not bitwise, the JAX one — ``from_arrays``
-carries a JAX-built index across exactly. Sharding over a mesh (``mesh=``)
-is not ported. The donation and ``block_until_ready`` barriers of the build
+carries a JAX-built index across exactly. The donation and ``block_until_ready`` barriers of the build
 and ``compact``'s sleep-and-retry loops served a TPU dev relay and are not
 carried.
 """
@@ -41,6 +49,15 @@ import numpy as np
 import torch
 
 from qst_tpu_torch.core.device import device_of
+from qst_tpu_torch.core.meshes import (
+    RowShards,
+    as_mesh,
+    gathered,
+    merge_topk,
+    replicate,
+    shard_loop,
+    sharded,
+)
 from qst_tpu_torch.ops.distances import l2_normalize
 from qst_tpu_torch.ops.ivf import ivf_cell_scores
 from qst_tpu_torch.retrieval.index import _local_topk
@@ -215,21 +232,27 @@ def _ivf_search(queries: torch.Tensor, centroids: torch.Tensor, cells: torch.Ten
                        k, cells.shape[1], n_probe)
 
 
+def _scores_to_docs(qf: torch.Tensor, probe: torch.Tensor, cells: torch.Tensor,
+                    cell_ids: torch.Tensor, fill: torch.Tensor, k: int):
+    """K6 over given probes → one bucketed top-k over the (Q, P·L) scores →
+    doc ids, −1 where the score is −inf. K6 scores slots at or past each
+    cell's fill count −inf itself (the source masks them after its kernel)."""
+    L = cells.shape[1]
+    scores = ivf_cell_scores(qf, cells, probe, fill)             # (Q, P·L) f32
+    s, pos = _local_topk(scores, min(k, scores.shape[1]))
+    # the probed cells' ids laid out as the scores are, read at the winners
+    doc = cell_ids[probe].reshape(scores.shape).gather(1, pos).long()   # (Q, kc)
+    return s, torch.where(torch.isneginf(s), -1, doc)
+
+
 def _ivf_pallas_search(queries: torch.Tensor, centroids: torch.Tensor,
                        cells: torch.Tensor, cell_ids: torch.Tensor, fill: torch.Tensor,
                        n_probe: int, k: int):
     """The ``"pallas"`` backend (``_ivf_pallas_search_fn`` in the source):
-    centroid product → probe top-k → K6 over the probed cells, which scores
-    slots at or past each cell's fill count −inf itself (the source masks
-    them after its kernel) → one bucketed top-k over the (Q, P·L) scores →
-    doc ids, −1 where the score is −inf."""
-    L = cells.shape[1]
+    centroid product → probe top-k → K6 over the probed cells
+    (``_scores_to_docs``)."""
     qf, probe = _probe(queries, centroids, n_probe)
-    scores = ivf_cell_scores(qf, cells, probe, fill)             # (Q, P·L) f32
-    s, pos = _local_topk(scores, min(k, n_probe * L))
-    # the probed cells' ids laid out as the scores are, read at the winners
-    doc = cell_ids[probe].reshape(scores.shape).gather(1, pos).long()   # (Q, kc)
-    return s, torch.where(torch.isneginf(s), -1, doc)
+    return _scores_to_docs(qf, probe, cells, cell_ids, fill, k)
 
 
 class IVFIndex:
@@ -240,7 +263,8 @@ class IVFIndex:
     next-best cell so nothing is dropped. ``embeddings`` may be a host array
     (uploaded chunk by chunk, never whole) or a tensor; the index lives on
     ``device`` (default: a tensor's own device; host arrays go to the GPU).
-    ``dtype="bfloat16"`` halves the cells' memory and gather bytes."""
+    ``dtype="bfloat16"`` halves the cells' memory and gather bytes.
+    ``mesh`` splits the cells over its devices (the module's docstring)."""
 
     def __init__(self, embeddings, n_clusters: int = 256,
                  ids: Optional[list] = None, n_iters: int = 10,
@@ -249,8 +273,9 @@ class IVFIndex:
                  dtype: str = "float32", mesh: Any = None,
                  assign_chunk: int = 1 << 20, default_n_probe: int = 8,
                  device: Any = None):
-        if mesh is not None:
-            raise NotImplementedError("sharded IVFIndex (mesh=) is not ported")
+        mesh = as_mesh(mesh)
+        if mesh is not None and device is None:
+            device = mesh.devices[0]
         self.default_n_probe = default_n_probe
         if dtype not in _DTYPES:
             raise ValueError(f"dtype must be float32|bfloat16, got {dtype}")
@@ -312,20 +337,50 @@ class IVFIndex:
 
         # 5) chunked scatter into the (C, L, D) cell tensor, in place: the
         #    f32 normalize transient is one chunk, not the corpus
+        #    (with a mesh the padded cells are made here, not copied later)
         flat_pos = cell * L + slot
-        cells = torch.zeros((n_clusters * L, d), dtype=_DTYPES[dtype], device=self.device)
+        n_slots = self._cell_slots(n_clusters, mesh)
+        cells = torch.zeros((n_slots * L, d), dtype=_DTYPES[dtype], device=self.device)
         for lo in range(0, n, assign_chunk):
             hi = min(lo + assign_chunk, n)
             pos = torch.from_numpy(flat_pos[lo:hi]).to(self.device)
             cells.index_copy_(0, pos, l2_normalize(rows(slice(lo, hi)).float()).to(cells.dtype))
-        cell_ids = np.full((n_clusters * L,), -1, np.int32)
+        cell_ids = np.full((n_slots * L,), -1, np.int32)
         cell_ids[flat_pos] = np.arange(n, dtype=np.int32)
 
-        self.cells = cells.view(n_clusters, L, d)
-        self.cell_ids = torch.from_numpy(cell_ids.reshape(n_clusters, L)).to(self.device)
-        self.mesh = None
+        self._install_cells(cells.view(n_slots, L, d),
+                            torch.from_numpy(cell_ids.reshape(n_slots, L)).to(self.device),
+                            mesh)
         self.n_docs = n
         self.cell_budget = L
+
+    @staticmethod
+    def _cell_slots(n_clusters: int, mesh) -> int:
+        """Cells the tensors hold: n_clusters, or with a mesh the cells
+        padded to a multiple of the shard count plus one sentinel cell."""
+        mesh = sharded(mesh)
+        return n_clusters if mesh is None else -(-n_clusters // mesh.size) * mesh.size + 1
+
+    def _install_cells(self, cells: torch.Tensor, cell_ids: torch.Tensor, mesh) -> None:
+        """Place the cell tensors (on the index's device, already holding
+        ``_cell_slots`` cells) — split over the mesh when given: shard i
+        holds cells [i·cps, (i+1)·cps) and addresses one cell past them as
+        its sentinel, whose fill count in the shard's own fill vector is 0.
+        ``self.cells`` / ``self.cell_ids`` are then :class:`RowShards`
+        (``gathered`` reads them whole); ``self.fill`` stays the (C,) counts
+        of the real cells."""
+        self.mesh = sharded(mesh)
+        if self.mesh is None:
+            self.cells, self.cell_ids = cells.contiguous(), cell_ids.contiguous()
+            return
+        n_clusters = int(self.fill.shape[0])
+        cps = self.cells_per_shard = -(-n_clusters // self.mesh.size)
+        self.cells = RowShards(cells.contiguous(), self.mesh, cps, extra=1)
+        self.cell_ids = RowShards(cell_ids.contiguous(), self.mesh, cps, extra=1)
+        fill = torch.nn.functional.pad(self.fill, (0, cps * self.mesh.size - n_clusters))
+        zero = fill.new_zeros(1)
+        self._shard_fill = [torch.cat([fill[i * cps:(i + 1) * cps], zero]).to(d)
+                            for i, d in enumerate(self.mesh.devices)]
 
     @classmethod
     def from_arrays(cls, centroids, cells, cell_ids, fill,
@@ -338,8 +393,9 @@ class IVFIndex:
         int32 with -1 padding, ``fill`` (C,) per-cell occupancy. numpy has
         no bfloat16: bf16 cells arrive as f32 with ``dtype="bfloat16"`` (the
         re-cast is exact)."""
-        if mesh is not None:
-            raise NotImplementedError("sharded IVFIndex (mesh=) is not ported")
+        mesh = as_mesh(mesh)
+        if mesh is not None and device is None:
+            device = mesh.devices[0]
         if dtype is not None and dtype not in _DTYPES:
             raise ValueError(f"dtype must be float32|bfloat16, got {dtype}")
         self = cls.__new__(cls)
@@ -359,18 +415,27 @@ class IVFIndex:
         if len(self.ids) != n:
             raise ValueError("ids length mismatch")
         self.spilled = 0
-        self.cells = cells.to(self.device, _DTYPES[dtype] if dtype else cells.dtype).contiguous()
-        self.cell_ids = cell_ids.to(self.device).contiguous()
-        self.mesh = None
         self.n_docs = n
         self.cell_budget = int(cells.shape[1])
+        self._install_padded(cells.to(dtype=_DTYPES[dtype] if dtype else cells.dtype),
+                             cell_ids, mesh)
         return self
+
+    def _install_padded(self, cells: torch.Tensor, cell_ids: torch.Tensor, mesh) -> None:
+        """``_install_cells`` from (C, L, D) / (C, L) tensors of the real
+        cells (host tensors are padded before they move)."""
+        pad = self._cell_slots(cells.shape[0], mesh) - cells.shape[0]
+        if pad:
+            cells = torch.nn.functional.pad(cells, (0, 0, 0, 0, 0, pad))
+            cell_ids = torch.nn.functional.pad(cell_ids, (0, 0, 0, pad), value=-1)
+        self._install_cells(cells.to(self.device), cell_ids.to(self.device), mesh)
 
     def reconstruct_rows(self) -> np.ndarray:
         """→ (n_docs, D) float32 host matrix of the stored (normalized)
         rows in id order — the cells hold the whole corpus, scattered."""
-        cells = self.cells.float().cpu().numpy().reshape(-1, self.cells.shape[-1])
-        flat_ids = self.cell_ids.cpu().numpy().reshape(-1)
+        cells = gathered(self.cells).float().cpu().numpy()
+        cells = cells.reshape(-1, cells.shape[-1])
+        flat_ids = gathered(self.cell_ids).cpu().numpy().reshape(-1)
         out = np.empty((self.n_docs, cells.shape[1]), np.float32)
         valid = flat_ids >= 0
         out[flat_ids[valid]] = cells[valid]
@@ -382,11 +447,12 @@ class IVFIndex:
         are released (with the allocator's cached blocks) and they are put
         back into the freed space. Results are unchanged: only buffer
         placement moves."""
-        host = (self.cells.cpu(), self.cell_ids.cpu())
-        self.cells = self.cell_ids = None
+        C = int(self.fill.shape[0])
+        host = (gathered(self.cells)[:C].cpu(), gathered(self.cell_ids)[:C].cpu())
+        self.cells = self.cell_ids = self._shard_fill = None
         if self.device.type == "cuda":
             torch.cuda.empty_cache()
-        self.cells, self.cell_ids = (t.to(self.device) for t in host)
+        self._install_padded(*host, self.mesh)
 
     def tune_n_probe(self, queries, k: int = 10,
                      target_recall: float = 0.95,
@@ -489,6 +555,33 @@ class IVFIndex:
     def _pallas_eligible(self) -> bool:
         return self.cell_budget % 128 == 0 and self.device.type != "cpu"
 
+    def _sharded_search(self, q: torch.Tensor, k: int, n_probe: int, use_pallas: bool):
+        """The shard loop: the probe list once from the replicated centroids,
+        then each shard over the probed cells it owns, merged in shard
+        order."""
+        qf, probe = _probe(q, self.centroids, n_probe)
+        cps, L = self.cells_per_shard, self.cell_budget
+        qs, ps = replicate(qf, self.mesh), replicate(probe, self.mesh)
+        cells, ids = self.cells.blocks, self.cell_ids.blocks
+
+        def shard(i: int, dev):
+            def local(col):          # → (local cell ids clamped into the shard, owned)
+                pid = col - i * cps
+                return pid.clamp(0, cps - 1), (pid >= 0) & (pid < cps)
+
+            if use_pallas:           # a probe the shard does not own → the sentinel cps
+                pid, owned = local(ps[dev])
+                return _scores_to_docs(qs[dev], torch.where(owned, pid, cps), cells[i],
+                                       ids[i], self._shard_fill[i], k)
+
+            def fetch(col):          # the source's masked clamp-gather
+                pid, owned = local(col)
+                return cells[i][pid], torch.where(owned[:, None], ids[i][pid].long(), -1)
+
+            return _probe_scan(qs[dev].to(cells[i].dtype), ps[dev], fetch, k, L, n_probe)
+
+        return merge_topk(shard_loop(self.mesh, shard), min(k, n_probe * L), self.device)
+
     def _use_pallas(self, backend: str) -> bool:
         if backend not in ("auto", "pallas", "xla"):
             raise ValueError(f"unknown backend {backend!r}")
@@ -499,6 +592,8 @@ class IVFIndex:
         """Dispatch one search; returns device tensors (not synchronized):
         scores (Q, k') f32 and doc positions (Q, k') int64, −1 past the
         probed cells' documents."""
+        if self.mesh is not None:
+            return self._sharded_search(q, k, n_probe, self._use_pallas(backend))
         if self._use_pallas(backend):
             return _ivf_pallas_search(q, self.centroids, self.cells, self.cell_ids,
                                       self.fill, n_probe, k)
@@ -514,7 +609,8 @@ class IVFIndex:
         if self._use_pallas(backend):
             row = n_probe * self.cell_budget * 4
             return max(8, min(8192, self.SCORES_BUDGET_BYTES // row))
-        row = self.cell_budget * self.cells.shape[-1] * self.cells.element_size()
+        cells = self.cells if self.mesh is None else self.cells.blocks[0]
+        row = self.cell_budget * cells.shape[-1] * cells.element_size()
         return max(8, min(1024, self.GATHER_BUDGET_BYTES // row))
 
     def _host_pair(self, s: torch.Tensor, i: torch.Tensor):

@@ -25,7 +25,13 @@ query.
 The k-means init, the training sample and the codebooks' initial centroids
 are drawn from a ``torch.Generator``: a built index is statistically, not
 bitwise, the JAX one; ``from_arrays`` carries a JAX-built index across
-exactly. Sharding over a mesh (``mesh=``) is not ported.
+exactly.
+
+**A mesh** (``mesh=``, ``core/meshes.py``) splits the cell tensors, padded
+to a multiple of the shard count (ids −1), ``cells_per_shard`` a shard: the
+probe list is computed once from the replicated centroids, each shard scans
+the probed cells it owns through the source's masked clamp-gather, and the
+candidates merge in shard order (``core/meshes.py:merge_topk``).
 """
 
 from __future__ import annotations
@@ -37,6 +43,15 @@ import numpy as np
 import torch
 
 from qst_tpu_torch.core.device import device_of
+from qst_tpu_torch.core.meshes import (
+    RowShards,
+    as_mesh,
+    gathered,
+    merge_topk,
+    replicate,
+    shard_loop,
+    sharded,
+)
 from qst_tpu_torch.ops.distances import l2_normalize
 from qst_tpu_torch.retrieval.ivf import (
     _assign_choices,
@@ -130,6 +145,17 @@ def _probe_scan(qc: torch.Tensor, psim: torch.Tensor, probe: torch.Tensor, gathe
     return cs, ci
 
 
+def _probe_queries(queries: torch.Tensor, centroids: torch.Tensor, codebooks: torch.Tensor,
+                   n_probe: int):
+    """→ (queries, codebooks) rounded to the compute dtype (bf16 on a GPU)
+    and held in f32, and the (Q, P) f32 centroid products and cell ids of
+    each query's probes."""
+    qf = l2_normalize(queries.float())
+    psim, probe = torch.topk(qf @ centroids.T, n_probe, dim=1)    # (Q, P) × 2
+    cd = _compute_dtype(queries.device)
+    return qf.to(cd).float(), codebooks.to(cd).float(), psim, probe
+
+
 def _ivfpq_search(queries: torch.Tensor, centroids: torch.Tensor, cell_codes: torch.Tensor,
                   cell_ids: torch.Tensor, codebooks: torch.Tensor, n_probe: int, k: int,
                   residual: bool, bits: int = 8) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -138,13 +164,9 @@ def _ivfpq_search(queries: torch.Tensor, centroids: torch.Tensor, cell_codes: to
     positions (Q, kc) int64). Queries and decoded rows are rounded to the
     compute dtype (bf16 on a GPU) and scored in f32; the centroid term is
     f32."""
-    L = cell_codes.shape[1]
-    qf = l2_normalize(queries.float())
-    psim, probe = torch.topk(qf @ centroids.T, n_probe, dim=1)    # (Q, P) × 2
-    cd = _compute_dtype(cell_codes.device)
-    return _probe_scan(qf.to(cd).float(), psim, probe,
-                       lambda pid: (cell_codes[pid], cell_ids[pid].long()),
-                       codebooks.to(cd).float(), bits, residual, k, L)
+    qc, cb, psim, probe = _probe_queries(queries, centroids, codebooks, n_probe)
+    return _probe_scan(qc, psim, probe, lambda pid: (cell_codes[pid], cell_ids[pid].long()),
+                       cb, bits, residual, k, cell_codes.shape[1])
 
 
 class IncrementalCellFill:
@@ -221,8 +243,9 @@ class IVFPQIndex:
                  assign_chunk: int = 1 << 20, encode_chunk: int = 1 << 16,
                  default_n_probe: int = 8, residual: bool = True, keep_rows=False,
                  bits: int = 8, device: Any = None):
-        if mesh is not None:
-            raise NotImplementedError("sharded IVFPQIndex (mesh=) is not ported")
+        mesh = as_mesh(mesh)
+        if mesh is not None and device is None:
+            device = mesh.devices[0]
         self.device = device_of(embeddings, device)
         emb = embeddings if isinstance(embeddings, torch.Tensor) else np.asarray(embeddings)
         n, d = emb.shape
@@ -303,10 +326,27 @@ class IVFPQIndex:
                 self._refine_rows[lo:hi] = _refine_rows_of(rows_n, self._refine_scale)
         cell_ids = np.full((n_clusters * L,), -1, np.int32)
         cell_ids[flat_pos] = np.arange(n, dtype=np.int32)
-        self.cell_codes = codes.view(n_clusters, L, m)
-        self.cell_ids = torch.from_numpy(cell_ids.reshape(n_clusters, L)).to(self.device)
         self.cell_budget = L
-        self.mesh = None
+        self._install_cells(codes.view(n_clusters, L, m),
+                            torch.from_numpy(cell_ids.reshape(n_clusters, L)).to(self.device),
+                            mesh)
+
+    def _install_cells(self, cell_codes: torch.Tensor, cell_ids: torch.Tensor, mesh) -> None:
+        """Place the cell tensors on the index's device — split over the
+        mesh when given: padded to a multiple of the shard count (codes 0,
+        ids −1), ``cells_per_shard`` cells a shard, as :class:`RowShards`
+        (``gathered`` reads them whole)."""
+        self.mesh = sharded(mesh)
+        if self.mesh is None:
+            self.cell_codes, self.cell_ids = cell_codes, cell_ids
+            return
+        C = cell_codes.shape[0]
+        cps = self.cells_per_shard = -(-C // self.mesh.size)
+        pad = cps * self.mesh.size - C
+        self.cell_codes = RowShards(torch.nn.functional.pad(
+            cell_codes, (0, 0, 0, 0, 0, pad)).to(self.device), self.mesh, cps)
+        self.cell_ids = RowShards(torch.nn.functional.pad(
+            cell_ids, (0, 0, 0, pad), value=-1).to(self.device), self.mesh, cps)
 
     @classmethod
     def from_arrays(cls, centroids, cell_codes, cell_ids, codebooks, fill,
@@ -317,18 +357,18 @@ class IVFPQIndex:
         Retriever reload path, and how a JAX-built index is carried over).
         ``codebooks`` are the raw (m, 256, ds) ones, or (2m, 16, ds) for 4
         bits."""
-        if mesh is not None:
-            raise NotImplementedError("sharded IVFPQIndex (mesh=) is not ported")
+        mesh = as_mesh(mesh)
         if bits not in (4, 8):
             raise ValueError(f"bits must be 4 or 8, got {bits}")
-        dev = device_of(cell_codes, device)
+        dev = device_of(cell_codes, device if device is not None or mesh is None
+                        else mesh.devices[0])
         cell_codes = _tensor(cell_codes).to(torch.uint8)
         cell_ids = _tensor(cell_ids).to(torch.int32)
         if cell_codes.ndim != 3 or tuple(cell_ids.shape) != tuple(cell_codes.shape[:2]):
             raise ValueError(f"cell_codes {tuple(cell_codes.shape)} / cell_ids "
                              f"{tuple(cell_ids.shape)} mismatch")
-        self = cls._adopt(centroids, cell_codes.to(dev), cell_ids.to(dev), codebooks, ids,
-                          default_n_probe, residual, bits, refine_rows, dev)
+        self = cls._adopt(centroids, cell_codes, cell_ids, codebooks, ids,
+                          default_n_probe, residual, bits, refine_rows, dev, mesh=mesh)
         self.fill = _tensor(fill).to(torch.int32).to(dev)
         return self
 
@@ -358,7 +398,7 @@ class IVFPQIndex:
 
     @classmethod
     def _adopt(cls, centroids, cell_codes, cell_ids, codebooks, ids, default_n_probe,
-               residual, bits, refine_rows, device, ids_range: bool = False):
+               residual, bits, refine_rows, device, ids_range: bool = False, mesh=None):
         self = cls.__new__(cls)
         self.device = torch.device(device)
         self.centroids = _tensor(centroids).float().to(self.device)
@@ -369,7 +409,6 @@ class IVFPQIndex:
         self.m, self.dim, self.bits = m, d, bits
         self.residual = bool(residual)
         self.default_n_probe = default_n_probe
-        self.cell_codes, self.cell_ids = cell_codes, cell_ids
         n = int((cell_ids >= 0).sum())
         self.n_docs = n
         self.cell_budget = L
@@ -379,7 +418,7 @@ class IVFPQIndex:
         if len(self.ids) != n:
             raise ValueError("ids length mismatch")
         self._refine_rows, self._refine_scale = _adopt_refine_rows(refine_rows, n, d)
-        self.mesh = None
+        self._install_cells(cell_codes.to(self.device), cell_ids.to(self.device), mesh)
         return self
 
     def bytes_per_doc(self) -> int:
@@ -392,9 +431,9 @@ class IVFPQIndex:
         """→ (n_docs, D) f32 host matrix of the PQ reconstructions in id
         order (centroid + decoded residual when ``residual``): the golden of
         the full probe."""
-        C, L, m = self.cell_codes.shape
-        codes = self.cell_codes.reshape(C * L, m)
-        flat_ids = self.cell_ids.reshape(-1)
+        codes, flat_ids = gathered(self.cell_codes), gathered(self.cell_ids)
+        C, L, m = codes.shape
+        codes, flat_ids = codes.reshape(C * L, m), flat_ids.reshape(-1)
         out = np.empty((self.n_docs, self.dim), np.float32)
         chunk = 1 << 16
         for lo in range(0, C * L, chunk):
@@ -405,7 +444,10 @@ class IVFPQIndex:
                 continue
             dec = _decode_any(codes[lo:hi], self.codebooks, self.bits)
             if self.residual:
-                dec = dec + self.centroids[torch.arange(lo, hi, device=self.device) // L]
+                # clamped: a mesh pads cells past the centroids (their ids are −1)
+                cell = (torch.arange(lo, hi, device=self.device) // L).clamp_max(
+                    self.centroids.shape[0] - 1)
+                dec = dec + self.centroids[cell]
             out[ids[valid].cpu().numpy()] = dec[valid].cpu().numpy()
         return out
 
@@ -413,8 +455,25 @@ class IVFPQIndex:
         return torch.as_tensor(queries, device=self.device).float()
 
     def _device_search(self, q: torch.Tensor, k: int, n_probe: int):
-        return _ivfpq_search(q, self.centroids, self.cell_codes, self.cell_ids,
-                             self.codebooks, n_probe, k, self.residual, self.bits)
+        if self.mesh is None:
+            return _ivfpq_search(q, self.centroids, self.cell_codes, self.cell_ids,
+                                 self.codebooks, n_probe, k, self.residual, self.bits)
+        qc, cb, psim, probe = _probe_queries(q, self.centroids, self.codebooks, n_probe)
+        cps, L = self.cells_per_shard, self.cell_budget
+        qs, cbs = replicate(qc, self.mesh), replicate(cb, self.mesh)
+        sims, probes = replicate(psim, self.mesh), replicate(probe, self.mesh)
+        codes, ids = self.cell_codes.blocks, self.cell_ids.blocks
+
+        def shard(i: int, dev):
+            def gather(col):         # the source's masked clamp-gather
+                pid = col - i * cps
+                c = pid.clamp(0, cps - 1)
+                owned = (pid >= 0) & (pid < cps)
+                return codes[i][c], torch.where(owned[:, None], ids[i][c].long(), -1)
+            return _probe_scan(qs[dev], sims[dev], probes[dev], gather, cbs[dev], self.bits,
+                               self.residual, k, L)
+
+        return merge_topk(shard_loop(self.mesh, shard), min(k, n_probe * L), self.device)
 
     def _device_search_retriever(self, q, k: int, score: str = "cos_sim", tile: int = 0,
                                  backend: str = "auto"):

@@ -38,8 +38,14 @@ candidates.
   the device. numpy has no bfloat16: bf16 refine rows are a CPU
   ``torch.bfloat16`` tensor; int8 rows (fixed scale 127) a numpy array.
 
-Sharding over a mesh (``mesh=``) is not ported. Scores follow the int8
-index's contract: rows are unit-normalized at encode time, so cos ≡ dot.
+- **A mesh** (``mesh=``, ``core/meshes.py``) splits the code matrix into
+  ``shard_rows``-row shards (a multiple of ``pq_pad_quantum``); each shard
+  runs the scan or the kernels' slices over its block with its host-int
+  count of real rows, and the candidates merge in shard order
+  (``core/meshes.py:merge_topk``); the refine stays on the host.
+
+Scores follow the int8 index's contract: rows are unit-normalized at encode
+time, so cos ≡ dot.
 """
 
 from __future__ import annotations
@@ -51,6 +57,14 @@ import numpy as np
 import torch
 
 from qst_tpu_torch.core.device import device_of
+from qst_tpu_torch.core.meshes import (
+    RowShards,
+    as_mesh,
+    merge_topk,
+    replicate,
+    shard_loop,
+    sharded,
+)
 from qst_tpu_torch.ops.distances import l2_normalize
 from qst_tpu_torch.ops.topk import topk_local
 from qst_tpu_torch.retrieval.index import _local_topk
@@ -269,6 +283,23 @@ def _pq_super_tile_topk(queries: torch.Tensor, codes_slice: torch.Tensor,
     return s, torch.where(i >= 0, i + base, i)
 
 
+def _pallas_scan(queries: torch.Tensor, codes: torch.Tensor, codebooks: torch.Tensor,
+                 n_real: int, k: int, decode: str = "gather",
+                 base: int = 0) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The kernels' path over a code matrix (``pq_topk``'s contract): decode
+    PQ_SUPER_TILE-row slices and run ``topk_local`` over each, merging the
+    (Q, k) winners exactly. → (scores (Q, k), positions + ``base``)."""
+    n_pad = codes.shape[0]
+    cs = torch.full((queries.shape[0], k), float("-inf"), device=codes.device)
+    ci = torch.full((queries.shape[0], k), -1, dtype=torch.int64, device=codes.device)
+    for lo in range(0, n_pad, PQ_SUPER_TILE):
+        hi = min(lo + PQ_SUPER_TILE, n_pad)
+        s, i = _pq_super_tile_topk(queries, codes[lo:hi], codebooks,
+                                   max(0, min(n_real - lo, hi - lo)), base + lo, k, decode)
+        cs, ci = _merge_topk(cs, ci, s, i, k)
+    return cs, ci
+
+
 def _merge_topk(cs, ci, s, i, k: int):
     s2, pos = torch.topk(torch.cat([cs, s], dim=1), k, dim=1)
     return s2, torch.gather(torch.cat([ci, i], dim=1), 1, pos)
@@ -405,6 +436,7 @@ class PQIndex:
     "int8" at 1 B/dim (scale 127)."""
 
     PALLAS_MIN_DOCS = 65536        # below this the plain scan wins
+    PALLAS_MIN_SHARD_DOCS = 16384  # the per-shard threshold (as ExactIndex)
     PALLAS_MIN_QUERIES = 256
     DEFAULT_REFINE = 8
 
@@ -416,8 +448,9 @@ class PQIndex:
         # encode_chunk bounds pq_encode's (B, m, 256) f32 fit (~3.2 GB at
         # 65,536 rows, m = 48). rotate / rotation quantize in a rotated
         # basis; refine rows and refined scores stay in the original one
-        if mesh is not None:
-            raise NotImplementedError("sharded PQIndex (mesh=) is not ported")
+        mesh = as_mesh(mesh)
+        if mesh is not None and device is None:
+            device = mesh.devices[0]
         self.device = device_of(embeddings, device)
         emb = embeddings if isinstance(embeddings, torch.Tensor) else np.asarray(embeddings)
         n, d = emb.shape
@@ -462,17 +495,34 @@ class PQIndex:
 
         self._refine_rows, self._refine_scale = _refine_table(keep_rows, n, d)
         quantum = pq_pad_quantum(n)
-        self.codes = torch.zeros((-(-n // quantum) * quantum, m), dtype=torch.uint8,
-                                 device=self.device)
+        codes = torch.zeros((-(-n // quantum) * quantum, m), dtype=torch.uint8,
+                            device=self.device)
         for lo in range(0, n, encode_chunk):
             hi = min(lo + encode_chunk, n)
             chunk = rows(slice(lo, hi)).float()
             enc_in = chunk if self._rotation is None else chunk @ self._rotation
-            self.codes[lo:hi] = pq_encode(enc_in, self.codebooks, eta=self._eta)
+            codes[lo:hi] = pq_encode(enc_in, self.codebooks, eta=self._eta)
             if self._refine_rows is not None:
                 self._refine_rows[lo:hi] = _refine_rows_of(l2_normalize(chunk),
                                                            self._refine_scale)
-        self.mesh = None
+        self._install_codes(codes, mesh)
+
+    def _install_codes(self, codes: torch.Tensor, mesh) -> None:
+        """Place the (quantum-padded) code matrix on the index's device —
+        split over the mesh when given, ``shard_rows`` rows a shard: the
+        ceiling of the padded rows over the shards, rounded up to the
+        quantum of that many rows; ``self.codes`` is then a
+        :class:`RowShards` (``gathered`` reads it whole)."""
+        self.mesh = sharded(mesh)
+        if self.mesh is None:
+            self.codes = codes.to(self.device)
+            return
+        raw = -(-codes.shape[0] // self.mesh.size)
+        quantum = pq_pad_quantum(raw)
+        self.shard_rows = -(-raw // quantum) * quantum
+        codes = torch.nn.functional.pad(
+            codes, (0, 0, 0, self.shard_rows * self.mesh.size - codes.shape[0]))
+        self.codes = RowShards(codes.to(self.device), self.mesh, self.shard_rows)
 
     @classmethod
     def from_chunks(cls, chunks, m: int = 48, ids: Optional[list] = None, mesh: Any = None,
@@ -483,9 +533,9 @@ class PQIndex:
         exists as one array. Chunks are buffered only until ``train_sample``
         rows are seen (the codebooks train on them), the rest stream through
         the encoder. No refine rows."""
-        if mesh is not None:
-            raise NotImplementedError("sharded PQIndex (mesh=) is not ported")
-        dev = device_of(None, device)
+        mesh = as_mesh(mesh)
+        dev = device_of(None, device if device is not None or mesh is None
+                        else mesh.devices[0])
         it = iter(chunks)
         buffered: List[np.ndarray] = []
         n_buffered = 0
@@ -510,7 +560,8 @@ class PQIndex:
         for chunk in itertools.chain(buffered, it):
             x = torch.from_numpy(np.asarray(chunk, np.float32)).to(dev)
             parts.append(pq_encode(x if rot is None else x @ rot, codebooks, eta=anisotropic))
-        self = cls.from_codes(torch.cat(parts), codebooks, ids=ids, rotation=rot, device=dev)
+        self = cls.from_codes(torch.cat(parts), codebooks, ids=ids, mesh=mesh, rotation=rot,
+                              device=dev)
         self._eta = float(anisotropic)
         return self
 
@@ -521,8 +572,9 @@ class PQIndex:
         encoding (the Retriever reload path, and how a JAX-built index is
         carried over). ``refine_rows`` are the unit-normalized originals:
         int8 (scale 127) or any float dtype (kept as bf16)."""
-        if mesh is not None:
-            raise NotImplementedError("sharded PQIndex (mesh=) is not ported")
+        mesh = as_mesh(mesh)
+        if mesh is not None and device is None:
+            device = mesh.devices[0]
         self = cls.__new__(cls)
         self.device = device_of(codes, device)
         codes = codes.to(torch.uint8) if isinstance(codes, torch.Tensor) \
@@ -547,8 +599,7 @@ class PQIndex:
         self._refine_rows, self._refine_scale = _adopt_refine_rows(refine_rows, n, self.dim)
         quantum = pq_pad_quantum(n)
         n_pad = -(-n // quantum) * quantum
-        self.codes = torch.nn.functional.pad(codes.to(self.device), (0, 0, 0, n_pad - n))
-        self.mesh = None
+        self._install_codes(torch.nn.functional.pad(codes, (0, 0, 0, n_pad - n)), mesh)
         return self
 
     @property
@@ -589,27 +640,27 @@ class PQIndex:
         if self._rotation is not None:
             # orthogonal: normalize-then-rotate equals rotate-then-normalize
             q = q @ self._rotation
-        if backend == "pallas" or (backend == "auto"
-                                   and self._pallas_eligible(k, q.shape[0])):
-            return self._pallas_search(q, k, decode)
-        return pq_topk(q, self.codes, self.codebooks, self.n_docs, k, decode=decode)
+        use_pallas = backend == "pallas" or (backend == "auto"
+                                             and self._pallas_eligible(k, q.shape[0]))
+        scan = _pallas_scan if use_pallas else pq_topk
+        if self.mesh is None:
+            return scan(q, self.codes, self.codebooks, self.n_docs, k, decode=decode)
+        blocks = self.codes.blocks
+        qs, cbs = replicate(q, self.mesh), replicate(self.codebooks, self.mesh)
+
+        def shard(i: int, dev):
+            base = i * self.shard_rows
+            return scan(qs[dev], blocks[i], cbs[dev],
+                        max(0, min(self.n_docs - base, self.shard_rows)), k,
+                        decode=decode, base=base)
+
+        return merge_topk(shard_loop(self.mesh, shard), k, self.device)
 
     def _pallas_eligible(self, k: int, n_queries: int) -> bool:
-        return (k <= 128 and self.n_docs >= self.PALLAS_MIN_DOCS
+        big_enough = (self.n_docs >= self.PALLAS_MIN_DOCS if self.mesh is None
+                      else self.shard_rows >= self.PALLAS_MIN_SHARD_DOCS)
+        return (k <= 128 and big_enough
                 and n_queries >= self.PALLAS_MIN_QUERIES and self.device.type != "cpu")
-
-    def _pallas_search(self, q: torch.Tensor, k: int, decode: str):
-        """The kernels' path: decode PQ_SUPER_TILE-row slices and run
-        ``topk_local`` over each, merging the (Q, k) winners exactly."""
-        n_pad = self.codes.shape[0]
-        cs = torch.full((q.shape[0], k), float("-inf"), device=self.device)
-        ci = torch.full((q.shape[0], k), -1, dtype=torch.int64, device=self.device)
-        for lo in range(0, n_pad, PQ_SUPER_TILE):
-            hi = min(lo + PQ_SUPER_TILE, n_pad)
-            s, i = _pq_super_tile_topk(q, self.codes[lo:hi], self.codebooks,
-                                       max(0, min(self.n_docs - lo, hi - lo)), lo, k, decode)
-            cs, ci = _merge_topk(cs, ci, s, i, k)
-        return cs, ci
 
     def search(self, queries, k: int = 10, refine_factor: Optional[int] = None,
                decode: str = "gather", score: str = "cos_sim",

@@ -16,8 +16,9 @@ rows by default, in ``search`` and in the finishers of ``search_async`` and
 ``ids.json``, ``index_meta.json``, ``docs.json``), so either package
 reloads the other's index. ``reranker=`` (a ``CrossEncoder``) and
 ``search(..., rerank_k=)`` give two-stage retrieval: the index's top
-``max(k, rerank_k)`` candidates re-scored by the cross-encoder. Mesh sharding
-raises ``NotImplementedError``.
+``max(k, rerank_k)`` candidates re-scored by the cross-encoder. ``mesh=`` (a
+``core/meshes.py`` mesh) builds, loads and searches every kind sharded over
+it; ``save`` writes the real rows and cells, never a mesh's padding.
 """
 
 from __future__ import annotations
@@ -30,6 +31,7 @@ import numpy as np
 import torch
 
 from qst_tpu_torch.core.device import resolve_device
+from qst_tpu_torch.core.meshes import as_mesh, gathered
 from qst_tpu_torch.retrieval.index import ExactIndex
 from qst_tpu_torch.retrieval.ivf import IVFIndex
 from qst_tpu_torch.retrieval.ivfpq import IVFPQIndex
@@ -77,9 +79,12 @@ def load_index(path: str, mesh: Any = None, dtype: Optional[str] = None,
     index saved as int8 carries its quantization scale in the metadata and
     reloads bit-exactly; one saved as "ivf", "pq" or "ivfpq" reloads its
     arrays (and refine rows where they were saved) without re-clustering or
-    re-encoding. The index lives on ``device`` (default: the GPU); a
+    re-encoding. The index lives on ``device`` (default: the GPU, or a
+    mesh's first device), sharded over ``mesh`` when one is given; a
     streamed corpus stays on disk, memory-mapped."""
-    device = resolve_device(device)
+    mesh = as_mesh(mesh)
+    device = resolve_device(device if device is not None or mesh is None
+                            else mesh.devices[0])
     with open(os.path.join(path, IDS_FILE)) as f:
         ids = json.load(f)
     with open(os.path.join(path, META_FILE)) as f:
@@ -181,12 +186,11 @@ class Retriever:
         (``ivfpq_bits`` 8, or 4 for packed nibbles at the same bytes a doc;
         see IVFPQIndex), or "streaming" for a corpus that stays on disk
         (``build_to_disk``; see StreamingExactIndex)."""
-        if mesh is not None:
-            raise NotImplementedError("sharded retrieval (mesh=) is not ported")
+        mesh = as_mesh(mesh)
         if index_dtype not in INDEX_DTYPES:
             raise ValueError(f"index_dtype must be one of {INDEX_DTYPES}, got {index_dtype!r}")
         self.encoder = encoder
-        self.mesh = None
+        self.mesh = mesh
         self.score = score
         self.reranker = reranker
         self.index_dtype = index_dtype
@@ -196,7 +200,7 @@ class Retriever:
         self.pq_rotate = pq_rotate
         self.ivfpq_bits = ivfpq_bits
         if device is None:
-            device = getattr(encoder, "device", None)
+            device = mesh.devices[0] if mesh is not None else getattr(encoder, "device", None)
         self.device = resolve_device(device)
         self._index: Optional[Any] = None
         self._doc_texts: List[str] = []
@@ -262,7 +266,7 @@ class Retriever:
         elif isinstance(self.index, IVFIndex):
             emb = self.index.reconstruct_rows()
         else:
-            emb = _host_f32(self.index.embeddings)[: self.index.n_docs]
+            emb = _host_f32(gathered(self.index.embeddings))[: self.index.n_docs]
         self._check_updatable_score(emb)   # full corpus: one host pass
         ids = list(self.index.ids)
         capacity = capacity or max(65536, 2 * len(ids))
@@ -342,19 +346,19 @@ class Retriever:
         # device-resident handoff: encoder → index with no host round trip
         emb = encode_keep_device(self.encoder.encode, list(docs))
         ids = list(ids) if ids is not None else list(range(len(docs)))
+        where = {"mesh": self.mesh, "device": self.device}
         if self.index_dtype == "pq":
             self.index = PQIndex(emb, m=self.pq_m, ids=ids, keep_rows=True,
-                                 rotate=self.pq_rotate, device=self.device)
+                                 rotate=self.pq_rotate, **where)
         elif self.index_dtype == "ivf":
             self.index = IVFIndex(emb, n_clusters=self.ivf_clusters, ids=ids,
-                                  default_n_probe=self.ivf_probe, device=self.device)
+                                  default_n_probe=self.ivf_probe, **where)
         elif self.index_dtype == "ivfpq":
             self.index = IVFPQIndex(emb, n_clusters=self.ivf_clusters, m=self.pq_m, ids=ids,
                                     default_n_probe=self.ivf_probe, keep_rows=True,
-                                    bits=self.ivfpq_bits, device=self.device)
+                                    bits=self.ivfpq_bits, **where)
         else:
-            self.index = ExactIndex(emb, ids=ids, dtype=self.index_dtype,
-                                    device=self.device)
+            self.index = ExactIndex(emb, ids=ids, dtype=self.index_dtype, **where)
         self._doc_texts = list(docs)
         return self
 
@@ -389,7 +393,8 @@ class Retriever:
             json.dump({"n_docs": len(ids), "dim": int(mm.shape[1]), "score": self.score}, f)
         self._save_docs(path, docs)
         del mm
-        self.index = StreamingExactIndex.from_npy(emb_path, ids=ids, device=self.device)
+        self.index = StreamingExactIndex.from_npy(emb_path, ids=ids, mesh=self.mesh,
+                                                  device=self.device)
         self._doc_texts = docs
         return self
 
@@ -412,14 +417,16 @@ class Retriever:
         if isinstance(self.index, IVFIndex):
             # cells persist f32 (.npy has no portable bf16; the dtype is
             # recorded and reload re-casts exactly)
+            # (the real cells: a mesh's padded ones are left out)
             os.makedirs(path, exist_ok=True)
-            cells = self.index.cells
+            C = int(self.index.fill.shape[0])
+            cells = gathered(self.index.cells)[:C]
             cells_dtype = "bfloat16" if cells.dtype != torch.float32 else "float32"
             np.save(os.path.join(path, IVF_CELLS_FILE), cells.float().cpu().numpy())
             np.save(os.path.join(path, IVF_CENTROIDS_FILE),
                     self.index.centroids.float().cpu().numpy())
             np.save(os.path.join(path, IVF_CELL_IDS_FILE),
-                    self.index.cell_ids.to(torch.int32).cpu().numpy())
+                    gathered(self.index.cell_ids)[:C].to(torch.int32).cpu().numpy())
             np.save(os.path.join(path, IVF_FILL_FILE),
                     self.index.fill.to(torch.int32).cpu().numpy())
             with open(os.path.join(path, IDS_FILE), "w") as f:
@@ -441,7 +448,7 @@ class Retriever:
             save_index(path, np.asarray(self.index.embeddings), list(ids), {"score": self.score})
             self._save_docs(path, self._doc_texts)
             return
-        emb = self.index.embeddings
+        emb = gathered(self.index.embeddings)[: self.index.n_docs]
         meta = {"score": self.score}
         if emb.dtype == torch.int8:
             # the quantized rows + scale reload bit-exactly
@@ -463,14 +470,16 @@ class Retriever:
         meta = {"n_docs": int(idx.n_docs), "dim": int(idx.dim), "m": int(idx.m),
                 "score": self.score, "refine": idx._refine_rows is not None}
         if isinstance(idx, IVFPQIndex):
-            files = {IVFPQ_CODES_FILE: idx.cell_codes, IVFPQ_CELL_IDS_FILE: idx.cell_ids,
+            C = int(idx.fill.shape[0])     # the real cells: a mesh's padded ones are left out
+            files = {IVFPQ_CODES_FILE: gathered(idx.cell_codes)[:C],
+                     IVFPQ_CELL_IDS_FILE: gathered(idx.cell_ids)[:C],
                      IVFPQ_CENTROIDS_FILE: idx.centroids, IVFPQ_CODEBOOKS_FILE: idx.codebooks,
                      IVFPQ_FILL_FILE: idx.fill}
             rows_file = IVFPQ_ROWS_FILE
             meta.update(dtype="ivfpq", bits=int(idx.bits), residual=bool(idx.residual),
                         n_probe=int(idx.default_n_probe), cell_budget=int(idx.cell_budget))
         else:
-            files = {PQ_CODES_FILE: idx.codes[: idx.n_docs], PQ_CODEBOOKS_FILE: idx.codebooks}
+            files = {PQ_CODES_FILE: gathered(idx.codes)[: idx.n_docs], PQ_CODEBOOKS_FILE: idx.codebooks}
             if idx._rotation is not None:
                 files[PQ_ROTATION_FILE] = idx._rotation
             rows_file = PQ_ROWS_FILE
@@ -491,7 +500,8 @@ class Retriever:
 
     def load(self, path: str) -> "Retriever":
         self.index, meta = load_index(
-            path, dtype=None if self.index_dtype == "float32" else self.index_dtype,
+            path, mesh=self.mesh,
+            dtype=None if self.index_dtype == "float32" else self.index_dtype,
             device=self.device)
         docs_path = os.path.join(path, DOCS_FILE)
         if os.path.isfile(docs_path):

@@ -34,7 +34,16 @@ rounding), the elementwise rest in torch, rows split over threads, which
 changes no row's arithmetic. A pre-quantized int8 corpus
 (``quantize_host``) streams verbatim at the fixed scale 127.
 
-Sharding over a mesh (``mesh=``) is not ported.
+**A mesh** (``mesh=``, ``core/meshes.py``) splits every tile row-wise into
+``tile_rows / mesh.size`` rows a shard (``tile_rows`` a multiple of 128
+times the shard count, the JAX tile quantum), shard i on
+``mesh.devices[i]``. Each shard runs the tile's search over its rows with
+its host-int share of the tile's valid count, and the shards' candidates
+merge with the running carry in shard order (``core/meshes.py:merge_topk``;
+the unsharded index is the one-shard case). The host staging buffers are
+one pair for all shards; each distinct device has one copy stream, one
+pair of device buffers holding its shards' rows (one copy for a run of
+adjacent shards) and its own ``copied`` / ``read`` events.
 """
 
 from __future__ import annotations
@@ -48,6 +57,7 @@ import numpy as np
 import torch
 
 from qst_tpu_torch.core.device import resolve_device
+from qst_tpu_torch.core.meshes import as_mesh, merge_topk, replicate, shard_loop
 from qst_tpu_torch.ops.distances import l2_normalize
 from qst_tpu_torch.ops.topk import topk_local
 from qst_tpu_torch.retrieval.index import BUCKET, _local_topk
@@ -105,14 +115,20 @@ class StreamingExactIndex:
                  normalize: bool = False, transfer_dtype: str = "bfloat16",
                  ids: Optional[list] = None, mesh: Any = None, device: Any = None):
         """``normalize``: L2-normalize every tile on the device
-        (``ExactIndex(normalize=True)`` semantics for dot searches)."""
-        if mesh is not None:
-            raise NotImplementedError("sharded StreamingExactIndex (mesh=) is not ported")
+        (``ExactIndex(normalize=True)`` semantics for dot searches).
+        ``mesh``: split every tile over the mesh's devices (the module's
+        docstring); the results land on its first device."""
+        mesh = as_mesh(mesh)
+        if mesh is not None and device is None:
+            device = mesh.devices[0]
+        self.mesh = mesh if mesh is not None and mesh.size > 1 else None
         if embeddings.ndim != 2 or embeddings.shape[0] == 0:
             raise ValueError(f"embeddings must be (N, D), got {embeddings.shape}")
-        if tile_rows % BUCKET != 0 or tile_rows <= 0:
-            raise ValueError(f"tile_rows must be a positive multiple of {BUCKET}, "
-                             f"got {tile_rows}")
+        n_shards = self.mesh.size if self.mesh is not None else 1
+        row_quantum = BUCKET * n_shards
+        if tile_rows % row_quantum != 0 or tile_rows <= 0:
+            raise ValueError(f"tile_rows must be a positive multiple of {row_quantum} "
+                             f"(128 × mesh devices), got {tile_rows}")
         if transfer_dtype not in _TRANSFER:
             raise ValueError(f"transfer_dtype must be float32|bfloat16|int8, got"
                              f" {transfer_dtype}")
@@ -132,7 +148,10 @@ class StreamingExactIndex:
         if self.ids is not None and len(self.ids) != self.n_docs:
             raise ValueError("ids length mismatch")
         self.device = resolve_device(device)
-        self.mesh = None
+        # (device, first row) of each shard of a tile: one shard without a mesh
+        self._shard_rows = tile_rows // n_shards
+        self._shards = [(d, i * self._shard_rows) for i, d in
+                        enumerate(self.mesh.devices if self.mesh is not None else [self.device])]
 
     @classmethod
     def from_npy(cls, path: str, **kw) -> "StreamingExactIndex":
@@ -166,54 +185,78 @@ class StreamingExactIndex:
         out[n:] = 0
         return scale
 
-    def _tiles(self) -> Iterator[Tuple[int, torch.Tensor, float]]:
-        """Yield (t, tile on the device in the transfer dtype, scale) for
-        every tile. On a GPU the next tile is prepared and copied while the
-        caller's work on this one runs; a tile stays valid until the next is
-        asked for, and the caller's work on it must be queued on the
-        current stream by then."""
+    def _tiles(self) -> Iterator[Tuple[int, list, float]]:
+        """Yield (t, [tile t's block of each shard on its device], scale) for
+        every tile, in the transfer dtype. On a GPU the next tile is prepared
+        and copied while the caller's work on this one runs; a tile stays
+        valid until the next is asked for, and the caller's work on it must
+        be queued on each device's current stream by then."""
         dtype = self.transfer_dtype
         shape = (self.tile_rows, self.dim)
+        sr = self._shard_rows
         n_tiles = -(-self.n_docs // self.tile_rows)
         if self.device.type != "cuda":
             for t in range(n_tiles):
                 buf = torch.empty(shape, dtype=dtype)
                 scale = self._fill_tile(t, buf)
-                yield t, buf.to(self.device), scale
+                yield t, [buf[lo:lo + sr].to(d) for d, lo in self._shards], scale
             return
-        compute = torch.cuda.current_stream(self.device)
-        copy_stream = torch.cuda.Stream(self.device)
+        # each device's shards, in order; a device buffer holds their rows
+        own = {}
+        for i, (d, _) in enumerate(self._shards):
+            own.setdefault(d, []).append(i)
         pinned = [torch.empty(shape, dtype=dtype, pin_memory=True) for _ in range(2)]
-        dev = [torch.empty(shape, dtype=dtype, device=self.device) for _ in range(2)]
-        for d in dev:
-            d.record_stream(copy_stream)
-        copied = [torch.cuda.Event() for _ in range(2)]
-        read = [torch.cuda.Event() for _ in range(2)]
+        copy_stream = {d: torch.cuda.Stream(d) for d in own}
+        dev = {d: [torch.empty((len(ix) * sr, self.dim), dtype=dtype, device=d)
+                   for _ in range(2)] for d, ix in own.items()}
+        for d, bufs in dev.items():
+            for b in bufs:
+                b.record_stream(copy_stream[d])
+        copied = {d: [torch.cuda.Event() for _ in range(2)] for d in own}
+        read = {d: [torch.cuda.Event() for _ in range(2)] for d in own}
+        # runs of adjacent shards a device owns: one copy each, (dst row, src row, rows)
+        runs = {}
+        for d, ix in own.items():
+            runs[d] = []
+            for j, i in enumerate(ix):
+                if runs[d] and ix[j - 1] == i - 1:
+                    dst, src, n = runs[d][-1]
+                    runs[d][-1] = (dst, src, n + sr)
+                else:
+                    runs[d].append((j * sr, i * sr, sr))
+        # shard i's block: a view of its device's buffer
+        where = [(d, own[d].index(i) * sr) for i, (d, _) in enumerate(self._shards)]
         scales = [1.0, 1.0]
 
         def send(t: int) -> None:
             b = t % 2
-            copied[b].synchronize()          # staging b is free: tile t − 2's copy is done
+            for d in own:                    # staging b is free: tile t − 2's copies are done
+                copied[d][b].synchronize()
             scales[b] = self._fill_tile(t, pinned[b])
-            copy_stream.wait_event(read[b])  # device b is free: tile t − 2 was searched
-            with torch.cuda.stream(copy_stream):
-                dev[b].copy_(pinned[b], non_blocking=True)
-                copied[b].record(copy_stream)
+            for d in own:
+                copy_stream[d].wait_event(read[d][b])   # device b: tile t − 2 was searched
+                with torch.cuda.stream(copy_stream[d]):
+                    for dst, src, n in runs[d]:
+                        dev[d][b][dst:dst + n].copy_(pinned[b][src:src + n], non_blocking=True)
+                    copied[d][b].record(copy_stream[d])
 
         try:
             send(0)
             for t in range(n_tiles):
                 b = t % 2
-                compute.wait_event(copied[b])
-                yield t, dev[b], scales[b]
-                read[b].record(compute)
+                for d in own:
+                    torch.cuda.current_stream(d).wait_event(copied[d][b])
+                yield t, [dev[d][b][lo:lo + sr] for d, lo in where], scales[b]
+                for d in own:
+                    read[d][b].record(torch.cuda.current_stream(d))
                 if t + 1 < n_tiles:
                     send(t + 1)
         finally:
             # torn down with the pass, also when the caller stops early: no
             # copy left in flight into buffers that are about to be freed
             # (the pinned ones go back to torch's host cache)
-            copy_stream.synchronize()
+            for st in copy_stream.values():
+                st.synchronize()
 
     def search(self, queries, k: int = 10, score: str = "cos_sim",
                backend: str = "auto") -> Tuple[np.ndarray, np.ndarray]:
@@ -249,32 +292,41 @@ class StreamingExactIndex:
         Q = qq.shape[0]
         cs = torch.full((Q, k), float("-inf"), device=self.device)
         ci = torch.full((Q, k), -1, dtype=torch.int64, device=self.device)
-        for t, tile, scale in self._tiles():
+        mesh = self.mesh
+        qs = replicate(qq, mesh) if mesh is not None else {self.device: qq}
+        for t, blocks, scale in self._tiles():
             base = t * self.tile_rows
+            n_valid = min(self.n_docs - base, self.tile_rows)
             inv = 1.0 if qscale is None else 1.0 / (qscale * scale)
-            cs, ci = self._tile_step(qq, tile, base, min(self.n_docs - base, self.tile_rows),
-                                     cs, ci, inv, k, use_pallas, normalize)
+            invs = ({d: inv for d in qs} if qscale is None
+                    else {d: inv.to(d) for d in qs})
+
+            def shard(i: int, dev):
+                lo = self._shards[i][1]
+                s, idx = self._tile_step(qs[dev], blocks[i], max(0, min(n_valid - lo,
+                                         self._shard_rows)), k, use_pallas, normalize)
+                return s * invs[dev], idx + (base + lo)
+
+            parts = (shard_loop(mesh, shard) if mesh is not None
+                     else [shard(0, self.device)])
+            cs, ci = merge_topk([(cs, ci)] + parts, k, self.device)
         return cs.cpu().numpy(), ci.cpu().numpy()
 
     @staticmethod
-    def _tile_step(queries, tile, base: int, n_valid: int, cs, ci, inv_scale, k: int,
-                   use_pallas: bool, normalize: bool):
-        """Search one tile and merge it into the (Q, k) carry; ``inv_scale``
-        puts int8 tiles' integer scores in the cosine domain first (their
-        per-tile scales make raw scores incomparable across tiles)."""
+    def _tile_step(queries, block, n_valid: int, k: int, use_pallas: bool, normalize: bool):
+        """Search one shard's block of a tile: → (scores, rows in the
+        block). The caller descales int8 tiles' integer scores into the
+        cosine domain (their per-tile scales make raw scores incomparable
+        across tiles) and merges them into the (Q, k) carry."""
         if normalize:
-            tile = l2_normalize(tile.float()).to(tile.dtype)
+            block = l2_normalize(block.float()).to(block.dtype)
         if use_pallas:
-            s, i = topk_local(queries, tile, k, n_valid)
-        else:
-            # int8 and bf16 operands upcast: exact products, f32 sums
-            sc = queries.float() @ tile.float().T
-            col = torch.arange(tile.shape[0], device=tile.device)
-            sc = torch.where(col[None, :] < n_valid, sc, float("-inf"))
-            s, i = _local_topk(sc, min(k, tile.shape[0]))
-        cat_s = torch.cat([cs, s * inv_scale], dim=1)
-        s2, pos = torch.topk(cat_s, k, dim=1)
-        return s2, torch.gather(torch.cat([ci, i + base], dim=1), 1, pos)
+            return topk_local(queries, block, k, n_valid)
+        # int8 and bf16 operands upcast: exact products, f32 sums
+        sc = queries.float() @ block.float().T
+        col = torch.arange(block.shape[0], device=block.device)
+        sc = torch.where(col[None, :] < n_valid, sc, float("-inf"))
+        return _local_topk(sc, min(k, block.shape[0]))
 
     def search_ids(self, queries, k: int = 10, score: str = "cos_sim"):
         """→ (scores, doc-id lists) with the external ids when given."""

@@ -531,12 +531,93 @@ def test_dataset_parser_keeps_the_source_flags():
     assert got == want
 
 
+# the IR grid of tests/test_cli.py:167: a sharded JAX search takes k <= a shard's rows
+SMALL_IR_GRID = ["--accuracy_at_k", "1", "--precision_recall_at_k", "1", "--mrr_at_k", "3",
+                 "--ndcg_at_k", "3", "--map_at_k", "3", "--score_functions", "cos_sim",
+                 "dot_score"]
+
+
+def _ir_results(main, out: str, argv) -> dict:
+    assert main(["--output_root", out, "--n_queries", "12", *SMALL_IR_GRID, *argv]) == 0
+    [hashed] = [d for d in os.listdir(out) if os.path.isfile(os.path.join(out, d, "results.json"))]
+    with open(os.path.join(out, hashed, "results.json")) as f:
+        return json.load(f)
+
+
 @pytest.mark.parametrize("argv", [["--mesh_data", "2"], ["--mesh_model", "2"]])
-def test_ir_eval_cli_refuses_unported_flags(quad_data, argv):
-    root, data, _, _ = quad_data
-    with pytest.raises(SystemExit, match="not ported"):
-        tir_main.main(["--dataset_root", data, "--output_root", str(root / "refused_ir"),
-                       "--device", "cpu", *argv])
+def test_ir_eval_cli_refuses_unported_flags(quad_data, argv, monkeypatch):
+    """``--mesh_data`` / ``--mesh_model`` (refused before they were
+    ported): over two positions of ``$QST_TORCH_VIRTUAL_DEVICES`` the
+    baseline's and the trained model's metrics are the run's without a
+    mesh; with one visible device a 2-position mesh is refused."""
+    root, data, exp, _ = quad_data
+    common = ["--dataset_root", data, "--model_path", exp, "--encoder_preset", "tiny",
+              "--device", "cpu"]
+    with pytest.raises(ValueError, match="more than 1 devices|1 devices not divisible"):
+        tir_main.main([*common, "--output_root", str(root / "refused_ir"), *argv])
+    plain = _ir_results(tir_main.main, str(root / f"ir_plain_{argv[0]}"), common)
+    monkeypatch.setenv("QST_TORCH_VIRTUAL_DEVICES", "2")
+    meshed = _ir_results(tir_main.main, str(root / f"ir_mesh_{argv[0]}"), common + argv)
+    for run in ("baseline", "trained"):
+        for fn, metrics in plain[run]["metrics"].items():
+            for name, value in metrics.items():
+                assert meshed[run]["metrics"][fn][name] == pytest.approx(value, abs=1e-6)
+
+
+def test_ir_eval_cli_refuses_a_group_of_processes(quad_data, monkeypatch):
+    """A process group of more than one process (``$QST_COORDINATOR_ADDRESS``)
+    is refused before any work, and the group is taken down: the mesh spans
+    one process's devices, so each process would run the whole evaluation
+    into the same output root."""
+    import torch.distributed as dist
+
+    from qst_tpu_torch.core import meshes
+
+    root, data, exp, _ = quad_data
+    calls = []
+    monkeypatch.setattr(meshes, "initialize_distributed",
+                        lambda device=None: calls.append(("init", device)) or True)
+    monkeypatch.setattr(dist, "get_rank", lambda: 0)
+    monkeypatch.setattr(dist, "get_world_size", lambda: 2)
+    monkeypatch.setattr(dist, "destroy_process_group", lambda: calls.append("destroy"))
+    out = root / "ir_two_processes"
+    with pytest.raises(SystemExit, match="QST_COORDINATOR_ADDRESS with more than one process"):
+        tir_main.main(["--dataset_root", data, "--model_path", exp, "--encoder_preset", "tiny",
+                       "--device", "cpu", "--output_root", str(out)])
+    assert calls == [("init", "cpu"), "destroy"] and not out.exists()
+
+
+def test_ir_eval_cli_mesh_matches_the_jax_cli(quad_data, monkeypatch):
+    """``ir_eval_main --mesh_data 8 --device cpu`` (eight positions of
+    ``$QST_TORCH_VIRTUAL_DEVICES``) against qst_tpu's CLI with
+    ``--mesh_data 8`` on its eight virtual devices (after
+    tests/test_cli.py:167), both over the same weights (the trained model:
+    qst_tpu's orbax checkpoint and the port's copy of it): the eval set and
+    the trained metrics within 1e-6 (the baselines are each package's own
+    random init)."""
+    import orbax.checkpoint as ocp
+
+    root, data, exp, jenc = quad_data
+    jexp = str(root / "jax_exp")
+    ckpt = ocp.StandardCheckpointer()
+    ckpt.save(os.path.join(jexp, "checkpoints", "best", "params"), jenc.params, force=True)
+    ckpt.wait_until_finished()
+    common = ["--dataset_root", data, "--encoder_preset", "tiny", "--mesh_data", "8"]
+    want = _ir_results(jir_main.main, str(root / "ir_jax_mesh"), common + ["--model_path", jexp])
+    monkeypatch.setenv("QST_TORCH_VIRTUAL_DEVICES", "8")
+    got = _ir_results(tir_main.main, str(root / "ir_port_mesh"),
+                      common + ["--model_path", exp, "--device", "cpu"])
+    assert set(got["trained"]["metrics"]) == {"cos_sim", "dot_score"}
+    for fn, metrics in want["trained"]["metrics"].items():
+        for name, value in metrics.items():
+            assert got["trained"]["metrics"][fn][name] == pytest.approx(value, abs=1e-6), (
+                fn, name)
+    with open(os.path.join(root / "ir_jax_mesh", os.listdir(root / "ir_jax_mesh")[0],
+                           "ir_eval_set.json")) as f:
+        jset = json.load(f)
+    [port_dir] = os.listdir(root / "ir_port_mesh")
+    with open(os.path.join(root / "ir_port_mesh", port_dir, "ir_eval_set.json")) as f:
+        assert json.load(f) == jset
 
 
 def test_ir_eval_cli_generates_query_variations_as_the_jax_cli(quad_data):

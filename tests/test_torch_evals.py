@@ -167,6 +167,45 @@ def test_ir_evaluator_matches_jax_on_the_same_embeddings(encoders, tmp_path):
     assert [r[:4] for r in trows] == [r[:4] for r in jrows] and len(trows) == 1 + 3 * 44
 
 
+def test_ir_evaluator_with_a_mesh_matches_jax_on_its_mesh(encoders, mesh8):
+    """The evaluator's corpus index sharded over the port's mesh of eight
+    CPU positions against qst_tpu's on its 8-device mesh, on the same
+    embeddings: every metric within 1e-6; an index factory receives the
+    mesh, and ``get_sequential_evaluator(mesh=)`` hands it to the IR
+    evaluator. k stays within a shard's 128 rows: qst_tpu's sharded search
+    fails past them."""
+    from qst_tpu_torch.core.meshes import make_mesh
+
+    jenc, _, _, _, _, tcfg = encoders
+    grid = dict(accuracy_at_k=(1, 3), precision_recall_at_k=(1, 3), mrr_at_k=(10,),
+                ndcg_at_k=(10,), map_at_k=(100,))
+    tmesh = make_mesh(4, 2, devices=["cpu"] * 8)
+    queries, corpus, relevant = _ir_problem()
+    texts = list(queries.values()) + list(corpus.values())
+    table = dict(zip(texts, jenc.encode(texts)))
+    encode = lambda ts: np.stack([table[t] for t in ts])  # noqa: E731
+    jev = JaxIREvaluator(queries, corpus, relevant, cfg=jc.IREvalConfig(**grid), mesh=mesh8)
+    seen = []
+
+    def factory(emb, ids, mesh):
+        seen.append(mesh)
+        return ExactIndex(emb, ids=ids, mesh=mesh)
+
+    for kw in ({}, {"index_factory": factory}):
+        tev = tevals.InformationRetrievalEvaluator(queries, corpus, relevant,
+                                                   cfg=tc.IREvalConfig(**grid), mesh=tmesh, **kw)
+        assert tev(encode) == pytest.approx(jev(encode), abs=1e-6)
+        for score, metrics in jev.last_results.items():
+            for name, value in metrics.items():
+                assert tev.last_results[score][name] == pytest.approx(value, abs=1e-6), (
+                    score, name)
+    assert seen == [tmesh]
+    iset = teval_set.create_ir_evaluation_set(make_instances(12), n_queries=4)
+    seq = tevals.get_sequential_evaluator(tcfg, tc.LossConfig(), HashTokenizer(64), [],
+                                          ir_eval_set=iset, mesh=tmesh, main="ir")
+    assert dict(seq.evaluators)["ir"].mesh is tmesh
+
+
 def test_ir_evaluator_keeps_the_embeddings_on_the_encoder_device(encoders):
     """With ``SentenceEncoder.encode`` the corpus index is built from the
     encoder's tensor where it lies (no host round trip), and a cached index

@@ -382,7 +382,7 @@ def test_validation_errors(clustered_corpus, carried):
         IVFIndex(clustered_corpus, n_clusters=600, train_sample=512, **kw)
     with pytest.raises(ValueError, match="dtype"):
         IVFIndex(clustered_corpus, n_clusters=4, dtype="int8", **kw)
-    with pytest.raises(NotImplementedError, match="mesh"):
+    with pytest.raises(TypeError, match="Mesh"):
         IVFIndex(clustered_corpus, n_clusters=4, mesh=object(), **kw)
     with pytest.raises(RuntimeError, match="cell budget"):
         IVFIndex(clustered_corpus, n_clusters=16, cell_budget=8, spill_rounds=2, **kw)
@@ -394,7 +394,7 @@ def test_validation_errors(clustered_corpus, carried):
     with pytest.raises(ValueError, match="mismatch"):
         IVFIndex.from_arrays(np.zeros((2, 4)), np.zeros((2, 8, 4)), np.zeros((2, 7)),
                              np.zeros(2), **kw)
-    with pytest.raises(NotImplementedError, match="mesh"):
+    with pytest.raises(TypeError, match="Mesh"):
         IVFIndex.from_arrays(np.zeros((2, 4)), np.zeros((2, 8, 4)), np.zeros((2, 8)),
                              np.zeros(2), mesh=object(), **kw)
 

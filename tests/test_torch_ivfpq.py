@@ -169,7 +169,7 @@ def test_port_built_index(corpus, bits):
                       ({"bits": 6}, "bits")):
         with pytest.raises(ValueError, match=match):
             IVFPQIndex(docs, **{"n_clusters": 16, "m": 8, "device": "cpu", **kw})
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(TypeError, match="Mesh"):
         IVFPQIndex(docs, n_clusters=16, m=8, mesh=object(), device="cpu")
     with pytest.raises(ValueError, match="cos_sim/dot_score"):
         idx.search(queries, score="euclid_score")

@@ -294,7 +294,7 @@ def test_port_built_index_and_its_options(corpus):
     assert chunks.n_docs == 3000 and chunks._refine_rows is None
     with pytest.raises(ValueError, match="keep_rows"):
         chunks.search(q, refine_factor=2)
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(TypeError, match="Mesh"):
         PQIndex(x, m=M, mesh=object(), device="cpu")
     with pytest.raises(ValueError, match="multiple of 8"):
         PQIndex(x, m=4, device="cpu")

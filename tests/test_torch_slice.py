@@ -27,6 +27,7 @@ from qst_tpu.retrieval import Retriever as JaxRetriever
 from qst_tpu.retrieval.index import ExactIndex as JaxExactIndex
 from qst_tpu.retrieval.retriever import load_index as jax_load_index
 from qst_tpu_torch.core.config import EncoderConfig
+from qst_tpu_torch.core.meshes import batch_sharding, make_mesh, single_device_mesh
 from qst_tpu_torch.models.hf_import import state_dict_from_flax_params
 from qst_tpu_torch.models.sentence_encoder import SentenceEncoder
 from qst_tpu_torch.models.tokenizer import HashTokenizer
@@ -89,7 +90,7 @@ def test_exact_index_search_ids_stream_and_errors(corpus):
         s1, i1 = idx.search(b, k=4)
         np.testing.assert_array_equal(ss, s1)
         np.testing.assert_array_equal(ii, i1)
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(TypeError, match="Mesh"):
         ExactIndex(emb, mesh=object(), device="cpu")
     with pytest.raises(ValueError, match="unknown backend"):
         idx.search(queries, backend="tpu")
@@ -166,6 +167,94 @@ def test_retriever_paths_agree_and_persist_across_packages(stacks, tmp_path):
 
 
 def test_unported_retriever_options_raise(stacks):
+    """A mesh that is not the port's is refused (a JAX mesh included)."""
     _, tenc, _ = stacks
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(TypeError, match="Mesh"):
         Retriever(tenc, mesh=object())
+
+
+@pytest.fixture(scope="module")
+def tmesh():
+    return make_mesh(4, 2, devices=["cpu"] * 8)
+
+
+@pytest.mark.parametrize("kind", ["float32", "int8", "ivf", "pq", "ivfpq", "streaming"])
+def test_sharded_retriever_journey(stacks, tmesh, mesh8, tmp_path, kind):
+    """``Retriever(mesh=)`` over eight CPU positions: build (or build to
+    disk), search, save, and reload sharded — the answers the unsharded
+    Retriever's from the same encoder and seed (up to ties), the artifact
+    free of the mesh's padding and readable by qst_tpu, and for the exact
+    kinds qst_tpu's ``Retriever(mesh=mesh8)``'s answers."""
+    jenc, tenc, docs = stacks
+    if kind in ("pq", "ivfpq"):     # the codebooks train on >= 256 docs
+        docs = docs + [f"{d} w{i % 60}" for i, d in enumerate(docs)]
+    kw = dict(index_dtype=kind, ivf_clusters=4, ivf_probe=4, pq_m=8)
+    ids = [f"d{i}" for i in range(len(docs))]
+    made = {}
+    for name, mesh in (("sharded", tmesh), ("plain", None)):
+        r = Retriever(tenc, mesh=mesh, **kw)
+        if kind == "streaming":
+            r.build_to_disk(docs, str(tmp_path / f"{name}_disk"), ids=ids)
+        else:
+            r.build(docs, ids=ids)
+        made[name] = r
+    assert made["sharded"].index.mesh is tmesh and made["plain"].index.mesh is None
+
+    def answers(r):
+        rows = r.search(QUERIES, k=5)
+        return ([[x[1] for x in row] for row in rows],
+                [[ids.index(x[0]) for x in row] for row in rows])
+
+    want = answers(made["plain"])
+    assert_topk_equal_up_to_ties(*answers(made["sharded"]), *want, rtol=1e-6, atol=1e-6)
+    made["sharded"].save(str(tmp_path / "idx"))
+    with open(tmp_path / "idx" / "ids.json") as f:
+        assert json.load(f) == ids
+    if kind in ("float32", "int8", "streaming"):
+        assert np.load(tmp_path / "idx" / "embeddings.npy").shape[0] == len(docs)
+        jidx, _ = jax_load_index(str(tmp_path / "idx"))
+        assert jidx.n_docs == len(docs)
+    if kind in ("ivf", "ivfpq"):
+        fill = np.load(tmp_path / "idx" / f"{kind}_fill.npy")
+        cells = np.load(tmp_path / "idx" / f"{kind}_{'cells' if kind == 'ivf' else 'cell_codes'}.npy")
+        assert cells.shape[0] == fill.shape[0] == 4      # no padded cell saved
+    again = Retriever(tenc, mesh=tmesh, **kw).load(str(tmp_path / "idx"))
+    assert again.index.mesh is tmesh
+    assert_topk_equal_up_to_ties(*answers(again), *want, rtol=1e-6, atol=1e-6)
+    if kind in ("float32", "int8"):
+        jr = JaxRetriever(jenc, mesh=mesh8, index_dtype=kind).build(docs, ids=ids)
+        assert_topk_equal_up_to_ties(*answers(made["sharded"]), *answers(jr),
+                                     rtol=0, atol=1e-5)
+
+
+def test_sharded_sentence_encoder_matches_jax(stacks, tmesh, mesh8):
+    """``SentenceEncoder(mesh=, out_sharding=)``, after
+    tests/test_parallel.py:123-160: batches rounded up to the data axis and
+    split over it give the unsharded encode's embeddings bit for bit, and
+    qst_tpu's sharded encode's within 1e-5 (70 texts: a ragged last batch;
+    the port takes and ignores ``pipeline_batches``)."""
+    from jax.sharding import NamedSharding, PartitionSpec as P
+
+    from qst_tpu.core.meshes import DATA_AXIS
+
+    jenc, tenc, _ = stacks
+    texts = [f"sentence {i} topic {i % 7}" for i in range(70)]
+    jsh = JaxSentenceEncoder(jenc.cfg, jenc.params, jenc.tokenizer, mesh=mesh8,
+                             out_sharding=NamedSharding(mesh8, P(DATA_AXIS)))
+    want = jsh.encode(texts, batch_size=32)
+    params = tenc.model.state_dict()
+    plain = tenc.encode(texts, batch_size=32)
+    for out in (None, batch_sharding(tmesh)):
+        enc = SentenceEncoder(tenc.cfg, params, tenc.tokenizer, mesh=tmesh, out_sharding=out)
+        got = enc.encode(texts, batch_size=32, pipeline_batches=3)
+        np.testing.assert_array_equal(got, plain)
+        np.testing.assert_allclose(got, want, rtol=0, atol=1e-5)
+        dev = enc.encode(texts[:5], convert_to_numpy=False)
+        assert dev.shape == (5, tenc.cfg.hidden_size) and dev.device == torch.device("cpu")
+    # one position, or a data axis of one: the unsharded path, as in qst_tpu
+    for one in (single_device_mesh("cpu"), make_mesh(1, 8, devices=["cpu"] * 8)):
+        enc = SentenceEncoder(tenc.cfg, params, tenc.tokenizer, mesh=one)
+        assert enc._n_data == 1 and (enc.mesh is None) == (one.size == 1)
+        np.testing.assert_array_equal(enc.encode(texts, batch_size=32), plain)
+    with pytest.raises(TypeError, match="out_sharding"):
+        SentenceEncoder(tenc.cfg, params, tenc.tokenizer, out_sharding=object())

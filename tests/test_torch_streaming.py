@@ -129,7 +129,7 @@ def test_bf16_stream_equals_exact_index_and_refusals(memmap):
                       ({"transfer_dtype": "int8", "normalize": True}, "always normalizes")):
         with pytest.raises(ValueError, match=match):
             StreamingExactIndex(mm, device="cpu", **kw)
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(TypeError, match="Mesh"):
         StreamingExactIndex(mm, mesh=object(), device="cpu")
     with pytest.raises(ValueError, match="cos_sim|dot_score"):
         idx.search(q, score="euclid_score")
@@ -188,17 +188,9 @@ def _resident_topk(idx, q, k):
     return torch.topk(s, k, dim=1)
 
 
-@pytest.mark.cuda
-def test_double_buffer_reuses_its_buffers_safely_on_the_card(monkeypatch):
-    """Eight tiles through the two device buffers, the last ragged, with
-    the compute stream stalled before each tile's search for four times
-    the host's fill of a tile, so the device falls behind the host: a copy
-    that did not wait until the search of the buffer's last tile had read
-    it would overwrite that tile first. The kernels' path equals a top-k
-    over the whole corpus as sent, held on the card at once, for bf16, int8
-    quantized per tile and f32."""
-    if not torch.cuda.is_available():
-        pytest.skip("needs a GPU")
+def _stalled_double_buffer(monkeypatch, mesh=None):
+    """Eight tiles through the two device buffers, each shard's search
+    stalled; the kernels' path against ``_resident_topk``."""
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     start.record()
     torch.cuda._sleep(10 ** 8)
@@ -210,7 +202,7 @@ def test_double_buffer_reuses_its_buffers_safely_on_the_card(monkeypatch):
     q = rng.standard_normal((256, 384)).astype(np.float32)
     step = StreamingExactIndex._tile_step
     for transfer in ("bfloat16", "int8", "float32"):
-        idx = StreamingExactIndex(x, tile_rows=65536, transfer_dtype=transfer)
+        idx = StreamingExactIndex(x, tile_rows=65536, transfer_dtype=transfer, mesh=mesh)
         buf = torch.empty((65536, 384), dtype=idx.transfer_dtype)
         t0 = time.perf_counter()
         idx._fill_tile(1, buf)
@@ -225,3 +217,30 @@ def test_double_buffer_reuses_its_buffers_safely_on_the_card(monkeypatch):
         monkeypatch.undo()
         want = _resident_topk(idx, q, 10)
         assert_topk_equal_up_to_ties(*got, *(t.cpu().numpy() for t in want), rtol=0, atol=1e-4)
+
+
+@pytest.mark.cuda
+def test_double_buffer_reuses_its_buffers_safely_on_the_card(monkeypatch):
+    """Eight tiles through the two device buffers, the last ragged, with
+    the compute stream stalled before each tile's search for four times
+    the host's fill of a tile, so the device falls behind the host: a copy
+    that did not wait until the search of the buffer's last tile had read
+    it would overwrite that tile first. The kernels' path equals a top-k
+    over the whole corpus as sent, held on the card at once, for bf16, int8
+    quantized per tile and f32."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a GPU")
+    _stalled_double_buffer(monkeypatch)
+
+
+@pytest.mark.cuda
+def test_double_buffer_reuses_its_buffers_safely_on_a_sharded_index(monkeypatch):
+    """The same eight stalled tiles over a 4 × 2 mesh of one card: one
+    copy stream and one pair of device buffers for the card, each tile's
+    eight shards searched from views of them, a copy never overwriting a
+    buffer before every shard's search of it was queued."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a GPU")
+    from qst_tpu_torch.core.meshes import make_mesh
+
+    _stalled_double_buffer(monkeypatch, make_mesh(4, 2, devices=["cuda:0"] * 8))
