@@ -9,6 +9,7 @@
     python3 chip_smoke.py --phases build,roberta   # RoBERTa, the cross-encoder, the MLM head
     python3 chip_smoke.py --phases build,marian    # Marian and the on-card backtranslator
     python3 chip_smoke.py --phases build,mesh      # the sharded serving path
+    python3 chip_smoke.py --phases build,train_mesh   # training on meshes
     python3 chip_smoke.py --phases build,check,train,evaluate
     python3 chip_smoke.py --phases build,dataset,capture,ablation
     python3 chip_smoke.py --phases build,ablation --ablation_steps 2000   # the decisive run
@@ -188,10 +189,28 @@ Phases (any failure exits non-zero and prints no result):
    scored on the CPU against the CPU's own beam search (near ties counted);
    get_backtranslator(backend="jax") over 256 captions at batch 32:
    translations/s a hop and round trip, ms a decode step, busy share and
-   launches a step; dataset_main with adaptive_crop_augment over 32 images,
+   launches a step; dataset_main with adaptive_crop_augment over 16 images,
    every part-positive a Marian roundtrip on the card.
 
-16. mesh  — the sharded serving path on a 4 x 2 mesh of eight positions of
+16. train_mesh — training on meshes of positions of one card (bf16 MiniLM-L6
+   at full width, batch 32 quadruplets, S = 128): a data-parallel step on a
+   4 x 1 mesh and a data- and tensor-parallel one on 4 x 2 through the fused
+   path (6 K1 and 6 K2 a data shard, K3 once on the gathered embeddings, by
+   wrapper count and the attention kernels by name) against the unsharded
+   step (loss, first-step gradients: cosine >= 0.999, each tensor within
+   5e-2), two calls at dropout 0.1 bit-equal and the shards' layer seeds
+   distinct, a 1 x 1 mesh the unsharded step bit for bit; tensor parallelism
+   on the nn.Module path in f32 on 1 x 2 and 4 x 2 (parameters after a step
+   within 1e-4); make_multi_step(K = 4) on 4 x 1 (fused, dropout 0.1) and on
+   the nn.Module path with dropout 0.1 and no mesh, two calls against eight
+   eager steps bit for bit; the pipeline (2 x 2 GPipe and 3 stages x 2
+   rounds circular, M = 4; nn.Module layers, K3) in f32 against the
+   unpipelined step (1e-4) and bit-equal at dropout 0.1; train_main
+   --mesh_data 4 --mesh_model 2 --use_fused_layer and --pp_stages 2 under
+   $QST_TORCH_VIRTUAL_DEVICES=8, each best artifact encoding; each form's ms
+   a step beside its unsharded self, launches and busy share.
+
+17. mesh  — the sharded serving path on a 4 x 2 mesh of eight positions of
    one card (core/meshes.py): ExactIndex over 1M x 384 bf16 and int8 at Q =
    4,096 through K4 + K5 in every shard (8 launches each a search, 8 of each
    by name in a profile) against the unsharded search, a 129-row index with
@@ -205,7 +224,7 @@ Phases (any failure exits non-zero and prints no result):
    attention at (8, 12, 4,096, 32) f32 with a backward; each sharded time
    beside its unsharded one (the shard structure's cost on one card).
 
-17. pq    — the compressed and streamed indexes, last (run before the
+18. pq    — the compressed and streamed indexes, last (run before the
    profiled phases, it makes their torch.profiler traces lose kernels,
    although it tears down what it opened; the cause is not known):
    index_main build |
@@ -247,7 +266,8 @@ import urllib.request
 import numpy as np
 
 PHASES = ("build", "check", "serve", "ivf", "train", "times", "profile", "evaluate", "dataset",
-          "capture", "ablation", "mpnet", "flash", "roberta", "marian", "mesh", "pq")
+          "capture", "ablation", "mpnet", "flash", "roberta", "marian", "train_mesh", "mesh",
+          "pq")
 
 
 def fail(msg: str) -> None:
@@ -504,6 +524,7 @@ def check_kernels(report: dict) -> None:
     report["K5"] = {"max_abs_err": k5_err}
     check_training_kernels(report)
     check_layer_edges(report)
+    check_module_keep(report)
     check_ivf(report)
 
 
@@ -536,6 +557,59 @@ def grad_errors(out: dict, ref: dict):
         worst_max = max(worst_max, (d.max().item() / scale.max().item(), n))
         worst_mean = max(worst_mean, (d.mean().item() / scale.mean().item(), n))
     return worst_max, worst_mean, worst_abs
+
+
+# the nn.Module train step's dropout sites at MiniLM-L6 width (batch 32
+# quadruplets, S = 128): the attention probabilities, a model shard's heads
+# of them (TP over 2), the hidden states, and a ragged size
+KEEP_SHAPES = (((128, 12, 128, 128), None), ((128, 6, 128, 128), (6, 12)),
+               ((128, 128, 384), None), ((3, 5, 7), None))
+
+
+def check_module_keep(report: dict) -> None:
+    """K9, the nn.Module path's dropout keep-mask (one launch a mask):
+    bit for bit its plain version (the same hash in PyTorch integer ops) at
+    the train step's shapes, under a key and a folded key; ms against the
+    plain version and against the torch.rand draw it replaced, at the
+    attention probabilities' (128, 12, 128, 128)."""
+    import torch
+
+    from qst_tpu_torch.ops import fused_layer as fl
+
+    dev = torch.device("cuda")
+    key = torch.tensor([14, 3], dtype=torch.int64, device=dev)
+    err = 0.0
+    for shape, heads in KEEP_SHAPES:
+        for k in (key, fl.fold_key(key, 2)):
+            got = fl.module_keep_mask(k, 3, 1, shape, 0.1, dev, heads)
+            want = fl.module_keep_mask_plain(k, 3, 1, shape, 0.1, dev, heads)
+            torch.cuda.synchronize()
+            if got.shape != want.shape or got.dtype != torch.bool:
+                fail(f"K9 {shape}: {got.dtype} {tuple(got.shape)}, want bool {shape}")
+            err = max(err, (got.float() - want.float()).abs().max().item())
+    kept = fl.module_keep_mask(key, 3, 1, KEEP_SHAPES[0][0], 0.1, dev).float().mean().item()
+    log(f"K9 module_keep_mask at {[s for s, _ in KEEP_SHAPES]} (heads (6, 12) on the second): "
+        f"max|err| {err} against the plain version (limit 0: the same bits); kept share "
+        f"{kept:.5f} at rate 0.1")
+    if err != 0.0 or abs(kept - 0.9) > 1e-3:
+        fail("K9: the keep-mask differs from its plain version")
+    shape = KEEP_SHAPES[0][0]
+    n = shape[0] * shape[1] * shape[2] * shape[3]
+    ms = cuda_ms(lambda: fl.module_keep_mask(key, 3, 1, shape, 0.1, dev), 20, warmup=2)
+    plain_ms = cuda_ms(lambda: fl.module_keep_mask_plain(key, 3, 1, shape, 0.1, dev), 5)
+    rand_ms = cuda_ms(lambda: torch.rand(shape, device=dev) < 0.9, 20, warmup=2)
+    # one bool written an element and the key read; 11 integer operations an
+    # element (the hash, its mask and the compare), counted at the table's
+    # float32 rate outside the tensor cores (the table has no int32 rate)
+    b = bound(n + 16, 11.0 * n, "float32")
+    report["K9"].update(max_abs_err=err, ms=ms, plain_ms=plain_ms, torch_rand_ms=rand_ms,
+                        shape=list(shape), **b)
+    log(f"K9 at {shape}: {ms:.4f} ms (bound {b['bound_ms']:.4f} ms by {b['bound_by']}, "
+        f"{b['bound_ms'] / ms:.0%}); plain {plain_ms:.3f} ms; torch.rand < 0.9 {rand_ms:.4f} ms")
+
+
+def add_keep_launches(report: dict, n: int) -> None:
+    report["K9"]["launches"] = report["K9"].get("launches", 0) + n
 
 
 def check_training_kernels(report: dict) -> None:
@@ -2615,14 +2689,14 @@ def times(report: dict) -> None:
     unbound_ms = cuda_ms(unbound, 200)
     # one call's device operations, counted exactly; an operation of no
     # account goes first because a trace may miss the first kernel after it
-    # starts, and a second trace is taken when this one lost the forward too
-    for attempt in range(2):
+    # starts, and another trace is taken when this one lost the forward too
+    for attempt in range(3):
         seq = device_sequence(lambda: (one.clone(), unbound()))
         while seq and "quadruplet_" not in seq[0]:
             seq.pop(0)
         if seq and "quadruplet_fwd_kernel" in seq[0]:
             break
-        log(f"the trace lost K3's forward (attempt {attempt + 1} of 2): {seq}")
+        log(f"the trace lost K3's forward (attempt {attempt + 1} of 3): {seq}")
     report["K3"].update(autograd_ms=auto_ms, autograd_unbound_ms=unbound_ms)
     log(f"K3 forward + backward: {1e3 * report['K3']['ms']:.1f} us per call on CUDA events, "
         f"of which {1e3 * sum(k3_dev.values()):.1f} us on the device (the rest is launch "
@@ -2636,7 +2710,7 @@ def times(report: dict) -> None:
 
     # train steps/s at the training configuration: the kernel path against
     # the nn.Module path with the plain loss, in turns
-    report["train_steps_per_s"] = train_step_rates(gen)
+    report["train_steps_per_s"] = train_step_rates(gen, report)
 
     # encode sentences/s, B=256, S=128: fused (K1) against the nn.Module path
     cfg = EncoderConfig.minilm_l6(use_fused_layer=True)
@@ -2789,16 +2863,18 @@ def train_setup(enc_cfg, loss_cfg, gen, device):
     return state, make_train_step(enc_cfg, loss_cfg), ids, mask
 
 
-def train_step_rates(gen) -> dict:
+def train_step_rates(gen, report: dict) -> dict:
     """Steps/s (host clock, synchronised) of the kernel path one step a
     call, the same steps captured four a call (one CUDA graph replay), and
     the nn.Module path with the plain loss, timed in turns: kernels,
     captured, module, module, captured, kernels; 20 steps each after warm-up
-    (3 steps; the captured path's first call runs eagerly and captures)."""
+    (3 steps; the captured path's first call runs eagerly and captures);
+    K9's launches over the nn.Module path's timed steps."""
     import dataclasses
 
     import torch
 
+    from qst_tpu_torch.ops import fused_layer as fl
     from qst_tpu_torch.train import dropout_key, make_multi_step
 
     dev = torch.device("cuda")
@@ -2808,6 +2884,7 @@ def train_step_rates(gen) -> dict:
                         dataclasses.replace(loss_cfg, use_fused_kernel=False))}
     rates = {"kernels": [], "captured": [], "module": []}
     K = 4
+    keep = []
     for name in ("kernels", "captured", "module", "module", "captured", "kernels"):
         state, step, ids, mask = train_setup(*paths[name], gen, dev)
         if name == "captured":
@@ -2822,15 +2899,24 @@ def train_step_rates(gen) -> dict:
         for c in warm:
             c()
         torch.cuda.synchronize()
+        fl.module_keep_mask.launches = 0
         t0 = time.perf_counter()
         for c in timed:
             c()
         torch.cuda.synchronize()
         rates[name].append(n / (time.perf_counter() - t0))
+        if name == "module":
+            keep.append(fl.module_keep_mask.launches)
         del state
     log(f"train steps/s, MiniLM-L6, batch 32 quadruplets, S=128, bf16, dropout 0.1: "
         f"kernel path {rates['kernels']}, captured {K} a call {rates['captured']}, "
-        f"nn.Module path with plain loss {rates['module']}")
+        f"nn.Module path with plain loss {rates['module']} (K9 launches over its 20 steps "
+        f"{keep})")
+    # one mask a dropout site: the embeddings' and three a layer, a step
+    if keep != [20 * (3 * enc_cfg.num_layers + 1)] * 2:
+        fail(f"the nn.Module train step's dropout launched K9 {keep} times in its two turns "
+             f"of 20 steps, want {20 * (3 * enc_cfg.num_layers + 1)} each")
+    add_keep_launches(report, sum(keep))
     return rates
 
 
@@ -3697,6 +3783,11 @@ def mpnet_ir_eval(report: dict, mpnet_dir: str, tmp: str) -> None:
         f: m["map@100"] for f, m in run["results"]["baseline"]["metrics"].items()}
 
 
+# the MPNet-base train step's profiled steps a turn (at ten, the trace of the
+# host's operators added about 50 s to the whole run)
+MPNET_PROFILED_STEPS = 4
+
+
 def mpnet_times(report: dict) -> None:
     """K1 and K2 at MPNet-base (S = 128 and 384) and MiniLM-L6 (S = 128 and
     256) beside their bounds and plain versions; encode sentences/s at
@@ -3799,14 +3890,14 @@ def mpnet_times(report: dict) -> None:
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
-            for i in range(10):
+            for i in range(MPNET_PROFILED_STEPS):
                 state, _ = step(state, ids, mask, dropout_key(14, i + 4))
             torch.cuda.synchronize()
-            wall = (time.perf_counter() - t0) * 1e3 / 10
+            wall = (time.perf_counter() - t0) * 1e3 / MPNET_PROFILED_STEPS
         dev_ms = sum(device_us(e) for e in prof.key_averages()
                      if e.device_type.name == "CUDA"
                      and not getattr(e, "is_user_annotation", False)
-                     and not e.key.startswith("Optimizer.")) / 1e3 / 10
+                     and not e.key.startswith("Optimizer.")) / 1e3 / MPNET_PROFILED_STEPS
         if name == "kernels":
             ban_library_kernels({e.key: 0 for e in prof.key_averages()
                                  if e.device_type.name == "CUDA"}, "the MPNet-base train step")
@@ -5034,6 +5125,563 @@ def mesh(report: dict) -> None:
         tear_down()
     report["mesh"]["part_s"] = parts
     log("mesh phase by part (s): " + ", ".join(f"{n} {v:.1f}" for n, v in parts.items()))
+
+
+# ---------------------------------------------------------------------------
+# train_mesh: training on device meshes (data- and tensor-parallel steps, the
+# captured sharded step, the pipeline, train_main's mesh flags)
+# ---------------------------------------------------------------------------
+TM_BATCH = 32                # quadruplets a step: 128 sequences
+TM_SEQ = 128
+
+
+def tm_batch(seed: int, vocab: int, n: int = 1):
+    """n (4, 32, 128) batches of ids and masks (lengths 16-128), numpy."""
+    rng = np.random.default_rng(seed)
+    ids = rng.integers(5, vocab, (n, 4, TM_BATCH, TM_SEQ)).astype(np.int64)
+    lengths = rng.integers(16, TM_SEQ + 1, (n, 4, TM_BATCH, 1))
+    mask = (np.arange(TM_SEQ)[None, None, None, :] < lengths).astype(np.int64)
+    return (ids[0], mask[0]) if n == 1 else (ids, mask)
+
+
+_TM_WEIGHTS: dict = {}
+
+
+def tm_weights(enc_cfg, seed: int = 21) -> dict:
+    """MiniLM-L6's random weights from ``seed``, on the card, drawn once a
+    seed (a state copies them; it never aliases them)."""
+    import torch
+
+    from qst_tpu_torch.models.sentence_encoder import init_params
+
+    if seed not in _TM_WEIGHTS:
+        _TM_WEIGHTS[seed] = init_params(enc_cfg, torch.Generator().manual_seed(seed),
+                                        device="cuda:0")
+    return _TM_WEIGHTS[seed]
+
+
+def tm_state(enc_cfg, loss_cfg, tcfg, mesh, seed: int = 21):
+    """A train state from one seed's weights: tensor-parallel when the mesh
+    has a model axis > 1, else plain, on the card."""
+    import torch
+
+    from qst_tpu_torch.train import create_train_state
+    from qst_tpu_torch.train.train_step import create_train_state_sharded
+
+    sd = tm_weights(enc_cfg, seed)
+    if mesh is not None and mesh.shape.get("model", 1) > 1:
+        return create_train_state_sharded(enc_cfg, tcfg, torch.Generator(), 100, mesh, loss_cfg,
+                                          initial_params=sd)[0]
+    return create_train_state(enc_cfg, tcfg, torch.Generator(), 100, loss_cfg,
+                              initial_params=sd, device="cuda:0")[0]
+
+
+def tm_counted(what: str, fn, want: list, report: dict, keep_want=0):
+    """K1, K2, K3 forward and K3 backward launches of ``fn`` (every count set
+    to 0 just before, read just after), added to the report's rows; fail
+    unless ``want``, or unless K9 launched ``keep_want`` times (None: any
+    number). → (fn's result, the four counts, K9's)."""
+    import torch
+
+    from qst_tpu_torch.ops.fused_layer import module_keep_mask
+
+    counters = train_counters()
+    for c in (*counters, module_keep_mask):
+        c.launches = 0
+    out = fn()
+    torch.cuda.synchronize()
+    got, keep = [c.launches for c in counters], module_keep_mask.launches
+    if got != want or (keep_want is not None and keep != keep_want):
+        fail(f"train_mesh {what}: launches {got} ({', '.join(COUNTED)}), K9 {keep}; want "
+             f"{want}, K9 {keep_want}")
+    add_train_launches(report, got)
+    add_keep_launches(report, keep)
+    return out, got, keep
+
+
+def tm_grads(enc_cfg, loss_cfg, state, mesh, ids, mask) -> dict:
+    """The first step's gradients under HF names (a tensor-parallel state's
+    gathered), dropout 0, through ``encoder_apply_fn(cfg, mesh)``."""
+    import torch
+
+    from qst_tpu_torch.train.train_step import encoder_apply_fn, loss_from_config
+
+    state.model.zero_grad(set_to_none=True)
+    state.model.train()
+    emb = encoder_apply_fn(enc_cfg, mesh)(state.model, ids.reshape(4 * TM_BATCH, -1),
+                                          mask.reshape(4 * TM_BATCH, -1), None)
+    loss_from_config(loss_cfg)(*emb.reshape(4, TM_BATCH, -1).unbind(0)).backward()
+    torch.cuda.synchronize()
+    named = {n: p.grad.detach().clone() for n, p in state.model.named_parameters()}
+    return named if state.layout is None else state.layout.export(named)
+
+
+def tm_grad_bars(what: str, got: dict, ref: dict) -> dict:
+    """The train phase's bars on gradients: cosine >= 0.999 over all of them
+    and every tensor within 5e-2 of the reference's norm (the key bias, whose
+    gradient is rounding noise, against the query bias's)."""
+    import torch
+
+    flat_g = torch.cat([got[n].flatten().float() for n in ref])
+    flat_r = torch.cat([g.flatten().float() for g in ref.values()])
+    cos = torch.nn.functional.cosine_similarity(flat_g, flat_r, dim=0).item()
+    worst = (0.0, "")
+    for n, g in ref.items():
+        den = ref[n.replace("key", "query")] if n.endswith("self.key.bias") else g
+        worst = max(worst, (((got[n] - g).norm() / den.norm().clamp_min(1e-30)).item(), n))
+    log(f"train_mesh {what}: first-step gradients against the unsharded step's: cosine "
+        f"{cos:.6f} (limit 0.999), worst per tensor {worst[0]:.3e} ({worst[1]}; limit 5e-2)")
+    if not (cos >= 0.999 and worst[0] <= 5e-2):
+        fail(f"train_mesh {what}: gradients disagree with the unsharded step's")
+    return {"grad_cosine": cos, "grad_worst": worst[0]}
+
+
+def tm_same(a, b) -> bool:
+    return all(torch_equal(x, y) for x, y in zip(a.optimizer.state_tensors(),
+                                                  b.optimizer.state_tensors()))
+
+
+def torch_equal(x, y) -> bool:
+    import torch
+
+    return bool(torch.equal(x, y))
+
+
+def tm_busy(fn, ms: float, calls: int = 1) -> dict:
+    """``window`` over one call of ``fn`` (``calls`` steps): device ms and
+    launches a step, and the busy share against ``ms``, the step's time
+    measured without the profiler."""
+    w = window(fn, calls)
+    launches = sum(c for c, _ in w["kernels"].values()) / calls
+    if not launches:
+        fail("train_mesh: the profiler saw no kernel of a step")
+    return {"device_ms": w["device_ms_per_step"], "launches_per_call": launches,
+            "busy": w["device_ms_per_step"] / ms}
+
+
+def tm_step_time(make_state, step, ids, mask, key) -> dict:
+    """ms a step (CUDA events over two steps, after a warm-up step) of
+    ``step`` on a fresh state, launches a step and the device's busy share."""
+    state = make_state()
+    ms = cuda_ms(lambda: step(state, ids, mask, key), 2, warmup=1)
+    return {"ms": ms, **tm_busy(lambda: step(state, ids, mask, key), ms)}
+
+
+def tm_data_parallel(report: dict, out: dict) -> None:
+    """DP (4 x 1) and DP + TP (4 x 2) through K1 / K2 per data shard and K3
+    once, fused path, bf16: one step at dropout 0 against the unsharded step
+    from the same state and batch (loss, gradients, launches by wrapper and
+    by name); a 1 x 1 mesh equals the unsharded step bit for bit; at
+    dropout 0.1 two calls are bit-equal and the shards draw other masks."""
+    import dataclasses
+
+    import torch
+
+    from qst_tpu_torch.core.meshes import make_mesh
+    from qst_tpu_torch.ops.fused_layer import fold_key, step_draws
+    from qst_tpu_torch.train import dropout_key, make_train_step
+
+    enc_cfg, loss_cfg, base = train_config()
+    tcfg = dataclasses.replace(base, learning_rate=1e-4, scheduler="constantlr")
+    cfg0 = dataclasses.replace(enc_cfg, hidden_dropout=0.0, attention_dropout=0.0)
+    ids_np, mask_np = tm_batch(31, enc_cfg.vocab_size)
+    ids, mask = torch.from_numpy(ids_np).cuda(), torch.from_numpy(mask_np).cuda()
+    L = enc_cfg.num_layers
+    plain_state = tm_state(cfg0, loss_cfg, tcfg, None)
+    ref_grads = tm_grads(cfg0, loss_cfg, plain_state, None, ids, mask)
+    ref_loss = make_train_step(cfg0, loss_cfg)(tm_state(cfg0, loss_cfg, tcfg, None), ids, mask,
+                                               None)[1].item()
+    for label, shape in (("DP 4x1", (4, 1)), ("DP+TP 4x2", (4, 2))):
+        mesh = make_mesh(*shape, devices=["cuda:0"] * (shape[0] * shape[1]))
+        n_data = shape[0]
+        want = [L * n_data, L * n_data, 1, 1]
+        state = tm_state(cfg0, loss_cfg, tcfg, mesh)
+        step = make_train_step(cfg0, loss_cfg, None, mesh)
+        (_, loss), launches, _ = tm_counted(label, lambda: step(state, ids, mask, None), want,
+                                            report)
+        grads = tm_grad_bars(label, tm_grads(cfg0, loss_cfg, tm_state(cfg0, loss_cfg, tcfg, mesh),
+                                             mesh, ids, mask), ref_grads)
+        rel = abs(loss.item() - ref_loss) / abs(ref_loss)
+        # by name: K1's attention kernel once a layer and shard, K2's
+        # recompute of it as often, K2's attention backward once, K3's two
+        # kernels once a step
+        want_names = {"attention_mma_kernel": 2 * L * n_data,
+                      "attention_bwd_mma_kernel": L * n_data,
+                      "quadruplet_fwd_kernel": 1, "quadruplet_bwd_kernel": 1}
+
+        def named(c, mark):
+            return sum(v for n, v in c.items() if f"::{mark}" in n)
+
+        names = kernel_counts(lambda: step(state, ids, mask, None), lambda c: all(
+            named(c, m) >= v for m, v in want_names.items()), reps=2)
+        by_name = {m: named(names, m) for m in want_names}
+        bad = {m: (by_name[m], v) for m, v in want_names.items() if by_name[m] != v}
+        log(f"train_mesh {label} (MiniLM-L6, batch 32 quadruplets, S=128, bf16, fused): loss "
+            f"{loss.item():.6f} against {ref_loss:.6f} unsharded (rel {rel:.2e}, limit 1e-2); "
+            f"launches K1 {launches[0]}, K2 {launches[1]}, K3 {launches[2]} + {launches[3]}; "
+            f"by name a step: {by_name} (want {want_names})")
+        if not rel <= 1e-2 or bad:
+            fail(f"train_mesh {label}: loss {rel:.2e} off, or kernels by name {bad}")
+        # dropout 0.1: the same step twice from the same state is bit-equal
+        key = dropout_key(14, 1)
+        runs = []
+        for _ in range(2):
+            st = tm_state(enc_cfg, loss_cfg, tcfg, mesh)
+            _, l2 = make_train_step(enc_cfg, loss_cfg, None, mesh)(st, ids, mask, key)
+            runs.append((l2, st))
+        torch.cuda.synchronize()
+        same = torch_equal(runs[0][0], runs[1][0]) and tm_same(runs[0][1], runs[1][1])
+        seeds = [step_draws(fold_key(key.cuda(), i), L)[1] for i in range(n_data)]
+        distinct = len({tuple(s.flatten().tolist()) for s in seeds}) == n_data
+        log(f"train_mesh {label} at dropout 0.1: two calls bit-equal {same}; the {n_data} data "
+            f"shards' layer seeds distinct {distinct}")
+        if not (same and distinct):
+            fail(f"train_mesh {label}: dropout steps not bit-equal, or shards share masks")
+        del runs
+        out[label] = {"loss": loss.item(), "unsharded_loss": ref_loss, "loss_rel": rel,
+                      **grads, "launches": launches, "by_name": by_name,
+                      "dropout_bit_equal": same}
+    # a 1 x 1 mesh is the unsharded step bit for bit (dropout 0.1)
+    key = dropout_key(14, 2)
+    pair = []
+    for mesh in (None, make_mesh(1, 1, devices=["cuda:0"])):
+        st = tm_state(enc_cfg, loss_cfg, tcfg, mesh)
+        _, l1 = make_train_step(enc_cfg, loss_cfg, None, mesh)(st, ids, mask, key)
+        pair.append((l1, st))
+    torch.cuda.synchronize()
+    one = torch_equal(pair[0][0], pair[1][0]) and tm_same(pair[0][1], pair[1][1])
+    log(f"train_mesh 1x1 mesh against no mesh, dropout 0.1: bit-equal {one}")
+    if not one:
+        fail("train_mesh: a 1x1 mesh differs from the unsharded step")
+    out["one_position_bit_equal"] = one
+
+
+def tm_module_tp(report: dict, out: dict) -> None:
+    """TP on the nn.Module path, f32: 1 x 2 and 4 x 2 meshes, one step
+    against the unsharded step (parameters within 1e-4, the loss)."""
+    import dataclasses
+
+    import torch
+
+    from qst_tpu_torch.core.meshes import make_mesh
+    from qst_tpu_torch.train import make_train_step
+
+    enc_cfg, _, base = train_config()
+    cfg = dataclasses.replace(enc_cfg, use_fused_layer=False, dtype="float32",
+                              hidden_dropout=0.0, attention_dropout=0.0)
+    from qst_tpu_torch.core.config import LossConfig
+
+    loss_cfg = LossConfig(kind="gamma", use_fused_kernel=True)
+    tcfg = dataclasses.replace(base, learning_rate=1e-5, scheduler="constantlr")
+    ids_np, mask_np = tm_batch(32, cfg.vocab_size)
+    ids, mask = torch.from_numpy(ids_np).cuda(), torch.from_numpy(mask_np).cuda()
+    ref = tm_state(cfg, loss_cfg, tcfg, None)
+    _, ref_loss = make_train_step(cfg, loss_cfg)(ref, ids, mask, None)
+    ref_sd = ref.flat_state_dict()
+    for shape in ((1, 2), (4, 2)):
+        mesh = make_mesh(*shape, devices=["cuda:0"] * (shape[0] * shape[1]))
+        st = tm_state(cfg, loss_cfg, tcfg, mesh)
+        (_, loss), _, _ = tm_counted(f"TP nn.Module {shape}", lambda: make_train_step(
+            cfg, loss_cfg, None, mesh)(st, ids, mask, None), [0, 0, 1, 1], report)
+        got = st.flat_state_dict()
+        worst = max(((got[k] - v).abs().max().item(), k) for k, v in ref_sd.items())
+        rel = abs(loss.item() - ref_loss.item()) / abs(ref_loss.item())
+        log(f"train_mesh TP nn.Module {shape[0]}x{shape[1]} f32: loss rel {rel:.2e} (limit "
+            f"1e-5), parameters after one step within {worst[0]:.2e} of the unsharded step's "
+            f"({worst[1]}; limit 1e-4)")
+        if not (worst[0] <= 1e-4 and rel <= 1e-5):
+            fail(f"train_mesh TP nn.Module {shape}: parameters or loss disagree")
+        out[f"TP nn.Module {shape[0]}x{shape[1]}"] = {"param_max_err": worst[0], "loss_rel": rel}
+
+
+def tm_captured(report: dict, out: dict) -> None:
+    """make_multi_step(K=4) on the 4 x 1 mesh (fused, dropout 0.1) and on the
+    nn.Module path without a mesh (dropout 0.1): two calls (eager +
+    capture, then a replay) against eight eager steps, bit for bit, with
+    each call's launches exact (K9's: K times an eager step's)."""
+    import dataclasses
+
+    import torch
+
+    from qst_tpu_torch.core.meshes import make_mesh
+    from qst_tpu_torch.train import dropout_key, make_multi_step, make_train_step
+
+    enc_cfg, loss_cfg, base = train_config()
+    tcfg = dataclasses.replace(base, learning_rate=1e-4, warmup_steps=2)
+    K = 4
+    ids, mask = tm_batch(33, enc_cfg.vocab_size, 2 * K)
+    keys = torch.stack([dropout_key(14, s) for s in range(1, 2 * K + 1)])
+    for label, cfg, mesh, per_step in (
+            ("DP 4x1 fused", enc_cfg, make_mesh(4, 1, devices=["cuda:0"] * 4),
+             [6 * 4, 6 * 4, 1, 1]),
+            ("nn.Module, no mesh", dataclasses.replace(enc_cfg, use_fused_layer=False), None,
+             [0, 0, 1, 1])):
+        graph_st, eager_st = (tm_state(cfg, loss_cfg, tcfg, mesh) for _ in range(2))
+        step = make_train_step(cfg, loss_cfg, None, mesh)
+        # K9: one mask a dropout site of the nn.Module path (the embeddings'
+        # and three a layer) a step; none on the fused path
+        keep = 0 if mesh is not None else 2 * K * (3 * cfg.num_layers + 1)
+        eager, _, _ = tm_counted(f"eager {label}", lambda: torch.stack([step(
+            eager_st, ids[j], mask[j], keys[j])[1] for j in range(2 * K)]),
+            [2 * K * n for n in per_step], report, keep)
+        multi = make_multi_step(cfg, loss_cfg, None, K, mesh)
+        graph_losses, launches = [], []
+        for call in range(2):
+            part = slice(call * K, (call + 1) * K)
+            (_, losses), got, got_keep = tm_counted(
+                f"captured {label} call {call}", lambda: multi(
+                    graph_st, ids[part], mask[part], keys[part]), [K * n for n in per_step],
+                report, keep // 2)
+            launches.append(got + [got_keep])
+            graph_losses.append(losses)
+        if multi._graph is None:
+            fail(f"train_mesh captured {label}: no graph was captured")
+        graph_losses = torch.cat(graph_losses)
+        same = torch_equal(graph_losses, eager) and tm_same(graph_st, eager_st)
+        log(f"train_mesh captured {label} (K={K}, dropout 0.1): 2 calls against {2 * K} eager "
+            f"steps bit-equal {same}; launches a call (K1, K2, K3 fwd, bwd, K9) {launches}, "
+            f"K9 over the eager steps {keep}")
+        if not same:
+            fail(f"train_mesh captured {label}: replays differ from the eager steps")
+        out[f"captured {label}"] = {"bit_equal": same, "launches_per_call": launches[1]}
+        del graph_st, eager_st, multi
+
+
+def tm_pipeline(report: dict, out: dict) -> None:
+    """The pipeline on the nn.Module layers, K3 for the loss: 2 x 2 GPipe
+    (M = 4) and 3 stages x 2 rounds circular (M = 4); f32 at dropout 0 the
+    forward and one step against the unpipelined step (1e-4); bf16 at
+    dropout 0.1 two calls bit-equal."""
+    import dataclasses
+
+    import torch
+
+    from qst_tpu_torch.parallel.pipeline import (
+        PipelineLayout,
+        make_pipe_mesh,
+        make_pp_embed_fn,
+        make_pp_train_step,
+        pp_params_from_encoder,
+    )
+    from qst_tpu_torch.train import dropout_key, make_train_step
+    from qst_tpu_torch.train.train_step import TrainState, make_optimizer
+
+    enc_cfg, loss_cfg, base = train_config()
+    tcfg = dataclasses.replace(base, learning_rate=1e-5, scheduler="constantlr")
+    cfg32 = dataclasses.replace(enc_cfg, use_fused_layer=False, dtype="float32",
+                                hidden_dropout=0.0, attention_dropout=0.0)
+    cfg_drop = dataclasses.replace(enc_cfg, use_fused_layer=False)
+    ids_np, mask_np = tm_batch(34, enc_cfg.vocab_size)
+    ids, mask = torch.from_numpy(ids_np).cuda(), torch.from_numpy(mask_np).cuda()
+    flat_ids, flat_mask = ids.reshape(4 * TM_BATCH, -1), mask.reshape(4 * TM_BATCH, -1)
+    sd = tm_weights(enc_cfg)
+    ref = tm_state(cfg32, loss_cfg, tcfg, None)
+    with torch.no_grad():
+        ref_emb = ref.model(flat_ids, flat_mask)["sentence_embedding"]
+    _, ref_loss = make_train_step(cfg32, loss_cfg)(ref, ids, mask, None)
+    ref_sd = ref.flat_state_dict()
+    for label, (pipe, data, M, V) in (("GPipe 2x2", (2, 2, 4, 1)),
+                                      ("circular 3 stages x 2 rounds", (3, 1, 4, 2))):
+        mesh = make_pipe_mesh(pipe, data, devices=["cuda:0"] * (pipe * data))
+
+        def fresh(cfg):
+            model = pp_params_from_encoder(sd, cfg, pipe, mesh, V)
+            return TrainState(step=0, model=model,
+                              optimizer=make_optimizer(tcfg, 100, model.parameters()),
+                              layout=PipelineLayout(cfg, pipe, V))
+
+        st = fresh(cfg32)
+        with torch.no_grad():
+            emb = make_pp_embed_fn(cfg32, mesh, pipe, M, V)(st.model, flat_ids, flat_mask)
+        fwd_err = (emb - ref_emb).abs().max().item()
+        (_, loss), launches, _ = tm_counted(f"pipeline {label}", lambda: make_pp_train_step(
+            cfg32, loss_cfg, None, mesh, pipe, M, V)(st, ids, mask, None), [0, 0, 1, 1], report)
+        got = st.flat_state_dict()
+        worst = max(((got[k] - v).abs().max().item(), k) for k, v in ref_sd.items())
+        loss_err = abs(loss.item() - ref_loss.item())
+        step = make_pp_train_step(cfg_drop, loss_cfg, None, mesh, pipe, M, V)
+        pair, keeps = [], []
+        for _ in range(2):
+            s2 = fresh(cfg_drop)
+            (_, l2), _, keep = tm_counted(f"pipeline {label} dropout 0.1", lambda: step(
+                s2, ids, mask, dropout_key(14, 1)), [0, 0, 1, 1], report, None)
+            pair.append((l2, s2))
+            keeps.append(keep)
+        if not keeps[0] or keeps[0] != keeps[1]:
+            fail(f"train_mesh pipeline {label}: K9 launches {keeps} at dropout 0.1")
+        same = torch_equal(pair[0][0], pair[1][0]) and tm_same(pair[0][1], pair[1][1])
+        log(f"train_mesh pipeline {label} (M={M}): f32 forward within {fwd_err:.2e} of the "
+            f"unpipelined encoder, loss within {loss_err:.2e}, parameters after one step "
+            f"within {worst[0]:.2e} ({worst[1]}; limits 1e-4); bf16 dropout 0.1 two calls "
+            f"bit-equal {same}; K3 {launches[2]} + {launches[3]}")
+        if not (fwd_err <= 1e-4 and loss_err <= 1e-4 and worst[0] <= 1e-4 and same):
+            fail(f"train_mesh pipeline {label}: disagrees with the unpipelined step")
+        out[f"pipeline {label}"] = {"forward_max_err": fwd_err, "loss_err": loss_err,
+                                    "param_max_err": worst[0], "dropout_bit_equal": same}
+        del st, pair
+
+
+def tm_cli(report: dict, out: dict) -> None:
+    """train_main --mesh_data 4 --mesh_model 2 --use_fused_layer and
+    train_main --pp_stages 2 under $QST_TORCH_VIRTUAL_DEVICES=8, a few steps
+    each; each best artifact loads into SentenceEncoder and encodes."""
+    import tempfile
+
+    import torch
+
+    from qst_tpu_torch.cli import common, train_main
+    from qst_tpu_torch.core.config import EncoderConfig
+    from qst_tpu_torch.models.sentence_encoder import SentenceEncoder
+    from qst_tpu_torch.models.tokenizer import HashTokenizer
+
+    from qst_tpu_torch.ops.fused_layer import module_keep_mask
+
+    cfg = EncoderConfig.minilm_l6()
+    counters = (*train_counters(), module_keep_mask)
+    saved = os.environ.get("QST_TORCH_VIRTUAL_DEVICES")
+    os.environ["QST_TORCH_VIRTUAL_DEVICES"] = "8"
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            write_quadruplet_chunks(f"{tmp}/data", 160, seed=35)
+            for label, flags, want in (
+                    ("--mesh_data 4 --mesh_model 2 --use_fused_layer",
+                     ["--mesh_data", "4", "--mesh_model", "2", "--use_fused_layer"], 24),
+                    ("--pp_stages 2", ["--pp_stages", "2"], 0)):
+                exp = f"{tmp}/exp_{len(out)}"
+                for c in counters:
+                    c.launches = 0
+                t0 = time.perf_counter()
+                rc = train_main.main([
+                    "--dataset_root", f"{tmp}/data", "--experiment_dir", exp,
+                    "--use_fused_loss_kernel", "--batch_size", "32", "--epochs", "1",
+                    "--evaluation_steps", "2", "--max_val_samples", "16", "--seed", "14",
+                    *flags])
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+                launches = [c.launches for c in counters]
+                add_train_launches(report, launches)
+                add_keep_launches(report, launches[4])
+                best = common.load_best_params(exp)
+                enc = SentenceEncoder(cfg, {k: v.cuda() for k, v in best.items()},
+                                      HashTokenizer(cfg.vocab_size))
+                emb = enc.encode(synthetic_docs(64, seed=36))
+                ok = (rc == 0 and emb.shape == (64, cfg.hidden_size)
+                      and bool(np.isfinite(emb).all()))
+                log(f"train_mesh train_main {label}: rc {rc} in {wall:.1f} s; launches "
+                    f"K1 {launches[0]}, K2 {launches[1]}, K3 {launches[2]} + {launches[3]}, "
+                    f"K9 {launches[4]}; the best artifact encodes 64 texts to {emb.shape}, "
+                    f"finite {ok}")
+                # the fused path draws its masks in K1; the pipeline's
+                # nn.Module layers (dropout 0.1) through K9
+                if (not ok or (want and launches[1] % want) or launches[1] < want
+                        or bool(want) == bool(launches[4])):
+                    fail(f"train_mesh train_main {label}: rc {rc}, launches {launches}")
+                out[f"train_main {label}"] = {"wall_s": wall, "launches": launches}
+    finally:
+        if saved is None:
+            os.environ.pop("QST_TORCH_VIRTUAL_DEVICES", None)
+        else:
+            os.environ["QST_TORCH_VIRTUAL_DEVICES"] = saved
+
+
+def tm_times(out: dict) -> None:
+    """ms a step of each form beside its unsharded self (CUDA events, in
+    turns), with launches a step and the busy share: the shard structure's
+    cost on one card, not scaling."""
+    import dataclasses
+
+    import torch
+
+    from qst_tpu_torch.core.meshes import make_mesh
+    from qst_tpu_torch.parallel.pipeline import (
+        PipelineLayout,
+        make_pipe_mesh,
+        make_pp_train_step,
+        pp_params_from_encoder,
+    )
+    from qst_tpu_torch.train import dropout_key, make_multi_step, make_train_step
+    from qst_tpu_torch.train.train_step import TrainState, make_optimizer
+
+    enc_cfg, loss_cfg, base = train_config()
+    tcfg = dataclasses.replace(base, learning_rate=1e-5, scheduler="constantlr")
+    ids_np, mask_np = tm_batch(37, enc_cfg.vocab_size)
+    ids, mask = torch.from_numpy(ids_np).cuda(), torch.from_numpy(mask_np).cuda()
+    key = dropout_key(14, 1).cuda()
+    module = dataclasses.replace(enc_cfg, use_fused_layer=False)
+    sd = tm_weights(enc_cfg)
+    times = {}
+
+    def form(name, cfg, mesh, make_step):
+        def make_state():
+            return tm_state(cfg, loss_cfg, tcfg, mesh)
+        times[name] = tm_step_time(make_state, make_step(), ids, mask, key)
+
+    m41 = make_mesh(4, 1, devices=["cuda:0"] * 4)
+    m42 = make_mesh(4, 2, devices=["cuda:0"] * 8)
+    form("fused unsharded", enc_cfg, None, lambda: make_train_step(enc_cfg, loss_cfg))
+    form("fused DP 4x1", enc_cfg, m41, lambda: make_train_step(enc_cfg, loss_cfg, None, m41))
+    form("fused DP+TP 4x2", enc_cfg, m42, lambda: make_train_step(enc_cfg, loss_cfg, None, m42))
+    form("module unsharded", module, None, lambda: make_train_step(module, loss_cfg))
+    m12 = make_mesh(1, 2, devices=["cuda:0"] * 2)
+    form("module TP 1x2", module, m12, lambda: make_train_step(module, loss_cfg, None, m12))
+    for name, (pipe, data, M, V) in (("module pipeline GPipe 2x2", (2, 2, 4, 1)),
+                                     ("module pipeline circular 3x2", (3, 1, 4, 2))):
+        pm = make_pipe_mesh(pipe, data, devices=["cuda:0"] * (pipe * data))
+
+        def make_state(pipe=pipe, pm=pm, V=V):
+            model = pp_params_from_encoder(sd, module, pipe, pm, V)
+            return TrainState(step=0, model=model,
+                              optimizer=make_optimizer(tcfg, 100, model.parameters()),
+                              layout=PipelineLayout(module, pipe, V))
+        times[name] = tm_step_time(make_state, make_pp_train_step(module, loss_cfg, None, pm,
+                                                                  pipe, M, V), ids, mask, key)
+    # the captured sharded step: 4 steps a call
+    K = 4
+    ids4 = ids[None].expand(K, *ids.shape).contiguous()
+    mask4 = mask[None].expand(K, *mask.shape).contiguous()
+    keys4 = torch.stack([dropout_key(14, s) for s in range(1, K + 1)])
+    for name, mesh in (("fused captured K=4 unsharded", None), ("fused captured K=4 DP 4x1",
+                                                                 m41)):
+        st = tm_state(enc_cfg, loss_cfg, tcfg, mesh)
+        multi = make_multi_step(enc_cfg, loss_cfg, None, K, mesh)
+        ms = cuda_ms(lambda: multi(st, ids4, mask4, keys4), 2, warmup=2) / K
+        times[name] = {"ms": ms, **tm_busy(lambda: multi(st, ids4, mask4, keys4), ms, K)}
+        del st, multi
+    for sharded, plain in (("fused DP 4x1", "fused unsharded"),
+                           ("fused DP+TP 4x2", "fused unsharded"),
+                           ("module TP 1x2", "module unsharded"),
+                           ("module pipeline GPipe 2x2", "module unsharded"),
+                           ("module pipeline circular 3x2", "module unsharded"),
+                           ("fused captured K=4 DP 4x1", "fused captured K=4 unsharded")):
+        times[sharded]["over_unsharded"] = times[sharded]["ms"] / times[plain]["ms"]
+    log("train_mesh times (ms a step; launches a step; busy): " + "; ".join(
+        f"{n} {t['ms']:.2f} ms ({t.get('over_unsharded', 1.0):.2f}x), "
+        f"{t['launches_per_call']} launches, {100 * t['busy']:.0f}%" for n, t in times.items()))
+    out["times"] = times
+
+
+def train_mesh(report: dict) -> None:
+    """Training on device meshes of positions of one card (core/meshes.py):
+    the shard structure's checks and costs, not scaling."""
+    import torch
+
+    out = {}
+    parts = {}
+    for name, fn in (("data_parallel", lambda: tm_data_parallel(report, out)),
+                     ("module_tp", lambda: tm_module_tp(report, out)),
+                     ("captured", lambda: tm_captured(report, out)),
+                     ("pipeline", lambda: tm_pipeline(report, out)),
+                     ("cli", lambda: tm_cli(report, out)),
+                     ("times", lambda: tm_times(out))):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        parts[name] = time.perf_counter() - t0
+    _TM_WEIGHTS.clear()
+    out["part_s"] = parts
+    log("train_mesh phase by part (s): " + ", ".join(f"{n} {v:.1f}" for n, v in parts.items()))
+    report["train_mesh"] = out
 
 
 # ---------------------------------------------------------------------------
@@ -6429,7 +7077,8 @@ MARIAN_PAIRS = 64          # teacher-forced pairs, card against CPU
 MARIAN_GEN_ROWS = 8        # rows through the uncached decoders too
 MARIAN_CPU_ROWS = 16       # rows beam-searched on the CPU as well
 MARIAN_CAPTIONS = 256      # the roundtrip's captions (8 batches of 32)
-MARIAN_IMAGES = 32         # dataset_main's images with Marian part-positives
+MARIAN_IMAGES = 16         # dataset_main's images with Marian part-positives (~2 s each:
+                           # the whole run's time limit)
 MARIAN_TOL = 1e-4          # relative to the largest magnitude / the best score
 
 
@@ -6733,7 +7382,7 @@ def marian_roundtrip(report: dict, dirs: dict, tok, caps: list) -> object:
 
 
 def marian_dataset(report: dict, bt) -> None:
-    """dataset_main with adaptive_crop_augment over 32 synthetic images while
+    """dataset_main with adaptive_crop_augment over 16 synthetic images while
     the on-card Marian is the memoized backtranslator: its chunks, every
     part-positive a Marian roundtrip (counted by wrapping backtranslate),
     images/s and backtranslation's share of the wall."""
@@ -6763,8 +7412,8 @@ def marian_dataset(report: dict, bt) -> None:
             fail("the memoized backtranslator is not the on-card Marian")
         t0 = time.perf_counter()
         code = dataset_main.main(["--ann_file", ann, "--output_root", f"{tmp}/out",
-                                  "--chunk_dim", "16", "--part_pos_algorithm",
-                                  "adaptive_crop_augment"])
+                                  "--chunk_dim", str(MARIAN_IMAGES // 2),
+                                  "--part_pos_algorithm", "adaptive_crop_augment"])
         wall = time.perf_counter() - t0
     finally:
         cls.backtranslate = backtranslate
@@ -6847,12 +7496,13 @@ def main() -> None:
     t0 = time.perf_counter()
     build.load()
     log(f"build: {time.perf_counter() - t0:.1f} s")
-    report = {n: {} for n in ("K1", "K2", "K3", "K4", "K5", "K6", "K7", "K8")}
+    report = {n: {} for n in ("K1", "K2", "K3", "K4", "K5", "K6", "K7", "K8", "K9")}
     # the phases run in the order given (PHASES' by default)
     fns = {"check": check_kernels, "serve": serve, "ivf": ivf, "train": train, "times": times,
            "profile": profile_phase, "evaluate": evaluate, "dataset": dataset,
            "capture": capture, "ablation": ablation, "mpnet": mpnet, "flash": flash,
-           "roberta": roberta, "marian": marian, "mesh": mesh, "pq": pq}
+           "roberta": roberta, "marian": marian, "train_mesh": train_mesh, "mesh": mesh,
+           "pq": pq}
     for phase in phases:
         if phase in fns:
             t0 = time.perf_counter()
@@ -6865,7 +7515,7 @@ def main() -> None:
                              "train", "train_steps_per_s", "ivf", "ivf_times", "ivf_times_4m", "layer_gemm",
                              "evaluate", "encode_depth", "capture", "ablation", "mpnet",
                              "mpnet_kernel_names", "pq", "flash", "roberta", "marian",
-                             "mesh")}))
+                             "train_mesh", "mesh")}))
     if "dataset" in report:
         log(json.dumps({"dataset": {k: v for k, v in report["dataset"].items() if k != "root"}}))
     log(json.dumps({"K1_training_layer": {k: report["K1"].get(k) for k in (
@@ -6897,7 +7547,9 @@ def main() -> None:
             ("K7 flash_attention", "qst_tpu_torch/kernels/csrc/flash_attention.cu",
              "jax/experimental/pallas/ops/tpu/flash_attention.py:758"),
             ("K8 flash_attention_bwd", "qst_tpu_torch/kernels/csrc/flash_attention.cu",
-             "jax/experimental/pallas/ops/tpu/flash_attention.py:1121")):
+             "jax/experimental/pallas/ops/tpu/flash_attention.py:1121"),
+            ("K9 module_keep_mask", "qst_tpu_torch/kernels/csrc/fused_layer.cu",
+             "qst_tpu/models/bert.py:109")):
         r = report[name[:2]]
         if name[:2] in ("K7", "K8"):
             # the library kernel qst_tpu calls at qst_tpu/models/bert.py:96;
@@ -6931,6 +7583,12 @@ def main() -> None:
             # error against the plain versions up to S = 512
             row["mpnet_long_s"] = r.get("mpnet_long_s")
             row["mpnet_max_abs_err"] = r.get("mpnet_max_abs_err")
+        if name[:2] == "K9":
+            # no TPU kernel: the nn.Module path's dropout, which qst_tpu draws
+            # with jax.random in flax's nn.Dropout (bert.py:55, :109, :115,
+            # :134); torch.rand's draw, which it replaced, timed beside it
+            row.update(replaces_note="flax nn.Dropout's jax.random draw, no Pallas kernel",
+                       torch_rand_ms=r.get("torch_rand_ms"), shape=r.get("shape"))
         if name[:2] in ("K4", "K5"):
             # the pq phase's shapes: one decoded 2M-row bf16 slice of the
             # PQ index's kernels' path, Q = 256 at k = 80 and Q = 4096 at 10

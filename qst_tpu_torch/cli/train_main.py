@@ -18,8 +18,12 @@ The flags and defaults are the JAX CLI's; ``--steps_per_call K`` runs K
 steps per call, one CUDA graph replay on the GPU. ``--hf_checkpoint_dir``
 starts from a local sentence-transformers directory (BERT or MPNet, at its
 own ``max_seq_length`` up to 512), ``--hf_checkpoint`` from a weights file.
-Not ported yet, and refused with a message: pipeline or mesh layouts
-(``--pp_*``, ``--mesh_*`` off their defaults).
+The mesh is built as the JAX CLI builds it: ``--mesh_data`` × ``--mesh_model``
+over the visible device positions (``--mesh_data -1``: all of them; one card
+is one position unless ``$QST_TORCH_VIRTUAL_DEVICES`` names more), or with
+``--pp_stages`` > 1 a ("pipe", "data") mesh for the pipelined trunk
+(``--pp_microbatches``, ``--pp_rounds``), which excludes ``--mesh_model``
+and ``--use_fused_layer``.
 """
 
 from __future__ import annotations
@@ -38,7 +42,6 @@ from qst_tpu_torch.cli.common import (
     add_hf_checkpoint_dir_flag,
     dump_args,
     encoder_from_args,
-    refuse_not_ported,
     resolve_hf_checkpoint_dir,
     tokenizer_from_args,
 )
@@ -113,7 +116,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--steps_per_call", type=int, default=1,
                    help="train steps per call: K > 1 replays K captured steps as one "
                    "CUDA graph")
-    # parallelism (not ported)
+    # parallelism
     p.add_argument("--pp_stages", type=int, default=1)
     p.add_argument("--pp_microbatches", type=int, default=0)
     p.add_argument("--pp_rounds", type=int, default=1)
@@ -140,13 +143,8 @@ def build_trainer(args: argparse.Namespace):
     from qst_tpu_torch.models.sentence_encoder import SentenceEncoder, init_params
     from qst_tpu_torch.train.trainer import Trainer
 
-    refuse_not_ported([
-        ("--pp_stages/--pp_microbatches/--pp_rounds",
-         (args.pp_stages, args.pp_microbatches, args.pp_rounds) != (1, 0, 1),
-         "pipeline parallelism"),
-        ("--mesh_data/--mesh_model", (args.mesh_data, args.mesh_model) != (-1, 1),
-         "device meshes"),
-    ])
+    from qst_tpu_torch.core.meshes import make_mesh, make_pipe_mesh, visible_devices
+
     device = resolve_device(args.device)
     seed_everything(args.seed)
     hf_ckpt = resolve_hf_checkpoint_dir(
@@ -188,6 +186,25 @@ def build_trainer(args: argparse.Namespace):
         early_stopping_mode="max", seed=args.seed,
         experiment_dir=args.experiment_dir, manual_notes=args.manual_notes)
     dump_args(args, args.experiment_dir, manual_notes=args.manual_notes)
+
+    devices = visible_devices(device)
+    if args.pp_stages > 1:
+        if args.mesh_model > 1:
+            raise SystemExit("--pp_stages and --mesh_model are exclusive "
+                             "(PP composes with data parallelism only)")
+        if args.use_fused_layer:
+            raise SystemExit(
+                "--pp_stages and --use_fused_layer are exclusive: the "
+                "pipelined trunk runs the nn.Module layer path (stage chunks "
+                "a tick), not the fused per-layer kernels")
+        pp_data = (args.mesh_data if args.mesh_data > 0
+                   else max(1, len(devices) // args.pp_stages))
+        mesh = make_pipe_mesh(args.pp_stages, pp_data, devices=devices)
+        logger.info("pipeline training: %d stages x %d data shards, "
+                    "%d microbatches, %d rounds", args.pp_stages, pp_data,
+                    args.pp_microbatches or args.pp_stages, args.pp_rounds)
+    else:
+        mesh = make_mesh(args.mesh_data, args.mesh_model, devices=devices)
 
     # initial weights: the checkpoint directory's, a weights file's, or random
     if hf_params is not None:
@@ -241,8 +258,10 @@ def build_trainer(args: argparse.Namespace):
 
     # train FROM the resolved weights (copied: the miner keeps the frozen ones)
     return Trainer(encoder_cfg, loss_cfg, train_cfg, base_ds, collator,
-                   evaluator=evaluator, steps_per_call=args.steps_per_call,
-                   initial_params=init, device=device)
+                   evaluator=evaluator, mesh=mesh, steps_per_call=args.steps_per_call,
+                   initial_params=init, pp_stages=args.pp_stages,
+                   pp_microbatches=args.pp_microbatches, pp_rounds=args.pp_rounds,
+                   device=device)
 
 
 def main(argv=None) -> int:

@@ -12,6 +12,9 @@ tests' eight virtual CPU devices share one host: the CPU tests and one GPU
 then run the sharded code itself, and a host with several cards places the
 shards on distinct ones.
 
+- A :class:`Mesh` has two named axes: ``("data", "model")`` by default, or
+  ``("pipe", "data")`` from ``make_pipe_mesh`` (the pipeline's stages over
+  ``pipe``, each microbatch's rows over ``data``).
 - ``make_mesh(data=-1, model=1, devices=None)``: ``devices=None`` takes
   :func:`visible_devices` — every CUDA card, and an error without one.
   ``$QST_TORCH_VIRTUAL_DEVICES=n`` (read here only) makes that list n long,
@@ -40,6 +43,7 @@ import torch
 
 DATA_AXIS = "data"
 MODEL_AXIS = "model"
+PIPE_AXIS = "pipe"
 
 VIRTUAL_DEVICES_ENV = "QST_TORCH_VIRTUAL_DEVICES"
 
@@ -49,43 +53,56 @@ PROCESS_ID_ENV = "QST_PROCESS_ID"
 
 
 class Mesh:
-    """A (data, model) grid of devices in one process.
+    """A 2-D grid of devices in one process with two named axes, ``("data",
+    "model")`` unless ``axis_names`` says otherwise (``make_pipe_mesh``:
+    ``("pipe", "data")``).
 
-    ``devices`` is row-major: position i = data_index·model + model_index
-    (``flat_shard_index``). ``shape`` is ``{"data": d, "model": m}``, as the
-    JAX mesh's."""
+    ``devices`` is row-major: position i = row·columns + column
+    (``flat_shard_index``). ``shape`` maps each axis name to its size, as
+    the JAX mesh's does."""
 
-    def __init__(self, grid: Sequence[Sequence[Any]]):
+    def __init__(self, grid: Sequence[Sequence[Any]],
+                 axis_names: Tuple[str, str] = (DATA_AXIS, MODEL_AXIS)):
         rows = [[torch.device(d) for d in row] for row in grid]
         if not rows or not rows[0] or any(len(r) != len(rows[0]) for r in rows):
             raise ValueError("a mesh is a non-empty rectangular grid of devices")
+        if len(axis_names) != 2 or axis_names[0] == axis_names[1]:
+            raise ValueError(f"a mesh has two distinct axis names, got {axis_names}")
         self.grid = rows
         self.devices: List[torch.device] = [d for row in rows for d in row]
-        self.shape = {DATA_AXIS: len(rows), MODEL_AXIS: len(rows[0])}
-        self.axis_names = (DATA_AXIS, MODEL_AXIS)
+        self.axis_names = tuple(axis_names)
+        self.shape = {self.axis_names[0]: len(rows), self.axis_names[1]: len(rows[0])}
 
     @property
     def size(self) -> int:
         return len(self.devices)
 
-    def flat_shard_index(self, data_index: int, model_index: int) -> int:
-        return data_index * self.shape[MODEL_AXIS] + model_index
+    def flat_shard_index(self, row_index: int, column_index: int) -> int:
+        return row_index * len(self.grid[0]) + column_index
 
     def axis_devices(self, axis: str) -> List[torch.device]:
         """The device of each shard along one axis (the other axis's first
         position: along ``data`` a batch shard is replicated over ``model``)."""
-        if axis == DATA_AXIS:
+        if axis == self.axis_names[0]:
             return [row[0] for row in self.grid]
-        if axis == MODEL_AXIS:
+        if axis == self.axis_names[1]:
             return list(self.grid[0])
         raise ValueError(f"unknown mesh axis {axis!r}; axes {self.axis_names}")
+
+    def device_at(self, **index: int) -> torch.device:
+        """The device at one position, by axis name (an axis left out: its
+        first position): ``mesh.device_at(data=i, model=j)``."""
+        if any(a not in self.shape for a in index):
+            raise ValueError(f"unknown mesh axis in {sorted(index)}; axes {self.axis_names}")
+        return self.grid[index.get(self.axis_names[0], 0)][index.get(self.axis_names[1], 0)]
 
     def distinct_devices(self) -> List[torch.device]:
         """The mesh's devices without repeats, in first-appearance order."""
         return list(dict.fromkeys(self.devices))
 
     def __eq__(self, other) -> bool:
-        return isinstance(other, Mesh) and other.grid == self.grid
+        return (isinstance(other, Mesh) and other.grid == self.grid
+                and other.axis_names == self.axis_names)
 
     def __repr__(self) -> str:
         return f"Mesh({self.shape}, devices={[str(d) for d in self.devices]})"
@@ -146,6 +163,18 @@ def make_mesh(data: int = -1, model: int = 1,
     if data * model > n:
         raise ValueError(f"mesh {data}x{model} needs more than {n} devices")
     return Mesh([devs[r * model:(r + 1) * model] for r in range(data)])
+
+
+def make_pipe_mesh(pipe: int, data: int = 1,
+                   devices: Optional[Sequence[Any]] = None) -> Mesh:
+    """A 2-D ("pipe", "data") mesh (``qst_tpu/parallel/pipeline.py:59``):
+    stage p's row holds the devices of its ``data`` shards."""
+    devs = [torch.device(d) for d in (devices if devices is not None else visible_devices())]
+    if pipe < 1 or data < 1:
+        raise ValueError(f"mesh {pipe}x{data}: both axes must be >= 1")
+    if pipe * data > len(devs):
+        raise ValueError(f"mesh {pipe}x{data} needs more than {len(devs)} devices")
+    return Mesh([devs[p * data:(p + 1) * data] for p in range(pipe)], (PIPE_AXIS, DATA_AXIS))
 
 
 def single_device_mesh(device: Any = None) -> Mesh:
@@ -353,14 +382,17 @@ def replicate(x: torch.Tensor, mesh: Mesh) -> dict:
     return {d: to_device(x, d) for d in mesh.distinct_devices()}
 
 
-def shard_loop(mesh: Mesh, fn: Callable[[int, torch.device], Any]) -> list:
+def shard_loop(mesh: Mesh, fn: Callable[[int, torch.device], Any],
+               axis: Optional[str] = None) -> list:
     """Run ``fn(shard_index, device)`` for every shard in ``flat_shard_index``
-    order, each on its device (``torch.cuda.device`` context for a card).
-    Nothing here waits for a device: a shard's work is queued behind the
-    previous shard's without a host sync, so offsets and counts the body
-    needs are host ints."""
+    order, each on its device (``torch.cuda.device`` context for a card);
+    with ``axis``, for each position along that axis only (its device:
+    ``axis_devices``). Nothing here waits for a device: a shard's work is
+    queued behind the previous shard's without a host sync, so offsets and
+    counts the body needs are host ints."""
     out = []
-    for i, dev in enumerate(mesh.devices):
+    devices = mesh.devices if axis is None else mesh.axis_devices(axis)
+    for i, dev in enumerate(devices):
         if dev.type == "cuda":
             with torch.cuda.device(dev):
                 out.append(fn(i, dev))

@@ -101,6 +101,43 @@ __global__ void drop_mask_kernel(float* __restrict__ out, int rows, int cols, Dr
     out[i] = drop_keep(d, seed, (uint32_t)i, tag);
 }
 
+// The nn.Module path's dropout keep-mask (models/bert.py `DeviceDropout`),
+// one pass: element i of a (d0, hl, rest) tensor, which holds heads
+// [first, first + hl) of a (d0, h_all, rest) one, is kept when the 31-bit
+// hash of its index in the whole tensor falls under thr. The site's seed is
+// hashed here from the dropout key (seed, step), an int64 pair on the
+// device, and layer * 4 + site, as ops/fused_layer.py `module_seed` does:
+// no host value, so a captured graph replays the draw. Four elements a
+// thread, stored as one 32-bit word of four bools.
+__device__ __forceinline__ uint32_t module_index(uint32_t i, bool narrow, uint32_t hl,
+                                                 uint32_t rest, uint32_t h_all,
+                                                 uint32_t first) {
+  if (!narrow) return i;
+  const uint32_t r = i % rest, t = i / rest;
+  return ((t / hl) * h_all + first + t % hl) * rest + r;
+}
+
+__global__ void module_keep_kernel(uint8_t* __restrict__ out, const long long* __restrict__ key,
+                                   uint32_t layer_site, uint32_t thr, uint32_t n, uint32_t hl,
+                                   uint32_t rest, uint32_t h_all, uint32_t first) {
+  const uint32_t base = drop_hash((uint32_t)key[1], (uint32_t)key[0], 7u);   // _TAG_STEP
+  const uint32_t seed = drop_hash(layer_site, base, 11u);                    // _TAG_MODULE
+  const bool narrow = hl != h_all;
+  const uint32_t stride = gridDim.x * blockDim.x, n4 = n / 4;
+  const uint32_t t0 = blockIdx.x * blockDim.x + threadIdx.x;
+  for (uint32_t q = t0; q < n4; q += stride) {
+    uint32_t bits = 0;
+#pragma unroll
+    for (uint32_t e = 0; e < 4; ++e) {
+      const uint32_t idx = module_index(4 * q + e, narrow, hl, rest, h_all, first);
+      bits |= (uint32_t)(drop_hash(idx, seed, 0u) < thr) << (8 * e);
+    }
+    reinterpret_cast<uint32_t*>(out)[q] = bits;
+  }
+  for (uint32_t i = 4 * n4 + t0; i < n; i += stride)
+    out[i] = drop_hash(module_index(i, narrow, hl, rest, h_all, first), seed, 0u) < thr;
+}
+
 }  // namespace qst
 
 using namespace qst;
@@ -140,6 +177,18 @@ extern "C" int qst_drop_mask(void* out, int rows, int cols, const void* seed, un
   cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
   const DropSite d = drop_site(seed, 1, thr, scale, 1, 1);
   drop_mask_kernel<<<264, 256, 0, st>>>(reinterpret_cast<float*>(out), rows, cols, d, tag);
+  QST_RETURN_IF_LAUNCH_FAILED();
+  return 0;
+}
+
+extern "C" int qst_module_keep(void* out, const void* key, unsigned layer_site, unsigned thr,
+                               unsigned n, unsigned hl, unsigned rest, unsigned h_all,
+                               unsigned first, void* stream) {
+  cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
+  const unsigned blocks = n / 4 / 256 + 1 < 1056 ? n / 4 / 256 + 1 : 1056;
+  module_keep_kernel<<<blocks, 256, 0, st>>>(reinterpret_cast<uint8_t*>(out),
+                                             reinterpret_cast<const long long*>(key),
+                                             layer_site, thr, n, hl, rest, h_all, first);
   QST_RETURN_IF_LAUNCH_FAILED();
   return 0;
 }

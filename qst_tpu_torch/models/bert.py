@@ -13,9 +13,20 @@ dict loads as it is. The forward keeps the Flax path's semantics:
 - dropout at the Flax sites — the embeddings after their LayerNorm, the
   attention probabilities, the attention output and the FFN output — only
   in ``train()`` mode and only when the forward is given a
-  ``dropout_generator``, from which every mask is drawn (Flax's
-  ``where(keep, x / keep_prob, 0)``; the bits are the generator's, not
-  JAX's).
+  ``dropout_generator`` (Flax's ``where(keep, x / keep_prob, 0)``; the bits
+  are not JAX's). It is either a :class:`DeviceDropout` — every mask a
+  pure function of a key tensor on the device, the global layer, the site
+  and the element, drawn by device integer ops alone, so a captured graph
+  replays the same draws (the training path's) — or a ``torch.Generator``
+  from which every mask is drawn in turn.
+
+``TensorParallelLayer`` is a layer's tensor-parallel form over a mesh's
+model axis (``parallel/sharding.py``'s rules): shard j holds heads
+[j·nh/m, (j+1)·nh/m) of Q, K and V with their columns of the attention
+output, and FFN columns [j·I/m, (j+1)·I/m) with their rows of the FFN
+output; each computes its partial of the two row-parallel products, and the
+partials are summed in shard order, in f32, before the bias, dropout,
+residual and LayerNorm, which are replicated.
 
 ``use_flash_attention`` routes the self-attention as qst_tpu's gate does
 (``_flash_attention_available``: S ≥ 128, a multiple of 128, and no active
@@ -79,14 +90,56 @@ def _layer_norm_f32(ln: nn.LayerNorm, x: torch.Tensor) -> torch.Tensor:
                         ln.bias.float(), ln.eps)
 
 
-def _dropout(module: nn.Module, x: torch.Tensor, rate: float,
-             gen: Optional[torch.Generator]) -> torch.Tensor:
+# dropout sites of a layer (and of the embeddings, at layer num_layers)
+SITE_EMBEDDINGS, SITE_PROBS, SITE_ATTENTION_OUT, SITE_FFN_OUT = 0, 1, 2, 3
+
+
+class DeviceDropout:
+    """Dropout drawn on the device from ``key`` = (seed, step), an int64
+    tensor of two on the model's device (``train_step.dropout_key``, folded
+    with a data-shard or microbatch index by ``ops.fused_layer.fold_key``
+    where a mesh or the pipeline adds one). The mask of (layer, site) keeps
+    element i when the 31-bit hash of i under ``module_seed(key, layer,
+    site)`` falls under the rate's threshold — the fused layer's hash: no
+    host value, no generator state. ``at_layer`` names the global layer
+    (the embeddings use ``num_layers``, as the JAX pipeline's streams do)."""
+
+    def __init__(self, key: torch.Tensor, layer: int = 0):
+        self.key = key
+        self.layer = layer
+
+    def at_layer(self, layer: int) -> "DeviceDropout":
+        return DeviceDropout(self.key, layer)
+
+    def keep(self, shape, site: int, rate: float, device,
+             heads: Optional[tuple] = None) -> torch.Tensor:
+        """The bool keep-mask of a tensor of ``shape`` (``heads`` as in
+        ``ops.fused_layer.module_keep_mask``, which draws it: one kernel
+        launch on a card)."""
+        from qst_tpu_torch.ops.fused_layer import module_keep_mask
+
+        return module_keep_mask(self.key, self.layer, site, shape, rate, device, heads)
+
+
+def at_layer(gen, layer: int):
+    """``gen`` for the layer ``layer``: a :class:`DeviceDropout` names it, a
+    generator (or None) is passed on as it is."""
+    return gen.at_layer(layer) if isinstance(gen, DeviceDropout) else gen
+
+
+def _dropout(module: nn.Module, x: torch.Tensor, rate: float, gen, site: int = 0,
+             heads: Optional[tuple] = None) -> torch.Tensor:
     """Flax ``nn.Dropout``: keep with probability 1 − rate and scale the kept
     values by 1/(1 − rate) in x's dtype; active in train() mode with a
-    generator (drawn on the generator's device)."""
+    ``DeviceDropout`` (the mask of ``site``; ``heads`` as in
+    ``DeviceDropout.keep``) or a generator (drawn on the generator's
+    device)."""
     if not module.training or gen is None or rate == 0.0:
         return x
-    keep = torch.rand(x.shape, generator=gen, device=gen.device).to(x.device) < 1.0 - rate
+    if isinstance(gen, DeviceDropout):
+        keep = gen.keep(x.shape, site, rate, x.device, heads)
+    else:
+        keep = torch.rand(x.shape, generator=gen, device=gen.device).to(x.device) < 1.0 - rate
     return torch.where(keep, x / (1.0 - rate), torch.zeros((), dtype=x.dtype, device=x.device))
 
 
@@ -121,7 +174,8 @@ class BertEmbeddings(nn.Module):
         for t in range(1, self.cfg.type_vocab_size):
             typ = torch.where(types == t, table[t], typ)
         x = _layer_norm_f32(self.LayerNorm, word + pos + typ.to(dt))
-        return _dropout(self, x, self.cfg.hidden_dropout, dropout_generator).to(dt)
+        return _dropout(self, x, self.cfg.hidden_dropout, dropout_generator,
+                        SITE_EMBEDDINGS).to(dt)
 
 
 class BertSelfAttention(nn.Module):
@@ -159,7 +213,7 @@ class BertSelfAttention(nn.Module):
         q, k, v = heads(self.query(hidden)), heads(self.key(hidden)), heads(self.value(hidden))
         logits = torch.einsum("bqhd,bkhd->bhqk", q, k) / math.sqrt(hd)
         probs = torch.softmax(logits + bias, dim=-1).to(hidden.dtype)
-        probs = _dropout(self, probs, self.rate, dropout_generator)
+        probs = _dropout(self, probs, self.rate, dropout_generator, SITE_PROBS)
         ctx = torch.einsum("bhqk,bkhd->bqhd", probs.float(), v)
         return ctx.reshape(B, S, H).to(hidden.dtype)
 
@@ -173,7 +227,7 @@ class BertSelfOutput(nn.Module):
 
     def forward(self, ctx: torch.Tensor, hidden: torch.Tensor,
                 dropout_generator: Optional[torch.Generator] = None) -> torch.Tensor:
-        out = _dropout(self, self.dense(ctx), self.rate, dropout_generator)
+        out = _dropout(self, self.dense(ctx), self.rate, dropout_generator, SITE_ATTENTION_OUT)
         return _layer_norm_f32(self.LayerNorm, out + hidden).to(hidden.dtype)
 
 
@@ -208,7 +262,7 @@ class BertOutput(nn.Module):
 
     def forward(self, inter: torch.Tensor, hidden: torch.Tensor,
                 dropout_generator: Optional[torch.Generator] = None) -> torch.Tensor:
-        out = _dropout(self, self.dense(inter), self.rate, dropout_generator)
+        out = _dropout(self, self.dense(inter), self.rate, dropout_generator, SITE_FFN_OUT)
         return _layer_norm_f32(self.LayerNorm, out + hidden).to(hidden.dtype)
 
 
@@ -266,27 +320,29 @@ class BertEncoder(nn.Module):
         else:
             position_ids = torch.arange(S, device=input_ids.device)[None, :]
         hidden = self.embeddings(input_ids, token_type_ids.long(), position_ids,
-                                 dropout_generator)
+                                 at_layer(dropout_generator, self.cfg.num_layers))
         bias = torch.where(attention_mask[:, None, None, :] > 0, 0.0, MASK_BIAS).float()
         remat = self.cfg.remat and torch.is_grad_enabled() and hidden.requires_grad
-        for layer in self.encoder.layer:
+        for i, layer in enumerate(self.encoder.layer):
+            gen = at_layer(dropout_generator, i)
             if remat:
-                hidden = _remat_layer(layer, hidden, bias, dropout_generator, attention_mask)
+                hidden = _remat_layer(layer, hidden, bias, gen, attention_mask)
             else:
-                hidden = layer(hidden, bias, dropout_generator, attention_mask)
+                hidden = layer(hidden, bias, gen, attention_mask)
         return hidden
 
 
 def _remat_layer(layer: nn.Module, hidden: torch.Tensor, bias: torch.Tensor,
-                 gen: Optional[torch.Generator], *extra: torch.Tensor) -> torch.Tensor:
+                 gen, *extra: torch.Tensor) -> torch.Tensor:
     """One layer under ``torch.utils.checkpoint``: its activations are
-    recomputed in the backward. The dropout masks come from ``gen``, whose
-    state checkpoint does not keep: the recomputation starts from the state
+    recomputed in the backward. A generator's masks come from its state,
+    which checkpoint does not keep: the recomputation starts from the state
     the forward started from (and puts back the one it found), so it draws
     the same masks. ``extra``: the layer's arguments after the generator
-    (BERT's attention mask)."""
-    if gen is None:
-        return checkpoint(layer, hidden, bias, None, *extra, use_reentrant=False)
+    (BERT's attention mask). A ``DeviceDropout`` draws the same masks on
+    every call, so the recomputation needs nothing kept."""
+    if gen is None or isinstance(gen, DeviceDropout):
+        return checkpoint(layer, hidden, bias, gen, *extra, use_reentrant=False)
     start = gen.get_state()
     first = [True]
 
@@ -302,3 +358,186 @@ def _remat_layer(layer: nn.Module, hidden: torch.Tensor, bias: torch.Tensor,
             gen.set_state(now)
 
     return checkpoint(run, hidden, bias, *extra, use_reentrant=False)
+
+
+# ---------------------------------------------------------------------------
+# The tensor-parallel layer form
+# ---------------------------------------------------------------------------
+# Where a layer's tensors sit in its HF state dict, by part: BERT's names
+# (MPNet's: models/mpnet.py MPNET_LAYER_PARTS)
+BERT_LAYER_PARTS = {"q": "attention.self.query", "k": "attention.self.key",
+                    "v": "attention.self.value", "o": "attention.output.dense",
+                    "ln1": "attention.output.LayerNorm", "i": "intermediate.dense",
+                    "out": "output.dense", "ln2": "output.LayerNorm"}
+
+# (the tensor-parallel layer's name, its layer part and tensor); "{j}" is the
+# shard. Which dimension a tensor splits over the model shards, if any, is
+# ``parallel/sharding.py``'s rule (``tp_split_dim``).
+TP_LAYER_NAMES = (
+    ("shards.{j}.query.weight", "q", "weight"), ("shards.{j}.query.bias", "q", "bias"),
+    ("shards.{j}.key.weight", "k", "weight"), ("shards.{j}.key.bias", "k", "bias"),
+    ("shards.{j}.value.weight", "v", "weight"), ("shards.{j}.value.bias", "v", "bias"),
+    ("shards.{j}.o.weight", "o", "weight"), ("o_bias", "o", "bias"),
+    ("ln1.weight", "ln1", "weight"), ("ln1.bias", "ln1", "bias"),
+    ("shards.{j}.intermediate.weight", "i", "weight"),
+    ("shards.{j}.intermediate.bias", "i", "bias"),
+    ("shards.{j}.output.weight", "out", "weight"), ("out_bias", "out", "bias"),
+    ("ln2.weight", "ln2", "weight"), ("ln2.bias", "ln2", "bias"),
+)
+
+
+def tp_split_dim(hf_name: str, ndim: int, name: str) -> Optional[int]:
+    """The dimension the layer tensor ``hf_name`` (relative to its layer)
+    splits over the model shards by ``parallel/sharding.py``'s rule, or
+    None when the rule replicates it; the tensor-parallel layer's ``name``
+    must hold a shard ("{j}") exactly when the rule splits."""
+    from qst_tpu_torch.parallel.sharding import spec_for_param, split_dim
+
+    dim = split_dim(spec_for_param(f"encoder.layer.0.{hf_name}", ndim))
+    if (dim is None) == ("{j}" in name):
+        raise ValueError(f"the sharding rule for {hf_name} ({dim}) does not fit the "
+                         f"tensor-parallel layer's {name}")
+    return dim
+
+
+class _LayerShard(nn.Module):
+    """One model shard of a layer: its heads of Q, K, V and their columns of
+    the attention output; its FFN columns and their rows of the FFN output."""
+
+    def __init__(self, H: int, part_h: int, part_i: int):
+        super().__init__()
+        self.query, self.key, self.value = (_Linear(H, part_h) for _ in range(3))
+        self.o = nn.Linear(part_h, H, bias=False)
+        self.intermediate = _Linear(H, part_i)
+        self.output = nn.Linear(part_i, H, bias=False)
+
+
+class TensorParallelLayer(nn.Module):
+    """A BERT or MPNet layer split over ``n_shards`` model shards
+    (``qst_tpu/parallel/sharding.py``'s rules over HF names). Its forward
+    takes a ``BertLayer``'s arguments; shard j computes on the device of its
+    own tensors, and the partials come back to the input's device, summed in
+    shard order. ``parts``: the HF part names (``BERT_LAYER_PARTS`` or
+    ``MPNET_LAYER_PARTS``), so that ``full_state`` / ``from_full`` map to
+    and from the layer's HF tensors."""
+
+    def __init__(self, cfg: EncoderConfig, n_shards: int, parts: dict):
+        super().__init__()
+        H, nh, inter = cfg.hidden_size, cfg.num_heads, cfg.intermediate_size
+        if nh % n_shards or inter % n_shards:
+            raise ValueError(f"{nh} heads and FFN width {inter} must divide into "
+                             f"{n_shards} model shards")
+        self.cfg, self.parts, self.n_shards = cfg, dict(parts), n_shards
+        self.shards = nn.ModuleList(
+            _LayerShard(H, H // n_shards, inter // n_shards) for _ in range(n_shards))
+        self.o_bias = nn.Parameter(torch.zeros(H))
+        self.out_bias = nn.Parameter(torch.zeros(H))
+        self.ln1 = nn.LayerNorm(H, eps=cfg.layer_norm_eps)
+        self.ln2 = nn.LayerNorm(H, eps=cfg.layer_norm_eps)
+
+    @classmethod
+    def from_full(cls, cfg: EncoderConfig, full: dict, parts: dict, devices) -> "TensorParallelLayer":
+        """The layer made from its HF tensors ``full`` ({"attention.self.query.weight":
+        ..., ...} relative to the layer): shard j's slices are copied to
+        ``devices[j]``, the replicated tensors stay on ``devices[0]``."""
+        with torch.device("meta"):
+            layer = cls(cfg, len(devices), parts)
+        layer = layer.to_empty(device=devices[0])
+        layer.load_state_dict(split_layer_state(full, parts, len(devices)))
+        for j, dev in enumerate(devices):
+            layer.shards[j].to(dev)
+        return layer
+
+    def full_state(self) -> dict:
+        """The layer's HF tensors (relative names), each gathered on the
+        first shard's device."""
+        return gather_layer_state(dict(self.named_parameters()), self.parts, self.n_shards)
+
+    def kernel_weights(self, dtype: torch.dtype) -> dict:
+        """The fused layer's operands (``layer_weights_for_training``'s
+        layout) with the shards gathered — the JAX package's ``P()`` in_specs
+        of the fused path — so gradients flow back to each slice."""
+        full = self.full_state()
+        p = self.parts
+
+        def mat(part):
+            return full[f"{p[part]}.weight"].t().to(dtype).contiguous()
+
+        def vec(part, t="bias"):
+            return full[f"{p[part]}.{t}"].reshape(1, -1).float().contiguous()
+
+        return dict(wq=mat("q"), bq=vec("q"), wk=mat("k"), bk=vec("k"), wv=mat("v"),
+                    bv=vec("v"), wo=mat("o"), bo=vec("o"), ln1_g=vec("ln1", "weight"),
+                    ln1_b=vec("ln1"), w1=mat("i"), b1=vec("i"), w2=mat("out"), b2=vec("out"),
+                    ln2_g=vec("ln2", "weight"), ln2_b=vec("ln2"))
+
+    def forward(self, hidden: torch.Tensor, bias: torch.Tensor, dropout_generator=None,
+                attention_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """``bias``: (B, 1, 1, S) or, with MPNet's relative bias, (B, nh, S,
+        S), of which shard j takes its heads. ``attention_mask`` is accepted
+        and unused (the shards run the einsum attention)."""
+        del attention_mask
+        B, S, H = hidden.shape
+        dt, home = hidden.dtype, hidden.device
+        nh = self.cfg.num_heads
+        nh_j, hd = nh // self.n_shards, H // nh
+        attn = ffn = None
+        for j, sh in enumerate(self.shards):
+            dev = sh.query.weight.device
+            x = hidden.to(dev)
+            b = bias.to(dev)
+            if b.shape[1] > 1:
+                b = b[:, j * nh_j:(j + 1) * nh_j]
+
+            def heads(t):
+                return t.reshape(B, S, nh_j, hd).float()
+
+            q, k, v = heads(sh.query(x)), heads(sh.key(x)), heads(sh.value(x))
+            logits = torch.einsum("bqhd,bkhd->bhqk", q, k) / math.sqrt(hd)
+            probs = torch.softmax(logits + b, dim=-1).to(dt)
+            probs = _dropout(self, probs, self.cfg.attention_dropout, dropout_generator,
+                             SITE_PROBS, heads=(j * nh_j, nh))
+            ctx = torch.einsum("bhqk,bkhd->bqhd", probs.float(), v).reshape(B, S, nh_j * hd)
+            part = F.linear(ctx.to(dt).float(), sh.o.weight.to(dt).float()).to(home)
+            attn = part if attn is None else attn + part
+        out = (attn + self.o_bias.to(dt).float()).to(dt)
+        out = _dropout(self, out, self.cfg.hidden_dropout, dropout_generator, SITE_ATTENTION_OUT)
+        hidden = _layer_norm_f32(self.ln1, out + hidden).to(dt)
+        for sh in self.shards:
+            x = hidden.to(sh.intermediate.weight.device)
+            inter = F.gelu(sh.intermediate(x).float(), approximate="none").to(dt)
+            part = F.linear(inter.float(), sh.output.weight.to(dt).float()).to(home)
+            ffn = part if ffn is None else ffn + part
+        out = (ffn + self.out_bias.to(dt).float()).to(dt)
+        out = _dropout(self, out, self.cfg.hidden_dropout, dropout_generator, SITE_FFN_OUT)
+        return _layer_norm_f32(self.ln2, out + hidden).to(dt)
+
+
+def split_layer_state(full: dict, parts: dict, n_shards: int) -> dict:
+    """A layer's HF tensors (relative names) → a ``TensorParallelLayer``'s
+    state dict: each split tensor cut into ``n_shards`` equal blocks."""
+    out = {}
+    for name, part, kind in TP_LAYER_NAMES:
+        t = full[f"{parts[part]}.{kind}"]
+        dim = tp_split_dim(f"{parts[part]}.{kind}", t.ndim, name)
+        if dim is None:
+            out[name] = t
+        else:
+            for j, block in enumerate(t.chunk(n_shards, dim)):
+                out[name.format(j=j)] = block
+    return out
+
+
+def gather_layer_state(named: dict, parts: dict, n_shards: int) -> dict:
+    """Inverse of ``split_layer_state``: the shards' blocks concatenated in
+    shard order on the first shard's device."""
+    out = {}
+    for name, part, kind in TP_LAYER_NAMES:
+        key = f"{parts[part]}.{kind}"
+        dim = tp_split_dim(key, named[name.format(j=0)].ndim, name)
+        if dim is None:
+            out[key] = named[name]
+        else:
+            blocks = [named[name.format(j=j)] for j in range(n_shards)]
+            out[key] = torch.cat([b.to(blocks[0].device) for b in blocks], dim)
+    return out

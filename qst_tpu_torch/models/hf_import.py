@@ -47,8 +47,16 @@ def state_dict_from_flax_params(params: Mapping[str, Any],
     """Flax ``SentenceEncoderModule`` / ``BertEncoder`` / ``MPNetEncoder`` /
     ``CrossEncoderModule`` / ``BertMLMModule`` params → the port's state
     dict (HF ``BertModel`` / ``MPNetModel`` trunk names, and the heads of
-    ``models/cross_encoder.py`` and ``models/mlm.py``), float32 on the CPU."""
+    ``models/cross_encoder.py`` and ``models/mlm.py``), float32 on the CPU.
+    A tensor-parallel state gathered to arrays has the flat tree's layout
+    and converts the same way. A pipeline tree ({"embeddings", "stages"},
+    every stage leaf with leading (n_stages, layers a stage) axes,
+    ``qst_tpu/parallel/pipeline.py``) becomes the stacked layout of
+    ``parallel/pipeline.py:PipelineLayout``: ``embeddings.*`` and
+    ``stages.{layer name}`` with the same two leading axes."""
     p = params["encoder"] if "encoder" in params else params
+    if "stages" in p:
+        return _pipeline_state_dict(p, cfg)
     if cfg.arch == "mpnet":
         sd = _mpnet_state_dict(p, cfg)
     elif cfg.arch in ("bert", "roberta"):
@@ -70,35 +78,105 @@ def state_dict_from_flax_params(params: Mapping[str, Any],
 def _bert_state_dict(p: Mapping[str, Any], cfg: EncoderConfig) -> Dict[str, torch.Tensor]:
     """``export_bert_state_dict`` (``hf_export.py:23``) into torch tensors."""
     H = cfg.hidden_size
-    emb = p["embeddings"]
-    sd: Dict[str, torch.Tensor] = {
+    sd = _bert_embeddings(p["embeddings"])
+    for i in range(cfg.num_layers):
+        sd.update({f"encoder.layer.{i}.{k}": v for k, v in _bert_layer(p[f"layer_{i}"], H).items()})
+    return sd
+
+
+def _bert_embeddings(emb: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    return {
         "embeddings.word_embeddings.weight": _t(emb["word_embeddings"]["embedding"]),
         "embeddings.position_embeddings.weight": _t(emb["position_embeddings"]["embedding"]),
         "embeddings.token_type_embeddings.weight": _t(emb["token_type_embeddings"]["embedding"]),
         "embeddings.LayerNorm.weight": _t(emb["layer_norm"]["scale"]),
         "embeddings.LayerNorm.bias": _t(emb["layer_norm"]["bias"]),
     }
-    for i in range(cfg.num_layers):
-        layer = p[f"layer_{i}"]
-        out = f"encoder.layer.{i}"
-        attn = layer["attention"]
-        for name in ("query", "key", "value"):
-            sd[f"{out}.attention.self.{name}.weight"] = _t(
-                np.asarray(attn[name]["kernel"]).reshape(H, H).T)
-            sd[f"{out}.attention.self.{name}.bias"] = _t(
-                np.asarray(attn[name]["bias"]).reshape(H))
-        sd[f"{out}.attention.output.dense.weight"] = _t(
-            np.asarray(attn["output_dense"]["kernel"]).reshape(H, H).T)
-        sd[f"{out}.attention.output.dense.bias"] = _t(attn["output_dense"]["bias"])
-        sd[f"{out}.attention.output.LayerNorm.weight"] = _t(layer["attention_layer_norm"]["scale"])
-        sd[f"{out}.attention.output.LayerNorm.bias"] = _t(layer["attention_layer_norm"]["bias"])
-        sd[f"{out}.intermediate.dense.weight"] = _t(np.asarray(layer["intermediate"]["kernel"]).T)
-        sd[f"{out}.intermediate.dense.bias"] = _t(layer["intermediate"]["bias"])
-        sd[f"{out}.output.dense.weight"] = _t(np.asarray(layer["output"]["kernel"]).T)
-        sd[f"{out}.output.dense.bias"] = _t(layer["output"]["bias"])
-        sd[f"{out}.output.LayerNorm.weight"] = _t(layer["output_layer_norm"]["scale"])
-        sd[f"{out}.output.LayerNorm.bias"] = _t(layer["output_layer_norm"]["bias"])
+
+
+def _bert_layer(layer: Mapping[str, Any], H: int) -> Dict[str, torch.Tensor]:
+    """One Flax ``BertLayer``'s params → its HF tensors, names relative to
+    the layer."""
+    sd: Dict[str, torch.Tensor] = {}
+    attn = layer["attention"]
+    for name in ("query", "key", "value"):
+        sd[f"attention.self.{name}.weight"] = _t(np.asarray(attn[name]["kernel"]).reshape(H, H).T)
+        sd[f"attention.self.{name}.bias"] = _t(np.asarray(attn[name]["bias"]).reshape(H))
+    sd["attention.output.dense.weight"] = _t(
+        np.asarray(attn["output_dense"]["kernel"]).reshape(H, H).T)
+    sd["attention.output.dense.bias"] = _t(attn["output_dense"]["bias"])
+    sd["attention.output.LayerNorm.weight"] = _t(layer["attention_layer_norm"]["scale"])
+    sd["attention.output.LayerNorm.bias"] = _t(layer["attention_layer_norm"]["bias"])
+    sd["intermediate.dense.weight"] = _t(np.asarray(layer["intermediate"]["kernel"]).T)
+    sd["intermediate.dense.bias"] = _t(layer["intermediate"]["bias"])
+    sd["output.dense.weight"] = _t(np.asarray(layer["output"]["kernel"]).T)
+    sd["output.dense.bias"] = _t(layer["output"]["bias"])
+    sd["output.LayerNorm.weight"] = _t(layer["output_layer_norm"]["scale"])
+    sd["output.LayerNorm.bias"] = _t(layer["output_layer_norm"]["bias"])
     return sd
+
+
+def _leaf_at(tree: Mapping[str, Any], s: int, slot: int) -> Dict[str, Any]:
+    return {k: (_leaf_at(v, s, slot) if isinstance(v, Mapping) else np.asarray(v)[s, slot])
+            for k, v in tree.items()}
+
+
+def _pipeline_state_dict(p: Mapping[str, Any], cfg: EncoderConfig) -> Dict[str, torch.Tensor]:
+    """The JAX pipeline tree → ``embeddings.*`` and the stacked
+    ``stages.*`` (BERT: the JAX pipeline runs ``BertLayer``)."""
+    sd = _bert_embeddings(p["embeddings"])
+    leaf = p["stages"]
+    while isinstance(leaf, Mapping):
+        leaf = next(iter(leaf.values()))
+    n_stages, per = np.asarray(leaf).shape[:2]
+    slots = [[_bert_layer(_leaf_at(p["stages"], s, k), cfg.hidden_size) for k in range(per)]
+             for s in range(n_stages)]
+    for name in slots[0][0]:
+        sd[f"stages.{name}"] = torch.stack([torch.stack([slots[s][k][name] for k in range(per)])
+                                            for s in range(n_stages)])
+    return sd
+
+
+def flax_params_from_state_dict(sd: Mapping[str, torch.Tensor],
+                                cfg: EncoderConfig) -> Dict[str, Any]:
+    """The reverse of ``state_dict_from_flax_params`` for a BERT trunk: the
+    port's state dict → the JAX package's ``{"encoder": ...}`` param tree
+    of numpy arrays; a stacked pipeline state dict (``stages.*``) → the
+    JAX pipeline's {"embeddings", "stages"} tree."""
+    if cfg.arch not in ("bert", "roberta"):
+        raise ValueError(f"flax_params_from_state_dict carries BERT trunks, {cfg.arch!r} given")
+    H, nh = cfg.hidden_size, cfg.num_heads
+    a = {k: v.detach().cpu().float().numpy() for k, v in sd.items()}
+
+    def layer(get):
+        t = lambda n: np.swapaxes(get(n + ".weight"), -1, -2)  # noqa: E731
+        heads = lambda x: x.reshape(x.shape[:-2] + (H, nh, H // nh))  # noqa: E731
+        qkv = {f: {"kernel": heads(t(f"attention.self.{n}")),
+                   "bias": get(f"attention.self.{n}.bias").reshape(
+                       get(f"attention.self.{n}.bias").shape[:-1] + (nh, H // nh))}
+               for f, n in (("query", "query"), ("key", "key"), ("value", "value"))}
+        wo = t("attention.output.dense")
+        return {"attention": {**qkv, "output_dense": {
+                    "kernel": wo.reshape(wo.shape[:-2] + (nh, H // nh, H)),
+                    "bias": get("attention.output.dense.bias")}},
+                "attention_layer_norm": {"scale": get("attention.output.LayerNorm.weight"),
+                                         "bias": get("attention.output.LayerNorm.bias")},
+                "intermediate": {"kernel": t("intermediate.dense"),
+                                 "bias": get("intermediate.dense.bias")},
+                "output": {"kernel": t("output.dense"), "bias": get("output.dense.bias")},
+                "output_layer_norm": {"scale": get("output.LayerNorm.weight"),
+                                      "bias": get("output.LayerNorm.bias")}}
+
+    emb = {"word_embeddings": {"embedding": a["embeddings.word_embeddings.weight"]},
+           "position_embeddings": {"embedding": a["embeddings.position_embeddings.weight"]},
+           "token_type_embeddings": {"embedding": a["embeddings.token_type_embeddings.weight"]},
+           "layer_norm": {"scale": a["embeddings.LayerNorm.weight"],
+                          "bias": a["embeddings.LayerNorm.bias"]}}
+    if any(k.startswith("stages.") for k in a):
+        return {"embeddings": emb, "stages": layer(lambda n: a[f"stages.{n}"])}
+    return {"encoder": {"embeddings": emb, **{
+        f"layer_{i}": layer(lambda n, i=i: a[f"encoder.layer.{i}.{n}"])
+        for i in range(cfg.num_layers)}}}
 
 
 def _mpnet_state_dict(p: Mapping[str, Any], cfg: EncoderConfig) -> Dict[str, torch.Tensor]:

@@ -30,17 +30,27 @@ from torch import nn
 from qst_tpu_torch.core.config import EncoderConfig
 from qst_tpu_torch.models.bert import (
     MASK_BIAS,
+    SITE_ATTENTION_OUT,
+    SITE_EMBEDDINGS,
+    SITE_PROBS,
     BertIntermediate,
     BertOutput,
     _dropout,
     _layer_norm_f32,
     _Linear,
     _remat_layer,
+    at_layer,
     compute_dtype,
 )
 
 RELATIVE_BUCKETS = 32
 RELATIVE_MAX_DISTANCE = 128
+
+# a layer's parts under MPNet's names (models/bert.py TensorParallelLayer)
+MPNET_LAYER_PARTS = {"q": "attention.attn.q", "k": "attention.attn.k", "v": "attention.attn.v",
+                     "o": "attention.attn.o", "ln1": "attention.LayerNorm",
+                     "i": "intermediate.dense", "out": "output.dense",
+                     "ln2": "output.LayerNorm"}
 
 
 def padding_aware_position_ids(input_ids: torch.Tensor, pad_id: int) -> torch.Tensor:
@@ -95,7 +105,8 @@ class MPNetEmbeddings(nn.Module):
         word = self.word_embeddings(input_ids).to(dt)
         pos = self.position_embeddings(pos_ids).to(dt)
         x = _layer_norm_f32(self.LayerNorm, word + pos)
-        return _dropout(self, x, self.cfg.hidden_dropout, dropout_generator).to(dt)
+        return _dropout(self, x, self.cfg.hidden_dropout, dropout_generator,
+                        SITE_EMBEDDINGS).to(dt)
 
 
 class MPNetSelfAttention(nn.Module):
@@ -120,7 +131,7 @@ class MPNetSelfAttention(nn.Module):
         q, k, v = heads(self.q(hidden)), heads(self.k(hidden)), heads(self.v(hidden))
         logits = torch.einsum("bqhd,bkhd->bhqk", q, k) / math.sqrt(hd) + bias
         probs = torch.softmax(logits, dim=-1).to(hidden.dtype)
-        probs = _dropout(self, probs, self.rate, dropout_generator)
+        probs = _dropout(self, probs, self.rate, dropout_generator, SITE_PROBS)
         ctx = torch.einsum("bhqk,bkhd->bqhd", probs.float(), v).reshape(B, S, H)
         return self.o(ctx.to(hidden.dtype))
 
@@ -135,7 +146,7 @@ class MPNetAttention(nn.Module):
     def forward(self, hidden: torch.Tensor, bias: torch.Tensor,
                 dropout_generator: Optional[torch.Generator] = None) -> torch.Tensor:
         out = _dropout(self, self.attn(hidden, bias, dropout_generator), self.rate,
-                       dropout_generator)
+                       dropout_generator, SITE_ATTENTION_OUT)
         return _layer_norm_f32(self.LayerNorm, out + hidden).to(hidden.dtype)
 
 
@@ -278,14 +289,15 @@ class MPNetEncoder(nn.Module):
         del token_type_ids
         S = input_ids.shape[1]
         input_ids = input_ids.long()
-        hidden = self.embeddings(input_ids, dropout_generator)
+        hidden = self.embeddings(input_ids, at_layer(dropout_generator, self.cfg.num_layers))
         rel = relative_bias(self.encoder.relative_attention_bias.weight, S)[None]
         pad = torch.where(attention_mask[:, None, None, :] > 0, 0.0, MASK_BIAS).float()
         bias = rel + pad
         remat = self.cfg.remat and torch.is_grad_enabled() and hidden.requires_grad
-        for layer in self.encoder.layer:
+        for i, layer in enumerate(self.encoder.layer):
+            gen = at_layer(dropout_generator, i)
             if remat:
-                hidden = _remat_layer(layer, hidden, bias, dropout_generator)
+                hidden = _remat_layer(layer, hidden, bias, gen)
             else:
-                hidden = layer(hidden, bias, dropout_generator)
+                hidden = layer(hidden, bias, gen)
         return hidden

@@ -159,8 +159,92 @@ def step_seed(seed, blk):
 
 
 # Site tags of the training forward's own draws (the kernels' sites use 0, 1
-# and 16 + ...): the step's base seed, the layer seeds, the embedding mask
-_TAG_STEP, _TAG_LAYERS, _TAG_EMBED = 7, 8, 9
+# and 16 + ...): the step's base seed, the layer seeds, the embedding mask,
+# a key folded with a shard or microbatch index, the nn.Module path's masks
+_TAG_STEP, _TAG_LAYERS, _TAG_EMBED, _TAG_FOLD, _TAG_MODULE = 7, 8, 9, 10, 11
+
+
+def fold_key(key: torch.Tensor, value: int) -> torch.Tensor:
+    """A dropout key (seed, step) folded with ``value`` (a data-shard or
+    microbatch index), as ``jax.random.fold_in``: → (hash of (seed, value),
+    step), an int64 tensor of two on the key's device, made by device
+    integer ops alone (a captured graph replays it)."""
+    key = key.to(torch.int64)
+    seed = _hash31(torch.full_like(key[0:1], value & _M32), key[0:1] & _M32, _TAG_FOLD)
+    return torch.cat([seed, key[1:2]])
+
+
+def module_seed(key: torch.Tensor, layer: int, site: int) -> torch.Tensor:
+    """The nn.Module path's seed of one dropout site of one layer under
+    dropout key ``key`` = (seed, step): the step's base seed (``step_draws``'s)
+    hashed with layer·4 + site, a (1,) int64 tensor on the key's device."""
+    key = key.to(torch.int64)
+    base = _hash31(key[1:2] & _M32, key[0:1] & _M32, _TAG_STEP)
+    return _hash31(torch.full_like(base, (layer * 4 + site) & _M32), base, _TAG_MODULE)
+
+
+def keep_mask(index: torch.Tensor, seed: torch.Tensor, rate: float) -> torch.Tensor:
+    """The bool keep-mask of int32 element indices ``index`` under ``seed``:
+    kept when ``_hash31`` of the index falls under the rate's threshold, as
+    K1 keeps its own elements."""
+    return _hash31_i32(index, seed, 0) < _keep_threshold(rate)
+
+
+def module_keep_mask_plain(key: torch.Tensor, layer: int, site: int, shape, rate: float,
+                           device, heads: Optional[tuple] = None) -> torch.Tensor:
+    """``module_keep_mask``'s plain version: ``keep_mask`` of each element's
+    index in the whole tensor under ``module_seed(key, layer, site)``."""
+    full = list(shape)
+    if heads is not None:
+        full[1] = heads[1]
+    index = torch.arange(math.prod(full), dtype=torch.int32, device=device).reshape(full)
+    if heads is not None:
+        index = index.narrow(1, heads[0], shape[1])
+    return keep_mask(index, module_seed(key.to(device), layer, site), rate)
+
+
+def module_keep_mask(key: torch.Tensor, layer: int, site: int, shape, rate: float,
+                     device, heads: Optional[tuple] = None) -> torch.Tensor:
+    """The ``nn.Module`` path's bool keep-mask of dropout site ``site`` of
+    layer ``layer`` for a tensor of ``shape`` on ``device``, under dropout
+    key ``key`` = (seed, step): element i kept when the 31-bit hash of its
+    index under ``module_seed(key, layer, site)`` falls under the rate's
+    threshold. ``heads`` = (first head, all heads): the tensor holds heads
+    [first, first + shape[1]) of dimension 1, each element indexed by its
+    place in the whole tensor (a model shard draws its heads' part of the
+    unsharded mask). On a card one launch of ``module_keep_kernel``
+    (``fused_layer.cu``) hashes the seed from the key and writes the mask;
+    on the CPU, the plain version."""
+    device = torch.device(device)
+    full = list(shape)
+    if heads is not None:
+        full[1] = heads[1]
+    n = math.prod(full)
+    if n >= 2 ** 31:
+        raise ValueError(f"a dropout mask of {n} elements does not fit int32 indices")
+    if device.type == "cpu":
+        return module_keep_mask_plain(key, layer, site, shape, rate, device, heads)
+    if device.type != "cuda":
+        raise ValueError(f"module_keep_mask runs on cpu or cuda, got {device}")
+    from qst_tpu_torch.kernels import build
+
+    out = torch.empty(tuple(shape), dtype=torch.bool, device=device)
+    k = key.to(device=device, dtype=torch.int64).contiguous()
+    hl = shape[1] if len(shape) > 1 else 1
+    rest = math.prod(shape[2:])
+    h_all, first = (heads[1], heads[0]) if heads is not None else (hl, 0)
+    fn = build.function("qst_module_keep", [ctypes.c_void_p, ctypes.c_void_p] + [ctypes.c_uint] * 7
+                        + [ctypes.c_void_p])
+    with build.device_guard(device):
+        code = fn(out.data_ptr(), k.data_ptr(), (layer * 4 + site) & _M32, _keep_threshold(rate),
+                  out.numel(), hl, rest, h_all, first,
+                  torch.cuda.current_stream(device).cuda_stream)
+    build.count_launch(module_keep_mask)
+    build.check(code, "module_keep_mask")
+    return out
+
+
+module_keep_mask.launches = 0
 
 
 def step_draws(key: torch.Tensor, num_layers: int) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -749,7 +833,11 @@ def layer_weights_for_training(layer: torch.nn.Module,
     the ``nn.Parameter``s through the transpose and the cast (the JAX
     package's autodiff of ``layer_weights_from_params``). HF ``Linear``
     weights are (out, in); the kernel takes (in, out) in the compute dtype;
-    vectors are (1, n) f32."""
+    vectors are (1, n) f32. A tensor-parallel layer (``models/bert.py``
+    ``TensorParallelLayer``) gathers its shards' slices here, so the
+    gradients flow back to each slice."""
+    if hasattr(layer, "kernel_weights"):
+        return layer.kernel_weights(dtype)
     q, k, v, o, ln1 = _attention_parts(layer)
     ffn_in, ffn_out = layer.intermediate, layer.output
 

@@ -8,6 +8,12 @@ for resume; ``<dir>/best/state.pt`` and the params-only
 ``<dir>/best/params.pt`` (the model's state dict, loadable without an
 optimizer) follow the best evaluation score. Every file is written to a
 temporary name and renamed, so a crash mid-save leaves the last good one.
+
+A tensor-parallel state is saved gathered, under HF names, and a pipeline
+state in its stacked stage layout (``TrainState.layout``; moments
+alike); ``restore_latest`` lays them back out into the template's layout,
+as Orbax restores into the template's sharding. ``params.pt`` always holds
+the flat layout, which ``ir_eval_main`` and ``index_main`` load unchanged.
 """
 
 from __future__ import annotations
@@ -89,7 +95,7 @@ class CheckpointManager:
         if improved:
             self._best_score = score
             _save(state.state_dict(), os.path.join(self._best_dir, _STATE))
-            _save(state.model.state_dict(), os.path.join(self._best_dir, "params.pt"))
+            _save(state.flat_state_dict(), os.path.join(self._best_dir, "params.pt"))
         return improved
 
     def restore_latest(self, template: TrainState) -> Optional[TrainState]:

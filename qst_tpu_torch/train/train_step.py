@@ -12,17 +12,23 @@
   docstring). ``TrainState`` holds step, model, optimizer and the pair
   discriminator of the d-regularized loss.
 - A step's dropout is drawn from its key (seed, step), as JAX folds the step
-  into its key: on the fused path every draw is derived on the device
-  (``ops/fused_layer.py:step_draws``), on the ``nn.Module`` path from a
-  generator seeded by the key.
+  into its key, on the device: on the fused path by
+  ``ops/fused_layer.py:step_draws``, on the ``nn.Module`` path by
+  ``models/bert.py:DeviceDropout`` — no host value, no generator state.
 - ``make_multi_step`` runs ``n_steps`` steps per call, as the JAX package's
   ``lax.scan`` does. On the GPU the K steps are one CUDA graph — forward,
   loss, backward, clip and AdamW, captured once and replayed with one launch
   per call — which takes the host's launch time out of the step; on the
   CPU they run one after another.
-
-Left out: the sharded state and ``mesh`` arguments (a later slice of the
-port).
+- ``mesh`` (a ``core/meshes.py`` (data, model) mesh): each data shard runs
+  the encoder on its block of rows (K1 forward and K2 backward on the fused
+  path), its dropout key folded with its data index, and the parameters'
+  gradients come back summed in data-index order
+  (``parallel/sharding.py:data_parallel``); the loss (K3 with
+  ``use_fused_kernel``) runs once on the gathered embeddings, as in the
+  JAX package, where ``shard_map`` wraps only the encoder. A model axis > 1
+  takes ``create_train_state_sharded``'s tensor-parallel state; the global
+  norm of the clip then counts each slice and each replicated tensor once.
 """
 
 from __future__ import annotations
@@ -35,6 +41,7 @@ import torch
 
 from qst_tpu_torch.core.config import EncoderConfig, LossConfig, TrainConfig
 from qst_tpu_torch.core.device import resolve_device
+from qst_tpu_torch.core.meshes import DATA_AXIS, sharded
 from qst_tpu_torch.kernels import build
 from qst_tpu_torch.models.discriminator import PairDiscriminator, init_discriminator
 from qst_tpu_torch.models.sentence_encoder import SentenceEncoderModule, init_params
@@ -53,30 +60,38 @@ def dropout_key(seed: int, step: int) -> torch.Tensor:
     return torch.tensor([seed, step], dtype=torch.int64)
 
 
-def key_generator(key: torch.Tensor, device: Any) -> torch.Generator:
-    """The ``nn.Module`` path's dropout generator for ``key`` = (seed, step),
-    on ``device``: seeded from ``SeedSequence([seed, step])``."""
-    seed, step = (int(v) for v in key.tolist())
-    state = np.random.SeedSequence([seed, step]).generate_state(1, np.uint64)[0]
-    return torch.Generator(device=device).manual_seed(int(state))
-
-
-def encoder_apply_fn(encoder_cfg: EncoderConfig) -> Callable:
+def encoder_apply_fn(encoder_cfg: EncoderConfig, mesh: Any = None) -> Callable:
     """→ ``fn(model, flat_ids, flat_mask, dropout_key) → (N, D)`` — the
     trainable 4-role encoder forward; ``dropout_key`` is None (no dropout)
     or (seed, step) (``dropout_key()``). With ``use_fused_layer`` the trunk
     runs through ``FusedBertLayer`` (K1 forward with in-kernel dropout, K2
     backward), its draws derived from the key on the device; otherwise
-    through the modules, whose dropout is active in train() mode with a
-    generator seeded from the key (``key_generator``)."""
+    through the modules, whose dropout is active in train() mode and drawn
+    on the device from the key (``DeviceDropout``).
+
+    ``mesh`` with a data axis > 1: the forward runs data-parallel
+    (``parallel/sharding.py:data_parallel``): each data shard's rows on its
+    devices, its key folded with its data index (JAX ``fold_in``, dropout
+    iid across shards), the gradients summed in data-index order."""
+    from qst_tpu_torch.models.bert import DeviceDropout
+
     if encoder_cfg.use_fused_layer:
         from qst_tpu_torch.ops.fused_layer import fused_embed_fn
 
         fwd = fused_embed_fn(encoder_cfg, differentiable=True, with_dropout=True)
-        return lambda model, ids, mask, key: fwd(model, ids, mask, key)
-    return lambda model, ids, mask, key: model(
-        ids, mask, dropout_generator=None if key is None else key_generator(key, ids.device)
-    )["sentence_embedding"]
+
+        def base(model, ids, mask, key):
+            return fwd(model, ids, mask, key)
+    else:
+        def base(model, ids, mask, key):
+            return model(ids, mask, dropout_generator=None if key is None
+                         else DeviceDropout(key.to(ids.device)))["sentence_embedding"]
+    mesh = sharded(mesh)
+    if mesh is None or mesh.shape.get(DATA_AXIS, 1) == 1:
+        return base
+    from qst_tpu_torch.parallel.sharding import data_parallel
+
+    return data_parallel(base, mesh)
 
 
 def loss_from_config(loss_cfg: LossConfig,
@@ -268,23 +283,67 @@ def make_optimizer(train_cfg: TrainConfig, total_steps: int,
 
 @dataclass
 class TrainState:
+    """``layout``: None for a plain model; for a tensor-parallel or a
+    pipeline model (``parallel/sharding.py:TensorParallelLayout``,
+    ``parallel/pipeline.py:PipelineLayout``) it maps the model's tensors
+    to what a checkpoint holds — gathered HF names, or the stacked stage
+    layout — and back, moments included."""
+
     step: int
-    model: SentenceEncoderModule
+    model: torch.nn.Module
     optimizer: ClippedAdamW
     discriminator: Optional[PairDiscriminator] = None  # d-regularized loss only
+    layout: Any = None
+
+    def _named_params(self) -> Dict[str, torch.Tensor]:
+        named = dict(self.model.named_parameters())
+        if self.discriminator is not None:
+            named.update({f"discriminator.{n}": p
+                          for n, p in self.discriminator.named_parameters()})
+        return named
+
+    def flat_state_dict(self) -> Dict[str, torch.Tensor]:
+        """The model as a plain ``SentenceEncoderModule``'s state dict."""
+        sd = self.model.state_dict()
+        return sd if self.layout is None else self.layout.flat(sd)
 
     def state_dict(self) -> Dict[str, Any]:
-        return {"step": self.step, "model": self.model.state_dict(),
-                "optimizer": self.optimizer.state_dict(),
-                "discriminator": (None if self.discriminator is None
-                                  else self.discriminator.state_dict())}
+        disc = None if self.discriminator is None else self.discriminator.state_dict()
+        if self.layout is None:
+            return {"step": self.step, "model": self.model.state_dict(),
+                    "optimizer": self.optimizer.state_dict(), "discriminator": disc}
+        group = self.optimizer.param_groups[0]
+        moments = {}
+        for m in ("mu", "nu", "acc"):
+            named = {n: self.optimizer.state[p][m] for n, p in self._named_params().items()
+                     if m in self.optimizer.state[p]}
+            if named:
+                moments[m] = self.layout.export(named)
+        return {"step": self.step, "layout": self.layout.kind,
+                "model": self.layout.export(self.model.state_dict()),
+                "optimizer": {"counters": {k: v for k, v in group.items() if k != "params"},
+                              "moments": moments},
+                "discriminator": disc}
 
     def load_state_dict(self, sd: Dict[str, Any]) -> None:
+        kind = None if self.layout is None else self.layout.kind
+        if sd.get("layout") != kind:
+            raise ValueError(f"a {sd.get('layout') or 'plain'} checkpoint does not load into "
+                             f"a {kind or 'plain'} state: resume with the same flags")
         self.step = int(sd["step"])
-        self.model.load_state_dict(sd["model"])
-        self.optimizer.load_state_dict(sd["optimizer"])
         if self.discriminator is not None:
             self.discriminator.load_state_dict(sd["discriminator"])
+        if self.layout is None:
+            self.model.load_state_dict(sd["model"])
+            self.optimizer.load_state_dict(sd["optimizer"])
+            return
+        self.model.load_state_dict(self.layout.import_(sd["model"]))
+        self.optimizer.param_groups[0].update(sd["optimizer"]["counters"])
+        named = self._named_params()
+        for m, tensors in sd["optimizer"]["moments"].items():
+            for n, t in self.layout.import_(tensors).items():
+                p = named[n]
+                self.optimizer.state[p][m] = t.to(device=p.device, dtype=p.dtype).clone()
 
 
 def create_train_state(
@@ -313,6 +372,39 @@ def create_train_state(
     optimizer = make_optimizer(train_cfg, total_steps, trainable)
     return TrainState(step=0, model=model, optimizer=optimizer,
                       discriminator=discriminator), optimizer
+
+
+def create_train_state_sharded(
+    encoder_cfg: EncoderConfig,
+    train_cfg: TrainConfig,
+    generator: torch.Generator,
+    total_steps: int,
+    mesh: Any,
+    loss_cfg: Optional[LossConfig] = None,
+    initial_params: Optional[Dict[str, torch.Tensor]] = None,
+):
+    """The tensor-parallel state (``qst_tpu/train/train_step.py:204``):
+    parameters laid out by ``parallel/sharding.py``'s rules — each layer a
+    ``TensorParallelLayer`` whose heads and FFN columns are split over the
+    mesh's model axis, the replicated tensors on the mesh's first device —
+    the Adam moments alongside each tensor. ``initial_params`` (a state
+    dict) or random weights from ``generator``. → (state, optimizer)."""
+    from qst_tpu_torch.parallel.sharding import TensorParallelLayout, tensor_parallel_model
+
+    home = mesh.devices[0]
+    params = initial_params if initial_params is not None else init_params(
+        encoder_cfg, generator, device=home)
+    model = tensor_parallel_model(encoder_cfg, params, mesh)
+    discriminator = None
+    trainable = list(model.parameters())
+    if loss_cfg is not None and loss_cfg.kind == "d_regularized":
+        discriminator = init_discriminator(encoder_cfg.hidden_size, generator, device=home)
+        trainable += list(discriminator.parameters())
+    optimizer = make_optimizer(train_cfg, total_steps, trainable)
+    layout = TensorParallelLayout(encoder_cfg, mesh.shape["model"])
+    state = TrainState(step=0, model=model, optimizer=optimizer, discriminator=discriminator,
+                       layout=layout)
+    return state, optimizer
 
 
 def _device_tensor(x, device) -> torch.Tensor:
@@ -348,14 +440,15 @@ def _row_tensor(rows, device) -> torch.Tensor:
 
 
 def make_train_step(encoder_cfg: EncoderConfig, loss_cfg: LossConfig,
-                    optimizer: Optional[ClippedAdamW] = None) -> Callable:
+                    optimizer: Optional[ClippedAdamW] = None, mesh: Any = None) -> Callable:
     """→ ``step(state, input_ids, attention_mask, dropout_key=None)
     → (state, loss)``: forward, loss, backward and one optimizer call, the
     state updated in place. ``input_ids``/``attention_mask``: (4, B, S)
     stacked role batches (numpy or torch); ``dropout_key``: (seed, step)
     (``dropout_key()``), or None for no dropout. ``optimizer`` defaults to
-    the state's."""
-    micro = _micro_step(encoder_apply_fn(encoder_cfg), loss_cfg)
+    the state's. ``mesh``: the encoder runs data-parallel over its data
+    axis (``encoder_apply_fn``); B must divide by the axis."""
+    micro = _micro_step(encoder_apply_fn(encoder_cfg, mesh), loss_cfg)
 
     def step(state: TrainState, input_ids, attention_mask,
              dropout_key: Optional[torch.Tensor] = None):
@@ -405,13 +498,13 @@ class MultiStep:
     steps."""
 
     def __init__(self, encoder_cfg: EncoderConfig, loss_cfg: LossConfig,
-                 optimizer: Optional[ClippedAdamW], n_steps: int):
+                 optimizer: Optional[ClippedAdamW], n_steps: int, mesh: Any = None):
         if n_steps < 1:
             raise ValueError(f"n_steps must be >= 1, {n_steps} given")
         self.encoder_cfg = encoder_cfg
         self.optimizer = optimizer
         self.n_steps = n_steps
-        self._micro = _micro_step(encoder_apply_fn(encoder_cfg), loss_cfg)
+        self._micro = _micro_step(encoder_apply_fn(encoder_cfg, mesh), loss_cfg)
         self._graph = None
         self._signature = None
 
@@ -435,13 +528,6 @@ class MultiStep:
                                   _row_tensor(rows[j], device)) for j in range(K)]
             state.step += K
             return state, torch.stack(losses)
-        cfg = self.encoder_cfg
-        if keys is not None and not cfg.use_fused_layer and (
-                cfg.hidden_dropout > 0 or cfg.attention_dropout > 0):
-            raise NotImplementedError(
-                "a captured multi-step draws its dropout on the device, which the fused "
-                "layer does (use_fused_layer); the nn.Module path draws from a host "
-                "generator")
         signature = (tuple(ids.shape), keys is None, id(state.model), id(opt),
                      tuple(t.data_ptr() for t in opt.state_tensors()))
         if self._graph is not None and signature == self._signature:
@@ -491,14 +577,17 @@ class MultiStep:
 
 
 def make_multi_step(encoder_cfg: EncoderConfig, loss_cfg: LossConfig,
-                    optimizer: Optional[ClippedAdamW], n_steps: int) -> MultiStep:
+                    optimizer: Optional[ClippedAdamW], n_steps: int,
+                    mesh: Any = None) -> MultiStep:
     """→ ``multi_step(state, input_ids, attention_mask, keys) → (state,
     losses)``: ``n_steps`` optimizer steps per call, as the JAX package's
     ``make_multi_step`` (``lax.scan``) — one CUDA graph replay a call on the
     GPU (``MultiStep``). ``input_ids``/``attention_mask`` are (n_steps, 4, B,
     S) stacks and ``keys`` the (n_steps, 2) per-step dropout keys;
-    ``losses`` is (n_steps,). ``optimizer`` defaults to the state's."""
-    return MultiStep(encoder_cfg, loss_cfg, optimizer, n_steps)
+    ``losses`` is (n_steps,). ``optimizer`` defaults to the state's;
+    ``mesh`` as ``make_train_step``'s (each shard's temporaries live in the
+    graph's pool)."""
+    return MultiStep(encoder_cfg, loss_cfg, optimizer, n_steps, mesh)
 
 
 def make_eval_loss_fn(encoder_cfg: EncoderConfig, loss_cfg: LossConfig) -> Callable:

@@ -14,8 +14,12 @@ so a resumed run continues the interrupted one.
 hands them to its scanned step (``trainer.py:236-280``); a remainder of
 fewer than K batches runs single steps.
 
-Not ported: pipeline parallelism (``pp_*``) and the ``mesh`` raise
-``NotImplementedError``.
+The state and the step are chosen as the JAX trainer chooses them
+(``trainer.py:120-170``): ``pp_stages`` > 1 trains the pipelined trunk on a
+("pipe", "data") mesh (``parallel/pipeline.py``); a mesh with a model axis
+> 1 the tensor-parallel state (``create_train_state_sharded``); otherwise
+the plain state; a mesh's data axis runs the step data-parallel. The
+evaluator and the best artifact get the flat model (``flat_model``).
 """
 
 from __future__ import annotations
@@ -31,6 +35,7 @@ import torch
 
 from qst_tpu_torch.core.config import EncoderConfig, LossConfig, TrainConfig, save_config
 from qst_tpu_torch.core.device import resolve_device
+from qst_tpu_torch.core.meshes import MODEL_AXIS, PIPE_AXIS, as_mesh
 from qst_tpu_torch.core.telemetry import JsonLogSink, StepTimer
 from qst_tpu_torch.data.collate import QuadrupletCollator
 from qst_tpu_torch.data.prefetch import PrefetchIterator
@@ -40,7 +45,9 @@ from qst_tpu_torch.train.checkpoints import CheckpointManager
 from qst_tpu_torch.train.train_step import (
     TrainState,
     create_train_state,
+    create_train_state_sharded,
     dropout_key,
+    make_optimizer,
     make_multi_step,
     make_train_step,
 )
@@ -62,8 +69,17 @@ class Trainer:
     """Quadruplet fine-tuning loop.
 
     evaluator: optional callable ``(model, epoch, steps) -> float`` whose
-    score drives early stopping and best-model saving. ``device``: where the
-    model trains (default: the GPU)."""
+    score drives early stopping and best-model saving; it gets the flat
+    model whatever the layout. ``device``: where the model trains (default:
+    the GPU; with a mesh, the mesh's first device).
+
+    ``mesh``: a ``core/meshes.py`` mesh — its data axis shards each batch,
+    a model axis > 1 takes the tensor-parallel state. ``pp_stages`` > 1
+    trains through the pipelined trunk: ``mesh`` must then be a ("pipe",
+    "data") mesh from ``make_pipe_mesh``; ``pp_microbatches`` defaults to
+    ``pp_stages``; ``pp_rounds`` > 1 selects the circular schedule.
+    Checkpoints store the stacked stage layout (resume with the same
+    flags); the best artifact is saved in the flat layout."""
 
     def __init__(
         self,
@@ -91,33 +107,80 @@ class Trainer:
                 "steps_per_call > 1 is not supported with pipeline "
                 "training (the PP schedule is already a scanned multi-tick "
                 "dispatch)")
-        if mesh is not None or pp_stages > 1 or pp_microbatches or pp_rounds != 1:
-            raise NotImplementedError("mesh and pipeline training are not ported yet")
+        if pp_stages > 1 and loss_cfg.kind == "d_regularized":
+            raise ValueError(
+                "d_regularized loss is not supported with pipeline "
+                "training")
         self.encoder_cfg = encoder_cfg
         self.loss_cfg = loss_cfg
         self.train_cfg = train_cfg
         self.dataset = dataset
         self.collator = collator
         self.evaluator = evaluator
-        self.mesh = mesh
+        self.mesh = as_mesh(mesh)
         self.steps_per_call = steps_per_call
         self.initial_params = initial_params
         self.pp_stages = pp_stages
         self.pp_microbatches = pp_microbatches or pp_stages
         self.pp_rounds = pp_rounds
-        self.device = resolve_device(device)
+        self.device = self.mesh.devices[0] if self.mesh is not None else resolve_device(device)
         self.steps_per_epoch = steps_per_epoch or max(
             1, len(dataset) // train_cfg.batch_size)
         self.total_steps = self.steps_per_epoch * train_cfg.epochs
         self.timer = StepTimer()
 
+    def flat_model(self, state: TrainState) -> torch.nn.Module:
+        """The state's model as a plain ``SentenceEncoderModule`` on the
+        trainer's device: itself, or for a tensor-parallel or pipeline state
+        a copy with the slices gathered and the stages unstacked
+        (``flat_params``, ``qst_tpu/train/trainer.py:188``)."""
+        if state.layout is None:
+            return state.model
+        from qst_tpu_torch.models.sentence_encoder import SentenceEncoderModule
+
+        with torch.device("meta"):
+            model = SentenceEncoderModule(self.encoder_cfg)
+        model = model.to_empty(device=self.device)
+        model.load_state_dict(state.flat_state_dict())
+        return model
+
     def train(self, seed: Optional[int] = None, resume: bool = False) -> TrainResult:
         cfg = self.train_cfg
         seed = cfg.seed if seed is None else seed
-        state, _ = create_train_state(
-            self.encoder_cfg, cfg, torch.Generator().manual_seed(seed), self.total_steps,
-            self.loss_cfg, initial_params=self.initial_params, device=self.device)
-        step_fn = make_train_step(self.encoder_cfg, self.loss_cfg)
+        gen = torch.Generator().manual_seed(seed)
+        mesh = self.mesh
+        if self.pp_stages > 1:
+            from qst_tpu_torch.models.sentence_encoder import init_params
+            from qst_tpu_torch.parallel.pipeline import (
+                PipelineLayout,
+                make_pp_train_step,
+                pp_params_from_encoder,
+            )
+
+            if mesh is None or PIPE_AXIS not in mesh.shape:
+                raise ValueError(
+                    "pipeline training needs a ('pipe', 'data') mesh "
+                    "(qst_tpu_torch.parallel.pipeline.make_pipe_mesh)")
+            full = (self.initial_params if self.initial_params is not None
+                    else init_params(self.encoder_cfg, gen, device=self.device))
+            model = pp_params_from_encoder(full, self.encoder_cfg, self.pp_stages, mesh,
+                                           self.pp_rounds)
+            optimizer = make_optimizer(cfg, self.total_steps, model.parameters())
+            state = TrainState(step=0, model=model, optimizer=optimizer,
+                               layout=PipelineLayout(self.encoder_cfg, self.pp_stages,
+                                                     self.pp_rounds))
+            step_fn = make_pp_train_step(self.encoder_cfg, self.loss_cfg, None, mesh,
+                                         self.pp_stages, self.pp_microbatches, self.pp_rounds)
+        elif mesh is not None and mesh.shape.get(MODEL_AXIS, 1) > 1:
+            state, _ = create_train_state_sharded(
+                self.encoder_cfg, cfg, gen, self.total_steps, mesh, self.loss_cfg,
+                initial_params=self.initial_params)
+        else:
+            state, _ = create_train_state(
+                self.encoder_cfg, cfg, gen, self.total_steps, self.loss_cfg,
+                initial_params=self.initial_params, device=self.device)
+        if self.pp_stages == 1:
+            step_fn = make_train_step(self.encoder_cfg, self.loss_cfg, None, mesh)
 
         os.makedirs(cfg.experiment_dir, exist_ok=True)
         save_config(
@@ -143,9 +206,13 @@ class Trainer:
         def run_eval(epoch: int, steps: int) -> Optional[float]:
             if self.evaluator is None:
                 return None
-            score = float(self.evaluator(state.model, epoch, steps))
+            flat = self.flat_model(state)
+            score = float(self.evaluator(flat, epoch, steps))
             history.append({"epoch": epoch, "steps": steps, "score": score})
-            ckpt.update_best(state, score)
+            # the best artifact stores the flat layout whatever the
+            # parallelism (a pipeline's best state too, as the JAX trainer's)
+            ckpt.update_best(state if self.pp_stages == 1 else TrainState(
+                step=state.step, model=flat, optimizer=state.optimizer), score)
             return score
 
         # pre-training evaluation (reference training/main.py:126)
@@ -164,7 +231,7 @@ class Trainer:
         steps_run = 0
         loss = None
         K = self.steps_per_call
-        multi_fn = (make_multi_step(self.encoder_cfg, self.loss_cfg, state.optimizer, K)
+        multi_fn = (make_multi_step(self.encoder_cfg, self.loss_cfg, state.optimizer, K, mesh)
                     if K > 1 else None)
         for epoch in range(start_epoch, cfg.epochs):
             if stop:

@@ -471,13 +471,53 @@ def test_ir_eval_cli_matches_the_jax_evaluator(quad_data, index, monkeypatch):
 
 
 @pytest.mark.parametrize("argv", [
-    ["--pp_stages", "2"], ["--pp_rounds", "2"], ["--mesh_data", "2"], ["--mesh_model", "2"],
-])
-def test_train_cli_refuses_unported_flags(quad_data, argv):
-    root, data, _, _ = quad_data
-    with pytest.raises(SystemExit, match="not ported"):
-        ttrain_main.main(["--dataset_root", data, "--experiment_dir", str(root / "refused"),
-                          "--device", "cpu", *argv])
+    ["--mesh_data", "2"], ["--mesh_model", "2"], ["--pp_stages", "2", "--mesh_model", "2"],
+    ["--pp_stages", "2", "--use_fused_layer"],
+], ids=["mesh_data", "mesh_model", "pp_and_model", "pp_and_fused"])
+def test_train_cli_refuses_unported_flags(quad_data, argv, monkeypatch):
+    """The mesh flags train as qst_tpu's CLI does on its 8 devices (the
+    port's 8 positions of the host: ``$QST_TORCH_VIRTUAL_DEVICES``), from
+    the same weights file and data: the same evaluation steps, the same
+    scores before the first step, and a flat best artifact; the pipeline's
+    two exclusions exit as qst_tpu's do."""
+    root, data, exp_carried, _ = quad_data
+    monkeypatch.setenv("QST_TORCH_VIRTUAL_DEVICES", "8")
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)          # eight shards of tiny ops: a thread pool only slows them
+    try:
+        _mesh_flags_against_jax(root, data, exp_carried, argv)
+    finally:
+        torch.set_num_threads(threads)
+
+
+def _mesh_flags_against_jax(root, data, exp_carried, argv):
+    w = str(root / "mesh_weights.bin")
+    torch.save({f"bert.{k}": v for k, v in tcommon.load_best_params(exp_carried).items()}, w)
+    name = "_".join(a.strip("-") for a in argv)
+    flags = ["--dataset_root", data, "--encoder_preset", "tiny", "--batch_size", "8",
+             "--epochs", "1", "--evaluation_steps", "3", "--hf_checkpoint", w, *argv]
+    if "--pp_stages" in argv:
+        with pytest.raises(SystemExit, match="exclusive") as port:
+            ttrain_main.main([*flags, "--experiment_dir", str(root / f"t_{name}"),
+                              "--device", "cpu"])
+        with pytest.raises(SystemExit, match="exclusive") as jax_exit:
+            jtrain_main.main([*flags, "--experiment_dir", str(root / f"j_{name}")])
+        if "--mesh_model" in argv:
+            assert str(port.value) == str(jax_exit.value)
+        return
+    runs = {}
+    for who, fn, extra in (("port", ttrain_main.main, ["--device", "cpu"]),
+                           ("jax", jtrain_main.main, [])):
+        exp = str(root / f"{who}_{name}")
+        assert fn([*flags, "--experiment_dir", exp, *extra]) == 0
+        with open(os.path.join(exp, "quadruplet_results.csv")) as f:
+            runs[who] = list(csv.reader(f))[1:]
+    assert [r[:2] for r in runs["port"]] == [r[:2] for r in runs["jax"]] == [
+        ["-1", "-1"], ["0", "3"], ["0", "6"], ["0", "6"]]
+    np.testing.assert_allclose([float(v) for v in runs["port"][0][2:]],
+                               [float(v) for v in runs["jax"][0][2:]], atol=1e-6)
+    best = tcommon.load_best_params(str(root / f"port_{name}"))
+    assert best.keys() == tcommon.load_best_params(exp_carried).keys()
 
 
 @pytest.mark.parametrize("fused", [False, True], ids=["module", "fused"])

@@ -23,7 +23,8 @@ FILES = ("tests/test_torch_fused_layer.py", "tests/test_torch_topk.py",
          "tests/test_torch_losses.py", "tests/test_torch_train.py", "tests/test_torch_data.py",
          "tests/test_torch_ivf.py", "tests/test_torch_mpnet.py", "tests/test_torch_pq.py",
          "tests/test_torch_streaming.py", "tests/test_torch_flash.py",
-         "tests/test_torch_roberta.py", "tests/test_torch_sharded.py")
+         "tests/test_torch_roberta.py", "tests/test_torch_sharded.py",
+         "tests/test_torch_parallel_train.py")
 _ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 

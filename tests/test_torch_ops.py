@@ -229,7 +229,8 @@ def test_port_imports_no_jax_flax_or_qst_tpu():
                "cli.dataset_main", "experiments", "experiments.ablation", "retrieval.pq",
                "retrieval.pq4", "retrieval.ivfpq", "retrieval.streaming",
                "models.bpe_tokenizer", "models.cross_encoder", "models.mlm", "augment.mlm",
-               "models.seq2seq", "core.meshes", "parallel", "parallel.context"}
+               "models.seq2seq", "core.meshes", "parallel", "parallel.context",
+               "parallel.sharding", "parallel.pipeline"}
         missing = sorted(n for n in new if "qst_tpu_torch." + n not in names)
         print(missing)
         sys.exit(1 if bad or missing or len(names) < 15 else 0)

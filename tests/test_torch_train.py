@@ -373,13 +373,22 @@ def tcallbacks_json(cfg):
 
 
 def test_unported_trainer_options_raise(tmp_path):
+    """Mesh and pipeline training are ported; what raises is what qst_tpu's
+    Trainer refuses (``qst_tpu/train/trainer.py:89-98, 124-127``): the
+    pipeline without a ("pipe", "data") mesh, with the d-regularized loss,
+    or with steps_per_call > 1, and steps_per_call 0."""
+    from qst_tpu_torch.core.meshes import make_mesh
+
     root = str(tmp_path / "chunks")
     write_synthetic_dataset(root, n_chunks=1, chunk_dim=8)
     trainer, cfg = _trainer(root, str(tmp_path / "exp"))
     args = (trainer.encoder_cfg, trainer.loss_cfg, cfg, trainer.dataset, trainer.collator)
-    for kw in (dict(pp_stages=2), dict(mesh=object())):
-        with pytest.raises(NotImplementedError):
-            Trainer(*args, **kw)
+    for mesh in (None, make_mesh(2, 1, devices=["cpu"] * 2)):
+        with pytest.raises(ValueError, match="pipe"):
+            Trainer(*args, mesh=mesh, pp_stages=2, device="cpu").train()
+    d_reg = tc.LossConfig(kind="d_regularized")
+    with pytest.raises(ValueError, match="d_regularized"):
+        Trainer(args[0], d_reg, *args[2:], pp_stages=2)
     with pytest.raises(ValueError):
         Trainer(*args, steps_per_call=0)
     with pytest.raises(ValueError, match="pipeline"):      # as qst_tpu's Trainer
