@@ -10,6 +10,7 @@
     python3 chip_smoke.py --phases build,marian    # Marian and the on-card backtranslator
     python3 chip_smoke.py --phases build,mesh      # the sharded serving path
     python3 chip_smoke.py --phases build,train_mesh   # training on meshes
+    python3 chip_smoke.py --phases build,dist      # meshes across two processes
     python3 chip_smoke.py --phases build,check,train,evaluate
     python3 chip_smoke.py --phases build,dataset,capture,ablation
     python3 chip_smoke.py --phases build,ablation --ablation_steps 2000   # the decisive run
@@ -111,7 +112,10 @@ Phases (any failure exits non-zero and prints no result):
    hard mining), four steps a call, 500 steps an arm (the JAX script's
    default: the ordering bars) or, with --ablation_steps 2000 (its own call:
    --phases build,ablation), the decisive run and all its quality bars; the
-   RESULTS.md table beside the JAX rows.
+   RESULTS.md table beside the JAX rows. Then the γ × margin sweep
+   (--gammas 0.3,0.6) at 100 steps an arm beside the default mode at the
+   same arguments: its γ = 0.6 / 1.0:0.5:0.5 cell is the default mode's
+   quadruplet arm and its triplet arm the default mode's, bit for bit.
 
 12. mpnet — MPNet-base and sequences past 128: K1 with rel_bias and K2 with
    drel at MPNet-base width, S = 128, 200, 384 and 512, f32 and bf16,
@@ -210,7 +214,23 @@ Phases (any failure exits non-zero and prints no result):
    $QST_TORCH_VIRTUAL_DEVICES=8, each best artifact encoding; each form's ms
    a step beside its unsharded self, launches and busy share.
 
-17. mesh  — the sharded serving path on a 4 x 2 mesh of eight positions of
+17. dist  — meshes across processes on one card: two processes of the port
+   (this script with --dist_child) in a gloo group over cuda:0, four
+   positions each (NCCL refuses two ranks on one card). DP 4 x 1 and DP +
+   TP 4 x 2 training at the training configuration, two steps at dropout
+   0.1: losses equal on both ranks, parameters and moments bit-equal
+   between the ranks and to one process's mesh of the same shape, 12 K1 +
+   12 K2 and K3 1 + 1 a step in each process, by the wrappers' counts and
+   by kernel name in a profile in each child; bench.py's exact search (1M
+   x 384 bf16, k = 10, Q = 256) and IVF (1,024 cells of 2,048, n_probe 8)
+   over 4 x 2: both ranks' answers one process's bit for bit and the
+   unsharded search's up to ties, 4 K4 + 4 K5 and 4 K6 in each process,
+   counted both ways; ms a step and a search beside one process's mesh,
+   and, in a pass of their own under a clock that syncs around each
+   gather, the gathers' share (the structure's cost on one card, not
+   scaling). A child that fails or runs past 120 s fails the phase.
+
+18. mesh  — the sharded serving path on a 4 x 2 mesh of eight positions of
    one card (core/meshes.py): ExactIndex over 1M x 384 bf16 and int8 at Q =
    4,096 through K4 + K5 in every shard (8 launches each a search, 8 of each
    by name in a profile) against the unsharded search, a 129-row index with
@@ -224,7 +244,7 @@ Phases (any failure exits non-zero and prints no result):
    attention at (8, 12, 4,096, 32) f32 with a backward; each sharded time
    beside its unsharded one (the shard structure's cost on one card).
 
-18. pq    — the compressed and streamed indexes, last (run before the
+19. pq    — the compressed and streamed indexes, last (run before the
    profiled phases, it makes their torch.profiler traces lose kernels,
    although it tears down what it opened; the cause is not known):
    index_main build |
@@ -266,8 +286,8 @@ import urllib.request
 import numpy as np
 
 PHASES = ("build", "check", "serve", "ivf", "train", "times", "profile", "evaluate", "dataset",
-          "capture", "ablation", "mpnet", "flash", "roberta", "marian", "train_mesh", "mesh",
-          "pq")
+          "capture", "ablation", "mpnet", "flash", "roberta", "marian", "train_mesh", "dist",
+          "mesh", "pq")
 
 
 def fail(msg: str) -> None:
@@ -2570,7 +2590,47 @@ def ablation(report: dict) -> None:
     add_train_launches(report, launches)
     report["ablation"] = {"wall_s": wall, "seconds": out["seconds"],
                           "steps_per_sec": out["steps_per_sec"], "steps_per_arm": steps,
-                          "table": {k: abl.table_row(v) for k, v in out["results"].items()}}
+                          "table": {k: abl.table_row(v) for k, v in out["results"].items()},
+                          "sweep": ablation_sweep(abl)}
+
+
+SWEEP_STEPS = 100          # the sweep's check at reduced depth (the decisive sweep: 2,000)
+SWEEP_IMAGES = 1000
+
+
+def ablation_sweep(abl) -> dict:
+    """``--gammas 0.3,0.6`` (the JAX script's sweep mode) at ``SWEEP_STEPS``
+    an arm on the fused path, four steps a call, beside the default mode at
+    the same arguments: the cell γ = 0.6 / 1.0:0.5:0.5 is the default
+    mode's quadruplet arm and the triplet arms are one another, bit for bit
+    (weights and metrics); the sweep table."""
+    import tempfile
+
+    import torch
+
+    small = ["--steps", str(SWEEP_STEPS), "--n_images", str(SWEEP_IMAGES), "--n_eval", "200",
+             "--wordpiece", "--use_fused_layer", "--preset", "minilm_l6", "--steps_per_call", "4"]
+    t0 = time.perf_counter()
+    outs = {}
+    for mode, extra in (("sweep", ["--gammas", "0.3,0.6"]), ("default", [])):
+        with tempfile.TemporaryDirectory() as work:
+            outs[mode] = abl.run(abl.build_parser().parse_args(small + extra), work)
+    wall = time.perf_counter() - t0
+    sweep, default = outs["sweep"], outs["default"]
+    cell = "gamma=0.6 margins=1.0/0.5/0.5"
+    same = {}
+    for mine, theirs in ((cell, "quadruplet"), ("triplet", "triplet")):
+        a, b = sweep["arms"][mine], default["arms"][theirs]
+        same[mine] = (a.keys() == b.keys() and all(torch.equal(a[k], b[k]) for k in a)
+                      and sweep["results"][mine] == default["results"][theirs])
+    log(f"ablation sweep (--gammas 0.3,0.6, {SWEEP_STEPS} steps an arm, {SWEEP_IMAGES} images, "
+        f"fused, 4 steps a call): {wall:.1f} s with the default mode beside it; the cell {cell} "
+        f"is the default mode's quadruplet arm bit for bit {same[cell]}, the triplet arms "
+        f"{same['triplet']}\n" + abl.sweep_table(sweep["results"]))
+    if not all(same.values()):
+        fail(f"ablation sweep: arms differ from the default mode's: {same}")
+    return {"wall_s": wall, "bit_equal": same, "steps_per_arm": sweep["steps_per_arm"],
+            "results": sweep["results"]}
 
 
 def times(report: dict) -> None:
@@ -4777,16 +4837,13 @@ def mesh_exact(report: dict, mesh) -> None:
     report["mesh"]["exact"] = res
 
 
-def mesh_ivf(report: dict, mesh) -> None:
-    """IVFIndex over 1,024 bf16 cells of 2,048 x 384 (fill counts from 0 to
-    2,048), 128 cells a shard: K6 once a shard at Q = 256 / 64 / 8, n_probe
-    8, against the unsharded search, before and after compact()."""
+def ivf_cells(gen):
+    """(centroids, cells, cell_ids, fill): 1,024 bf16 cells of 2,048 x 384
+    around unit centroids, fill counts from 0 to 2,048 (an empty and a full
+    cell), the ids numbered in cell order, drawn from ``gen`` on the card."""
     import torch
 
-    from qst_tpu_torch.retrieval import IVFIndex
-
-    C, L, D, P, k = MESH_CELLS, MESH_BUDGET, 384, 8, 10
-    gen = torch.Generator(device="cuda").manual_seed(43)
+    C, L, D = MESH_CELLS, MESH_BUDGET, 384
     unit = torch.nn.functional.normalize
     centroids = unit(torch.randn((C, D), device="cuda", generator=gen), dim=1)
     fill = torch.randint(0, L + 1, (C,), device="cuda", generator=gen, dtype=torch.int32)
@@ -4800,13 +4857,40 @@ def mesh_ivf(report: dict, mesh) -> None:
     slot = torch.arange(L, device="cuda")[None, :]
     first = torch.cumsum(fill, 0) - fill
     cell_ids = torch.where(slot < fill[:, None], first[:, None] + slot, -1).to(torch.int32)
+    return centroids, cells, cell_ids, fill
+
+
+def ivf_truth(cells, cell_ids, q, ids) -> "CandidateScores":
+    """The true score of each IVF answer's doc: the bf16 query against the
+    row the cells store for it."""
+    import torch
+
+    C, L, D = cell_ids.shape[0], cell_ids.shape[1], cells.shape[-1]
+    flat = cells[:C].reshape(-1, D)
+    live = cell_ids.reshape(-1) >= 0
+    where = torch.full((int(live.sum()),), -1, dtype=torch.int64, device=cells.device)
+    where[cell_ids.reshape(-1)[live].long()] = torch.arange(C * L, device=cells.device)[live]
+    cand = torch.cat([i.to(cells.device) for i in ids], 1)
+    got = torch.einsum("qd,qkd->qk", q.to(torch.bfloat16).float(),
+                       flat[where[cand.clamp_min(0)]].float())
+    return CandidateScores(cand.cpu().numpy(), got.cpu().numpy())
+
+
+def mesh_ivf(report: dict, mesh) -> None:
+    """IVFIndex over 1,024 bf16 cells of 2,048 x 384 (fill counts from 0 to
+    2,048), 128 cells a shard: K6 once a shard at Q = 256 / 64 / 8, n_probe
+    8, against the unsharded search, before and after compact()."""
+    import torch
+
+    from qst_tpu_torch.retrieval import IVFIndex
+
+    C, L, D, P, k = MESH_CELLS, MESH_BUDGET, 384, 8, 10
+    gen = torch.Generator(device="cuda").manual_seed(43)
+    unit = torch.nn.functional.normalize
+    centroids, cells, cell_ids, fill = ivf_cells(gen)
     plain = IVFIndex.from_arrays(centroids, cells, cell_ids, fill)
     shard = IVFIndex.from_arrays(centroids, cells, cell_ids, fill, mesh=mesh)
     del cells
-    flat = plain.cells.reshape(-1, D)
-    where = torch.full((plain.n_docs,), -1, dtype=torch.int64, device="cuda")
-    live = cell_ids.reshape(-1) >= 0
-    where[cell_ids.reshape(-1)[live].long()] = torch.arange(C * L, device="cuda")[live]
     res = {"cells_per_shard": shard.cells_per_shard, "docs": plain.n_docs}
     for Q in (256, 64, 8):
         pick = torch.randint(0, C, (Q,), device="cuda", generator=gen)
@@ -4815,10 +4899,7 @@ def mesh_ivf(report: dict, mesh) -> None:
         s1, i1 = counted(report, f"ivf Q={Q}", lambda: search(shard), {"K6": mesh.size})
         s0, i0 = search(plain)
         # the true score of each answer's doc: the query against its stored row
-        cand = torch.cat([i0, i1], 1)
-        got = torch.einsum("qd,qkd->qk", q.to(torch.bfloat16).float(),
-                           flat[where[cand.clamp_min(0)]].float())
-        true = CandidateScores(cand.cpu().numpy(), got.cpu().numpy())
+        true = ivf_truth(plain.cells, cell_ids, q, (i0, i1))
         if not rows_match_up_to_ties((s1.cpu(), i1.cpu()), (s0.cpu(), i0.cpu()), true, 1e-4):
             fail(f"mesh ivf Q={Q}: the sharded search differs from the unsharded one")
         ids_equal = bool(torch.equal(i0, i1))
@@ -5682,6 +5763,370 @@ def train_mesh(report: dict) -> None:
     out["part_s"] = parts
     log("train_mesh phase by part (s): " + ", ".join(f"{n} {v:.1f}" for n, v in parts.items()))
     report["train_mesh"] = out
+
+
+# ---------------------------------------------------------------------------
+# dist: meshes across processes — two processes of the port on cuda:0 over
+# gloo (NCCL refuses two ranks on one card), each with four positions
+# ---------------------------------------------------------------------------
+DIST_TIMEOUT = 120           # a child's own limit (s): a hang fails the phase
+DIST_POSITIONS = 4           # $QST_TORCH_VIRTUAL_DEVICES in each child: 8 global positions
+DIST_QUERIES = 256           # bench.py's exact search at Q = 256
+
+
+def dist_meshes(devices, ranks) -> dict:
+    """The DP 4 x 1 and DP + TP 4 x 2 meshes over eight positions (ranks
+    [0]*4 + [1]*4 across the children, [0]*8 in one process): 4 x 1 takes two
+    positions of each process, 4 x 2 all eight (a row a pair of one
+    process's positions)."""
+    from qst_tpu_torch.core.meshes import make_mesh
+
+    pick = [0, 1, 4, 5]
+    return {"DP 4x1": make_mesh(4, 1, devices=[devices[i] for i in pick],
+                                ranks=[ranks[i] for i in pick]),
+            "DP+TP 4x2": make_mesh(4, 2, devices=devices, ranks=ranks)}
+
+
+def state_digest(state) -> str:
+    """sha256 of every parameter and Adam moment's bytes, in order."""
+    import hashlib
+
+    import torch
+
+    h = hashlib.sha256()
+    for t in state.optimizer.state_tensors():
+        h.update(t.detach().cpu().contiguous().view(-1).view(torch.uint8).numpy().tobytes())
+    return h.hexdigest()
+
+
+class GatherClock:
+    """While entered: host time spent in ``core/meshes.py:gather_ordered``,
+    the device's queued work synchronised before and after each gather so
+    that it is not charged to the gather. The syncs are the clock's own, not
+    the program's: a pass under the clock is timed apart from the pass that
+    gives ms a step."""
+
+    def __enter__(self):
+        import torch
+
+        from qst_tpu_torch.core import meshes
+        from qst_tpu_torch.parallel import sharding
+
+        self.s, self.calls = 0.0, 0
+        self.inner = inner = meshes.gather_ordered
+
+        def timed(t):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = inner(t)
+            torch.cuda.synchronize()
+            self.s += time.perf_counter() - t0
+            self.calls += 1
+            return out
+
+        meshes.gather_ordered = sharding.gather_ordered = timed
+        return self
+
+    def __exit__(self, *exc):
+        from qst_tpu_torch.core import meshes
+        from qst_tpu_torch.parallel import sharding
+
+        meshes.gather_ordered = sharding.gather_ordered = self.inner
+
+
+def timed_passes(fn, reps: int, clocked: bool) -> dict:
+    """ms a call of ``fn`` over ``reps`` calls (host clock, synchronised);
+    with ``clocked``, a second pass of ``reps`` calls under a
+    :class:`GatherClock`: its ms a call, the gathers' ms and count a call,
+    and their share of that pass. Each pass starts at a barrier of the
+    group, so that no process's window holds its wait for another's host
+    work before it (a profile's processing, say)."""
+    import torch
+
+    from qst_tpu_torch.core.meshes import barrier
+
+    torch.cuda.synchronize()
+    barrier()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    torch.cuda.synchronize()
+    out = {"ms": (time.perf_counter() - t0) * 1e3 / reps}
+    if clocked:
+        barrier()
+        with GatherClock() as clock:
+            t0 = time.perf_counter()
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3 / reps
+        out.update(clocked_ms=ms, gather_ms=clock.s * 1e3 / reps,
+                   gathers=clock.calls / reps, gather_share=clock.s * 1e3 / reps / ms)
+    return out
+
+
+def names_in_child(fn, marks) -> dict:
+    """{mark: launches a call of the device kernels whose names hold it}, from
+    torch.profiler over three calls of ``fn`` (rounded up, as
+    ``kernel_counts``; one try only, so that the two processes of the group
+    make the same calls and collectives)."""
+    counts = kernel_counts(fn, reps=3, tries=1)
+    return {m: by_mark(counts, m) for m in marks}
+
+
+TRAIN_MARKS = ("::attention_mma_kernel", "::attention_bwd_mma_kernel", "quadruplet_fwd_kernel",
+               "quadruplet_bwd_kernel")
+SEARCH_MARKS = {"exact": ("bucket_max", "rescore_"), "ivf": ("ivf_cell_scores_kernel",)}
+
+
+def dist_train(meshes: dict, child: bool = False) -> dict:
+    """Two steps (keys (14, 1) and (14, 2)) of the training configuration on
+    each mesh from one seed's weights: the losses, the digest of the state
+    after them, K1 / K2 / K3 launches of this process; then ms a step over
+    three more steps (``timed_passes``). In a ``child`` of the group also the
+    kernels by name in three profiled steps, and the gathers' share in a
+    clocked pass."""
+    import torch
+
+    from qst_tpu_torch.train import dropout_key, make_train_step
+
+    enc_cfg, loss_cfg, tcfg = train_config()
+    ids_np, mask_np = tm_batch(31, enc_cfg.vocab_size)
+    ids, mask = torch.from_numpy(ids_np).cuda(), torch.from_numpy(mask_np).cuda()
+    out = {}
+    for label, mesh in meshes.items():
+        state = tm_state(enc_cfg, loss_cfg, tcfg, mesh)
+        step = make_train_step(enc_cfg, loss_cfg, None, mesh)
+        counters = train_counters()
+        for c in counters:
+            c.launches = 0
+        losses = [step(state, ids, mask, dropout_key(14, s))[1].item() for s in (1, 2)]
+        torch.cuda.synchronize()
+        launches = [c.launches for c in counters]
+        digest = state_digest(state)
+        key = dropout_key(14, 3)
+        out[label] = {"losses": losses, "digest": digest, "launches": launches,
+                      "names": names_in_child(lambda: step(state, ids, mask, key), TRAIN_MARKS)
+                      if child else None,
+                      **timed_passes(lambda: step(state, ids, mask, key), 3, child)}
+        del state, step
+        torch.cuda.empty_cache()
+    return out
+
+
+def dist_corpora():
+    """bench.py's exact corpus (1M x 384 unit rows, Q = 256 queries) and the
+    ivf phase's cells (1,024 of 2,048 x 384 bf16), from seeds on the card."""
+    import torch
+
+    unit = torch.nn.functional.normalize
+    gen = torch.Generator(device="cuda").manual_seed(41)
+    rows = unit(torch.randn((MESH_ROWS, 384), device="cuda", generator=gen), dim=1)
+    queries = unit(torch.randn((DIST_QUERIES, 384), device="cuda", generator=gen), dim=1)
+    return rows, queries, ivf_cells(torch.Generator(device="cuda").manual_seed(43))
+
+
+def dist_search(mesh, corpora, child: bool = False) -> dict:
+    """The exact search (bf16, k = 10, "auto": K4 + K5 in every shard) and
+    the IVF search (n_probe 8, K6 in every shard) at Q = 256 on ``mesh`` (or
+    unsharded for None): answers, this process's K4 / K5 / K6 launches, ms
+    a search (``timed_passes``) and, in a ``child`` of the group, the
+    kernels by name and the gathers' share."""
+    import torch
+
+    from qst_tpu_torch.retrieval import ExactIndex, IVFIndex
+
+    rows, queries, (centroids, cells, cell_ids, fill) = corpora
+    out = {}
+    exact = ExactIndex(rows, dtype="bfloat16", mesh=mesh)
+    ivf = IVFIndex.from_arrays(centroids, cells, cell_ids, fill, mesh=mesh)
+    gen = torch.Generator(device="cuda").manual_seed(44)
+    pick = torch.randint(0, MESH_CELLS, (DIST_QUERIES,), device="cuda", generator=gen)
+    q_ivf = torch.nn.functional.normalize(centroids[pick] + 0.3 * torch.randn(
+        (DIST_QUERIES, 384), device="cuda", generator=gen), dim=1)
+    for name, fn in (("exact", lambda: exact._device_search(queries, 10, "dot_score", 131072,
+                                                             "auto")),
+                     ("ivf", lambda: ivf._device_search(q_ivf, 10, 8, "auto"))):
+        reset_counts()
+        s, i = fn()
+        torch.cuda.synchronize()
+        launches = read_counts()
+        out[name] = {"scores": s.cpu(), "ids": i.cpu(), "launches": launches,
+                     "names": names_in_child(fn, SEARCH_MARKS[name]) if child else None,
+                     **timed_passes(fn, 5, child)}
+    out["ivf_queries"] = q_ivf
+    return out
+
+
+def dist_child(rank: int, port: str, dest: str) -> None:
+    """One process of the dist phase's group (``--dist_child``): training
+    on both meshes, then both searches, on the global positions; its
+    results under ``dest``."""
+    import torch
+    import torch.distributed as dist
+
+    from qst_tpu_torch.core.meshes import global_devices, initialize_distributed
+
+    os.environ.update({"QST_COORDINATOR_ADDRESS": f"127.0.0.1:{port}",
+                       "QST_NUM_PROCESSES": "2", "QST_PROCESS_ID": str(rank),
+                       "QST_TORCH_VIRTUAL_DEVICES": str(DIST_POSITIONS)})
+    torch.backends.cuda.matmul.allow_tf32 = False
+    if not initialize_distributed(device="cuda:0", backend="gloo"):
+        fail("dist child: the group was not created")
+    try:
+        # wait for the parent's one-process references: the children's times
+        # are then their own (they share the card with each other only)
+        t0 = time.perf_counter()
+        while not os.path.exists(os.path.join(dest, "go")):
+            if time.perf_counter() - t0 > DIST_TIMEOUT:
+                fail("dist child: the parent never said go")
+            time.sleep(0.05)
+        probe = torch.full((2,), float(rank), device="cuda")
+        parts = [torch.empty_like(probe) for _ in range(2)]
+        try:
+            dist.all_gather(parts, probe)
+            all_gather = "takes CUDA tensors" if [p[0].item() for p in parts] == [0, 1] \
+                else "gathered wrong values"
+        except (RuntimeError, ValueError) as e:
+            all_gather = f"refuses CUDA tensors: {str(e)[:160]}"
+        devices, ranks = global_devices("cuda:0")
+        res = {"ranks": ranks, "gloo_all_gather": all_gather,
+               "train": dist_train(dist_meshes(devices, ranks), child=True)}
+        search_mesh = dist_meshes(devices, ranks)["DP+TP 4x2"]
+        res.update(dist_search(search_mesh, dist_corpora(), child=True))
+        res.pop("ivf_queries")
+        torch.save(res, os.path.join(dest, f"dist_{rank}.pt"))
+    finally:
+        dist.destroy_process_group()
+
+
+def dist(report: dict) -> None:
+    """Meshes across processes on one card: two processes of the port
+    (``--dist_child``) join a gloo group over cuda:0, four positions each.
+    (a) DP 4 x 1 and DP + TP 4 x 2 training (MiniLM-L6, batch 32
+    quadruplets, S = 128, bf16, fused layer and loss, dropout 0.1), two
+    steps: losses equal on both ranks, the parameters and moments bit-equal
+    between the ranks and to this process's one-process mesh of the same
+    shape, 12 K1 + 12 K2 and K3 1 + 1 a step in each process. (b) bench.py's
+    exact search (1M x 384 bf16, k = 10, Q = 256) and (c) IVF (1,024 cells
+    of 2,048, n_probe 8) over 4 x 2: both ranks' answers the one-process
+    mesh's bit for bit and the unsharded search's up to ties, 4 K4 + 4 K5
+    and 4 K6 in each process. Times beside the one-process mesh's: the cost
+    of the structure on one card (two processes share it), not scaling."""
+    import socket
+    import tempfile
+
+    import torch
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = str(s.getsockname()[1])
+    env = {k: v for k, v in os.environ.items() if not k.startswith("QST_")}
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="dist_") as dest:
+        procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__), "--dist_child",
+                                   str(r), port, dest], env=env, stdout=subprocess.PIPE,
+                                  stderr=subprocess.STDOUT, text=True) for r in range(2)]
+        # the one-process references while the children start
+        positions = ["cuda:0"] * (2 * DIST_POSITIONS)
+        one = dist_train(dist_meshes(positions, [0] * len(positions)))
+        corpora = dist_corpora()
+        one_search = dist_search(dist_meshes(positions, [0] * len(positions))["DP+TP 4x2"],
+                                 corpora)
+        plain = dist_search(None, corpora)
+        torch.cuda.synchronize()
+        with open(os.path.join(dest, "go"), "w"):
+            pass
+        outs = []
+        try:
+            for p in procs:
+                outs.append(p.communicate(timeout=DIST_TIMEOUT)[0])
+        except subprocess.TimeoutExpired:
+            fail(f"dist: a child ran past its {DIST_TIMEOUT} s limit")
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.communicate()
+        for r, (p, text) in enumerate(zip(procs, outs)):
+            if p.returncode != 0:
+                fail(f"dist: child {r} exited {p.returncode}:\n{text[-3000:]}")
+        kids = [torch.load(os.path.join(dest, f"dist_{r}.pt"), weights_only=False)
+                for r in range(2)]
+    wall = time.perf_counter() - t0
+    L = train_config()[0].num_layers
+    res = {"gloo_all_gather": kids[0]["gloo_all_gather"], "ranks": kids[0]["ranks"]}
+    # a step in each process: K1's attention kernel once a layer and data
+    # shard, K2's recompute of it as often, K2's attention backward once,
+    # K3's two kernels once
+    want_names = dict(zip(TRAIN_MARKS, (2 * L * 2, L * 2, 1, 1)))
+    for label, ref in one.items():
+        a, b = kids[0]["train"][label], kids[1]["train"][label]
+        want = [2 * L * 2, 2 * L * 2, 2, 2]     # two steps, two data shards a process
+        ok = (a["losses"] == b["losses"] == ref["losses"] and a["digest"] == b["digest"]
+              == ref["digest"] and a["launches"] == b["launches"] == want
+              and a["names"] == b["names"] == want_names)
+        log(f"dist {label} across 2 processes x {DIST_POSITIONS} positions of cuda:0 (gloo; "
+            f"MiniLM-L6, batch 32 quadruplets, S=128, bf16, fused, dropout 0.1): losses "
+            f"{a['losses']} / {b['losses']} (one process {ref['losses']}); state after two "
+            f"steps bit-equal between the ranks and to one process "
+            f"{a['digest'] == b['digest'] == ref['digest']}; launches a process K1 "
+            f"{a['launches'][0]}, K2 {a['launches'][1]}, K3 {a['launches'][2]} + "
+            f"{a['launches'][3]} over two steps (want {want}); by name a step in a profiled "
+            f"window {a['names']} / {b['names']} (want {want_names}); {a['ms']:.2f} / "
+            f"{b['ms']:.2f} ms a step against {ref['ms']:.2f} ms on one process's mesh; "
+            f"in a pass under the gather clock {a['clocked_ms']:.2f} / {b['clocked_ms']:.2f} ms "
+            f"a step, of it gathers {a['gather_ms']:.2f} / {b['gather_ms']:.2f} ms "
+            f"({a['gathers']:.0f} a step)")
+        if not ok:
+            fail(f"dist {label}: ranks or the one-process mesh disagree, or launches "
+                 f"{a['launches']} / {b['launches']} (want {want}), or kernels by name "
+                 f"{a['names']} / {b['names']} (want {want_names})")
+        add_train_launches(report, a["launches"])
+        res[label] = {"losses": a["losses"], "launches_per_process": a["launches"],
+                      "names_per_process_step": a["names"], "step_ms": [a["ms"], b["ms"]],
+                      "one_process_step_ms": ref["ms"],
+                      "clocked_step_ms": [a["clocked_ms"], b["clocked_ms"]],
+                      "gather_ms": [a["gather_ms"], b["gather_ms"]],
+                      "gather_share": [a["gather_share"], b["gather_share"]]}
+    rows, queries = corpora[0], corpora[1]
+    for name, want in (("exact", {"K4": 4, "K5": 4}), ("ivf", {"K6": 4})):
+        a, b, ref, base = kids[0][name], kids[1][name], one_search[name], plain[name]
+        launches = {k: v for k, v in a["launches"].items() if v}
+        names = dict(zip(SEARCH_MARKS[name], want.values()))
+        same = all(torch.equal(x[f], ref[f]) for x in (a, b) for f in ("scores", "ids"))
+        if name == "exact":
+            true = truth_of(queries.to(torch.bfloat16), rows.to(torch.bfloat16),
+                            (base["ids"].cuda(), a["ids"].cuda()))
+            near = ids_match_up_to_ties(a["scores"], a["ids"], base["scores"], base["ids"],
+                                        true, 1e-4)
+        else:
+            true = ivf_truth(corpora[2][1], corpora[2][2], one_search["ivf_queries"],
+                             (base["ids"], a["ids"]))
+            near = rows_match_up_to_ties((a["scores"], a["ids"]), (base["scores"], base["ids"]),
+                                         true, 1e-4)
+        log(f"dist {name} search at Q={DIST_QUERIES} over 4 x 2 across 2 processes: answers "
+            f"bit-equal on both ranks and to one process {same}, the unsharded search's up to "
+            f"ties {near}; launches a process {launches} (want {want}), by name "
+            f"{a['names']} / {b['names']} (want {names}); {a['ms']:.3f} / {b['ms']:.3f} ms a "
+            f"search against {ref['ms']:.3f} ms on one process's mesh and {base['ms']:.3f} ms "
+            f"unsharded; under the gather clock {a['clocked_ms']:.3f} / {b['clocked_ms']:.3f} "
+            f"ms, of it gathers {a['gather_ms']:.3f} / {b['gather_ms']:.3f} ms")
+        if not (same and near and launches == want and b["launches"] == a["launches"]
+                and a["names"] == b["names"] == names):
+            fail(f"dist {name}: answers or launches disagree ({launches}, want {want}; by "
+                 f"name {a['names']} / {b['names']}, want {names})")
+        for k, v in launches.items():
+            report[k]["launches"] = report[k].get("launches", 0) + v
+        res[name] = {"ms": [a["ms"], b["ms"]], "one_process_ms": ref["ms"],
+                     "unsharded_ms": base["ms"],
+                     "clocked_ms": [a["clocked_ms"], b["clocked_ms"]],
+                     "gather_ms": [a["gather_ms"], b["gather_ms"]],
+                     "gather_share": [a["gather_share"], b["gather_share"]],
+                     "launches_per_process": launches, "names_per_process": a["names"]}
+    res["wall_s"] = wall
+    log(f"dist: gloo all_gather {res['gloo_all_gather']}; phase {wall:.1f} s")
+    report["dist"] = res
 
 
 # ---------------------------------------------------------------------------
@@ -7476,7 +7921,12 @@ def main() -> None:
     ap.add_argument("--ablation_steps", type=int, default=default_steps,
                     help="train steps an arm in the ablation phase (2000: the decisive run, "
                     "all its quality bars)")
+    ap.add_argument("--dist_child", nargs=3, metavar=("RANK", "PORT", "DIR"),
+                    help=argparse.SUPPRESS)      # a process of the dist phase's group
     args = ap.parse_args()
+    if args.dist_child:
+        dist_child(int(args.dist_child[0]), args.dist_child[1], args.dist_child[2])
+        return
     ABLATION_STEPS = args.ablation_steps
     phases = args.phases.split(",")
     if any(p not in PHASES for p in phases):
@@ -7501,8 +7951,8 @@ def main() -> None:
     fns = {"check": check_kernels, "serve": serve, "ivf": ivf, "train": train, "times": times,
            "profile": profile_phase, "evaluate": evaluate, "dataset": dataset,
            "capture": capture, "ablation": ablation, "mpnet": mpnet, "flash": flash,
-           "roberta": roberta, "marian": marian, "train_mesh": train_mesh, "mesh": mesh,
-           "pq": pq}
+           "roberta": roberta, "marian": marian, "train_mesh": train_mesh, "dist": dist,
+           "mesh": mesh, "pq": pq}
     for phase in phases:
         if phase in fns:
             t0 = time.perf_counter()
@@ -7515,7 +7965,7 @@ def main() -> None:
                              "train", "train_steps_per_s", "ivf", "ivf_times", "ivf_times_4m", "layer_gemm",
                              "evaluate", "encode_depth", "capture", "ablation", "mpnet",
                              "mpnet_kernel_names", "pq", "flash", "roberta", "marian",
-                             "train_mesh", "mesh")}))
+                             "train_mesh", "dist", "mesh")}))
     if "dataset" in report:
         log(json.dumps({"dataset": {k: v for k, v in report["dataset"].items() if k != "root"}}))
     log(json.dumps({"K1_training_layer": {k: report["K1"].get(k) for k in (

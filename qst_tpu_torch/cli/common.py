@@ -127,10 +127,12 @@ def resolve_hf_checkpoint_dir(args: argparse.Namespace,
     return cfg, params, tokenizer
 
 
-def refuse_not_ported(checks) -> None:
-    """Exit with a plain "not ported" message for the first flag whose
-    module the port lacks: ``checks`` holds (flag, set-to-a-non-default,
-    the missing part)."""
-    for flag, is_set, what in checks:
-        if is_set:
-            raise SystemExit(f"{flag} is not ported to qst_tpu_torch yet ({what})")
+def primary_first(fn):
+    """``fn()`` on process 0 of a group first, then, after a barrier, on the
+    others: a cache file that ``fn`` writes (the IR evaluation set's) is
+    whole before they read it. One process: ``fn()``."""
+    from qst_tpu_torch.core.meshes import barrier, is_primary
+
+    out = fn() if is_primary() else None
+    barrier()
+    return out if is_primary() else fn()

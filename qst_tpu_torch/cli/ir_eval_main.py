@@ -25,8 +25,11 @@ tokenizer), or without one a random-init scorer of the encoder's
 architecture and tokenizer. ``--mesh_data`` / ``--mesh_model`` lay a
 ``core/meshes.py`` mesh over the devices of ``--device`` (every card by
 default; ``$QST_TORCH_VIRTUAL_DEVICES=n`` repeats them n long, as the tests
-and one card do): the encoder runs data-parallel and the index is sharded
-over it.
+and one card do) of every process — ``$QST_COORDINATOR_ADDRESS`` (with
+``$QST_NUM_PROCESSES`` and ``$QST_PROCESS_ID``) starts a group of processes,
+each running its positions: the encoder runs data-parallel and the index
+is sharded over it, every process gets every answer, and process 0 writes
+the output directory.
 """
 
 from __future__ import annotations
@@ -47,7 +50,7 @@ from qst_tpu_torch.cli.common import (
     dump_args,
     encoder_from_args,
     load_best_params,
-    refuse_not_ported,
+    primary_first,
     resolve_hf_checkpoint_dir,
     tokenizer_from_args,
 )
@@ -127,10 +130,10 @@ def main(argv=None) -> int:
     import torch
 
     from qst_tpu_torch.core.meshes import (
-        COORDINATOR_ENV,
+        global_devices,
         initialize_distributed,
+        is_primary,
         make_mesh,
-        visible_devices,
     )
     from qst_tpu_torch.data.chunks import ChunkStore
     from qst_tpu_torch.evals.eval_set import create_ir_evaluation_set
@@ -140,16 +143,12 @@ def main(argv=None) -> int:
     if initialize_distributed(device=args.device):
         import torch.distributed as dist
 
-        logger.info("multi-process runtime: process %d/%d", dist.get_rank(),
-                    dist.get_world_size())
-        if dist.get_world_size() > 1:
-            # the mesh below spans this process's devices only: every
-            # process would run the whole evaluation into --output_root
-            dist.destroy_process_group()
-            refuse_not_ported([(f"${COORDINATOR_ENV} with more than one process", True,
-                                "meshes across processes")])
-    mesh = make_mesh(args.mesh_data, args.mesh_model, devices=visible_devices(args.device))
-    device = mesh.devices[0]
+        logger.info("multi-process runtime: process %d/%d, %d global devices",
+                    dist.get_rank(), dist.get_world_size(),
+                    len(global_devices(args.device)[0]))
+    devices, ranks = global_devices(args.device)
+    mesh = make_mesh(args.mesh_data, args.mesh_model, devices=devices, ranks=ranks)
+    device = mesh.home
 
     if args.eval_index != "exact":
         kept = [s for s in args.score_functions
@@ -177,7 +176,9 @@ def main(argv=None) -> int:
     # output dir keyed by config hash (reference :61-63)
     out_dir = os.path.join(args.output_root, config_hash(ir_cfg)[:16])
     os.makedirs(out_dir, exist_ok=True)
-    dump_args(args, out_dir)
+    primary = is_primary()  # the one writer of a group of processes
+    if primary:
+        dump_args(args, out_dir)
 
     hf_ckpt = resolve_hf_checkpoint_dir(args)
     hf_baseline_params = None
@@ -227,7 +228,7 @@ def main(argv=None) -> int:
         query_variation_fn = lambda text: generate_variations(  # noqa: E731
             text, n=1, seed=args.seed)[0]
 
-    eval_set = create_ir_evaluation_set(
+    eval_set = primary_first(lambda: create_ir_evaluation_set(
         instances, n_queries=args.n_queries,
         use_pos_examples=args.use_pos_examples,
         use_part_pos_examples=args.use_part_pos_examples,
@@ -235,7 +236,7 @@ def main(argv=None) -> int:
         cross_encoder_threshold=args.cross_encoder_threshold,
         query_variation_fn=query_variation_fn,
         seed=args.seed,
-        cache_path=os.path.join(out_dir, "ir_eval_set.json"))
+        cache_path=os.path.join(out_dir, "ir_eval_set.json")))
 
     index_factory = None
     if args.eval_index == "ivf":
@@ -258,7 +259,7 @@ def main(argv=None) -> int:
     # the encoder's embeddings stay on `device`, and the index with them
     evaluator = InformationRetrievalEvaluator(
         eval_set.queries, eval_set.corpus, eval_set.relevant, cfg=ir_cfg,
-        mesh=mesh, log_dir=out_dir, index_factory=index_factory)
+        mesh=mesh, log_dir=out_dir if primary else None, index_factory=index_factory)
 
     def encode_with(params):
         return SentenceEncoder(encoder_cfg, params, tokenizer, device=device,
@@ -290,8 +291,9 @@ def main(argv=None) -> int:
         logger.info("A/B main score: baseline=%.6f trained=%.6f",
                     baseline_score, trained_score)
 
-    with open(os.path.join(out_dir, "results.json"), "w") as f:
-        json.dump(results, f, indent=2)
+    if primary:
+        with open(os.path.join(out_dir, "results.json"), "w") as f:
+            json.dump(results, f, indent=2)
     logger.info("results written to %s", out_dir)
     return 0
 

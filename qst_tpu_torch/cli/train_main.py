@@ -20,7 +20,11 @@ starts from a local sentence-transformers directory (BERT or MPNet, at its
 own ``max_seq_length`` up to 512), ``--hf_checkpoint`` from a weights file.
 The mesh is built as the JAX CLI builds it: ``--mesh_data`` × ``--mesh_model``
 over the visible device positions (``--mesh_data -1``: all of them; one card
-is one position unless ``$QST_TORCH_VIRTUAL_DEVICES`` names more), or with
+is one position unless ``$QST_TORCH_VIRTUAL_DEVICES`` names more) of every
+process — ``$QST_COORDINATOR_ADDRESS`` with ``$QST_NUM_PROCESSES`` and
+``$QST_PROCESS_ID`` starts a group (``core/meshes.py:initialize_distributed``)
+whose processes train one model together, data-parallel, each on its
+positions; process 0 writes the experiment directory — or with
 ``--pp_stages`` > 1 a ("pipe", "data") mesh for the pipelined trunk
 (``--pp_microbatches``, ``--pp_rounds``), which excludes ``--mesh_model``
 and ``--use_fused_layer``.
@@ -42,6 +46,7 @@ from qst_tpu_torch.cli.common import (
     add_hf_checkpoint_dir_flag,
     dump_args,
     encoder_from_args,
+    primary_first,
     resolve_hf_checkpoint_dir,
     tokenizer_from_args,
 )
@@ -143,7 +148,7 @@ def build_trainer(args: argparse.Namespace):
     from qst_tpu_torch.models.sentence_encoder import SentenceEncoder, init_params
     from qst_tpu_torch.train.trainer import Trainer
 
-    from qst_tpu_torch.core.meshes import make_mesh, make_pipe_mesh, visible_devices
+    from qst_tpu_torch.core.meshes import global_devices, is_primary, make_mesh, make_pipe_mesh
 
     device = resolve_device(args.device)
     seed_everything(args.seed)
@@ -185,9 +190,11 @@ def build_trainer(args: argparse.Namespace):
         early_stopping_delta=args.early_stopping_delta,
         early_stopping_mode="max", seed=args.seed,
         experiment_dir=args.experiment_dir, manual_notes=args.manual_notes)
-    dump_args(args, args.experiment_dir, manual_notes=args.manual_notes)
+    primary = is_primary()  # the one writer of a group of processes
+    if primary:
+        dump_args(args, args.experiment_dir, manual_notes=args.manual_notes)
 
-    devices = visible_devices(device)
+    devices, ranks = global_devices(device)
     if args.pp_stages > 1:
         if args.mesh_model > 1:
             raise SystemExit("--pp_stages and --mesh_model are exclusive "
@@ -199,12 +206,12 @@ def build_trainer(args: argparse.Namespace):
                 "a tick), not the fused per-layer kernels")
         pp_data = (args.mesh_data if args.mesh_data > 0
                    else max(1, len(devices) // args.pp_stages))
-        mesh = make_pipe_mesh(args.pp_stages, pp_data, devices=devices)
+        mesh = make_pipe_mesh(args.pp_stages, pp_data, devices=devices, ranks=ranks)
         logger.info("pipeline training: %d stages x %d data shards, "
                     "%d microbatches, %d rounds", args.pp_stages, pp_data,
                     args.pp_microbatches or args.pp_stages, args.pp_rounds)
     else:
-        mesh = make_mesh(args.mesh_data, args.mesh_model, devices=devices)
+        mesh = make_mesh(args.mesh_data, args.mesh_model, devices=devices, ranks=ranks)
 
     # initial weights: the checkpoint directory's, a weights file's, or random
     if hf_params is not None:
@@ -242,10 +249,10 @@ def build_trainer(args: argparse.Namespace):
 
     ir_eval_set = None
     if args.use_ir_evaluator:
-        ir_eval_set = create_ir_evaluation_set(
+        ir_eval_set = primary_first(lambda: create_ir_evaluation_set(
             list(base_ds.store.iter_instances()),
             seed=args.seed,
-            cache_path=os.path.join(args.experiment_dir, "ir_eval_set.json"))
+            cache_path=os.path.join(args.experiment_dir, "ir_eval_set.json")))
 
     collator = QuadrupletCollator(tokenizer,
                                   max_length=encoder_cfg.max_seq_length,
@@ -254,7 +261,7 @@ def build_trainer(args: argparse.Namespace):
         encoder_cfg, loss_cfg, tokenizer, val_instances,
         val_batches=val_batches, ir_eval_set=ir_eval_set,
         ir_cfg=IREvalConfig() if ir_eval_set else None,
-        log_dir=args.experiment_dir, mesh=None)
+        log_dir=args.experiment_dir if primary else None, mesh=None)
 
     # train FROM the resolved weights (copied: the miner keeps the frozen ones)
     return Trainer(encoder_cfg, loss_cfg, train_cfg, base_ds, collator,
@@ -267,6 +274,17 @@ def build_trainer(args: argparse.Namespace):
 def main(argv=None) -> int:
     logging.basicConfig(level=logging.INFO)
     args = build_parser().parse_args(argv)
+
+    from qst_tpu_torch.core.meshes import global_devices, initialize_distributed
+
+    # multi-process hook first (gated on $QST_COORDINATOR_ADDRESS; nothing
+    # in the default single-process mode): the mesh spans every process
+    if initialize_distributed(device=args.device):
+        import torch.distributed as dist
+
+        logger.info("multi-process runtime: process %d/%d, %d global devices",
+                    dist.get_rank(), dist.get_world_size(),
+                    len(global_devices(args.device)[0]))
     trainer = build_trainer(args)
     result = trainer.train(seed=args.seed, resume=args.resume)
     logger.info(

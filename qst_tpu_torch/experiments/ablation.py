@@ -25,8 +25,18 @@ The flags and defaults are the JAX script's, plus ``--steps_per_call`` and
 ``--device``; ``--use_fused_layer`` also puts the γ arm's loss through the fused
 quadruplet kernel (K3). The random init and the dropout draws come from
 ``torch.Generator`` seed 14, which no seed makes equal to ``jax.random``'s;
-``run(init_fn=)`` starts both arms from given weights instead. The sweep mode
-(``--gammas``) is not ported yet.
+``run(init_fn=)`` starts both arms from given weights instead.
+
+``--gammas`` is the JAX script's sweep mode: the triplet arm once, then one
+γ arm a (γ, margin set) cell of ``--gammas`` × ``--margin_sets``, each from
+the same init on the same stream; it prints the
+``ablation_gamma_margin_sweep`` JSON line and the sweep table
+(``benchmarks/ablation_quadruplet_vs_triplet.py:303-337``):
+
+    python -m qst_tpu_torch.experiments.ablation --steps 2000 --wordpiece \
+        --use_fused_layer --steps_per_call 4 --gammas 0.2,0.4,0.6,0.8 \
+        --margin_sets 1.0:0.5:0.5,1.0:0.3:0.3
+
 ``hash_embed`` and ``make_coco_annotations`` are copies of the JAX
 script's, held to them by ``tests/test_torch_dataset.py``.
 """
@@ -126,7 +136,15 @@ def build_parser() -> argparse.ArgumentParser:
                     help="tokenize with a WordPiece vocab built from the constructed "
                     "dataset instead of the hash tokenizer")
     ap.add_argument("--gammas", type=str, default="",
-                    help="the JAX script's sweep mode (not ported yet)")
+                    help="comma list of gamma values: sweep mode (VERDICT "
+                    "r4 item 5) — trains the triplet baseline once plus one "
+                    "gamma arm per (gamma, margin-set) cell and prints a "
+                    "sweep table characterizing the part-only R@10 vs "
+                    "graded-ordering trade-off")
+    ap.add_argument("--margin_sets", type=str, default="1.0:0.5:0.5",
+                    help="comma list of pos_neg:pos_part:part_neg margin "
+                    "triples for the sweep (reference default 1.0:0.5:0.5, "
+                    "models/losses/losses.py:9-19)")
     ap.add_argument("--preset", default="minilm_l6", choices=["minilm_l6", "tiny"],
                     help="encoder preset (tiny = CPU smoke testing)")
     ap.add_argument("--steps_per_call", type=int, default=1,
@@ -159,9 +177,11 @@ def wordpiece_vocab(instances: List[dict]) -> Dict[str, int]:
 def run(args: argparse.Namespace, work: str,
         init_fn: Optional[Callable[[Any], Dict[str, Any]]] = None) -> dict:
     """The whole recipe in ``work`` → {"results": {model: metrics},
-    "steps_per_arm", "seconds": {phase: s}, "steps_per_sec": {arm: ...}}.
-    ``init_fn(cfg)`` → a state dict to start both arms from (default: a
-    random init from seed 14)."""
+    "steps_per_arm", "seconds": {phase: s}, "steps_per_sec": {arm: ...},
+    "arms": {arm: its trained state dict}}. ``init_fn(cfg)`` → a state dict
+    to start every arm from (default: a random init from seed 14). With
+    ``args.gammas`` (the sweep) the arms are the triplet arm, then one a
+    (γ, margin set) cell, and ``steps_per_arm`` is the triplet arm's."""
     import dataclasses
 
     import torch
@@ -179,8 +199,6 @@ def run(args: argparse.Namespace, work: str,
     from qst_tpu_torch.models.tokenizer import HashTokenizer, WordPieceTokenizer
     from qst_tpu_torch.train import Trainer
 
-    if args.gammas:
-        raise SystemExit("--gammas (the sweep mode) is not ported to qst_tpu_torch yet")
     device = resolve_device(args.device)
     seconds: Dict[str, float] = {}
     rng = np.random.default_rng(14)
@@ -298,16 +316,33 @@ def run(args: argparse.Namespace, work: str,
               f"loop)", flush=True)
         return result.state.model.state_dict(), result.state.step
 
+    arms = {}
+    if args.gammas:
+        # the sweep (the JAX script's VERDICT r4 item 5): the triplet arm
+        # once, then one γ arm a (γ, margin set) cell
+        gammas = [float(g) for g in args.gammas.split(",")]
+        msets = [tuple(float(x) for x in m.split(":")) for m in args.margin_sets.split(",")]
+        arms["triplet"], triplet_steps = train_arm(LossConfig(kind="triplet"), "triplet")
+        results["triplet"] = evaluate(arms["triplet"], "triplet")
+        for g in gammas:
+            for (m_pn, m_pp, m_pn2) in msets:
+                label = f"gamma={g} margins={m_pn}/{m_pp}/{m_pn2}"
+                arms[label], _ = train_arm(LossConfig(
+                    kind="gamma", gamma=g, margin_pos_neg=m_pn, margin_pos_part=m_pp,
+                    margin_part_neg=m_pn2, use_fused_kernel=args.use_fused_layer), label)
+                results[label] = evaluate(arms[label], label)
+        return {"results": results, "steps_per_arm": triplet_steps, "seconds": seconds,
+                "steps_per_sec": steps_per_sec, "config": dataclasses.asdict(cfg), "arms": arms}
     gamma = LossConfig(kind="gamma", margin_pos_part=0.5, margin_part_neg=0.5,
                        use_fused_kernel=args.use_fused_layer)
-    gamma_params, gamma_steps = train_arm(gamma, "quadruplet")
-    results["quadruplet"] = evaluate(gamma_params, "gamma-quadruplet")
-    triplet_params, triplet_steps = train_arm(LossConfig(kind="triplet"), "triplet")
-    results["triplet"] = evaluate(triplet_params, "triplet")
+    arms["quadruplet"], gamma_steps = train_arm(gamma, "quadruplet")
+    results["quadruplet"] = evaluate(arms["quadruplet"], "gamma-quadruplet")
+    arms["triplet"], triplet_steps = train_arm(LossConfig(kind="triplet"), "triplet")
+    results["triplet"] = evaluate(arms["triplet"], "triplet")
     return {"results": results,
             "steps_per_arm": {"quadruplet": gamma_steps, "triplet": triplet_steps},
             "seconds": seconds, "steps_per_sec": steps_per_sec,
-            "config": dataclasses.asdict(cfg)}
+            "config": dataclasses.asdict(cfg), "arms": arms}
 
 
 def table_row(r: dict) -> dict:
@@ -358,10 +393,33 @@ def quality_bars(results: dict, ordering_only: bool = False) -> List[str]:
     return failed
 
 
+SWEEP_COLUMNS = ("cell", "R@10 (part)", "acc(part,neg)", "NDCG@10 (pos+part)",
+                 "R@10 (pos+part)", "acc(pos,part)", "global")
+
+
+def sweep_table(results: dict) -> str:
+    """The JAX script's sweep table: a row a model (baseline, triplet, each
+    cell) — does graded ordering trade off against part-positive rank-band
+    retention, and where?"""
+    rows = ["| " + " | ".join(SWEEP_COLUMNS) + " |", "|" + "---|" * len(SWEEP_COLUMNS)]
+    for label, r in results.items():
+        o = r["ordering"]
+        rows.append(f"| {label} | {r['part_only']['recall@10']} | {o.get('acc_part_neg')} | "
+                    f"{r['pos+part']['ndcg@10']} | {r['pos+part']['recall@10']} | "
+                    f"{o.get('acc_pos_part')} | {o.get('global_accuracy')} |")
+    return "\n".join(rows)
+
+
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
     with tempfile.TemporaryDirectory(prefix="ablation_") as work:
         out = run(args, work)
+    out.pop("arms")
+    if args.gammas:
+        print(json.dumps({"metric": "ablation_gamma_margin_sweep",
+                          "steps_per_arm": out["steps_per_arm"], "results": out["results"]}))
+        print(sweep_table(out["results"]))
+        return 0
     print(json.dumps({"metric": "ablation_quadruplet_vs_triplet", **out}))
     print(markdown_table(out["results"]))
     failed = quality_bars(out["results"], ordering_only=args.steps < 2000)

@@ -17,7 +17,10 @@ on a GPU, up to that many batches' device → host copies stay in flight.
 mesh's data axis and split into that many row blocks, block i run through
 the trunk on the data shard's device (one model replica a distinct device;
 K1 on the fused path); the embeddings come back in row order on one device
-— the encoder's, or ``out_sharding``'s first.
+— the encoder's, or ``out_sharding``'s first. On a mesh that spans
+processes each process runs the data shards it owns and every process gets
+every row (``core/meshes.py:gather_rows``), as the JAX package's encode
+returns the whole replicated output to each process.
 """
 
 from __future__ import annotations
@@ -30,7 +33,14 @@ import torch
 
 from qst_tpu_torch.core.config import EncoderConfig
 from qst_tpu_torch.core.device import resolve_device
-from qst_tpu_torch.core.meshes import DATA_AXIS, Mesh, Sharding, shard_loop, sharded
+from qst_tpu_torch.core.meshes import (
+    DATA_AXIS,
+    Mesh,
+    Sharding,
+    gather_rows,
+    shard_loop,
+    sharded,
+)
 from qst_tpu_torch.models.bert import BertEncoder
 from qst_tpu_torch.models.mpnet import MPNetEncoder
 from qst_tpu_torch.ops.distances import l2_normalize
@@ -172,19 +182,21 @@ class SentenceEncoder:
             raise TypeError(f"out_sharding must be a core.meshes.Sharding, "
                             f"got {type(out_sharding).__name__}")
         if device is None:
-            device = (self.mesh.devices[0] if self.mesh is not None
+            device = (self.mesh.home if self.mesh is not None
                       else next(iter(params.values())).device)
         self.device = torch.device(device)
-        self._out_device = (out_sharding.shard_devices()[0] if out_sharding is not None
+        self._out_device = (out_sharding.mesh.home if out_sharding is not None
                             else self.device)
-        # one replica a distinct device of the data axis; a data axis of one
-        # position runs unsharded on the encoder's device
+        # one replica a distinct device of the data axis that this process
+        # runs; a data axis of one position runs unsharded on the encoder's
+        # device
         data = self.mesh.axis_devices(DATA_AXIS) if self.mesh is not None else []
+        ranks = self.mesh.axis_ranks(DATA_AXIS) if len(data) > 1 else None
         self._data_devices = data if len(data) > 1 else [self.device]
         self._n_data = len(self._data_devices)
-        self._data_mesh = Mesh([[d] for d in self._data_devices])   # the shard loop's
+        self._data_mesh = Mesh([[d] for d in self._data_devices], ranks=ranks)  # the shard loop's
         self._replicas = {d: self._load(params, d) for d in dict.fromkeys(
-            [self.device] + self._data_devices)}
+            [self.device] + self._data_mesh.distinct_devices())}
         self.model = self._replicas[self.device]
         self._fwd = embed_fn(cfg)
 
@@ -208,7 +220,8 @@ class SentenceEncoder:
         mask = attention_mask.tensor_split(self._n_data)
         outs = shard_loop(self._data_mesh, lambda i, d: self._fwd(
             self._replicas[d], ids[i].to(d), mask[i].to(d)))
-        return torch.cat([o.to(self._out_device) for o in outs])
+        rows = torch.cat([o.to(self._out_device) for o in outs if o is not None])
+        return gather_rows(rows) if self._data_mesh.spans_processes else rows
 
     def encode(self, texts: Sequence[str], batch_size: int = 256,
                convert_to_numpy: bool = True, pipeline_batches: int = 1,

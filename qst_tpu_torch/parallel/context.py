@@ -48,7 +48,9 @@ def full_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.T
 
 def _blocks(x: torch.Tensor, mesh: Mesh, axis: str) -> List[torch.Tensor]:
     """x split on the sequence (dim 2) into one block per shard of ``axis``,
-    block i on that shard's device."""
+    block i on that shard's device. A mesh that spans processes raises:
+    the schemes hand blocks from shard to shard."""
+    mesh.refuse_across_processes("context-parallel and ring attention")
     devs = mesh.axis_devices(axis)
     if x.shape[2] % len(devs):
         raise ValueError(f"sequence length {x.shape[2]} does not split into "

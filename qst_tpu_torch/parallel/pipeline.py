@@ -202,6 +202,7 @@ def make_pp_embed_fn(cfg: EncoderConfig, mesh: Mesh, n_stages: int, n_microbatch
     over its data axis. B must divide by ``n_microbatches`` and each
     microbatch by the data axis. ``key`` (seed, step): the configured
     dropout, drawn on the device; None: the deterministic forward."""
+    mesh.refuse_across_processes("pipeline parallelism")
     from qst_tpu_torch.models.bert import MASK_BIAS, DeviceDropout
     from qst_tpu_torch.ops.distances import l2_normalize
     from qst_tpu_torch.ops.fused_layer import fold_key

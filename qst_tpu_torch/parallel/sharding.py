@@ -32,6 +32,16 @@ derives by hand:
   data-index order (``Replicate``), the JAX package's gradient ``psum``,
   so a step gives the same bits on every call. A shard's dropout key is
   the step's folded with its data index (JAX ``fold_in``).
+- On a mesh that spans processes each process runs the data shards it owns
+  and the data axis is the only one that crosses: every row of the mesh
+  (the data shard's tensor-parallel positions) lies in one process, as
+  ``make_mesh`` lays it out when the model axis divides each process's
+  device count; a split row raises. The shards' embeddings are gathered in
+  data-index order (``core/meshes.py:gather_rows``, whose backward keeps
+  this process's rows), so the loss runs on every process on the same
+  rows; ``ReplicateAcross`` sums every data shard's gradient copy from
+  every process in data-index order. The parameters after a step are the
+  same bits on every process and equal to the one-process mesh's.
 """
 
 from __future__ import annotations
@@ -44,7 +54,14 @@ from typing import Any, Callable, Dict, Mapping, Optional, Tuple
 import torch
 from torch import nn
 
-from qst_tpu_torch.core.meshes import DATA_AXIS, MODEL_AXIS, Mesh, shard_loop
+from qst_tpu_torch.core.meshes import (
+    DATA_AXIS,
+    MODEL_AXIS,
+    Mesh,
+    gather_ordered,
+    gather_rows,
+    shard_loop,
+)
 
 # (name regex, spec by rank) — the first match wins
 _RULES: Tuple[Tuple[str, dict], ...] = (
@@ -90,9 +107,9 @@ class NamedSharding:
 
     def shard_devices(self):
         """The device of each block along the split dimension, in order
-        (one entry, the mesh's first device, when replicated)."""
+        (one entry, the mesh's home device, when replicated)."""
         if split_dim(self.spec) is None:
-            return self.mesh.devices[:1]
+            return [self.mesh.home]
         return self.mesh.axis_devices(MODEL_AXIS)
 
 
@@ -151,16 +168,18 @@ def _layer_parts(cfg):
 def tensor_parallel_model(cfg, params: Mapping[str, torch.Tensor], mesh: Mesh) -> nn.Module:
     """A ``SentenceEncoderModule`` holding ``params`` (its HF state dict),
     each layer a ``TensorParallelLayer`` over the mesh's model axis: shard
-    j's slices copied to the axis' j-th device, every replicated tensor on
-    the mesh's first device (no slice is a view of another tensor, so an
-    optimizer's in-place update reaches each through one path)."""
+    j's slices copied to the axis' j-th device of this process's first row,
+    every replicated tensor on the mesh's home device (no slice is a view
+    of another tensor, so an optimizer's in-place update reaches each
+    through one path)."""
     from qst_tpu_torch.models.bert import TensorParallelLayer
     from qst_tpu_torch.models.sentence_encoder import SentenceEncoderModule
 
+    mesh.require_whole_rows("a tensor-parallel model")
     devices = mesh.axis_devices(MODEL_AXIS)
     with torch.device("meta"):
         model = SentenceEncoderModule(cfg)
-    model = model.to_empty(device=mesh.devices[0])
+    model = model.to_empty(device=mesh.home)
     model.load_state_dict({k: v.detach() for k, v in params.items()})
     parts = _layer_parts(cfg)
     for i in range(cfg.num_layers):
@@ -235,6 +254,47 @@ class Replicate(torch.autograd.Function):
         return None, g
 
 
+class ReplicateAcross(torch.autograd.Function):
+    """``apply(devices, *params)`` on a mesh that spans processes:
+    ``devices[j]`` is the device of each data shard this process owns for
+    ``params[j]`` → the copies, parameter-major (a view where the device is
+    the parameter's own). The backward packs this process's shards'
+    gradients into one f32 row a shard on the first parameter's device,
+    gathers every process's rows in rank order (data-index order) and sums
+    each parameter's copies in that order on its device — the sum
+    ``Replicate`` forms in one process, so the bits are the same."""
+
+    @staticmethod
+    def forward(ctx, devices, *params):
+        ctx.homes = [p.device for p in params]
+        ctx.shapes = [p.shape for p in params]
+        ctx.n_local = len(devices[0]) if devices else 0
+        outs = []
+        for p, devs in zip(params, devices):
+            for d in devs:
+                y = p.to(d)
+                outs.append(y.view_as(y) if y is p else y)
+        return tuple(outs)
+
+    @staticmethod
+    def backward(ctx, *grads):
+        n, home = ctx.n_local, ctx.homes[0]
+        if any(g.dtype != torch.float32 for g in grads):
+            raise TypeError("the gradient sum across processes packs f32 gradients only")
+        rows = torch.stack([torch.cat([grads[j * n + i].reshape(-1).to(home)
+                                       for j in range(len(ctx.shapes))]) for i in range(n)])
+        every = torch.cat(gather_ordered(rows))          # (data shards, Σ numel)
+        out, start = [], 0
+        for shape, dev in zip(ctx.shapes, ctx.homes):
+            size = shape.numel()
+            g = every[0, start:start + size].to(dev)
+            for row in every[1:]:
+                g = g + row[start:start + size].to(dev)
+            out.append(g.view(shape))
+            start += size
+        return (None, *out)
+
+
 _SHARD = re.compile(r"\.shards\.(\d+)\.")
 
 
@@ -267,16 +327,33 @@ def device_context(dev: torch.device):
     return torch.cuda.device(dev) if dev.type == "cuda" else contextlib.nullcontext()
 
 
-def replicas(model: nn.Module, mesh: Mesh, n: int, device_of: Callable) -> list:
+def replicas(model: nn.Module, mesh: Mesh, n: int, device_of: Callable,
+             owned: Optional[list] = None) -> list:
     """→ for each of ``n`` shards, {"model." + name: its copy} of the
     model's parameters, copy i of ``name`` on ``device_of(name, i)``; a
-    trainable parameter's copies are one ``Replicate``."""
-    per_shard = [dict() for _ in range(n)]
+    trainable parameter's copies are one ``Replicate``. ``owned`` (the
+    shards this process runs on a mesh that spans processes): copies for
+    those only (None for the others), the trainable ones through one
+    ``ReplicateAcross``."""
+    if owned is None:
+        per_shard = [dict() for _ in range(n)]
+        for name, p in model.named_parameters():
+            devs = tuple(device_of(name, i) for i in range(n))
+            copies = Replicate.apply(devs, p) if p.requires_grad else tuple(p.to(d) for d in devs)
+            for i, c in enumerate(copies):
+                per_shard[i][f"model.{name}"] = c
+        return per_shard
+    per_shard = [dict() if i in owned else None for i in range(n)]
+    trainable = [(name, p) for name, p in model.named_parameters() if p.requires_grad]
     for name, p in model.named_parameters():
-        devs = tuple(device_of(name, i) for i in range(n))
-        copies = Replicate.apply(devs, p) if p.requires_grad else tuple(p.to(d) for d in devs)
-        for i, c in enumerate(copies):
-            per_shard[i][f"model.{name}"] = c
+        if not p.requires_grad:
+            for i in owned:
+                per_shard[i][f"model.{name}"] = p.to(device_of(name, i))
+    devs = [tuple(device_of(name, i) for i in owned) for name, _ in trainable]
+    copies = ReplicateAcross.apply(devs, *(p for _, p in trainable))
+    for j, (name, _) in enumerate(trainable):
+        for k, i in enumerate(owned):
+            per_shard[i][f"model.{name}"] = copies[j * len(owned) + k]
     return per_shard
 
 
@@ -292,19 +369,26 @@ def data_parallel(fn: Callable, mesh: Mesh) -> Callable:
     (a multiple of the axis' size, as the JAX package's ``P(DATA_AXIS)``),
     block i run by ``fn`` on the shard's devices with the parameters
     replicated there and the key folded with i; the outputs concatenated
-    in row order on the rows' device."""
+    in row order on the rows' device. On a mesh that spans processes each
+    process runs its own data shards and the rows of every process are
+    gathered in order (every process passes the whole batch)."""
     from qst_tpu_torch.ops.fused_layer import fold_key
 
     n = mesh.shape[DATA_AXIS]
+    owned = None
+    if mesh.spans_processes:
+        mesh.require_whole_rows("data-parallel training")
+        owned = [i for i, r in enumerate(mesh.axis_ranks(DATA_AXIS)) if r == mesh.rank]
 
     def run(model, ids, mask, key=None):
         if ids.shape[0] % n:
             raise ValueError(f"{ids.shape[0]} rows do not split over {n} data shards")
-        copies = replicas(model, mesh, n, lambda name, i: param_device(mesh, name, i))
+        copies = replicas(model, mesh, n, lambda name, i: param_device(mesh, name, i), owned)
         ids_s, mask_s = ids.chunk(n), mask.chunk(n)
         outs = shard_loop(mesh, lambda i, dev: run_with(
             model, fn, copies[i], ids_s[i].to(dev), mask_s[i].to(dev),
             None if key is None else fold_key(key.to(dev), i)), axis=DATA_AXIS)
-        return torch.cat([o.to(ids.device) for o in outs])
+        rows = torch.cat([o.to(ids.device) for o in outs if o is not None])
+        return rows if owned is None else gather_rows(rows)
 
     return run

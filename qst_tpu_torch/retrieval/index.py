@@ -160,7 +160,7 @@ class ExactIndex:
         non-normalized index."""
         mesh = as_mesh(mesh)
         if mesh is not None and device is None:
-            device = mesh.devices[0]
+            device = mesh.home
         self.device = device_of(embeddings, device)
         pre_quantized = (dtype == "int8" and int8_scale is not None
                          and str(getattr(embeddings, "dtype", "")).endswith("int8"))
@@ -211,7 +211,7 @@ class ExactIndex:
                 emb, (0, 0, 0, self.shard_rows * self.mesh.size - self.n_docs))
             # the padded rows, split: readers take .blocks or .gather()
             self.embeddings = RowShards(emb.contiguous(), self.mesh, self.shard_rows)
-            self.device = self.mesh.devices[0]
+            self.device = self.mesh.home
         else:
             self.embeddings = emb.contiguous()
         self._cache_cos_corpus = bool(cache_cos_corpus)
@@ -276,7 +276,8 @@ class ExactIndex:
                     cc = self._cos_corpus
                 else:
                     unit = lambda c: l2_normalize(c.float()).to(c.dtype)  # noqa: E731
-                    cc = unit(cc) if self.mesh is None else [unit(c) for c in cc]
+                    cc = (unit(cc) if self.mesh is None
+                          else [None if c is None else unit(c) for c in cc])
                     if self._cache_cos_corpus:
                         self._cos_corpus = cc
         q = q.to(self._dtype)

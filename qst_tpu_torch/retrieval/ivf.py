@@ -275,7 +275,7 @@ class IVFIndex:
                  device: Any = None):
         mesh = as_mesh(mesh)
         if mesh is not None and device is None:
-            device = mesh.devices[0]
+            device = mesh.home
         self.default_n_probe = default_n_probe
         if dtype not in _DTYPES:
             raise ValueError(f"dtype must be float32|bfloat16, got {dtype}")
@@ -380,6 +380,7 @@ class IVFIndex:
         fill = torch.nn.functional.pad(self.fill, (0, cps * self.mesh.size - n_clusters))
         zero = fill.new_zeros(1)
         self._shard_fill = [torch.cat([fill[i * cps:(i + 1) * cps], zero]).to(d)
+                            if self.mesh.owns(i) else None
                             for i, d in enumerate(self.mesh.devices)]
 
     @classmethod
@@ -395,7 +396,7 @@ class IVFIndex:
         re-cast is exact)."""
         mesh = as_mesh(mesh)
         if mesh is not None and device is None:
-            device = mesh.devices[0]
+            device = mesh.home
         if dtype is not None and dtype not in _DTYPES:
             raise ValueError(f"dtype must be float32|bfloat16, got {dtype}")
         self = cls.__new__(cls)
@@ -609,7 +610,7 @@ class IVFIndex:
         if self._use_pallas(backend):
             row = n_probe * self.cell_budget * 4
             return max(8, min(8192, self.SCORES_BUDGET_BYTES // row))
-        cells = self.cells if self.mesh is None else self.cells.blocks[0]
+        cells = self.cells if self.mesh is None else self.cells.local
         row = self.cell_budget * cells.shape[-1] * cells.element_size()
         return max(8, min(1024, self.GATHER_BUDGET_BYTES // row))
 

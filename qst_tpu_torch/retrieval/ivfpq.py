@@ -245,7 +245,7 @@ class IVFPQIndex:
                  bits: int = 8, device: Any = None):
         mesh = as_mesh(mesh)
         if mesh is not None and device is None:
-            device = mesh.devices[0]
+            device = mesh.home
         self.device = device_of(embeddings, device)
         emb = embeddings if isinstance(embeddings, torch.Tensor) else np.asarray(embeddings)
         n, d = emb.shape
@@ -361,7 +361,7 @@ class IVFPQIndex:
         if bits not in (4, 8):
             raise ValueError(f"bits must be 4 or 8, got {bits}")
         dev = device_of(cell_codes, device if device is not None or mesh is None
-                        else mesh.devices[0])
+                        else mesh.home)
         cell_codes = _tensor(cell_codes).to(torch.uint8)
         cell_ids = _tensor(cell_ids).to(torch.int32)
         if cell_codes.ndim != 3 or tuple(cell_ids.shape) != tuple(cell_codes.shape[:2]):

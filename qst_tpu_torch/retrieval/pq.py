@@ -450,7 +450,7 @@ class PQIndex:
         # basis; refine rows and refined scores stay in the original one
         mesh = as_mesh(mesh)
         if mesh is not None and device is None:
-            device = mesh.devices[0]
+            device = mesh.home
         self.device = device_of(embeddings, device)
         emb = embeddings if isinstance(embeddings, torch.Tensor) else np.asarray(embeddings)
         n, d = emb.shape
@@ -535,7 +535,7 @@ class PQIndex:
         the encoder. No refine rows."""
         mesh = as_mesh(mesh)
         dev = device_of(None, device if device is not None or mesh is None
-                        else mesh.devices[0])
+                        else mesh.home)
         it = iter(chunks)
         buffered: List[np.ndarray] = []
         n_buffered = 0
@@ -574,7 +574,7 @@ class PQIndex:
         int8 (scale 127) or any float dtype (kept as bf16)."""
         mesh = as_mesh(mesh)
         if mesh is not None and device is None:
-            device = mesh.devices[0]
+            device = mesh.home
         self = cls.__new__(cls)
         self.device = device_of(codes, device)
         codes = codes.to(torch.uint8) if isinstance(codes, torch.Tensor) \

@@ -84,7 +84,7 @@ def load_index(path: str, mesh: Any = None, dtype: Optional[str] = None,
     streamed corpus stays on disk, memory-mapped."""
     mesh = as_mesh(mesh)
     device = resolve_device(device if device is not None or mesh is None
-                            else mesh.devices[0])
+                            else mesh.home)
     with open(os.path.join(path, IDS_FILE)) as f:
         ids = json.load(f)
     with open(os.path.join(path, META_FILE)) as f:
@@ -200,7 +200,7 @@ class Retriever:
         self.pq_rotate = pq_rotate
         self.ivfpq_bits = ivfpq_bits
         if device is None:
-            device = mesh.devices[0] if mesh is not None else getattr(encoder, "device", None)
+            device = mesh.home if mesh is not None else getattr(encoder, "device", None)
         self.device = resolve_device(device)
         self._index: Optional[Any] = None
         self._doc_texts: List[str] = []

@@ -120,7 +120,7 @@ class StreamingExactIndex:
         docstring); the results land on its first device."""
         mesh = as_mesh(mesh)
         if mesh is not None and device is None:
-            device = mesh.devices[0]
+            device = mesh.home
         self.mesh = mesh if mesh is not None and mesh.size > 1 else None
         if embeddings.ndim != 2 or embeddings.shape[0] == 0:
             raise ValueError(f"embeddings must be (N, D), got {embeddings.shape}")
@@ -152,6 +152,8 @@ class StreamingExactIndex:
         self._shard_rows = tile_rows // n_shards
         self._shards = [(d, i * self._shard_rows) for i, d in
                         enumerate(self.mesh.devices if self.mesh is not None else [self.device])]
+        # the shards this process runs (another process's shards get no copy)
+        self._owned = [self.mesh is None or self.mesh.owns(i) for i in range(len(self._shards))]
 
     @classmethod
     def from_npy(cls, path: str, **kw) -> "StreamingExactIndex":
@@ -199,12 +201,14 @@ class StreamingExactIndex:
             for t in range(n_tiles):
                 buf = torch.empty(shape, dtype=dtype)
                 scale = self._fill_tile(t, buf)
-                yield t, [buf[lo:lo + sr].to(d) for d, lo in self._shards], scale
+                yield t, [buf[lo:lo + sr].to(d) if mine else None
+                          for (d, lo), mine in zip(self._shards, self._owned)], scale
             return
         # each device's shards, in order; a device buffer holds their rows
         own = {}
         for i, (d, _) in enumerate(self._shards):
-            own.setdefault(d, []).append(i)
+            if self._owned[i]:
+                own.setdefault(d, []).append(i)
         pinned = [torch.empty(shape, dtype=dtype, pin_memory=True) for _ in range(2)]
         copy_stream = {d: torch.cuda.Stream(d) for d in own}
         dev = {d: [torch.empty((len(ix) * sr, self.dim), dtype=dtype, device=d)
@@ -225,7 +229,8 @@ class StreamingExactIndex:
                 else:
                     runs[d].append((j * sr, i * sr, sr))
         # shard i's block: a view of its device's buffer
-        where = [(d, own[d].index(i) * sr) for i, (d, _) in enumerate(self._shards)]
+        where = [(d, own[d].index(i) * sr) if self._owned[i] else None
+                 for i, (d, _) in enumerate(self._shards)]
         scales = [1.0, 1.0]
 
         def send(t: int) -> None:
@@ -246,7 +251,8 @@ class StreamingExactIndex:
                 b = t % 2
                 for d in own:
                     torch.cuda.current_stream(d).wait_event(copied[d][b])
-                yield t, [dev[d][b][lo:lo + sr] for d, lo in where], scales[b]
+                yield t, [None if w is None else dev[w[0]][b][w[1]:w[1] + sr]
+                          for w in where], scales[b]
                 for d in own:
                     read[d][b].record(torch.cuda.current_stream(d))
                 if t + 1 < n_tiles:
@@ -309,6 +315,11 @@ class StreamingExactIndex:
 
             parts = (shard_loop(mesh, shard) if mesh is not None
                      else [shard(0, self.device)])
+            if mesh is not None and mesh.spans_processes:
+                # the carry is every process's already: merge the shards
+                # across processes first (the same top k: the carry wins
+                # ties either way, the shards keep their order)
+                parts = [merge_topk(parts, k, self.device)]
             cs, ci = merge_topk([(cs, ci)] + parts, k, self.device)
         return cs.cpu().numpy(), ci.cpu().numpy()
 

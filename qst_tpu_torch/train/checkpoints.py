@@ -14,6 +14,11 @@ state in its stacked stage layout (``TrainState.layout``; moments
 alike); ``restore_latest`` lays them back out into the template's layout,
 as Orbax restores into the template's sharding. ``params.pt`` always holds
 the flat layout, which ``ir_eval_main`` and ``index_main`` load unchanged.
+
+A manager knows nothing of a group of processes: the ``Trainer`` saves
+through process 0's only, and every process reads on resume, so processes
+on more than one host need a checkpoint directory on a filesystem they
+share.
 """
 
 from __future__ import annotations

@@ -29,6 +29,14 @@
   JAX package, where ``shard_map`` wraps only the encoder. A model axis > 1
   takes ``create_train_state_sharded``'s tensor-parallel state; the global
   norm of the clip then counts each slice and each replicated tensor once.
+- A mesh that spans processes (``core/meshes.py``): every process holds the
+  same state, passes the same global batch (or a ``GlobalArray`` of its own
+  rows, gathered whole first) and draws the same keys; it runs the data
+  shards it owns, and the embeddings and the gradients are gathered in
+  data-index order (``parallel/sharding.py``), so every process takes the
+  same update. ``MultiStep`` there runs its K steps one after another on
+  the GPU too: the gathers go through the group's backend, which a CUDA
+  graph cannot capture (gloo's never is).
 """
 
 from __future__ import annotations
@@ -41,7 +49,7 @@ import torch
 
 from qst_tpu_torch.core.config import EncoderConfig, LossConfig, TrainConfig
 from qst_tpu_torch.core.device import resolve_device
-from qst_tpu_torch.core.meshes import DATA_AXIS, sharded
+from qst_tpu_torch.core.meshes import DATA_AXIS, GlobalArray, sharded
 from qst_tpu_torch.kernels import build
 from qst_tpu_torch.models.discriminator import PairDiscriminator, init_discriminator
 from qst_tpu_torch.models.sentence_encoder import SentenceEncoderModule, init_params
@@ -386,12 +394,12 @@ def create_train_state_sharded(
     """The tensor-parallel state (``qst_tpu/train/train_step.py:204``):
     parameters laid out by ``parallel/sharding.py``'s rules — each layer a
     ``TensorParallelLayer`` whose heads and FFN columns are split over the
-    mesh's model axis, the replicated tensors on the mesh's first device —
+    mesh's model axis, the replicated tensors on the mesh's home device —
     the Adam moments alongside each tensor. ``initial_params`` (a state
     dict) or random weights from ``generator``. → (state, optimizer)."""
     from qst_tpu_torch.parallel.sharding import TensorParallelLayout, tensor_parallel_model
 
-    home = mesh.devices[0]
+    home = mesh.home
     params = initial_params if initial_params is not None else init_params(
         encoder_cfg, generator, device=home)
     model = tensor_parallel_model(encoder_cfg, params, mesh)
@@ -408,6 +416,10 @@ def create_train_state_sharded(
 
 
 def _device_tensor(x, device) -> torch.Tensor:
+    """Host values, a tensor or a ``GlobalArray`` (gathered whole) as int64
+    on ``device``."""
+    if isinstance(x, GlobalArray):
+        x = x.full()
     return torch.as_tensor(x).to(device=device, dtype=torch.int64)
 
 
@@ -495,7 +507,9 @@ class MultiStep:
     the optimizer's by K a call, and each kernel wrapper's ``launches`` by
     what the capture recorded, once per replay (the capture launches
     nothing). A failed capture or replay raises; nothing falls back to eager
-    steps."""
+    steps. On a mesh that spans processes nothing is captured: each step
+    gathers the embeddings and the gradients through the group's backend,
+    which a graph cannot hold, so the K steps run one after another."""
 
     def __init__(self, encoder_cfg: EncoderConfig, loss_cfg: LossConfig,
                  optimizer: Optional[ClippedAdamW], n_steps: int, mesh: Any = None):
@@ -505,6 +519,8 @@ class MultiStep:
         self.optimizer = optimizer
         self.n_steps = n_steps
         self._micro = _micro_step(encoder_apply_fn(encoder_cfg, mesh), loss_cfg)
+        mesh = sharded(mesh)
+        self._eager = mesh is not None and mesh.spans_processes
         self._graph = None
         self._signature = None
 
@@ -515,13 +531,15 @@ class MultiStep:
         opt = self.optimizer if self.optimizer is not None else state.optimizer
         device = next(state.model.parameters()).device
         K = self.n_steps
-        ids = torch.as_tensor(input_ids)
-        mask = torch.as_tensor(attention_mask)
+        ids = torch.as_tensor(input_ids.full() if isinstance(input_ids, GlobalArray)
+                              else input_ids)
+        mask = torch.as_tensor(attention_mask.full() if isinstance(attention_mask, GlobalArray)
+                               else attention_mask)
         if ids.dim() != 4 or ids.shape[0] != K or mask.shape != ids.shape:
             raise ValueError(f"multi_step takes ({K}, 4, B, S) ids and mask, got "
                              f"{tuple(ids.shape)} and {tuple(mask.shape)}")
         rows = [opt.next_row() for _ in range(K)]
-        if device.type != "cuda":
+        if device.type != "cuda" or self._eager:
             losses = [self._micro(state, opt, _device_tensor(ids[j], device),
                                   _device_tensor(mask[j], device),
                                   None if keys is None else torch.as_tensor(keys[j]),
@@ -586,7 +604,8 @@ def make_multi_step(encoder_cfg: EncoderConfig, loss_cfg: LossConfig,
     S) stacks and ``keys`` the (n_steps, 2) per-step dropout keys;
     ``losses`` is (n_steps,). ``optimizer`` defaults to the state's;
     ``mesh`` as ``make_train_step``'s (each shard's temporaries live in the
-    graph's pool)."""
+    graph's pool; on a mesh that spans processes the steps run one after
+    another)."""
     return MultiStep(encoder_cfg, loss_cfg, optimizer, n_steps, mesh)
 
 

@@ -20,6 +20,15 @@ The state and the step are chosen as the JAX trainer chooses them
 > 1 the tensor-parallel state (``create_train_state_sharded``); otherwise
 the plain state; a mesh's data axis runs the step data-parallel. The
 evaluator and the best artifact get the flat model (``flat_model``).
+
+On a mesh that spans processes every process runs this loop over the same
+batches and keys and holds the same state; it trains the data shards it
+owns (``parallel/sharding.py``). Process 0 writes the config, the loss log
+and the checkpoints; the others build no writer, and wait for process 0 at
+a barrier at the end of ``train`` before any of them reads a checkpoint (a
+resume, the best parameters). Every process runs the evaluator, whose own
+logs are its caller's to give to process 0 only. The pipeline does not
+cross processes: ``pp_stages`` > 1 on such a mesh raises.
 """
 
 from __future__ import annotations
@@ -35,7 +44,7 @@ import torch
 
 from qst_tpu_torch.core.config import EncoderConfig, LossConfig, TrainConfig, save_config
 from qst_tpu_torch.core.device import resolve_device
-from qst_tpu_torch.core.meshes import MODEL_AXIS, PIPE_AXIS, as_mesh
+from qst_tpu_torch.core.meshes import MODEL_AXIS, PIPE_AXIS, as_mesh, barrier, is_primary
 from qst_tpu_torch.core.telemetry import JsonLogSink, StepTimer
 from qst_tpu_torch.data.collate import QuadrupletCollator
 from qst_tpu_torch.data.prefetch import PrefetchIterator
@@ -71,7 +80,7 @@ class Trainer:
     evaluator: optional callable ``(model, epoch, steps) -> float`` whose
     score drives early stopping and best-model saving; it gets the flat
     model whatever the layout. ``device``: where the model trains (default:
-    the GPU; with a mesh, the mesh's first device).
+    the GPU; with a mesh, the mesh's home device).
 
     ``mesh``: a ``core/meshes.py`` mesh — its data axis shards each batch,
     a model axis > 1 takes the tensor-parallel state. ``pp_stages`` > 1
@@ -123,7 +132,9 @@ class Trainer:
         self.pp_stages = pp_stages
         self.pp_microbatches = pp_microbatches or pp_stages
         self.pp_rounds = pp_rounds
-        self.device = self.mesh.devices[0] if self.mesh is not None else resolve_device(device)
+        if self.mesh is not None and pp_stages > 1:
+            self.mesh.refuse_across_processes("pipeline training (pp_stages > 1)")
+        self.device = self.mesh.home if self.mesh is not None else resolve_device(device)
         self.steps_per_epoch = steps_per_epoch or max(
             1, len(dataset) // train_cfg.batch_size)
         self.total_steps = self.steps_per_epoch * train_cfg.epochs
@@ -183,10 +194,13 @@ class Trainer:
             step_fn = make_train_step(self.encoder_cfg, self.loss_cfg, None, mesh)
 
         os.makedirs(cfg.experiment_dir, exist_ok=True)
-        save_config(
-            {"encoder": self.encoder_cfg, "loss": self.loss_cfg, "train": cfg},
-            os.path.join(cfg.experiment_dir, "experiment_config.json"))
-        loss_log = JsonLogSink(os.path.join(cfg.experiment_dir, "train_loss.json"))
+        primary = is_primary()  # the one writer of a group of processes
+        if primary:
+            save_config(
+                {"encoder": self.encoder_cfg, "loss": self.loss_cfg, "train": cfg},
+                os.path.join(cfg.experiment_dir, "experiment_config.json"))
+        loss_log = (JsonLogSink(os.path.join(cfg.experiment_dir, "train_loss.json"))
+                    if primary else None)
 
         ckpt = CheckpointManager(
             os.path.join(cfg.experiment_dir, "checkpoints"),
@@ -196,6 +210,7 @@ class Trainer:
             mode=cfg.early_stopping_mode)
         if resume and ckpt.restore_latest(state) is not None:
             logger.info("resumed from step %d", state.step)
+        saver = ckpt if primary else None
 
         stopper = EarlyStopping(
             patience=cfg.early_stopping_patience,
@@ -211,8 +226,9 @@ class Trainer:
             history.append({"epoch": epoch, "steps": steps, "score": score})
             # the best artifact stores the flat layout whatever the
             # parallelism (a pipeline's best state too, as the JAX trainer's)
-            ckpt.update_best(state if self.pp_stages == 1 else TrainState(
-                step=state.step, model=flat, optimizer=state.optimizer), score)
+            if saver is not None:
+                saver.update_best(state if self.pp_stages == 1 else TrainState(
+                    step=state.step, model=flat, optimizer=state.optimizer), score)
             return score
 
         # pre-training evaluation (reference training/main.py:126)
@@ -276,16 +292,17 @@ class Trainer:
                 pending = []
                 ev = cfg.evaluation_steps
                 if ev > 0 and (step_before // ev) != (global_step // ev):
-                    loss_log.append({"epoch": epoch, "steps": global_step,
-                                     "loss": float(loss)})
+                    if loss_log is not None:
+                        loss_log.append({"epoch": epoch, "steps": global_step,
+                                         "loss": float(loss)})
                     score = run_eval(epoch, global_step)
                     if score is not None and stopper.update(score, epoch, global_step):
                         stop = True
                         prefetch.close()
                         break
                 cs = cfg.checkpoint_save_steps
-                if cs > 0 and (step_before // cs) != (global_step // cs):
-                    ckpt.save_now(state, global_step)
+                if cs > 0 and (step_before // cs) != (global_step // cs) and saver is not None:
+                    saver.save_now(state, global_step)
             if not stop:
                 score = run_eval(epoch, global_step)
                 if score is not None and stopper.update(score, epoch, global_step):
@@ -294,8 +311,10 @@ class Trainer:
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
         elapsed = time.perf_counter() - t_start
-        ckpt.save_now(state, global_step)
-        ckpt.close()
+        if saver is not None:
+            saver.save_now(state, global_step)
+            saver.close()
+        barrier()
         return TrainResult(
             state=state,
             best_score=stopper.best_score,

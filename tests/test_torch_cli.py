@@ -604,27 +604,27 @@ def test_ir_eval_cli_refuses_unported_flags(quad_data, argv, monkeypatch):
                 assert meshed[run]["metrics"][fn][name] == pytest.approx(value, abs=1e-6)
 
 
-def test_ir_eval_cli_refuses_a_group_of_processes(quad_data, monkeypatch):
-    """A process group of more than one process (``$QST_COORDINATOR_ADDRESS``)
-    is refused before any work, and the group is taken down: the mesh spans
-    one process's devices, so each process would run the whole evaluation
-    into the same output root."""
-    import torch.distributed as dist
-
-    from qst_tpu_torch.core import meshes
+def test_ir_eval_cli_runs_a_group_of_processes(quad_data, monkeypatch):
+    """``ir_eval_main`` under ``$QST_COORDINATOR_ADDRESS`` with two processes
+    of two positions (``tests/test_torch_distributed.py`` as the worker)
+    evaluates over one four-position mesh: process 0's ``results.json`` is
+    one process's on four positions, metric for metric, and process 0 alone
+    wrote the IR log (one row a metric)."""
+    import test_torch_distributed as group
 
     root, data, exp, _ = quad_data
-    calls = []
-    monkeypatch.setattr(meshes, "initialize_distributed",
-                        lambda device=None: calls.append(("init", device)) or True)
-    monkeypatch.setattr(dist, "get_rank", lambda: 0)
-    monkeypatch.setattr(dist, "get_world_size", lambda: 2)
-    monkeypatch.setattr(dist, "destroy_process_group", lambda: calls.append("destroy"))
-    out = root / "ir_two_processes"
-    with pytest.raises(SystemExit, match="QST_COORDINATOR_ADDRESS with more than one process"):
-        tir_main.main(["--dataset_root", data, "--model_path", exp, "--encoder_preset", "tiny",
-                       "--device", "cpu", "--output_root", str(out)])
-    assert calls == [("init", "cpu"), "destroy"] and not out.exists()
+    group.run_group("ir_eval", str(root), data, str(root / "ir_two"), "--model_path", exp)
+    monkeypatch.setenv("QST_TORCH_VIRTUAL_DEVICES", "4")
+    argv = group.cli_argv("ir_eval", data, str(root / "ir_one")) + ["--model_path", exp]
+    assert tir_main.main(argv) == 0
+    runs = []
+    for out in ("ir_two", "ir_one"):
+        [hashed] = os.listdir(root / out)
+        with open(root / out / hashed / "results.json") as f:
+            runs.append(json.load(f))
+        with open(root / out / hashed / "ir_results.csv") as f:
+            runs.append(len(list(csv.reader(f))))
+    assert runs[0] == runs[2] and runs[1] == runs[3]
 
 
 def test_ir_eval_cli_mesh_matches_the_jax_cli(quad_data, monkeypatch):
