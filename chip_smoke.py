@@ -62,7 +62,7 @@ Phases (any failure exits non-zero and prints no result):
    must rise, and the only library GEMM in a request is the centroid product.
 6. times  — kernel against plain at the main paths' shapes, each with the
    least time the card could take (bytes over memory rate or operations over
-   peak rate); encode sentences/s at B=256, S=128; a 65,536-text encode to
+   peak rate); encode sentences/s at B=256, S=128; a 32,768-text encode to
    numpy at dispatch_depth 1 and 4; search QPS over 1M x 384
    bf16 at Q=4096 and Q=256, with K4 on int8, the product alone through
    torch.matmul as K4's yardstick, and K5's two forms around the pair count
@@ -84,7 +84,7 @@ Phases (any failure exits non-zero and prints no result):
    evaluation, from the command line: a synthetic quadruplet dataset of
    11,200 instances (66,200 IR docs) and its first 960; train_main on the
    960 (MiniLM-L6, batch 32, fused layer and loss, hard-contrastive mode 1,
-   then random mode -1; IR + quadruplet + loss evaluation every 10 steps):
+   then random mode -1; IR + quadruplet + loss evaluation every 15 steps):
    the evaluations at epoch -1 and each evaluation step, finite losses, and
    K1 / K2 / K3 launches exactly the steps', the miner's and the
    evaluators'; the evaluators on the trained model against their plain
@@ -95,25 +95,25 @@ Phases (any failure exits non-zero and prints no result):
    through the IVF index (K6), and the trained model's evaluation through
    the plain versions; one evaluation timed by part; the miner's table
    refresh, steps/s with and without the miner, the device's busy share.
-9. dataset — qst_tpu_torch.cli.dataset_main as a user calls it: 4,000
-   synthetic images (20,000 captions, the ablation's recipe), positives
+9. dataset — qst_tpu_torch.cli.dataset_main as a user calls it: 2,000
+   synthetic images (10,000 captions, the ablation's recipe), positives
    mined by MiniLM-L6 on the card, adaptive-crop partial positives, chunks
-   of 500, the verbose check; the eight chunks and the metadata read back;
+   of 500, the verbose check; the four chunks and the metadata read back;
    wall time, images/s, encode calls and the encoder's share.
 10. capture — the captured train step on those chunks at the training
    configuration: four steps a call as one CUDA graph (the first call runs
    eagerly and captures) against eager steps from the same state, bit for
    bit in losses, parameters and Adam moments, at dropout 0.1, at dropout 0
    and with accumulation 2, with K1 / K2 / K3 launches exact across
-   replays; train_main at --steps_per_call 1 and 4 in turns, with and
-   without the miner (steps/s, equal final weights, busy share).
+   replays; train_main at --steps_per_call 1 and 4, with and without the
+   miner (steps/s, equal final weights, busy share).
 11. ablation — the port's quadruplet-vs-triplet ablation at the JAX run's
    decisive configuration (WordPiece, MiniLM-L6 through the fused layer,
    hard mining), four steps a call, 500 steps an arm (the JAX script's
    default: the ordering bars) or, with --ablation_steps 2000 (its own call:
    --phases build,ablation), the decisive run and all its quality bars; the
    RESULTS.md table beside the JAX rows. Then the γ × margin sweep
-   (--gammas 0.3,0.6) at 100 steps an arm beside the default mode at the
+   (--gammas 0.3,0.6) at 64 steps an arm beside the default mode at the
    same arguments: its γ = 0.6 / 1.0:0.5:0.5 cell is the default mode's
    quadruplet arm and its triplet arm the default mode's, bit for bit.
 
@@ -128,7 +128,7 @@ Phases (any failure exits non-zero and prints no result):
    256 and 384 buckets, fused against nn.Module (cosine >= 0.999); on the
    MPNet-base directory one train step's launches, the first step's
    gradients against the plain versions, four captured steps a call
-   against eager steps, train_main --hf_checkpoint_dir (24 steps at
+   against eager steps, train_main --hf_checkpoint_dir (12 steps at
    S = 384) and ir_eval_main --hf_checkpoint_dir over the evaluate phase's
    11,200 instances (one K4 and one K5); K1/K2 times at MPNet-base S = 128
    and 384 and MiniLM-L6 S = 128 and 256 beside their bounds, encode
@@ -169,10 +169,10 @@ Phases (any failure exits non-zero and prints no result):
    same side of 0.4 away from near ties; f32 within 1e-4 of the CPU on 8
    pairs), pairs/s; K7's time there beside plain, SDPA and its bound; a
    Retriever (MiniLM-L6, bf16 index, dot_score: K4 + K5) over 65,536 docs
-   with the cross-encoder as reranker, 64 queries at k = 10, rerank_k = 100,
+   with the cross-encoder as reranker, 32 queries at k = 10, rerank_k = 100,
    answers equal to predict over the first stage's candidates, ms a query;
-   ir_eval_main --use_cross_encoder --cross_encoder_dir labeling 32 queries
-   x 512 docs (relevant sets equal to the thresholded scores), its wall
+   ir_eval_main --use_cross_encoder --cross_encoder_dir labeling 16 queries
+   x 256 docs (relevant sets equal to the thresholded scores), its wall
    time; an all-distilroberta-v1-width directory (H 768, 6 layers) loaded
    through load_hf_checkpoint_dir, bf16 encode held to f32, two flash
    Trainer steps at S = 256 (K7 and K8 6 a step), the first step's
@@ -189,11 +189,11 @@ Phases (any failure exits non-zero and prints no result):
    hashing word-level tokenizer, encode + full-prefix decode logits on the
    card against the CPU and decode_token against the full decode (1e-4 of
    the largest magnitude); greedy and 4-beam decode at max_length 128,
-   cached against uncached on 8 rows, and the card's beams on 16 rows
+   cached against uncached on 8 rows, and the card's beams on 8 rows
    scored on the CPU against the CPU's own beam search (near ties counted);
-   get_backtranslator(backend="jax") over 256 captions at batch 32:
+   get_backtranslator(backend="jax") over 128 captions at batch 32:
    translations/s a hop and round trip, ms a decode step, busy share and
-   launches a step; dataset_main with adaptive_crop_augment over 16 images,
+   launches a step; dataset_main with adaptive_crop_augment over 8 images,
    every part-positive a Marian roundtrip on the card.
 
 16. train_mesh — training on meshes of positions of one card (bf16 MiniLM-L6
@@ -228,7 +228,20 @@ Phases (any failure exits non-zero and prints no result):
    counted both ways; ms a step and a search beside one process's mesh,
    and, in a pass of their own under a clock that syncs around each
    gather, the gathers' share (the structure's cost on one card, not
-   scaling). A child that fails or runs past 120 s fails the phase.
+   scaling). Then the layouts whose hand-offs cross the processes, each
+   two steps at MiniLM-L6 (batch 32 quadruplets, S = 128, bf16): (d) GPipe
+   2 x 1, one stage a process, M = 4, nn.Module layers at dropout 0.1 (K9,
+   K3); (e) circular 3 x 1 over ranks [0, 0, 1], v = 2, M = 4,
+   use_flash_attention, hidden dropout 0.1 (K7, K8, K9, K3); (f) the fused
+   step with a mesh row split across the processes, TP 1 x 2 over [0, 1]
+   and DP + TP 2 x 2 over [0, 1, 1, 1] (K1 / K2 on the row's gathered
+   slices, K3); (g) context and ring attention at (4, 12, 4,096, 32) over
+   [0, 1], forward and q / k / v gradients. Each: losses (outputs) equal on
+   both ranks, parameters and moments gathered bit-equal between the ranks
+   and to one process's mesh of the same shape, each child's launches by
+   wrapper and by kernel name those of the stages or rows it runs, ms
+   beside one process's mesh. A child that fails or runs past 180 s fails
+   the phase.
 
 18. mesh  — the sharded serving path on a 4 x 2 mesh of eight positions of
    one card (core/meshes.py): ExactIndex over 1M x 384 bf16 and int8 at Q =
@@ -236,7 +249,7 @@ Phases (any failure exits non-zero and prints no result):
    by name in a profile) against the unsharded search, a 129-row index with
    six empty shards against the plain scan; IVF over 1,024 bf16 cells of
    2,048 x 384 with K6 in every shard at Q = 256 / 64 / 8, before and after
-   compact(); PQ, IVF-PQ (8 and 4 bits) and the streamed index over 2M
+   compact(); PQ, IVF-PQ (8 and 4 bits) and the streamed index over 1M
    clustered rows against their unsharded selves; the data-parallel
    MiniLM-L6 encode (4 data shards, 24 K1 a batch of 256); a sharded
    Retriever built, saved and reloaded; ir_eval_main --mesh_data 4
@@ -252,15 +265,15 @@ Phases (any failure exits non-zero and prints no result):
    and streaming over the ivf phase's 65,536 docs, 256 queries a batch (pq
    and streaming through K4 + K5, launches exactly one of each a search a
    slice or tile), each saved index reloaded and queried in a fresh
-   process; then over 8,388,608 clustered rows of D = 384 made on the card
-   (ivfpq_bench.py's generator): PQIndex's kernels' path (four 2M-row
+   process; then over 4,194,304 clustered rows of D = 384 made on the card
+   (ivfpq_bench.py's generator): PQIndex's kernels' path (two 2M-row
    slices through topk_local) against its plain scan at Q = 256 and 4,096,
-   IVFPQIndex (8,192 cells, int8 refine rows) at 8 and 4 bits with recall@10
+   IVFPQIndex (4,096 cells, int8 refine rows) at 8 and 4 bits with recall@10
    raw and refined x8 against a bf16 ExactIndex, ms and QPS at n_probe 8 /
    16 / 32, the full probe against the exact top-10 over the
-   reconstructions; StreamingExactIndex over a 4,191,304-row f32 memmap at
-   tile_rows 2^21 and 2^19 (bf16 cast on the host, int8 per tile,
-   pre-quantized int8) against its plain path and the top-k over the rows it
+   reconstructions; StreamingExactIndex over a 2,618,440-row f32 memmap at
+   tile_rows 2^21 and 2^19 (bf16 cast on the host, pre-quantized int8, and
+   at 2^19 int8 per tile) against its plain path and the top-k over the rows it
    sends held on the card at once, with GB/s beside a pinned copy;
    K4 and K5 over a decoded 2M-row slice beside their bounds.
 
@@ -1087,7 +1100,7 @@ def ivf(report: dict) -> None:
     import tempfile
 
     import torch
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import profile
 
     from qst_tpu_torch.cli import index_main
     from qst_tpu_torch.ops import fused_layer as fl
@@ -1212,12 +1225,12 @@ def ivf(report: dict) -> None:
         # none of its library ones, is taken again, up to three times
         qn = torch.nn.functional.normalize(q_emb[:4].float(), dim=1)
         for attempt in range(3):
-            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            with profile(activities=device_activity()) as prof:
                 for _ in range(3):   # the trace may miss the first kernel after it starts
                     qn @ index.centroids.T
                 torch.cuda.synchronize()
             centroid_kernels = set(library_kernels(prof))
-            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            with profile(activities=device_activity()) as prof:
                 retr.search(queries[:4], k=k)
                 torch.cuda.synchronize()
             names = [e.key for e in prof.key_averages() if e.device_type.name == "CUDA"]
@@ -1557,9 +1570,9 @@ def serve(report: dict) -> None:
         fail(f"/encode: min cosine {cos}")
 
     # one request under the profiler: no library GEMM or attention kernel
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import profile
 
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with profile(activities=device_activity()) as prof:
         retr.search(queries[:4], k=10)
         torch.cuda.synchronize()
     names = [e.key for e in prof.key_averages() if e.device_type.name == "CUDA"]
@@ -1581,7 +1594,7 @@ def write_quadruplet_chunks(root: str, n: int, seed: int, per_chunk: int = 64) -
     words = [f"w{i}" for i in range(5000)]
 
     def text(ws):
-        return " ".join(words[j] for j in ws)
+        return " ".join([words[j] for j in ws.tolist()])
 
     insts = []
     for i in range(n):
@@ -1598,6 +1611,15 @@ def write_quadruplet_chunks(root: str, n: int, seed: int, per_chunk: int = 64) -
     for c in range(0, n, per_chunk):
         write_chunk(root, c // per_chunk, insts[c:c + per_chunk], dataset_name="synthetic")
     write_meta(root, (n + per_chunk - 1) // per_chunk)
+
+
+def quadruplet_set(n: int, seed: int) -> str:
+    """``write_quadruplet_chunks(root, n, seed)`` into this run's scratch tree,
+    once for the phases that read it (none writes there): → its root."""
+    root = os.path.join(work_dir("quadruplets"), f"{n}_{seed}")
+    if not os.path.isdir(root):
+        write_quadruplet_chunks(root, n, seed)
+    return root
 
 
 class plain_kernels:
@@ -1818,7 +1840,7 @@ def batches_of(n: int, size: int = 256) -> int:
     return -(-n // size)
 
 
-EVAL_STEPS = 10
+EVAL_STEPS = 15
 IR_GRID = ["--accuracy_at_k", "1", "3", "5", "10", "--precision_recall_at_k", "1", "3", "5",
            "10", "--mrr_at_k", "10", "--ndcg_at_k", "10", "--map_at_k", "100"]
 
@@ -2124,7 +2146,7 @@ def mining_times(small: str, big: str, tmp: str) -> dict:
     with and without the miner (torch.profiler: device time of the kernels
     over the window's wall time)."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import profile
 
     from qst_tpu_torch.cli import train_main
     from qst_tpu_torch.data import ChunkStore, EmbeddingTable, PrefetchIterator
@@ -2182,7 +2204,7 @@ def mining_times(small: str, big: str, tmp: str) -> dict:
             qb = next(batches)
             state, _ = step(state, qb.input_ids, qb.attention_mask, dropout_key(14, i + 1))
         torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        with profile(activities=device_activity()) as prof:
             t0 = time.perf_counter()
             for i in range(5, 25):
                 qb = next(batches)
@@ -2214,7 +2236,7 @@ def evaluate(report: dict) -> None:
     """Training with validation and negative mining, and IR evaluation, from
     the command line: a synthetic dataset of 11,200 instances (66,200 IR
     docs from 1,000 queries) and its first 960 instances; train_main on the
-    960 in modes 1 and -1 with every evaluator each 10 steps; the
+    960 in modes 1 and -1 with every evaluator each 15 steps; the
     evaluators against their plain versions on the trained model;
     ir_eval_main over the 11,200 through the exact index (K4 + K5 in the
     dot searches) for baseline and trained, and the IVF index (K6) for the
@@ -2223,8 +2245,7 @@ def evaluate(report: dict) -> None:
     import tempfile
 
     with tempfile.TemporaryDirectory() as tmp:
-        big, small = f"{tmp}/big", f"{tmp}/small"
-        write_quadruplet_chunks(big, 11200, seed=21)
+        big, small = quadruplet_set(11200, 21), f"{tmp}/small"
         write_quadruplet_chunks(small, 960, seed=21)      # the first 960 of the same draws
         runs = {mode: train_main_run(report, small, f"{tmp}/exp{mode}", mode)
                 for mode in ("1", "-1")}
@@ -2266,15 +2287,16 @@ def work_dir(name: str) -> str:
     return path
 
 
-DATASET_IMAGES = 4000     # the ablation's recipe: five captions an image
+DATASET_IMAGES = 2000     # the ablation's recipe: five captions an image, chunks of 500
+DATASET_CHUNKS = DATASET_IMAGES // 500
 
 
 def dataset(report: dict) -> None:
     """dataset_main as a user calls it on the card: MiniLM-L6 (random init,
     its nn.Module path, as the JAX CLI leaves the fused flag off) mining the
-    positives of 4,000 synthetic images (20,000 captions) at cos >= 0.6,
+    positives of 2,000 synthetic images (10,000 captions) at cos >= 0.6,
     adaptive-crop partial positives, chunks of 500 and the verbose check;
-    then the eight chunks and the metadata read back through
+    then the four chunks and the metadata read back through
     QuadrupletDataset, wall time, images/s, encode calls and the share of
     the time spent in the encoder."""
     from qst_tpu_torch.cli import dataset_main
@@ -2320,10 +2342,11 @@ def dataset(report: dict) -> None:
         f"({100 * spent['s'] / wall:.1f}% of the wall); chunks {discover_chunks(root)}, "
         f"metadata {read_meta(root)}, {len(ds)} instances; positives from the image's own "
         f"captions (the first-try branch) for {100 * first_try:.1f}%; {checked}")
-    if (code != 0 or read_meta(root) != 8 or discover_chunks(root) != list(range(8))
+    if (code != 0 or read_meta(root) != DATASET_CHUNKS
+            or discover_chunks(root) != list(range(DATASET_CHUNKS))
             or len(ds) != DATASET_IMAGES or not checked
             or any(len(i["positive"]) != 4 or len(i["part_positive"]) != 8 for i in insts)):
-        fail("dataset_main did not write the expected eight chunks")
+        fail(f"dataset_main did not write the expected {DATASET_CHUNKS} chunks")
     report["dataset"] = {"wall_s": wall, "images_per_s": DATASET_IMAGES / wall,
                          "encode_calls": spent["calls"], "encoder_s": spent["s"],
                          "encoder_share": spent["s"] / wall, "first_try_share": first_try,
@@ -2353,9 +2376,9 @@ def window(run, steps: int) -> dict:
     kernels) of ``run()``, per step, the device's busy share, and each
     kernel's (launches, device ms) over the run."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import profile
 
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with profile(activities=device_activity()) as prof:
         for _ in range(3):
             torch.cuda._sleep(1000)
         torch.cuda.synchronize()
@@ -2378,7 +2401,7 @@ def capture(report: dict) -> None:
     the same state — losses, parameters and Adam moments bit for bit — at
     dropout 0.1, at dropout 0 and with accumulation 2, and K1 / K2 / K3
     launches exactly the steps'. Then train_main at --steps_per_call 1 and
-    4 in turns, with the miner and without, over 1,000 instances (31
+    4, with the miner and without, over 1,000 instances (31
     steps): steps/s, the final weights of the two equal bit for bit (the
     capture runs while the miner's thread encodes), and over 20 steps the
     wall and device time a step and the busy share."""
@@ -2479,7 +2502,7 @@ def capture(report: dict) -> None:
 
     rates, finals = {}, {}
     for mined in (True, False):
-        for K_call in (1, K, K, 1):
+        for K_call in (1, K):
             name = f"{'mined' if mined else 'plain'} K={K_call}"
             before = [c.launches for c in counters]
             result = trainer_for(K_call, mined, name.replace(" ", "_")).train()
@@ -2489,7 +2512,7 @@ def capture(report: dict) -> None:
             add_train_launches(report, [c.launches - b for c, b in zip(counters, before)])
     same = {m: all(torch.equal(finals[f"{m} K=1"][n], t) for n, t in finals[f"{m} K={K}"].items())
             for m in ("mined", "plain")}
-    log(f"train_main, 31 steps at --steps_per_call 1 and {K} in turns (steps/s in the loop, "
+    log(f"train_main, 31 steps at --steps_per_call 1 and {K} (steps/s in the loop, "
         f"the {K}-step runs' first call eager + capture): {rates}; final weights of the "
         f"{K}-step run equal the 1-step run's bit for bit: {same}")
     if not all(same.values()):
@@ -2594,7 +2617,7 @@ def ablation(report: dict) -> None:
                           "sweep": ablation_sweep(abl)}
 
 
-SWEEP_STEPS = 100          # the sweep's check at reduced depth (the decisive sweep: 2,000)
+SWEEP_STEPS = 64           # the sweep's check at reduced depth (the decisive sweep: 2,000)
 SWEEP_IMAGES = 1000
 
 
@@ -2792,14 +2815,14 @@ def times(report: dict) -> None:
     report["encode"] = {"sentences_per_s": B / enc_ms * 1e3,
                         "module_path_sentences_per_s": B / mod_ms * 1e3}
 
-    # SentenceEncoder.encode of 65,536 texts to numpy, the evaluators' and the
+    # SentenceEncoder.encode of 32,768 texts to numpy, the evaluators' and the
     # miner's call: dispatch_depth 1 (each batch's copy waited for) against 4,
     # in turns (1, 4, 4, 1), host clock
     from qst_tpu_torch.models.sentence_encoder import SentenceEncoder
     from qst_tpu_torch.models.tokenizer import HashTokenizer
 
     sent = SentenceEncoder(cfg, model.state_dict(), HashTokenizer(cfg.vocab_size))
-    docs = synthetic_docs(65536, seed=31)
+    docs = synthetic_docs(32768, seed=31)
     sent.encode(docs[:4096])
     depth = {1: [], 4: []}
     arrays = {}
@@ -2810,10 +2833,10 @@ def times(report: dict) -> None:
         depth[d].append(time.perf_counter() - t0)
     if not np.array_equal(arrays[1], arrays[4]):
         fail("encode to numpy: dispatch_depth 1 and 4 give different arrays")
-    log(f"encode of 65,536 texts to numpy (fused MiniLM-L6, batches of 256): dispatch_depth 1 "
+    log(f"encode of 32,768 texts to numpy (fused MiniLM-L6, batches of 256): dispatch_depth 1 "
         f"{['%.3f' % t for t in depth[1]]} s, 4 {['%.3f' % t for t in depth[4]]} s "
         f"(identical arrays)")
-    report["encode_depth"] = {"texts": 65536, "depth1_s": depth[1], "depth4_s": depth[4]}
+    report["encode_depth"] = {"texts": 32768, "depth1_s": depth[1], "depth4_s": depth[4]}
 
     # search over 1M x 384 bf16, k = 10: Q = 4096 (a search chunk: the kernels'
     # rows in the last lines) and Q = 256 (the server's largest batch)
@@ -2989,14 +3012,23 @@ def device_us(event) -> float:
 MARKER = "spin_kernel"          # torch.cuda._sleep's kernel
 
 
+def device_activity() -> list:
+    """The activities every profile of this script traces: the card's alone.
+    Its windows read device events only, and tracing the host's operators
+    too made reading a window back cost seconds (most of a phase in some)."""
+    from torch.profiler import ProfilerActivity
+
+    return [ProfilerActivity.CUDA]
+
+
 def profiled(fn, reps: int):
     """torch.profiler over ``reps`` calls of ``fn``, after three marker
     kernels (``torch.cuda._sleep``): the trace can miss the first kernels
     after it starts, and the markers take that loss. → the profile."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import profile
 
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with profile(activities=device_activity()) as prof:
         for _ in range(3):
             torch.cuda._sleep(1000)
         torch.cuda.synchronize()
@@ -3318,13 +3350,13 @@ def profile_phase(report: dict) -> None:
                 t.start()
             time.sleep(1.0)                       # ramp up
             before, n0, t0 = server._search_batcher.stats(), len(lat), time.perf_counter()
-            time.sleep(6.0)
+            time.sleep(3.0)
             after, n1, window = server._search_batcher.stats(), len(lat), time.perf_counter() - t0
             busy = None
             if n_clients == 64:                   # busy share, still under load
-                from torch.profiler import ProfilerActivity, profile
+                from torch.profiler import profile
 
-                with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                with profile(activities=device_activity()) as prof:
                     time.sleep(2.0)
                 busy = sum(device_us(e) for e in prof.key_averages()
                            if e.device_type.name == "CUDA") / 2e6 or None
@@ -3657,7 +3689,7 @@ def write_long_chunks(root: str, n: int, seed: int) -> None:
 
 def mpnet_train_main(report: dict, mpnet_dir: str, tmp: str) -> None:
     """train_main --hf_checkpoint_dir on the MPNet-base directory with the
-    fused layer and loss: 24 steps at batch 32 quadruplets, every batch at
+    fused layer and loss: 12 steps at batch 32 quadruplets, every batch at
     S = 384; K2 and K3's backward launched exactly 12 and 1 times a step."""
     import torch
 
@@ -3665,7 +3697,7 @@ def mpnet_train_main(report: dict, mpnet_dir: str, tmp: str) -> None:
     from qst_tpu_torch.data import ChunkStore
 
     data = f"{tmp}/long"
-    write_long_chunks(data, 768, seed=31)
+    write_long_chunks(data, 384, seed=31)
     counters = train_counters()
     before = [c.launches for c in counters]
     exp = f"{tmp}/exp_mpnet"
@@ -3834,8 +3866,7 @@ def mpnet_ir_eval(report: dict, mpnet_dir: str, tmp: str) -> None:
     """ir_eval_main --hf_checkpoint_dir on the evaluate phase's 11,200
     instances: the baseline is the MPNet-base directory; its dot search
     one K4 and one K5 launch at D = 768."""
-    big = f"{tmp}/big"
-    write_quadruplet_chunks(big, 11200, seed=21)
+    big = quadruplet_set(11200, 21)
     run = ir_eval_run(report, big, None, f"{tmp}/ir_mpnet", "exact",
                       extra=["--hf_checkpoint_dir", mpnet_dir])
     report["mpnet"]["ir_eval_main_s"] = run["wall_s"]
@@ -3843,9 +3874,7 @@ def mpnet_ir_eval(report: dict, mpnet_dir: str, tmp: str) -> None:
         f: m["map@100"] for f, m in run["results"]["baseline"]["metrics"].items()}
 
 
-# the MPNet-base train step's profiled steps a turn (at ten, the trace of the
-# host's operators added about 50 s to the whole run)
-MPNET_PROFILED_STEPS = 4
+MPNET_PROFILED_STEPS = 4     # the MPNet-base train step's profiled steps a turn
 
 
 def mpnet_times(report: dict) -> None:
@@ -3857,7 +3886,7 @@ def mpnet_times(report: dict) -> None:
     import dataclasses
 
     import torch
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import profile
 
     from qst_tpu_torch.core.config import EncoderConfig, LossConfig, TrainConfig
     from qst_tpu_torch.models.sentence_encoder import SentenceEncoderModule, embed_fn, init_params
@@ -3948,7 +3977,7 @@ def mpnet_times(report: dict) -> None:
         for i in range(3):
             state, _ = step(state, ids, mask, dropout_key(14, i + 1))
         torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        with profile(activities=device_activity()) as prof:
             t0 = time.perf_counter()
             for i in range(MPNET_PROFILED_STEPS):
                 state, _ = step(state, ids, mask, dropout_key(14, i + 4))
@@ -4011,9 +4040,10 @@ def mpnet(report: dict) -> None:
 
 
 # --------------------------------------------------------------------- pq
-PQ_ROWS = 1 << 23            # the scale part's corpus: 8,388,608 rows of D = 384
-PQ_CELLS = 8192              # IVF-PQ cells at that size
-STREAM_ROWS = (1 << 22) - 3000   # the streamed memmap: both tile sizes leave a ragged tile
+PQ_ROWS = 1 << 22            # the scale part's corpus: 4,194,304 rows of D = 384
+PQ_CELLS = 4096              # IVF-PQ cells at that size (1,024 rows a cell)
+STREAM_ROWS = (1 << 21) + (1 << 19) - 3000   # the streamed memmap: both tile sizes leave a
+                                             # ragged tile
 GEN_CHUNK = 1 << 20          # rows the corpus generator makes at a time
 PQ_QUERIES = 256
 PQ_CLI_DOCS = 65536          # the ivf phase's corpus
@@ -4113,13 +4143,13 @@ def hits_of(rows, k: int):
             np.array([[h["id"] for h in r["hits"][:k]] for r in rows]))
 
 
-def pq_cli(report: dict) -> None:
+def pq_cli(report: dict) -> tuple:
     """index_main build | serve | query for pq (m 48, refine rows),
     ivfpq at 8 and 4 bits and streaming over the ivf phase's 65,536 docs,
-    256 queries a batch (so "auto" takes K4 + K5 for pq and streaming); the
-    four saved indexes reloaded and queried again in a fresh process."""
+    256 queries a batch (so "auto" takes K4 + K5 for pq and streaming); then
+    starts the fresh process that reloads and queries the four saved
+    indexes. → (that process, each kind's query rows) for ``check_reload``."""
     import io
-    import tempfile
 
     import torch
 
@@ -4139,124 +4169,135 @@ def pq_cli(report: dict) -> None:
     # tile, once served and once queried
     through_kernels = {"pq": 2, "ivfpq8": 0, "ivfpq4": 0, "streaming": 2}
     out = {}
-    with tempfile.TemporaryDirectory() as tmp:
-        texts = f"{tmp}/docs.txt"
-        with open(texts, "w") as f:
-            f.write("\n".join(docs) + "\n")
-        for name, kind_flags in kinds.items():
-            index_dir = f"{tmp}/{name}"
-            kinds[name] = kind_flags = kind_flags + ["--index_dir", index_dir]
-            reset_counts()
-            t0 = time.perf_counter()
-            if index_main.main(["build", "--texts", texts, *kind_flags, "--pq_m", "48",
-                                "--ivf_clusters", "256", "--ivf_probe", "8", "--ivfpq_bits",
-                                "4" if name == "ivfpq4" else "8", *encoder_flags]) != 0:
-                fail(f"index_main build --index_dtype {name} failed")
-            torch.cuda.synchronize()
-            build_s = time.perf_counter() - t0
-            args = index_main.build_parser().parse_args(
-                ["serve", *kind_flags, "--port", "0", "--max_wait_ms", "200", *encoder_flags])
-            retr = index_main.serving_retriever(args)
-            index = retr.index
-            if not isinstance(index, types[name]) or index.n_docs != len(docs):
-                fail(f"serve --index_dtype {name} loaded {type(index).__name__}")
-            seen = {}
-            encode = retr.encoder.encode
+    tmp = work_dir("pq_cli")        # the indexes outlive this part: reloaded below
+    texts = f"{tmp}/docs.txt"
+    with open(texts, "w") as f:
+        f.write("\n".join(docs) + "\n")
+    for name, kind_flags in kinds.items():
+        index_dir = f"{tmp}/{name}"
+        kinds[name] = kind_flags = kind_flags + ["--index_dir", index_dir]
+        reset_counts()
+        t0 = time.perf_counter()
+        if index_main.main(["build", "--texts", texts, *kind_flags, "--pq_m", "48",
+                            "--ivf_clusters", "256", "--ivf_probe", "8", "--ivfpq_bits",
+                            "4" if name == "ivfpq4" else "8", *encoder_flags]) != 0:
+            fail(f"index_main build --index_dtype {name} failed")
+        torch.cuda.synchronize()
+        build_s = time.perf_counter() - t0
+        args = index_main.build_parser().parse_args(
+            ["serve", *kind_flags, "--port", "0", "--max_wait_ms", "200", *encoder_flags])
+        retr = index_main.serving_retriever(args)
+        index = retr.index
+        if not isinstance(index, types[name]) or index.n_docs != len(docs):
+            fail(f"serve --index_dtype {name} loaded {type(index).__name__}")
+        seen = {}
+        encode = retr.encoder.encode
 
-            def recording_encode(texts, batch_size=256, convert_to_numpy=True):
-                got = encode(texts, batch_size=batch_size, convert_to_numpy=convert_to_numpy)
-                for t, row in zip(texts, got):
-                    seen.setdefault(t, row)
-                return got
+        def recording_encode(texts, batch_size=256, convert_to_numpy=True):
+            got = encode(texts, batch_size=batch_size, convert_to_numpy=convert_to_numpy)
+            for t, row in zip(texts, got):
+                seen.setdefault(t, row)
+            return got
 
-            retr.encoder.encode = recording_encode
-            server = index_main.serving_server(args, retr)
-            port = server.start()
-            try:
-                served = post(port, "/search", {"queries": queries, "k": 10})["results"]
-                batches = server._search_batcher.stats()["max_batch"]
-            finally:
-                server.stop()
-            retr.encoder.encode = encode
-            printed = io.StringIO()
-            with contextlib.redirect_stdout(printed):
-                rc = index_main.main(["query", *kind_flags, "--k", "10", "--queries", *queries,
-                                      *encoder_flags])
-            rows = [json.loads(line) for line in printed.getvalue().splitlines()
-                    if line.startswith("{")]
-            counts = read_counts()
-            if rc != 0 or len(rows) != len(queries) or batches != len(queries):
-                fail(f"{name}: query rc {rc}, {len(rows)} rows; the server's largest batch "
-                     f"{batches} of {len(queries)} queries")
-            expect_launches(f"index_main serve + query --index_dtype {name}", counts,
-                            through_kernels[name])
-            if counts["K1"] <= 0:
-                fail(f"{name}: K1 was never launched by build + serve + query")
-            add_launches(report, counts)
-            report["K1"]["launches"] = report["K1"].get("launches", 0) + counts["K1"]
+        retr.encoder.encode = recording_encode
+        server = index_main.serving_server(args, retr)
+        port = server.start()
+        try:
+            served = post(port, "/search", {"queries": queries, "k": 10})["results"]
+            batches = server._search_batcher.stats()["max_batch"]
+        finally:
+            server.stop()
+        retr.encoder.encode = encode
+        printed = io.StringIO()
+        with contextlib.redirect_stdout(printed):
+            rc = index_main.main(["query", *kind_flags, "--k", "10", "--queries", *queries,
+                                  *encoder_flags])
+        rows = [json.loads(line) for line in printed.getvalue().splitlines()
+                if line.startswith("{")]
+        counts = read_counts()
+        if rc != 0 or len(rows) != len(queries) or batches != len(queries):
+            fail(f"{name}: query rc {rc}, {len(rows)} rows; the server's largest batch "
+                 f"{batches} of {len(queries)} queries")
+        expect_launches(f"index_main serve + query --index_dtype {name}", counts,
+                        through_kernels[name])
+        if counts["K1"] <= 0:
+            fail(f"{name}: K1 was never launched by build + serve + query")
+        add_launches(report, counts)
+        report["K1"]["launches"] = report["K1"].get("launches", 0) + counts["K1"]
 
-            # the served rows (k 10 of a k = 16 search: the server buckets k)
-            # and the query command's against the index's plain path over
-            # the same embeddings, scores to 1e-4, ids up to ties
-            q_emb = torch.stack([seen[q] for q in queries])
-            if name == "streaming":
-                sent = torch.cat([l2_normalize(torch.from_numpy(np.asarray(
-                    index.embeddings[lo:lo + 16384])).cuda().to(torch.bfloat16).float())
-                    .to(torch.bfloat16) for lo in range(0, index.n_docs, 16384)])
-                true = (l2_normalize(q_emb.float()).to(torch.bfloat16).float()
-                        @ sent.float().T).cpu().numpy()
+        # the served rows (k 10 of a k = 16 search: the server buckets k)
+        # and the query command's against the index's plain path over
+        # the same embeddings, scores to 1e-4, ids up to ties
+        q_emb = torch.stack([seen[q] for q in queries])
+        if name == "streaming":
+            sent = torch.cat([l2_normalize(torch.from_numpy(np.asarray(
+                index.embeddings[lo:lo + 16384])).cuda().to(torch.bfloat16).float())
+                .to(torch.bfloat16) for lo in range(0, index.n_docs, 16384)])
+            true = (l2_normalize(q_emb.float()).to(torch.bfloat16).float()
+                    @ sent.float().T).cpu().numpy()
+            plain = {k: index.search(q_emb, k=k, backend="xla") for k in (16, 10)}
+        else:
+            rows_f32 = torch.from_numpy(index.refine_rows_f32()).cuda()
+            true = (l2_normalize(q_emb.float()) @ rows_f32.T).cpu().numpy()
+            if name == "pq":
                 plain = {k: index.search(q_emb, k=k, backend="xla") for k in (16, 10)}
-            else:
-                rows_f32 = torch.from_numpy(index.refine_rows_f32()).cuda()
-                true = (l2_normalize(q_emb.float()) @ rows_f32.T).cpu().numpy()
-                if name == "pq":
-                    plain = {k: index.search(q_emb, k=k, backend="xla") for k in (16, 10)}
-                else:      # IVF-PQ answers id lists, None where cells ran out
-                    plain = {}
-                    for k in (16, 10):
-                        s, ids = index.search(q_emb, k=k)
-                        plain[k] = (s, np.array([[-1 if j is None else j for j in r]
-                                                 for r in ids]))
-            ss = np.array([[r[1] for r in row] for row in served])
-            si = np.array([[r[0] for r in row] for row in served])
-            ps, pi = plain[16]
-            if not ids_match_up_to_ties(ss, si, ps[:, :10], pi[:, :10], true, 1e-4):
-                fail(f"{name}: served answers differ from the index's plain path")
-            qs, qi = hits_of(rows, 10)
-            if not ids_match_up_to_ties(qs, qi, *plain[10], true, 1e-4 + 5e-5):
-                fail(f"{name}: index_main query's hits differ from the index's plain path")
-            out[name] = {"build_s": build_s, "K4": counts["K4"], "K5": counts["K5"],
-                         "query_rows": rows}
-            log(f"index_main --index_dtype {name}: {len(docs)} docs built in {build_s:.1f} s "
-                f"({type(index).__name__}); /search of {len(queries)} queries in one batch and "
-                f"query match the plain path (scores 1e-4); K4 / K5 launches {counts['K4']} / "
-                f"{counts['K5']} as accounted")
-            del retr, index
+            else:      # IVF-PQ answers id lists, None where cells ran out
+                plain = {}
+                for k in (16, 10):
+                    s, ids = index.search(q_emb, k=k)
+                    plain[k] = (s, np.array([[-1 if j is None else j for j in r]
+                                             for r in ids]))
+        ss = np.array([[r[1] for r in row] for row in served])
+        si = np.array([[r[0] for r in row] for row in served])
+        ps, pi = plain[16]
+        if not ids_match_up_to_ties(ss, si, ps[:, :10], pi[:, :10], true, 1e-4):
+            fail(f"{name}: served answers differ from the index's plain path")
+        qs, qi = hits_of(rows, 10)
+        if not ids_match_up_to_ties(qs, qi, *plain[10], true, 1e-4 + 5e-5):
+            fail(f"{name}: index_main query's hits differ from the index's plain path")
+        out[name] = {"build_s": build_s, "K4": counts["K4"], "K5": counts["K5"],
+                     "query_rows": rows}
+        log(f"index_main --index_dtype {name}: {len(docs)} docs built in {build_s:.1f} s "
+            f"({type(index).__name__}); /search of {len(queries)} queries in one batch and "
+            f"query match the plain path (scores 1e-4); K4 / K5 launches {counts['K4']} / "
+            f"{counts['K5']} as accounted")
+        del retr, index
 
-        # each saved index reloaded in a fresh process (from the checkout root)
-        import qst_tpu_torch
+    # each saved index reloaded in a fresh process (from the checkout root);
+    # a check of answers, not of time, so it runs while the scale parts do
+    import qst_tpu_torch
 
-        proc = subprocess.run(
-            [sys.executable, "-c", RELOAD_SCRIPT,
-             json.dumps(["--k", "10", "--queries", *queries, *encoder_flags]),
-             json.dumps(kinds)], capture_output=True, text=True, timeout=600,
-            cwd=os.path.dirname(os.path.dirname(os.path.abspath(qst_tpu_torch.__file__))))
-        line = [ln for ln in proc.stdout.splitlines() if ln.startswith("RELOADED ")]
-        if proc.returncode != 0 or not line:
-            fail(f"the fresh-process reload failed: {proc.stderr[-3000:]}")
-        reloaded = json.loads(line[0][len("RELOADED "):])
-        for name, got in reloaded.items():
-            want = hits_of(out[name]["query_rows"], 10)
-            have = hits_of(got["rows"], 10)
-            if got["rc"] != 0 or not (np.allclose(have[0], want[0], atol=1e-4, rtol=0)
-                                      and np.array_equal(have[1], want[1])):
-                fail(f"{name}: the index reloaded in a fresh process answers otherwise")
-            expect_launches(f"{name} reloaded in a fresh process", got, through_kernels[name] // 2)
-            add_launches(report, got)
-        log("the four saved indexes reloaded in a fresh process: the same hits, K4 / K5 "
-            f"launches {[(n, g['K4']) for n, g in reloaded.items()]}")
+    proc = subprocess.Popen(
+        [sys.executable, "-c", RELOAD_SCRIPT,
+         json.dumps(["--k", "10", "--queries", *queries, *encoder_flags]), json.dumps(kinds)],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+        cwd=os.path.dirname(os.path.dirname(os.path.abspath(qst_tpu_torch.__file__))))
     report["pq"]["cli"] = {n: {k: v for k, v in o.items() if k != "query_rows"}
                            for n, o in out.items()}
+    return proc, {n: (o["query_rows"], through_kernels[n]) for n, o in out.items()}
+
+
+def check_reload(report: dict, proc, want: dict) -> None:
+    """The fresh process of ``pq_cli``: each kind's hits those of the query
+    command before, and its launches one search's."""
+    try:
+        text = proc.communicate(timeout=600)[0]
+    except subprocess.TimeoutExpired:
+        fail("the fresh-process reload ran past 600 s")
+    line = [ln for ln in text.splitlines() if ln.startswith("RELOADED ")]
+    if proc.returncode != 0 or not line:
+        fail(f"the fresh-process reload failed: {text[-3000:]}")
+    reloaded = json.loads(line[0][len("RELOADED "):])
+    for name, got in reloaded.items():
+        rows, through = want[name]
+        have, expect = hits_of(got["rows"], 10), hits_of(rows, 10)
+        if got["rc"] != 0 or not (np.allclose(have[0], expect[0], atol=1e-4, rtol=0)
+                                  and np.array_equal(have[1], expect[1])):
+            fail(f"{name}: the index reloaded in a fresh process answers otherwise")
+        expect_launches(f"{name} reloaded in a fresh process", got, through // 2)
+        add_launches(report, got)
+    log("the four saved indexes reloaded in a fresh process: the same hits, K4 / K5 "
+        f"launches {[(n, g['K4']) for n, g in reloaded.items()]}")
 
 
 def recall_at(got_ids, truth_ids) -> float:
@@ -4326,7 +4367,7 @@ def ivfpq_candidate_scores(idx, queries, cand: np.ndarray) -> CandidateScores:
 
 def pq_scale(report: dict) -> None:
     """PQIndex and IVFPQIndex at MiniLM-L6's width over PQ_ROWS clustered
-    rows made on the card: the kernels' path (four 2M-row slices through
+    rows made on the card: the kernels' path (two 2M-row slices through
     topk_local) against the plain scan; IVF-PQ at 8 and 4 bits with recall,
     ms and QPS, and its full probe against the exact top-k over its
     reconstructions."""
@@ -4512,8 +4553,8 @@ def pq_scale(report: dict) -> None:
 def stream_scale(report: dict) -> None:
     """StreamingExactIndex over a STREAM_ROWS x 384 f32 .npy memmap written to
     a temporary directory: tile_rows 2^21 and 2^19 (the last tile ragged),
-    bf16 cast on the host, int8 quantized per tile and a pre-quantized
-    int8 corpus; the kernels' path against the plain path and against the
+    bf16 cast on the host, a pre-quantized int8 corpus and, at 2^19, int8
+    quantized per tile; the kernels' path against the plain path and the
     top-k over the rows it sends held on the card at once (ExactIndex for
     bf16), ties judged by scores computed from those rows; GB/s of the
     stream beside a plain pinned host-to-device copy."""
@@ -4607,48 +4648,52 @@ def stream_scale(report: dict) -> None:
                     sc.shape[1], device="cuda").expand(qq.shape[0], -1)], 1), 1, pos)
             return cs.cpu().numpy(), ci.cpu().numpy()
 
-        for tile_rows in (1 << 21, 1 << 19):
+        # int8 quantized on the host per tile at the smaller tile only: the
+        # host's quantization sets its rate at either size (0.93 and 0.94M
+        # rows/s at 2^21 and 2^19 on an H100 host)
+        for tile_rows, transfer, source in (
+                (1 << 21, "bfloat16", corpus), (1 << 21, "int8", prequantized),
+                (1 << 19, "bfloat16", corpus), (1 << 19, "int8", corpus),
+                (1 << 19, "int8", prequantized)):
             n_tiles = -(-n // tile_rows)
-            for transfer, source in (("bfloat16", corpus), ("int8", corpus),
-                                     ("int8", prequantized)):
-                idx = StreamingExactIndex(source, tile_rows=tile_rows,
-                                          transfer_dtype=transfer, device="cuda")
-                what = (f"streaming {transfer} tile_rows={tile_rows} "
-                        + ("pre-quantized" if source is prequantized else
-                           "cast on the host" if transfer == "bfloat16" else
-                           "quantized per tile"))
-                # the plain path first: it also warms the pinned buffers
-                xs, xi = idx.search(q, k=k, backend="xla")
-                reset_counts()
-                torch.cuda.synchronize()
-                t0 = time.perf_counter()
-                gs, gi = idx.search(q, k=k)
-                wall = time.perf_counter() - t0
-                counts = read_counts()
-                expect_launches(what, counts, n_tiles)
-                add_launches(report, counts)
-                sent_gb = n * D * idx.transfer_dtype.itemsize / 1e9
-                sent_rows = resident(idx)
-                rs, ri = (es, ei) if transfer == "bfloat16" else resident_topk(sent_rows)
-                if not ids_match_up_to_ties(gs, gi, xs, xi, true_scores(sent_rows, gi, xi),
-                                            1e-4):
-                    fail(f"{what}: the kernels' path and the plain path disagree")
-                if not ids_match_up_to_ties(gs, gi, rs, ri, true_scores(sent_rows, gi, ri),
-                                            1e-4):
-                    fail(f"{what}: the answers differ from the top-k over the rows it sends, "
-                         "searched on the card at once")
-                del sent_rows
-                key = f"{transfer}_{tile_rows}_" + ("prequantized" if source is prequantized
-                                                    else "host")
-                res[key] = {"search_s": wall, "gb_sent": sent_gb, "gb_per_s": sent_gb / wall,
-                            "rows_per_s": n / wall, "tiles": n_tiles,
-                            "max_abs_err_vs_plain": float(np.abs(gs - xs).max()),
-                            "max_abs_err_vs_resident": float(np.abs(gs - rs).max())}
-                log(f"{what}: {n_tiles} tiles through K4 + K5 in {wall:.2f} s = "
-                    f"{sent_gb / wall:.2f} GB/s sent ({n / wall / 1e6:.2f} M rows/s; a pinned "
-                    f"copy runs {res['pinned_copy_gb_per_s']:.1f} GB/s); equal to the plain "
-                    "path and to the top-k over the rows it sends, held on the card "
-                    + ("(ExactIndex)" if transfer == "bfloat16" else "(one product a chunk)"))
+            idx = StreamingExactIndex(source, tile_rows=tile_rows,
+                                      transfer_dtype=transfer, device="cuda")
+            what = (f"streaming {transfer} tile_rows={tile_rows} "
+                    + ("pre-quantized" if source is prequantized else
+                       "cast on the host" if transfer == "bfloat16" else
+                       "quantized per tile"))
+            # the plain path first: it also warms the pinned buffers
+            xs, xi = idx.search(q, k=k, backend="xla")
+            reset_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            gs, gi = idx.search(q, k=k)
+            wall = time.perf_counter() - t0
+            counts = read_counts()
+            expect_launches(what, counts, n_tiles)
+            add_launches(report, counts)
+            sent_gb = n * D * idx.transfer_dtype.itemsize / 1e9
+            sent_rows = resident(idx)
+            rs, ri = (es, ei) if transfer == "bfloat16" else resident_topk(sent_rows)
+            if not ids_match_up_to_ties(gs, gi, xs, xi, true_scores(sent_rows, gi, xi),
+                                        1e-4):
+                fail(f"{what}: the kernels' path and the plain path disagree")
+            if not ids_match_up_to_ties(gs, gi, rs, ri, true_scores(sent_rows, gi, ri),
+                                        1e-4):
+                fail(f"{what}: the answers differ from the top-k over the rows it sends, "
+                     "searched on the card at once")
+            del sent_rows
+            key = f"{transfer}_{tile_rows}_" + ("prequantized" if source is prequantized
+                                                else "host")
+            res[key] = {"search_s": wall, "gb_sent": sent_gb, "gb_per_s": sent_gb / wall,
+                        "rows_per_s": n / wall, "tiles": n_tiles,
+                        "max_abs_err_vs_plain": float(np.abs(gs - xs).max()),
+                        "max_abs_err_vs_resident": float(np.abs(gs - rs).max())}
+            log(f"{what}: {n_tiles} tiles through K4 + K5 in {wall:.2f} s = "
+                f"{sent_gb / wall:.2f} GB/s sent ({n / wall / 1e6:.2f} M rows/s; a pinned "
+                f"copy runs {res['pinned_copy_gb_per_s']:.1f} GB/s); equal to the plain "
+                "path and to the top-k over the rows it sends, held on the card "
+                + ("(ExactIndex)" if transfer == "bfloat16" else "(one product a chunk)"))
         del corpus, prequantized, sent
     report["pq"]["streaming"] = res
 
@@ -4680,11 +4725,23 @@ def tear_down() -> dict:
 def pq(report: dict) -> None:
     report["pq"] = {}
     parts = {}
-    for name, fn in (("cli", pq_cli), ("scale", pq_scale), ("streaming", stream_scale)):
+    t0 = time.perf_counter()
+    proc, want = pq_cli(report)
+    parts["cli"] = time.perf_counter() - t0
+    tear_down()
+    try:
+        for name, fn in (("scale", pq_scale), ("streaming", stream_scale)):
+            t0 = time.perf_counter()
+            fn(report)
+            parts[name] = time.perf_counter() - t0
+            released = tear_down()
         t0 = time.perf_counter()
-        fn(report)
-        parts[name] = time.perf_counter() - t0
-        released = tear_down()
+        check_reload(report, proc, want)
+        parts["reload (waited for)"] = time.perf_counter() - t0
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.communicate()
     report["pq"]["part_s"] = parts
     log("pq phase by part (s): " + ", ".join(f"{n} {v:.1f}" for n, v in parts.items())
         + f"; torn down after it: {released}")
@@ -4697,8 +4754,8 @@ MESH_ROWS = 1 << 20          # bench.py's corpus: 1M x 384 bf16, Q = 4096, k = 1
 MESH_QUERIES = 4096
 MESH_CELLS = 1024            # the ivf phase's cells: 1,024 of 2,048 x 384 bf16
 MESH_BUDGET = 2048
-MESH_PQ_ROWS = 1 << 21       # the pq phase's widths (m = 48, D = 384), 2M rows
-MESH_PQ_CELLS = 2048
+MESH_PQ_ROWS = 1 << 20       # the pq phase's widths (m = 48, D = 384), 1M rows
+MESH_PQ_CELLS = 1024
 MESH_DOCS = 16384            # the sharded Retriever's corpus
 MESH_EVAL_INSTANCES = 960    # ir_eval_main's dataset: the evaluate phase's small cut
 MESH_ATTENTION = (8, 12, 4096, 32)
@@ -4925,9 +4982,9 @@ def mesh_ivf(report: dict, mesh) -> None:
 
 
 def mesh_compressed(report: dict, mesh) -> None:
-    """PQ (m = 48) and IVF-PQ (2,048 cells, 8 and 4 bits) over 2M clustered
+    """PQ (m = 48) and IVF-PQ (1,024 cells, 8 and 4 bits) over 1M clustered
     rows of D = 384, and the streamed index over them as a host array
-    (tile_rows 2^19: four tiles), each sharded over the mesh against its
+    (tile_rows 2^19: two tiles), each sharded over the mesh against its
     unsharded self at Q = 256 (PQ also 4,096)."""
     import torch
 
@@ -4995,7 +5052,7 @@ def mesh_compressed(report: dict, mesh) -> None:
                 f"{t['plain_ms']:.3f} ms unsharded (x{t['sharded_over_plain']:.2f})")
         del idx, sh
         torch.cuda.empty_cache()
-    # the streamed index over the rows as a host array: four tiles of 2^19
+    # the streamed index over the rows as a host array: two tiles of 2^19
     host = rows.cpu().numpy()
     del rows
     torch.cuda.empty_cache()
@@ -5393,8 +5450,11 @@ def tm_data_parallel(report: dict, out: dict) -> None:
         def named(c, mark):
             return sum(v for n, v in c.items() if f"::{mark}" in n)
 
+        # four steps a window (kernel_counts' default): a whole run on a slow
+        # host lost two or three of a window's records in each of three tries
+        # of a two-step window (47 against 48 attention kernels a step)
         names = kernel_counts(lambda: step(state, ids, mask, None), lambda c: all(
-            named(c, m) >= v for m, v in want_names.items()), reps=2)
+            named(c, m) >= v for m, v in want_names.items()))
         by_name = {m: named(names, m) for m in want_names}
         bad = {m: (by_name[m], v) for m, v in want_names.items() if by_name[m] != v}
         log(f"train_mesh {label} (MiniLM-L6, batch 32 quadruplets, S=128, bf16, fused): loss "
@@ -5769,7 +5829,7 @@ def train_mesh(report: dict) -> None:
 # dist: meshes across processes — two processes of the port on cuda:0 over
 # gloo (NCCL refuses two ranks on one card), each with four positions
 # ---------------------------------------------------------------------------
-DIST_TIMEOUT = 120           # a child's own limit (s): a hang fails the phase
+DIST_TIMEOUT = 180           # a child's own limit (s): a hang fails the phase
 DIST_POSITIONS = 4           # $QST_TORCH_VIRTUAL_DEVICES in each child: 8 global positions
 DIST_QUERIES = 256           # bench.py's exact search at Q = 256
 
@@ -5865,12 +5925,12 @@ def timed_passes(fn, reps: int, clocked: bool) -> dict:
     return out
 
 
-def names_in_child(fn, marks) -> dict:
+def names_in_child(fn, marks, reps: int = 3) -> dict:
     """{mark: launches a call of the device kernels whose names hold it}, from
-    torch.profiler over three calls of ``fn`` (rounded up, as
+    torch.profiler over ``reps`` calls of ``fn`` (rounded up, as
     ``kernel_counts``; one try only, so that the two processes of the group
     make the same calls and collectives)."""
-    counts = kernel_counts(fn, reps=3, tries=1)
+    counts = kernel_counts(fn, reps=reps, tries=1)
     return {m: by_mark(counts, m) for m in marks}
 
 
@@ -5958,6 +6018,178 @@ def dist_search(mesh, corpora, child: bool = False) -> dict:
     return out
 
 
+DIST_ATTENTION = (4, 12, 4096, 32)     # B, heads, S, head width of the ring and context runs
+K9_KERNEL = "module_keep_kernel"
+# stages (pipelines) or rows (tensor-parallel) a process runs of each layout:
+# (child 0, child 1, one process)
+LAYOUT_SHARES = {"GPipe 2x1": (1, 1, 2), "circular 3x1": (2, 1, 3), "TP 1x2": (1, 1, 1),
+                 "DP+TP 2x2": (1, 2, 2)}
+
+
+def layout_want(label: str, share: int) -> tuple:
+    """A layout's launches a step by wrapper, and by kernel name, in a
+    process that runs ``share`` of its stages or rows (MiniLM-L6, M = 4):
+    K9 once for the embeddings and once a dropout site of each layer of
+    each microbatch it runs (three sites at attention dropout 0.1, two
+    without), K7 and K8 once a layer and microbatch on the flash path, K1
+    and K2 once a layer and row on the fused path (K1's attention kernel
+    again in K2's recompute), K3 once."""
+    L, M = 6, 4
+    want = dict.fromkeys(("K1", "K2", "K7", "K8", "K9"), 0)
+    want.update({"K3 forward": 1, "K3 backward": 1})
+    if label == "GPipe 2x1":
+        want["K9"] = 1 + 3 * (share * L // 2) * M
+    elif label == "circular 3x1":
+        per = share * L // 3 * M
+        want.update(K7=per, K8=per, K9=1 + 2 * per)
+    else:
+        want.update(K1=L * share, K2=L * share)
+    names = {K9_KERNEL: want["K9"], "flash_fwd_wgmma_kernel": want["K7"],
+             "flash_bwd_prep_kernel": want["K8"], "flash_bwd_wgmma_kernel": want["K8"],
+             "::attention_mma_kernel": 2 * want["K1"], "::attention_bwd_mma_kernel": want["K2"],
+             "quadruplet_fwd_kernel": 1, "quadruplet_bwd_kernel": 1}
+    return want, names
+
+
+def dist_layout_meshes(devices, ranks) -> dict:
+    """The layouts of (d)-(g) over the eight positions (ranks [0]*4 + [1]*4
+    across the children, [0]*8 in one process), by position: GPipe 2 x 1
+    and the ring's 2 x 1 over positions 0 and 4 (one stage, one block a
+    process), circular 3 x 1 over 0, 1, 4 (ranks [0, 0, 1]), TP 1 x 2 over 0
+    and 4 (the row split [0, 1]), DP + TP 2 x 2 over 0, 4, 5, 6 (ranks [0, 1,
+    1, 1]: row 0 split, row 1 in process 1)."""
+    from qst_tpu_torch.core.meshes import make_mesh, make_pipe_mesh
+
+    def at(*idx):
+        return [devices[i] for i in idx], [ranks[i] for i in idx]
+
+    return {"GPipe 2x1": make_pipe_mesh(2, 1, *at(0, 4)),
+            "circular 3x1": make_pipe_mesh(3, 1, *at(0, 1, 4)),
+            "TP 1x2": make_mesh(1, 2, *at(0, 4)),
+            "DP+TP 2x2": make_mesh(2, 2, *at(0, 4, 5, 6)),
+            "attention 2x1": make_mesh(2, 1, *at(0, 4))}
+
+
+def layout_digest(state) -> str:
+    """sha256 of a layout's checkpoint dict (parameters and Adam moments
+    under the checkpoint's names, gathered from every process: all call
+    this together)."""
+    import hashlib
+
+    import torch
+
+    sd = state.state_dict()
+    h = hashlib.sha256()
+    for part in (sd["model"], *sd["optimizer"]["moments"].values()):
+        names = sorted(part)
+        h.update("\n".join(names).encode())
+        h.update(torch.cat([part[n].detach().contiguous().reshape(-1).view(torch.uint8)
+                            for n in names]).cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+def layout_counters():
+    """(name, wrapper) of every kernel the layouts' paths launch."""
+    from qst_tpu_torch.ops import fused_layer as fl
+
+    return tuple(zip(("K1", "K2", "K3 forward", "K3 backward"), train_counters())) + (
+        ("K7", flash_counters()[0]), ("K8", flash_counters()[1]), ("K9", fl.module_keep_mask))
+
+
+def dist_layouts(meshes: dict, child: bool = False) -> dict:
+    """(d) GPipe 2 x 1 (M = 4, nn.Module layers, dropout 0.1), (e) circular
+    3 x 1 (v = 2, M = 4, use_flash_attention, attention dropout 0, hidden
+    0.1), (f) TP 1 x 2 and DP + TP 2 x 2 fused steps (the training
+    configuration): two steps each (keys (14, 1), (14, 2)) from one seed's
+    weights → the losses, the gathered state's digest, this process's
+    launches by wrapper, ms a step over two more (``timed_passes``) and, in
+    a ``child``, the kernels by name in two profiled steps. (g) context and
+    ring attention at DIST_ATTENTION, f32, forward and the q / k / v
+    gradients of Σ out · w: the digest of output and gradients, ms a call."""
+    import dataclasses
+    import hashlib
+
+    import torch
+
+    from qst_tpu_torch.parallel import context_parallel_attention, ring_attention
+    from qst_tpu_torch.parallel.pipeline import (
+        PipelineLayout,
+        make_pp_train_step,
+        pp_params_from_encoder,
+    )
+    from qst_tpu_torch.train import dropout_key, make_train_step
+    from qst_tpu_torch.train.train_step import TrainState, make_optimizer
+
+    enc_cfg, loss_cfg, tcfg = train_config()
+    module = dataclasses.replace(enc_cfg, use_fused_layer=False)
+    flash = dataclasses.replace(module, use_flash_attention=True, attention_dropout=0.0)
+    ids_np, mask_np = tm_batch(38, enc_cfg.vocab_size)
+    ids, mask = torch.from_numpy(ids_np).cuda(), torch.from_numpy(mask_np).cuda()
+    out = {}
+
+    def pipeline(cfg, mesh, pipe, M, V):
+        model = pp_params_from_encoder(tm_weights(enc_cfg), cfg, pipe, mesh, V)
+        state = TrainState(step=0, model=model,
+                           optimizer=make_optimizer(tcfg, 100, model.parameters()),
+                           layout=PipelineLayout(cfg, pipe, V, mesh))
+        return state, make_pp_train_step(cfg, loss_cfg, None, mesh, pipe, M, V)
+
+    forms = {"GPipe 2x1": lambda: pipeline(module, meshes["GPipe 2x1"], 2, 4, 1),
+             "circular 3x1": lambda: pipeline(flash, meshes["circular 3x1"], 3, 4, 2)}
+    for label in ("TP 1x2", "DP+TP 2x2"):
+        forms[label] = lambda m=meshes[label]: (tm_state(enc_cfg, loss_cfg, tcfg, m),
+                                                make_train_step(enc_cfg, loss_cfg, None, m))
+    counters = layout_counters()
+    for label, make in forms.items():
+        clock = [time.perf_counter()]
+
+        def lap():
+            clock.append(time.perf_counter())
+            return clock[-1] - clock[-2]
+
+        state, step = make()
+        made = lap()
+        for _, c in counters:
+            c.launches = 0
+        losses = [step(state, ids, mask, dropout_key(14, s))[1].item() for s in (1, 2)]
+        torch.cuda.synchronize()
+        launches = {n: c.launches for n, c in counters}
+        stepped = lap()
+        key = dropout_key(14, 3)
+        marks = tuple(layout_want(label, 1)[1])
+        out[label] = {"losses": losses, "digest": layout_digest(state), "launches": launches}
+        digested = lap()
+        out[label]["names"] = (names_in_child(lambda: step(state, ids, mask, key), marks, 2)
+                               if child else None)
+        named = lap()
+        out[label].update(timed_passes(lambda: step(state, ids, mask, key), 2, False))
+        out[label]["part_s"] = {"make": made, "steps": stepped, "digest": digested,
+                                "names": named, "timed": lap()}
+        del state, step
+        torch.cuda.empty_cache()
+    gen = torch.Generator(device="cuda").manual_seed(45)
+    q, k, v, w = (torch.randn(DIST_ATTENTION, device="cuda", generator=gen) for _ in range(4))
+    mesh = meshes["attention 2x1"]
+    for scheme, fn in (("context", context_parallel_attention), ("ring", ring_attention)):
+        def call(fn=fn):
+            xs = [x.clone().requires_grad_() for x in (q, k, v)]
+            o = fn(*xs, mesh, "data")
+            (o * w).sum().backward()
+            return [o.detach(), *[x.grad for x in xs]]
+
+        got = call()
+        torch.cuda.synchronize()
+        h = hashlib.sha256()
+        for t in got:
+            h.update(t.cpu().contiguous().view(-1).view(torch.uint8).numpy().tobytes())
+        full = torch.cat([t.reshape(-1) for t in got])
+        out[scheme] = {"digest": h.hexdigest(), "finite": bool(torch.isfinite(full).all()),
+                       **timed_passes(call, 2, False)}
+        del got, full
+        torch.cuda.empty_cache()
+    return out
+
+
 def dist_child(rank: int, port: str, dest: str) -> None:
     """One process of the dist phase's group (``--dist_child``): training
     on both meshes, then both searches, on the global positions; its
@@ -5990,11 +6222,17 @@ def dist_child(rank: int, port: str, dest: str) -> None:
         except (RuntimeError, ValueError) as e:
             all_gather = f"refuses CUDA tensors: {str(e)[:160]}"
         devices, ranks = global_devices("cuda:0")
+        t0 = time.perf_counter()
         res = {"ranks": ranks, "gloo_all_gather": all_gather,
                "train": dist_train(dist_meshes(devices, ranks), child=True)}
+        t1 = time.perf_counter()
         search_mesh = dist_meshes(devices, ranks)["DP+TP 4x2"]
         res.update(dist_search(search_mesh, dist_corpora(), child=True))
         res.pop("ivf_queries")
+        t2 = time.perf_counter()
+        res["layouts"] = dist_layouts(dist_layout_meshes(devices, ranks), child=True)
+        res["part_s"] = {"train": t1 - t0, "search": t2 - t1,
+                         "layouts": time.perf_counter() - t2}
         torch.save(res, os.path.join(dest, f"dist_{rank}.pt"))
     finally:
         dist.destroy_process_group()
@@ -6011,7 +6249,9 @@ def dist(report: dict) -> None:
     exact search (1M x 384 bf16, k = 10, Q = 256) and (c) IVF (1,024 cells
     of 2,048, n_probe 8) over 4 x 2: both ranks' answers the one-process
     mesh's bit for bit and the unsharded search's up to ties, 4 K4 + 4 K5
-    and 4 K6 in each process. Times beside the one-process mesh's: the cost
+    and 4 K6 in each process. (d)-(g): the pipeline, a split mesh row and
+    sequence-sharded attention across the processes (``dist_layouts``,
+    ``dist_check_layouts``). Times beside the one-process mesh's: the cost
     of the structure on one card (two processes share it), not scaling."""
     import socket
     import tempfile
@@ -6029,12 +6269,15 @@ def dist(report: dict) -> None:
                                   stderr=subprocess.STDOUT, text=True) for r in range(2)]
         # the one-process references while the children start
         positions = ["cuda:0"] * (2 * DIST_POSITIONS)
+        t_ref = time.perf_counter()
         one = dist_train(dist_meshes(positions, [0] * len(positions)))
         corpora = dist_corpora()
         one_search = dist_search(dist_meshes(positions, [0] * len(positions))["DP+TP 4x2"],
                                  corpora)
         plain = dist_search(None, corpora)
+        one_layouts = dist_layouts(dist_layout_meshes(positions, [0] * len(positions)))
         torch.cuda.synchronize()
+        t_ref = time.perf_counter() - t_ref
         with open(os.path.join(dest, "go"), "w"):
             pass
         outs = []
@@ -6124,9 +6367,65 @@ def dist(report: dict) -> None:
                      "gather_ms": [a["gather_ms"], b["gather_ms"]],
                      "gather_share": [a["gather_share"], b["gather_share"]],
                      "launches_per_process": launches, "names_per_process": a["names"]}
-    res["wall_s"] = wall
-    log(f"dist: gloo all_gather {res['gloo_all_gather']}; phase {wall:.1f} s")
+    res["layouts"] = dist_check_layouts(report, one_layouts, [k["layouts"] for k in kids])
+    res.update(wall_s=wall, one_process_s=t_ref, child_part_s=[k["part_s"] for k in kids])
+    log(f"dist: gloo all_gather {res['gloo_all_gather']}; phase {wall:.1f} s: the one-process "
+        f"references {t_ref:.1f} s, then the children by part (s) "
+        + " / ".join(", ".join(f"{n} {v:.1f}" for n, v in k["part_s"].items()) for k in kids))
     report["dist"] = res
+
+
+def dist_check_layouts(report: dict, one: dict, kids: list) -> dict:
+    """(d)-(g) of the dist phase: each layout's losses and state (or the
+    attention's output and gradients) the same on both ranks and the same
+    bits as the one-process mesh of its shape; each child's launches by
+    wrapper and by kernel name those of the stages or rows it runs
+    (``layout_want``); ms beside the one-process mesh's."""
+    out = {}
+    for label, (s0, s1, s_one) in LAYOUT_SHARES.items():
+        a, b, ref = kids[0][label], kids[1][label], one[label]
+        wants = [layout_want(label, n) for n in (s0, s1, s_one)]
+        launch_ok = all(x["launches"] == {n: 2 * v for n, v in w[0].items()}
+                        for x, w in zip((a, b, ref), wants))
+        names_ok = all(x["names"] == w[1] for x, w in zip((a, b), wants))
+        same = a["losses"] == b["losses"] == ref["losses"] and \
+            a["digest"] == b["digest"] == ref["digest"]
+        log(f"dist {label} across 2 processes (gloo on cuda:0; MiniLM-L6, batch 32 "
+            f"quadruplets, S=128, bf16, dropout 0.1): losses {a['losses']} / {b['losses']} "
+            f"(one process {ref['losses']}); parameters and moments, gathered, bit-equal "
+            f"between the ranks and to one process {same}; launches over two steps "
+            f"{a['launches']} / {b['launches']} (one process {ref['launches']}; want "
+            f"{[{n: 2 * v for n, v in w[0].items()} for w in wants]}); by name a step "
+            f"{a['names']} / {b['names']} (want {wants[0][1]} / {wants[1][1]}); "
+            f"{a['ms']:.1f} / {b['ms']:.1f} ms a step against {ref['ms']:.1f} ms on one "
+            f"process's mesh (the structure's cost on one card, not scaling)")
+        log(f"dist {label} by part (s), child 0 / child 1 / one process: "
+            + " / ".join(", ".join(f"{n} {v:.2f}" for n, v in x["part_s"].items())
+                         for x in (a, b, ref)))
+        if not (same and launch_ok and names_ok):
+            fail(f"dist {label}: ranks or the one-process mesh disagree, or launches / "
+                 f"kernels by name are not the layout's")
+        for x in (a, b):
+            add_train_launches(report, [x["launches"][n] for n in COUNTED])
+            add_keep_launches(report, x["launches"]["K9"])
+            for n in ("K7", "K8"):
+                report[n]["launches"] = report[n].get("launches", 0) + x["launches"][n]
+        out[label] = {"losses": a["losses"], "launches_per_process": [a["launches"],
+                                                                      b["launches"]],
+                      "names_per_process_step": [a["names"], b["names"]],
+                      "step_ms": [a["ms"], b["ms"]], "one_process_step_ms": ref["ms"]}
+    for scheme in ("context", "ring"):
+        a, b, ref = kids[0][scheme], kids[1][scheme], one[scheme]
+        same = a["digest"] == b["digest"] == ref["digest"]
+        log(f"dist {scheme} attention over 2 x 1 across 2 processes at {DIST_ATTENTION} f32 "
+            f"(B, heads, S, head width): output and q / k / v gradients bit-equal between "
+            f"the ranks and to one process {same}, finite {a['finite']}; forward + backward "
+            f"{a['ms']:.1f} / {b['ms']:.1f} ms against {ref['ms']:.1f} ms on one process's "
+            f"mesh (the structure's cost on one card, not scaling)")
+        if not (same and a["finite"]):
+            fail(f"dist {scheme} attention: the ranks or the one-process mesh disagree")
+        out[scheme] = {"ms": [a["ms"], b["ms"]], "one_process_ms": ref["ms"]}
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -6179,9 +6478,9 @@ def flash_docs(n: int, seed: int) -> list:
     """n documents of 300-450 words of the synthetic vocabulary (w0 .. w4999):
     [CLS], the words and [SEP] land in the 512 bucket."""
     rng = np.random.default_rng(seed)
-    words = np.array([f"w{i}" for i in range(5000)])
-    return [" ".join(words[rng.integers(0, 5000, int(rng.integers(300, 451)))])
-            for _ in range(n)]
+    words = [f"w{i}" for i in range(5000)]
+    return [" ".join([words[j] for j in rng.integers(0, 5000, int(rng.integers(300, 451)))
+                      .tolist()]) for _ in range(n)]
 
 
 def check_flash_kernels(report: dict) -> None:
@@ -6857,9 +7156,11 @@ def flash(report: dict) -> None:
 
 # ------------------------------------------------------------------ roberta
 ROBERTA_DOCS = 65536        # the reranked Retriever's corpus
-ROBERTA_QUERIES = 64
+ROBERTA_QUERIES = 32
 ROBERTA_PAIRS = 1024        # pairs each predict form scores (8 batches of 128)
-ROBERTA_IR_INSTANCES = 136  # 32 queries; 104 references + 3 x 136 positives = 512 docs
+ROBERTA_IR_INSTANCES = 68   # 16 queries; 52 references + 3 x 68 positives = 256 docs
+ROBERTA_IR_QUERIES = 16
+ROBERTA_IR_DOCS = ROBERTA_IR_INSTANCES - ROBERTA_IR_QUERIES + 3 * ROBERTA_IR_INSTANCES
 ROBERTA_MERGES = 2000
 ROBERTA_SPECIAL = ["<s>", "<pad>", "</s>", "<unk>", "<mask>"]
 
@@ -6883,13 +7184,12 @@ def pseudo_texts(words: list, n: int, seed: int, lo: int = 300, hi: int = 450) -
     """n sentences of lo-hi characters drawn from ``words``, capitalised and
     ended with a full stop, with a comma now and then."""
     rng = np.random.default_rng(seed)
-    arr = np.array(words)
     per = hi // 3
-    picks = arr[rng.integers(0, len(words), (n, per))]
-    lens = rng.integers(lo, hi + 1, n)
+    picks = rng.integers(0, len(words), (n, per)).tolist()
+    lens = rng.integers(lo, hi + 1, n).tolist()
     out = []
     for row, L in zip(picks, lens):
-        text = " ".join(row)[:L].rsplit(" ", 1)[0]
+        text = " ".join([words[j] for j in row])[:L].rsplit(" ", 1)[0]
         cut = text.find(" ", len(text) // 2)
         if cut > 0:
             text = text[:cut] + "," + text[cut:]
@@ -7186,7 +7486,7 @@ def roberta_rerank(report: dict, ce: dict, words: list, tmp: str) -> dict:
     """Retriever with the MiniLM-L6 bi-encoder (random, a WordPiece vocab of
     the phase's words, bf16 index, dot_score: K4 + K5) over 65,536 docs and
     reranker= the RoBERTa-large CrossEncoder: search(k=10, rerank_k=100)
-    for 64 queries, each answer held to the first stage's 100 candidates
+    for 32 queries, each answer held to the first stage's 100 candidates
     scored directly by predict."""
     import torch
 
@@ -7256,8 +7556,8 @@ def roberta_rerank(report: dict, ce: dict, words: list, tmp: str) -> dict:
 
 def roberta_ir_eval(report: dict, ce: dict, words: list, tmp: str) -> dict:
     """``python -m qst_tpu_torch.cli.ir_eval_main --use_cross_encoder
-    --cross_encoder_dir <dir>`` over 136 instances (32 queries x 512 docs,
-    16,384 pairs labeled): the relevant sets are the positives and the docs
+    --cross_encoder_dir <dir>`` over 68 instances (16 queries x 256 docs,
+    4,096 pairs labeled): the relevant sets are the positives and the docs
     whose captured scores reach 0.4, and the first four queries' scores are
     predict's on a CrossEncoder of the directory as the phase loaded it."""
     import torch
@@ -7289,7 +7589,8 @@ def roberta_ir_eval(report: dict, ce: dict, words: list, tmp: str) -> dict:
     try:
         rc = ir_eval_main.main(["--dataset_root", root, "--output_root", out_root,
                                 "--use_cross_encoder", "--cross_encoder_dir", ce["dir"],
-                                "--n_queries", "32", "--score_functions", "cos_sim",
+                                "--n_queries", str(ROBERTA_IR_QUERIES),
+                                "--score_functions", "cos_sim",
                                 "dot_score", *IR_GRID])
     finally:
         mce.CrossEncoder.predict = predict
@@ -7301,7 +7602,8 @@ def roberta_ir_eval(report: dict, ce: dict, words: list, tmp: str) -> dict:
     with open(f"{out_root}/{out}/ir_eval_set.json") as f:
         ir_set = json.load(f)
     qids, dids = list(ir_set["queries"]), list(ir_set["corpus"])
-    if (len(qids), len(dids), len(pairs)) != (32, 512, 16384):
+    n_pairs = ROBERTA_IR_QUERIES * ROBERTA_IR_DOCS
+    if (len(qids), len(dids), len(pairs)) != (ROBERTA_IR_QUERIES, ROBERTA_IR_DOCS, n_pairs):
         fail(f"ir_eval_main: {len(qids)} queries x {len(dids)} docs, {len(pairs)} pairs")
     grid = scores.reshape(len(qids), len(dids))
     for qi, q in enumerate(qids):
@@ -7315,12 +7617,13 @@ def roberta_ir_eval(report: dict, ce: dict, words: list, tmp: str) -> dict:
     if err > 1e-6:
         fail(f"ir_eval_main: the labeling's scores are {err:.3e} from a direct predict")
     labeled = int((grid >= 0.4).sum())
-    log(f"ir_eval_main --use_cross_encoder --cross_encoder_dir (RoBERTa-large, bf16): 32 queries "
-        f"x 512 docs = 16,384 pairs labeled in {label_s:.1f} s ({16384 / label_s:.0f} pairs/s, "
+    log(f"ir_eval_main --use_cross_encoder --cross_encoder_dir (RoBERTa-large, bf16): "
+        f"{ROBERTA_IR_QUERIES} queries x {ROBERTA_IR_DOCS} docs = {n_pairs} pairs labeled in "
+        f"{label_s:.1f} s ({n_pairs / label_s:.0f} pairs/s, "
         f"BPE tokenization included), {labeled} pairs at or above 0.4; the whole CLI (baseline "
         f"MiniLM-L6 evaluation included) {wall:.1f} s; relevant sets equal the thresholded "
         f"scores, the first 2,048 scores {err:.1e} from a direct predict")
-    return {"label_s": label_s, "pairs_per_s": 16384 / label_s, "cli_s": wall,
+    return {"label_s": label_s, "pairs_per_s": n_pairs / label_s, "cli_s": wall,
             "labeled": labeled}
 
 
@@ -7520,9 +7823,9 @@ def roberta(report: dict) -> None:
 # ---------------------------------------------------------------- marian
 MARIAN_PAIRS = 64          # teacher-forced pairs, card against CPU
 MARIAN_GEN_ROWS = 8        # rows through the uncached decoders too
-MARIAN_CPU_ROWS = 16       # rows beam-searched on the CPU as well
-MARIAN_CAPTIONS = 256      # the roundtrip's captions (8 batches of 32)
-MARIAN_IMAGES = 16         # dataset_main's images with Marian part-positives (~2 s each:
+MARIAN_CPU_ROWS = 8        # rows beam-searched on the CPU as well
+MARIAN_CAPTIONS = 128      # the roundtrip's captions (4 batches of 32)
+MARIAN_IMAGES = 8          # dataset_main's images with Marian part-positives (~2 s each:
                            # the whole run's time limit)
 MARIAN_TOL = 1e-4          # relative to the largest magnitude / the best score
 
@@ -7678,7 +7981,7 @@ def marian_parity(report: dict, dirs: dict, tok, caps: list) -> None:
 def marian_generate(report: dict, dirs: dict, tok, caps: list) -> None:
     """greedy_decode_cached and beam_decode_cached (4 beams, max_length 128,
     PAD suppressed, forced EOS) on the card against the uncached forms on 8
-    rows, and the card's beams on 16 rows scored on the CPU against the CPU's
+    rows, and the card's beams on 8 rows scored on the CPU against the CPU's
     own beam search; rows that differ must do so at a near tie."""
     import torch
 
@@ -7746,7 +8049,7 @@ def marian_generate(report: dict, dirs: dict, tok, caps: list) -> None:
 
 
 def marian_roundtrip(report: dict, dirs: dict, tok, caps: list) -> object:
-    """get_backtranslator(backend="jax") over 256 captions at batch 32, f32:
+    """get_backtranslator(backend="jax") over 128 captions at batch 32, f32:
     translations/s a hop and for the round trip, ms a cached decode step,
     the busy share and the kernel launches of a decode step; the same
     memoized instance on a second call. → the backtranslator."""
@@ -7827,7 +8130,7 @@ def marian_roundtrip(report: dict, dirs: dict, tok, caps: list) -> object:
 
 
 def marian_dataset(report: dict, bt) -> None:
-    """dataset_main with adaptive_crop_augment over 16 synthetic images while
+    """dataset_main with adaptive_crop_augment over 8 synthetic images while
     the on-card Marian is the memoized backtranslator: its chunks, every
     part-positive a Marian roundtrip (counted by wrapping backtranslate),
     images/s and backtranslation's share of the wall."""

@@ -18,12 +18,19 @@ every process's positions, gathered in rank order as ``jax.devices()``
 orders devices by process, and the mesh keeps each position's owning rank
 (``Mesh.ranks``; a ``torch.device`` cannot carry it, a JAX device carries
 ``process_index``). Each process then runs the positions it owns
-(``shard_loop`` gives None for the others), and the three places where one
-position needs another's values gather in rank order, which is shard order:
+(``shard_loop`` gives None for the others), and where one position needs
+another's values they are gathered in rank order, which is shard order:
 ``merge_topk`` (the candidates), ``gather_rows`` (embedding rows, with a
-backward that keeps this rank's rows) and ``parallel/sharding.py``'s
-gradient sum. Every collective is a ``broadcast`` from each rank in turn
-(``gather_ordered``), so its order is the ranks', never the backend's. The
+backward that keeps this rank's rows), ``gather_named`` (named tensors: a
+split layout's checkpoint, the gradient copies of ``parallel/sharding.py``).
+Every collective is a ``broadcast`` from each rank in turn
+(``gather_ordered``), so its order is the ranks', never the backend's.
+Between two processes a tensor goes by a hand-off (``exchange``:
+point-to-point, see below): the pipeline's activations and gradients, the
+ring's K/V blocks, and the partial sums of a mesh row split across
+processes (``gather_columns``, ``row_scatter``, ``row_sum``; a row is one
+data shard's positions along the second axis, and ``running_row`` says
+which one a data-parallel loop runs). The
 group's backend is ``nccl`` for cards by default and ``gloo`` for the CPU;
 ``backend="gloo"`` runs several processes on one card (NCCL refuses two
 ranks on one GPU) with the CUDA tensors sent through gloo.
@@ -52,9 +59,11 @@ Not carried: ``enable_compilation_cache`` (there is no XLA compilation).
 
 from __future__ import annotations
 
+import contextlib
+import contextvars
 import os
 from dataclasses import dataclass
-from typing import Any, Callable, List, Optional, Sequence, Tuple, Union
+from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple, Union
 
 import torch
 
@@ -78,7 +87,9 @@ class Mesh:
     (``flat_shard_index``). ``shape`` maps each axis name to its size, as
     the JAX mesh's does. ``ranks`` (row-major, the same length) holds the
     process that owns each position, ascending; by default this process
-    owns them all. ``rank`` is this process's."""
+    owns them all. ``rank`` is this process's. A row may be split across
+    processes (``row_ranks``): each process of it runs the row, computing
+    the columns it owns."""
 
     def __init__(self, grid: Sequence[Sequence[Any]],
                  axis_names: Tuple[str, str] = (DATA_AXIS, MODEL_AXIS),
@@ -118,51 +129,62 @@ class Mesh:
             raise ValueError(f"process {self.rank} owns no position of {self}")
         return self.devices[self.ranks.index(self.rank)]
 
-    def require_whole_rows(self, what: str) -> None:
-        """Raise ``NotImplementedError`` for ``what`` when a row of the mesh
-        (one data shard's positions along the second axis) is split across
-        processes: only the first axis crosses processes."""
-        cols = len(self.grid[0])
-        split = [r for r in range(len(self.grid))
-                 if len(set(self.ranks[r * cols:(r + 1) * cols])) > 1]
-        if split:
-            raise NotImplementedError(
-                f"{what} on a mesh whose rows {split} are split across processes "
-                f"(ranks {self.ranks}, shape {self.shape}) is not ported: give the "
-                f"{self.axis_names[1]!r} axis a size that divides each process's "
-                f"device count, so that every row lies in one process")
-
-    def refuse_across_processes(self, what: str) -> None:
-        """Raise ``NotImplementedError`` naming ``what`` on a mesh that spans
-        processes."""
-        if self.spans_processes:
-            raise NotImplementedError(
-                f"{what} on a mesh that spans processes (ranks {self.ranks}) is not "
-                f"ported: its stage-to-stage transfers would need point-to-point "
-                f"sends, which gloo lacks for CUDA tensors")
-
     def flat_shard_index(self, row_index: int, column_index: int) -> int:
         return row_index * len(self.grid[0]) + column_index
+
+    def row_ranks(self, row: int) -> List[int]:
+        """The owning process of each position of row ``row`` (one data
+        shard's positions along the second axis), in column order."""
+        cols = len(self.grid[0])
+        return self.ranks[row * cols:(row + 1) * cols]
+
+    def in_row(self, row: int) -> bool:
+        """Whether this process owns a position of row ``row``: then it
+        runs that row (a row split across processes is run by each of its
+        processes, each computing the columns it owns)."""
+        return self.rank in self.row_ranks(row)
+
+    def row_home(self, row: int) -> torch.device:
+        """This process's first position of row ``row``: where it keeps the
+        row's replicated tensors (the row's first device when it owns the
+        whole row)."""
+        return self.grid[row][self.row_ranks(row).index(self.rank)]
+
+    def _own_first_row(self) -> int:
+        rows = [r for r in range(len(self.grid)) if self.in_row(r)]
+        return rows[0] if rows else 0
 
     def axis_devices(self, axis: str) -> List[torch.device]:
         """The device of each shard along one axis: along the first, each
         row's first position (a batch shard is replicated over the second
-        axis); along the second, the positions of this process's first row."""
+        axis); along the second, for each column this process's first
+        position in it — the columns of this process's first row when it
+        owns whole rows. A column it owns no position of: that column's
+        position in its first row (``axis_ranks`` names the owner)."""
         if axis == self.axis_names[0]:
             return [row[0] for row in self.grid]
         if axis == self.axis_names[1]:
-            return list(self.grid[self.ranks.index(self.rank) // len(self.grid[0])
-                                  if self.rank in self.ranks else 0])
+            first = self._own_first_row()
+            out = []
+            for j in range(len(self.grid[0])):
+                mine = [r for r in range(len(self.grid)) if self.owns(self.flat_shard_index(r, j))]
+                out.append(self.grid[mine[0] if mine else first][j])
+            return out
         raise ValueError(f"unknown mesh axis {axis!r}; axes {self.axis_names}")
 
     def axis_ranks(self, axis: str) -> List[int]:
         """The owning process of each shard along one axis (``axis_devices``'
-        positions)."""
+        positions): a row's first position's owner along the first axis;
+        along the second, this process for every column it owns a position
+        of."""
         cols = len(self.grid[0])
         if axis == self.axis_names[0]:
             return [self.ranks[r * cols] for r in range(len(self.grid))]
         if axis == self.axis_names[1]:
-            return [self.rank] * cols if self.rank in self.ranks else self.ranks[:cols]
+            first = self.row_ranks(self._own_first_row())
+            return [self.rank if any(self.owns(self.flat_shard_index(r, j))
+                                     for r in range(len(self.grid))) else first[j]
+                    for j in range(cols)]
         raise ValueError(f"unknown mesh axis {axis!r}; axes {self.axis_names}")
 
     def device_at(self, **index: int) -> torch.device:
@@ -466,27 +488,297 @@ def gather_rows(local: torch.Tensor) -> torch.Tensor:
     return local if _group()[1] == 1 else _GatherRows.apply(local)
 
 
+def _bytes(t: torch.Tensor) -> torch.Tensor:
+    """``t``'s bytes as a flat uint8 tensor on its device (a view where
+    ``t`` is contiguous): what a transfer carries, whatever the dtype."""
+    return t.detach().contiguous().reshape(-1).view(torch.uint8)
+
+
+def _from_bytes(raw: torch.Tensor, shape, dtype: torch.dtype) -> torch.Tensor:
+    return raw.view(dtype).reshape(shape)
+
+
+# ----------------------------------------------------------------------------
+# point-to-point hand-offs
+# ----------------------------------------------------------------------------
+# A hand-off carries a tensor from one process to another and nothing else:
+# the pipeline's activations and their gradients from stage to stage, the
+# ring's K/V blocks, a split mesh row's partial sums. How it rides:
+#
+# - under NCCL, the card's bytes go by ``isend``/``irecv``;
+# - under gloo, ``isend``/``irecv`` take CPU tensors only, so a card's
+#   tensor is staged through host memory: copied off the card on the
+#   sender, received into host memory and copied onto the receiver's card.
+#   Only the bytes pass through the host; nothing is computed there.
+#
+# Two rules keep a group of processes from hanging:
+#
+# - every transfer is posted without blocking and only then waited for
+#   (``exchange``): two processes that each send to the other — the ring's
+#   rotation, the circular schedule's wrap beside a forward hand-off —
+#   would deadlock on two blocking sends;
+# - two processes post their transfers to each other in one order, the
+#   order of the list every process builds alike, since gloo and NCCL match
+#   the messages between a pair in the order they were posted.
+#
+# No hand-off makes a process group: ``dist.new_group`` is collective over
+# the whole world (every process, member or not, must call it, in the same
+# order), so a pair group made lazily by the two processes that need it
+# would hang the others; point-to-point calls on the default group need none.
+
+class _Pending:
+    """A transfer posted by ``exchange``: ``wait()`` → the received tensor
+    (``like``'s shape, dtype and device) on the receiver, the sent tensor on
+    the sender. ``buf`` (the bytes on the wire) lives until then."""
+
+    def __init__(self, work, buf: torch.Tensor, like: Optional[torch.Tensor] = None,
+                 sent: Optional[torch.Tensor] = None):
+        self.work, self.buf, self.like, self.sent = work, buf, like, sent
+
+    def wait(self) -> torch.Tensor:
+        self.work.wait()
+        if self.like is None:
+            return self.sent
+        return _from_bytes(self.buf, self.like.shape, self.like.dtype).to(self.like.device)
+
+
+def exchange(transfers: Sequence[Tuple[Optional[torch.Tensor], int, int]]
+             ) -> List[Optional[torch.Tensor]]:
+    """Run a list of hand-offs ``(t, src, dst)``, every process of the
+    group passing the same list (the same order: see above). On ``src``,
+    ``t`` is the tensor to send; on ``dst``, a tensor of the shape, dtype
+    and device to receive into (its values unused); elsewhere it may be
+    None. Every send is posted, then every receive, then all are waited
+    for. → per transfer: the received tensor on ``dst``, ``t`` itself where
+    ``src == dst`` is this process, None elsewhere."""
+    rank = _group()[0]
+    posted: List[Optional[_Pending]] = [None] * len(transfers)
+    if any(src != dst and rank in (src, dst) for _, src, dst in transfers):
+        import torch.distributed as dist
+
+        host = dist.get_backend() != "nccl"
+        for i, (t, src, dst) in enumerate(transfers):
+            if src == rank and dst != rank:
+                raw = _bytes(t).cpu() if host else _bytes(t)
+                posted[i] = _Pending(dist.isend(raw, dst), raw, sent=t)
+        for i, (t, src, dst) in enumerate(transfers):
+            if dst == rank and src != rank:
+                raw = torch.empty(t.numel() * t.element_size(), dtype=torch.uint8,
+                                  device="cpu" if host else t.device)
+                posted[i] = _Pending(dist.irecv(raw, src), raw, like=t)
+    return [t if src == dst == rank else posted[i].wait() if posted[i] is not None else None
+            for i, (t, src, dst) in enumerate(transfers)]
+
+
+def gather_columns(parts: Dict[int, torch.Tensor], owners: Sequence[int]
+                   ) -> List[torch.Tensor]:
+    """Every column's tensor of one mesh row, in column order, on every
+    process that owns a position of the row: this process's columns from
+    ``parts`` ({column: tensor}, one shape and dtype for all), each other
+    process's handed off to it (each member sends its columns, stacked, to
+    every other member; the members' transfers in rank order). A row that
+    lies in this process: ``parts`` in order, nothing sent."""
+    rank = _group()[0]
+    members = sorted(set(owners))
+    mine = [j for j, r in enumerate(owners) if r == rank]
+    if members == [rank]:
+        return [parts[j] for j in mine]
+    like = parts[mine[0]]
+    own = torch.stack([parts[j] for j in mine])
+    transfers = []
+    for src in members:
+        n = sum(1 for r in owners if r == src)
+        for dst in members:
+            if dst != src:
+                t = own if src == rank else like.new_empty((n, *like.shape))
+                transfers.append((t, src, dst))
+    got = exchange(transfers)
+    stacks = {rank: own}
+    for (_, src, dst), t in zip(transfers, got):
+        if dst == rank:
+            stacks[src] = t
+    taken = {r: 0 for r in members}
+    out = []
+    for r in owners:
+        out.append(stacks[r][taken[r]])
+        taken[r] += 1
+    return out
+
+
+def gather_named(named: Dict[Any, torch.Tensor], device: Any = None) -> Dict[Any, torch.Tensor]:
+    """Every process's ``named`` tensors, united on every process (keys may
+    be any picklable value; a key more than one process gives: the lowest
+    rank's): the names, shapes and dtypes by ``all_gather_object``, the
+    bytes by one ``gather_ordered`` on ``device`` (default: the first
+    tensor's, else the group's), unpacked bit for bit. One process:
+    ``named``."""
+    rank, world = _group()
+    if world == 1:
+        return dict(named)
+    import torch.distributed as dist
+
+    if device is None:
+        device = next(iter(named.values())).device if named else _comm_device()
+    meta = [(k, tuple(t.shape), str(t.dtype).split(".")[-1]) for k, t in named.items()]
+    metas: List[Any] = [None] * world
+    dist.all_gather_object(metas, meta)
+    blob = (torch.cat([_bytes(t).to(device) for t in named.values()]) if named
+            else torch.empty(0, dtype=torch.uint8, device=device))
+    out: Dict[Any, torch.Tensor] = {}
+    for r, raw in enumerate(gather_ordered(blob)):
+        start = 0
+        for k, shape, dtype in metas[r]:
+            dt = getattr(torch, dtype)
+            n = int(torch.Size(shape).numel()) * torch.empty((), dtype=dt).element_size()
+            if k not in out:
+                out[k] = named[k] if r == rank else _from_bytes(
+                    raw[start:start + n].clone(), shape, dt)
+            start += n
+    return out
+
+
+class _RowScatter(torch.autograd.Function):
+    """``x`` to each column of a mesh row this process owns, ``uses``
+    copies a column (with ``dim``: column j's chunk of it along ``dim``),
+    each on its device, then with ``residual`` one more copy of ``x`` for
+    the input's own use beside the row. The backward gathers every column's
+    gradients over the row's processes (``gather_columns``) and forms the
+    one gradient of ``x`` that one process forms: with ``dim`` the columns'
+    concatenated; else the residual's first, then every use's added in
+    reverse order of use, the last column's last use first — the order in
+    which autograd accumulates the uses of one tensor in one process."""
+
+    @staticmethod
+    def forward(ctx, owners, devices, dim, uses, residual, x):
+        ctx.owners, ctx.dim, ctx.uses, ctx.home = list(owners), dim, uses, x.device
+        ctx.residual = residual
+        rank = _group()[0]
+        mine = [j for j, r in enumerate(owners) if r == rank]
+        outs = []
+        for j, dev in zip(mine, devices):
+            y = (x if dim is None else x.chunk(len(owners), dim)[j]).to(dev)
+            outs += [y.view_as(y) if y is x or uses > 1 else y for _ in range(uses)]
+        if residual:
+            outs.append(x.view_as(x))
+        return tuple(outs)
+
+    @staticmethod
+    def backward(ctx, *grads):
+        rank = _group()[0]
+        mine = [j for j, r in enumerate(ctx.owners) if r == rank]
+        u = ctx.uses
+        full = gather_columns({j: torch.stack(grads[k * u:(k + 1) * u])
+                               for k, j in enumerate(mine)}, ctx.owners)
+        if ctx.dim is not None:
+            return (None,) * 5 + (torch.cat([g[0].to(ctx.home) for g in full], ctx.dim),)
+        uses = [g.to(ctx.home) for col in full for g in col.unbind(0)][::-1]
+        g = grads[-1] if ctx.residual else uses.pop(0)
+        for gi in uses:
+            g = g + gi
+        return (None,) * 5 + (g,)
+
+
+def row_scatter(x: torch.Tensor, owners: Sequence[int], devices: Sequence[Any],
+                dim: Optional[int] = None, uses: int = 1,
+                residual: bool = False) -> Tuple[torch.Tensor, ...]:
+    """``x`` for each column of a mesh row whose owner (``owners``, the
+    row's ranks) is this process, on ``devices`` (one a column it owns):
+    ``uses`` copies a column, column-major, then with ``residual`` a copy
+    for ``x``'s own use beside the row (a residual connection); with ``dim``
+    column j's chunk — a replicated operand of a tensor-parallel layer, or
+    one split over its heads. Its gradient is the conjugate of
+    :func:`row_sum`: every use's, over the row's processes, added in the
+    order one process's autograd adds them (``_RowScatter``)."""
+    return _RowScatter.apply(list(owners), list(devices), dim, uses, residual, x)
+
+
+class _RowSum(torch.autograd.Function):
+    """This process's columns' partial sums of a mesh row and every other
+    process's (``gather_columns``), added in column order on ``home``. The
+    backward gives each of this process's partials the incoming gradient."""
+
+    @staticmethod
+    def forward(ctx, owners, home, *parts):
+        rank = _group()[0]
+        mine = [j for j, r in enumerate(owners) if r == rank]
+        ctx.devices = [p.device for p in parts]
+        full = gather_columns(dict(zip(mine, parts)), owners)
+        out = full[0].to(home)
+        for p in full[1:]:
+            out = out + p.to(home)
+        return out.view_as(out) if any(out is p for p in parts) else out
+
+    @staticmethod
+    def backward(ctx, grad):
+        return (None, None, *[grad.to(d) for d in ctx.devices])
+
+
+def row_sum(parts: Sequence[torch.Tensor], owners: Sequence[int], home: Any) -> torch.Tensor:
+    """The sum over a mesh row's columns of their partials, in column order,
+    on ``home``: ``parts`` are this process's columns' (in column order),
+    the others come from their owners (``owners``, the row's ranks) — the
+    partial sums of a tensor-parallel layer, which cross processes when the
+    row does."""
+    return _RowSum.apply(list(owners), torch.device(home), *parts)
+
+
+# ----------------------------------------------------------------------------
+# the row a data-parallel shard loop runs
+# ----------------------------------------------------------------------------
+_ROW: "contextvars.ContextVar[Optional[int]]" = contextvars.ContextVar("qst_mesh_row",
+                                                                       default=None)
+
+
+@contextlib.contextmanager
+def running_row(row: int):
+    """While entered, :func:`current_row` is ``row``: a data-parallel loop
+    says which data shard's row it runs, so that a tensor-parallel layer
+    knows which processes own that row's columns."""
+    token = _ROW.set(row)
+    try:
+        yield
+    finally:
+        _ROW.reset(token)
+
+
+def current_row(mesh: Mesh) -> int:
+    """The row being run (:func:`running_row`), else this process's first
+    row of ``mesh``."""
+    row = _ROW.get()
+    return mesh._own_first_row() if row is None else row
+
+
 class GlobalArray(list):
     """A tensor laid out over a mesh (``global_array_from_local``): one
     entry a block of the split dimension (a replicated spec: one a mesh
-    position), the block on its position's device where this process owns
-    it and None where another does. ``shape`` is the global shape, ``dim``
-    the split dimension (None: replicated)."""
+    position), the block on this process's device for it where this
+    process holds it and None where only others do. ``shape`` is the
+    global shape, ``dim`` the split dimension (None: replicated).
+    ``lead[i]``: this process is block i's first holder (a data shard whose
+    mesh row spans processes is held by each of them), which gives it to
+    ``full``."""
 
-    def __init__(self, blocks, shape, dim: Optional[int]):
+    def __init__(self, blocks, shape, dim: Optional[int], lead: Optional[Sequence[bool]] = None,
+                 whole: Optional[bool] = None):
         super().__init__(blocks)
         self.shape = tuple(shape)
         self.dim = dim
+        self.lead = [b is not None for b in blocks] if lead is None else list(lead)
+        # every process holds every block: ``full`` gathers nothing
+        self.whole = all(b is not None for b in blocks) if whole is None else whole
 
     def full(self) -> torch.Tensor:
         """The whole tensor on this process's first block's device: the
-        blocks of every process gathered in order."""
+        blocks of every process gathered in order, each from its first
+        holder (every process calls this together unless each holds every
+        block)."""
         own = [b for b in self if b is not None]
         if self.dim is None:
             return own[0]
-        local = torch.cat(own, dim=self.dim)
-        if len(own) == len(self):
-            return local
+        if self.whole:
+            return torch.cat(own, dim=self.dim)
+        led = [b for b, first in zip(self, self.lead) if b is not None and first]
+        local = torch.cat(led, dim=self.dim) if led else own[0].narrow(self.dim, 0, 0)
         return torch.cat(gather_ordered(local.movedim(self.dim, 0)), 0).movedim(0, self.dim)
 
 
@@ -502,11 +794,13 @@ def global_array_from_local(local, mesh: Mesh, spec: Tuple = ()) -> GlobalArray:
     """Place this process's rows on the mesh as ``Sharding(mesh, spec)``
     lays them out — ``jax.make_array_from_process_local_data``. ``spec``
     names, per dimension, the mesh axes that split it: ``("data",)`` or
-    ``(None, "data")`` (a data shard's block on the row's first position),
-    ``(("data", "model"),)`` (one block a position), ``()`` (replicated:
-    every process passes the whole value). Each process passes the rows of
-    the blocks it owns, in order (``process_shard_bounds``); the global
-    size is their sum over the group. → a :class:`GlobalArray`."""
+    ``(None, "data")`` (a data shard's block on its row), ``(("data",
+    "model"),)`` (one block a position), ``()`` (replicated: every process
+    passes the whole value). Each process passes the rows of the blocks it
+    holds, in order (``process_shard_bounds`` where each block has one
+    holder): a data shard whose mesh row is split across processes is
+    passed by each process of the row, the same block from each. → a
+    :class:`GlobalArray`."""
     x = torch.as_tensor(local)
     mesh = as_mesh(mesh)
     dim, axes = _split_spec(tuple(spec))
@@ -514,26 +808,29 @@ def global_array_from_local(local, mesh: Mesh, spec: Tuple = ()) -> GlobalArray:
         return GlobalArray([x.to(d) if mesh.owns(i) else None
                             for i, d in enumerate(mesh.devices)], x.shape, None)
     if axes == (DATA_AXIS,) and DATA_AXIS in mesh.shape:
-        mesh.require_whole_rows("a data-sharded array")
-        devs, owners = mesh.axis_devices(DATA_AXIS), mesh.axis_ranks(DATA_AXIS)
+        n = mesh.shape[DATA_AXIS]
+        holders = [sorted(set(mesh.row_ranks(i))) for i in range(n)]
+        devs = [mesh.row_home(i) if mesh.in_row(i) else None for i in range(n)]
     elif set(axes) == set(mesh.axis_names) and len(axes) == 2:
-        devs, owners = list(mesh.devices), list(mesh.ranks)
+        holders = [[r] for r in mesh.ranks]
+        devs = list(mesh.devices)
     else:
         raise ValueError(f"unsupported spec {spec}")
     counts = [int(c) for c in gather_ordered(torch.tensor([x.shape[dim]]))]
-    total = sum(counts)
-    if total % len(devs):
-        raise ValueError(f"{total} rows do not split into {len(devs)} shards")
-    size = total // len(devs)
-    mine = [i for i, r in enumerate(owners) if r == mesh.rank]
-    if x.shape[dim] != size * len(mine):
-        raise ValueError(f"this process passed {x.shape[dim]} rows for {len(mine)} blocks "
-                         f"of {size}")
+    held = [sum(1 for h in holders if r in h) for r in range(len(counts))]
+    sizes = {c // k for c, k in zip(counts, held) if k}
+    if len(sizes) != 1 or any(c != k * next(iter(sizes)) for c, k in zip(counts, held)):
+        raise ValueError(f"the processes' rows {counts} do not split into blocks of one "
+                         f"size ({held} blocks a process)")
+    size = sizes.pop()
+    mine = [i for i, h in enumerate(holders) if mesh.rank in h]
     pieces = iter(x.split(size, dim=dim)) if mine else iter(())
-    blocks = [next(pieces).to(devs[i]) if i in mine else None for i in range(len(devs))]
+    blocks = [next(pieces).to(devs[i]) if i in mine else None for i in range(len(holders))]
     shape = list(x.shape)
-    shape[dim] = total
-    return GlobalArray(blocks, shape, dim)
+    shape[dim] = size * len(holders)
+    world = len(counts)
+    return GlobalArray(blocks, shape, dim, lead=[h[0] == mesh.rank for h in holders],
+                       whole=all(len(h) == world for h in holders))
 
 
 @dataclass(frozen=True)

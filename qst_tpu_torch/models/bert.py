@@ -48,7 +48,7 @@ token-type row takes every segment (the ids are clamped to
 from __future__ import annotations
 
 import math
-from typing import Optional
+from typing import List, Optional, Sequence
 
 import torch
 import torch.nn.functional as F
@@ -419,44 +419,93 @@ class TensorParallelLayer(nn.Module):
     own tensors, and the partials come back to the input's device, summed in
     shard order. ``parts``: the HF part names (``BERT_LAYER_PARTS`` or
     ``MPNET_LAYER_PARTS``), so that ``full_state`` / ``from_full`` map to
-    and from the layer's HF tensors."""
+    and from the layer's HF tensors.
 
-    def __init__(self, cfg: EncoderConfig, n_shards: int, parts: dict):
+    On a mesh row split across processes (``mesh`` given, the row from
+    ``core/meshes.py:current_row``) this process holds and computes only
+    the shards of the columns it owns (``held``; the others are empty
+    modules): the partials cross the row's processes through
+    ``row_sum`` and the replicated input's gradient through ``row_scatter``,
+    the same calls as in one process, so the bits are one process's."""
+
+    def __init__(self, cfg: EncoderConfig, n_shards: int, parts: dict,
+                 held: Optional[Sequence[int]] = None):
         super().__init__()
         H, nh, inter = cfg.hidden_size, cfg.num_heads, cfg.intermediate_size
         if nh % n_shards or inter % n_shards:
             raise ValueError(f"{nh} heads and FFN width {inter} must divide into "
                              f"{n_shards} model shards")
         self.cfg, self.parts, self.n_shards = cfg, dict(parts), n_shards
+        held = range(n_shards) if held is None else held
         self.shards = nn.ModuleList(
-            _LayerShard(H, H // n_shards, inter // n_shards) for _ in range(n_shards))
+            _LayerShard(H, H // n_shards, inter // n_shards) if j in held else nn.Module()
+            for j in range(n_shards))
         self.o_bias = nn.Parameter(torch.zeros(H))
         self.out_bias = nn.Parameter(torch.zeros(H))
         self.ln1 = nn.LayerNorm(H, eps=cfg.layer_norm_eps)
         self.ln2 = nn.LayerNorm(H, eps=cfg.layer_norm_eps)
+        self.mesh = None
 
     @classmethod
-    def from_full(cls, cfg: EncoderConfig, full: dict, parts: dict, devices) -> "TensorParallelLayer":
+    def from_full(cls, cfg: EncoderConfig, full: dict, parts: dict, devices,
+                  mesh=None, home=None) -> "TensorParallelLayer":
         """The layer made from its HF tensors ``full`` ({"attention.self.query.weight":
         ..., ...} relative to the layer): shard j's slices are copied to
-        ``devices[j]``, the replicated tensors stay on ``devices[0]``."""
+        ``devices[j]``, the replicated tensors stay on ``home`` (default
+        ``devices[0]``). With a ``mesh`` across processes only the shards of
+        the columns this process owns a position of are made."""
+        held = None if mesh is None else [
+            j for j, r in enumerate(mesh.axis_ranks(mesh.axis_names[1])) if r == mesh.rank]
         with torch.device("meta"):
-            layer = cls(cfg, len(devices), parts)
-        layer = layer.to_empty(device=devices[0])
-        layer.load_state_dict(split_layer_state(full, parts, len(devices)))
+            layer = cls(cfg, len(devices), parts, held)
+        layer = layer.to_empty(device=devices[0] if home is None else home)
+        own = layer.state_dict().keys()
+        layer.load_state_dict({k: v for k, v in split_layer_state(
+            full, parts, len(devices)).items() if k in own})
         for j, dev in enumerate(devices):
             layer.shards[j].to(dev)
+        layer.mesh = mesh
         return layer
+
+    def _owners(self) -> List[int]:
+        """The owning process of each column of the row this call runs."""
+        if self.mesh is None:
+            return [0] * self.n_shards
+        from qst_tpu_torch.core.meshes import current_row
+
+        return self.mesh.row_ranks(current_row(self.mesh))
+
+    def _mine(self, owners: List[int]) -> List[int]:
+        rank = 0 if self.mesh is None else self.mesh.rank
+        return [j for j, r in enumerate(owners) if r == rank]
 
     def full_state(self) -> dict:
         """The layer's HF tensors (relative names), each gathered on the
-        first shard's device."""
-        return gather_layer_state(dict(self.named_parameters()), self.parts, self.n_shards)
+        first shard's device — on a row split across processes, the other
+        processes' slices handed over (``gather_columns``: no gradient
+        flows back to them; their owners form their own)."""
+        named = dict(self.named_parameters())
+        owners = self._owners()
+        mine = self._mine(owners)
+        if len(mine) < len(owners):
+            from qst_tpu_torch.core.meshes import gather_columns
+
+            names = [n for n, _, _ in TP_LAYER_NAMES if "{j}" in n]
+            shapes = [named[n.format(j=mine[0])].shape for n in names]
+            packed = gather_columns({j: torch.cat([named[n.format(j=j)].reshape(-1)
+                                                   for n in names]) for j in mine}, owners)
+            for j, flat in enumerate(packed):
+                if j not in mine:
+                    for n, shape, piece in zip(names, shapes,
+                                               flat.split([s.numel() for s in shapes])):
+                        named[n.format(j=j)] = piece.view(shape)
+        return gather_layer_state(named, self.parts, self.n_shards)
 
     def kernel_weights(self, dtype: torch.dtype) -> dict:
         """The fused layer's operands (``layer_weights_for_training``'s
         layout) with the shards gathered — the JAX package's ``P()`` in_specs
-        of the fused path — so gradients flow back to each slice."""
+        of the fused path — so gradients flow back to each slice this
+        process holds."""
         full = self.full_state()
         p = self.parts
 
@@ -476,41 +525,48 @@ class TensorParallelLayer(nn.Module):
         """``bias``: (B, 1, 1, S) or, with MPNet's relative bias, (B, nh, S,
         S), of which shard j takes its heads. ``attention_mask`` is accepted
         and unused (the shards run the einsum attention)."""
+        from qst_tpu_torch.core.meshes import row_scatter, row_sum
+
         del attention_mask
         B, S, H = hidden.shape
         dt, home = hidden.dtype, hidden.device
         nh = self.cfg.num_heads
         nh_j, hd = nh // self.n_shards, H // nh
-        attn = ffn = None
-        for j, sh in enumerate(self.shards):
-            dev = sh.query.weight.device
-            x = hidden.to(dev)
-            b = bias.to(dev)
-            if b.shape[1] > 1:
-                b = b[:, j * nh_j:(j + 1) * nh_j]
+        owners = self._owners()
+        mine = self._mine(owners)
+        devs = [self.shards[j].query.weight.device for j in mine]
+        # three uses a column (Q, K, V) and the residual: the input's gradient
+        # is their sum in one process's order, on a row across processes too
+        *xs, res = row_scatter(hidden, owners, devs, uses=3, residual=True)
+        bs = row_scatter(bias, owners, devs, dim=1 if bias.shape[1] > 1 else None)
+        parts = []
+        for c, (j, b) in enumerate(zip(mine, bs)):
+            sh, (xq, xk, xv) = self.shards[j], xs[3 * c:3 * c + 3]
 
             def heads(t):
                 return t.reshape(B, S, nh_j, hd).float()
 
-            q, k, v = heads(sh.query(x)), heads(sh.key(x)), heads(sh.value(x))
+            q, k, v = heads(sh.query(xq)), heads(sh.key(xk)), heads(sh.value(xv))
             logits = torch.einsum("bqhd,bkhd->bhqk", q, k) / math.sqrt(hd)
             probs = torch.softmax(logits + b, dim=-1).to(dt)
             probs = _dropout(self, probs, self.cfg.attention_dropout, dropout_generator,
                              SITE_PROBS, heads=(j * nh_j, nh))
             ctx = torch.einsum("bhqk,bkhd->bqhd", probs.float(), v).reshape(B, S, nh_j * hd)
-            part = F.linear(ctx.to(dt).float(), sh.o.weight.to(dt).float()).to(home)
-            attn = part if attn is None else attn + part
+            parts.append(F.linear(ctx.to(dt).float(), sh.o.weight.to(dt).float()))
+        attn = row_sum(parts, owners, home)
         out = (attn + self.o_bias.to(dt).float()).to(dt)
         out = _dropout(self, out, self.cfg.hidden_dropout, dropout_generator, SITE_ATTENTION_OUT)
-        hidden = _layer_norm_f32(self.ln1, out + hidden).to(dt)
-        for sh in self.shards:
-            x = hidden.to(sh.intermediate.weight.device)
+        hidden = _layer_norm_f32(self.ln1, out + res).to(dt)
+        *xs, res = row_scatter(hidden, owners, devs, residual=True)
+        parts = []
+        for j, x in zip(mine, xs):
+            sh = self.shards[j]
             inter = F.gelu(sh.intermediate(x).float(), approximate="none").to(dt)
-            part = F.linear(inter.float(), sh.output.weight.to(dt).float()).to(home)
-            ffn = part if ffn is None else ffn + part
+            parts.append(F.linear(inter.float(), sh.output.weight.to(dt).float()))
+        ffn = row_sum(parts, owners, home)
         out = (ffn + self.out_bias.to(dt).float()).to(dt)
         out = _dropout(self, out, self.cfg.hidden_dropout, dropout_generator, SITE_FFN_OUT)
-        return _layer_norm_f32(self.ln2, out + hidden).to(dt)
+        return _layer_norm_f32(self.ln2, out + res).to(dt)
 
 
 def split_layer_state(full: dict, parts: dict, n_shards: int) -> dict:

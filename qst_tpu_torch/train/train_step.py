@@ -29,12 +29,16 @@
   JAX package, where ``shard_map`` wraps only the encoder. A model axis > 1
   takes ``create_train_state_sharded``'s tensor-parallel state; the global
   norm of the clip then counts each slice and each replicated tensor once.
-- A mesh that spans processes (``core/meshes.py``): every process holds the
-  same state, passes the same global batch (or a ``GlobalArray`` of its own
-  rows, gathered whole first) and draws the same keys; it runs the data
-  shards it owns, and the embeddings and the gradients are gathered in
-  data-index order (``parallel/sharding.py``), so every process takes the
-  same update. ``MultiStep`` there runs its K steps one after another on
+- A mesh that spans processes (``core/meshes.py``): every process passes
+  the same global batch (or a ``GlobalArray`` of its own rows, gathered
+  whole first) and draws the same keys; it runs the data shards it owns,
+  and the embeddings and the gradients are gathered in data-index order
+  (``parallel/sharding.py``), so every process takes the same update. A
+  tensor-parallel state whose mesh rows are split across processes holds
+  in each process the slices of the columns it owns; the clip's global norm
+  then gathers each tensor's norm from the first process that holds it
+  (``norm_across_processes``), and a checkpoint's dicts are gathered by
+  every process together (``SavedState``). ``MultiStep`` there runs its K steps one after another on
   the GPU too: the gathers go through the group's backend, which a CUDA
   graph cannot capture (gloo's never is).
 """
@@ -139,12 +143,15 @@ def loss_from_config(loss_cfg: LossConfig,
     return loss
 
 
-def clip_by_global_norm(grads: List[torch.Tensor], max_norm: float) -> List[torch.Tensor]:
+def clip_by_global_norm(grads: List[torch.Tensor], max_norm: float,
+                        norm: Optional[torch.Tensor] = None) -> List[torch.Tensor]:
     """``optax.clip_by_global_norm``: g · max_norm/‖g‖ over the global norm
-    of all ``grads``, only when ‖g‖ ≥ max_norm (torch's ``clip_grad_norm_``
-    scales by max_norm/(‖g‖ + 1e-6) whenever that is below 1). No host
+    of all ``grads`` (or ``norm``, that of a model spread over processes),
+    only when ‖g‖ ≥ max_norm (torch's ``clip_grad_norm_`` scales by
+    max_norm/(‖g‖ + 1e-6) whenever that is below 1). No host
     synchronisation: the choice is made on the device."""
-    norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
+    if norm is None:
+        norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
     factor = torch.where(norm < max_norm, torch.ones_like(norm), max_norm / norm)
     return torch._foreach_mul(grads, factor)
 
@@ -189,6 +196,8 @@ class ClippedAdamW(torch.optim.Optimizer):
         if len(self.param_groups) != 1:
             raise ValueError("ClippedAdamW takes one parameter group")
         self.schedule = schedule
+        # the clip's norm of a model spread over processes (norm_across_processes)
+        self.global_norm: Optional[Callable[[List[torch.Tensor]], torch.Tensor]] = None
 
     def _state(self, p: torch.Tensor, name: str) -> torch.Tensor:
         st = self.state[p]
@@ -239,7 +248,8 @@ class ClippedAdamW(torch.optim.Optimizer):
             accs = [self._state(p, "acc") for p in params]
             torch._foreach_add_(accs, torch._foreach_div(torch._foreach_sub(grads, accs), row[3]))
             grads, moves = accs, row[4] > 0
-        grads = clip_by_global_norm(grads, group["max_grad_norm"])
+        grads = clip_by_global_norm(grads, group["max_grad_norm"], None if self.global_norm is None
+                                    else self.global_norm(grads))
         b1, b2 = group["b1"], group["b2"]
         mus = [self._state(p, "mu") for p in params]
         nus = [self._state(p, "nu") for p in params]
@@ -278,6 +288,29 @@ class ClippedAdamW(torch.optim.Optimizer):
         device = self.param_groups[0]["params"][0].device
         self.apply_row(torch.tensor(row, dtype=torch.float32).to(device))
         return bool(row[4])
+
+
+def norm_across_processes(names: List[str], order: List[str],
+                          gives: Callable[[str], bool]) -> Callable:
+    """→ ``norm(grads)`` for ``ClippedAdamW.global_norm``: the global norm
+    of a model whose tensors are spread over processes. ``grads`` are this
+    process's, aligned with ``names``; each tensor's norm comes from the
+    process that ``gives`` it (``core/meshes.py:gather_named``), and the
+    norms are stacked in ``order`` (one process's optimizer order; names
+    outside it follow in ``names``' order) before the norm of that vector:
+    one process's bits."""
+    from qst_tpu_torch.core.meshes import gather_named
+
+    known = set(order)
+    full = list(order) + [n for n in names if n not in known]
+
+    def norm(grads: List[torch.Tensor]) -> torch.Tensor:
+        dev = grads[0].device
+        local = dict(zip(names, torch._foreach_norm(list(grads))))
+        every = gather_named({n: v for n, v in local.items() if gives(n)}, dev)
+        return torch.linalg.vector_norm(torch.stack([every[n].to(dev) for n in full]))
+
+    return norm
 
 
 def make_optimizer(train_cfg: TrainConfig, total_steps: int,
@@ -354,6 +387,24 @@ class TrainState:
                 self.optimizer.state[p][m] = t.to(device=p.device, dtype=p.dtype).clone()
 
 
+@dataclass
+class SavedState:
+    """A state's checkpoint dicts formed ahead of a save: on a layout across
+    processes every process forms them at the same point (they gather the
+    other processes' tensors) and process 0 gives them to its
+    ``CheckpointManager``, which reads ``state_dict()`` and
+    ``flat_state_dict()`` of a state."""
+
+    saved: Dict[str, Any]
+    flat: Optional[Dict[str, torch.Tensor]] = None
+
+    def state_dict(self) -> Dict[str, Any]:
+        return self.saved
+
+    def flat_state_dict(self) -> Dict[str, torch.Tensor]:
+        return self.flat
+
+
 def create_train_state(
     encoder_cfg: EncoderConfig,
     train_cfg: TrainConfig,
@@ -409,9 +460,12 @@ def create_train_state_sharded(
         discriminator = init_discriminator(encoder_cfg.hidden_size, generator, device=home)
         trainable += list(discriminator.parameters())
     optimizer = make_optimizer(train_cfg, total_steps, trainable)
-    layout = TensorParallelLayout(encoder_cfg, mesh.shape["model"])
+    layout = TensorParallelLayout(encoder_cfg, mesh.shape["model"], mesh)
     state = TrainState(step=0, model=model, optimizer=optimizer, discriminator=discriminator,
                        layout=layout)
+    if layout.spread:
+        optimizer.global_norm = norm_across_processes(
+            list(state._named_params()), layout.param_names(), layout.first_holder)
     return state, optimizer
 
 

@@ -27,8 +27,11 @@ owns (``parallel/sharding.py``). Process 0 writes the config, the loss log
 and the checkpoints; the others build no writer, and wait for process 0 at
 a barrier at the end of ``train`` before any of them reads a checkpoint (a
 resume, the best parameters). Every process runs the evaluator, whose own
-logs are its caller's to give to process 0 only. The pipeline does not
-cross processes: ``pp_stages`` > 1 on such a mesh raises.
+logs are its caller's to give to process 0 only. Where a process holds only
+part of the model (pipeline stages, or the slices of a mesh row split
+across processes) every process gathers what process 0 saves at the same
+points (``train_step.py:SavedState``), and a resume lays each process's part
+back out.
 """
 
 from __future__ import annotations
@@ -52,6 +55,7 @@ from qst_tpu_torch.data.quadruplet_dataset import QuadrupletDataset
 from qst_tpu_torch.train.callbacks import EarlyStopping
 from qst_tpu_torch.train.checkpoints import CheckpointManager
 from qst_tpu_torch.train.train_step import (
+    SavedState,
     TrainState,
     create_train_state,
     create_train_state_sharded,
@@ -132,8 +136,6 @@ class Trainer:
         self.pp_stages = pp_stages
         self.pp_microbatches = pp_microbatches or pp_stages
         self.pp_rounds = pp_rounds
-        if self.mesh is not None and pp_stages > 1:
-            self.mesh.refuse_across_processes("pipeline training (pp_stages > 1)")
         self.device = self.mesh.home if self.mesh is not None else resolve_device(device)
         self.steps_per_epoch = steps_per_epoch or max(
             1, len(dataset) // train_cfg.batch_size)
@@ -179,7 +181,7 @@ class Trainer:
             optimizer = make_optimizer(cfg, self.total_steps, model.parameters())
             state = TrainState(step=0, model=model, optimizer=optimizer,
                                layout=PipelineLayout(self.encoder_cfg, self.pp_stages,
-                                                     self.pp_rounds))
+                                                     self.pp_rounds, mesh))
             step_fn = make_pp_train_step(self.encoder_cfg, self.loss_cfg, None, mesh,
                                          self.pp_stages, self.pp_microbatches, self.pp_rounds)
         elif mesh is not None and mesh.shape.get(MODEL_AXIS, 1) > 1:
@@ -212,6 +214,16 @@ class Trainer:
             logger.info("resumed from step %d", state.step)
         saver = ckpt if primary else None
 
+        spread = state.layout is not None and state.layout.spread
+
+        def saved(flat=None):
+            """What process 0 saves of the state: on a layout across
+            processes gathered now by every process (``flat``: the flat
+            model, to save as the best parameters too)."""
+            if not spread:
+                return state
+            return SavedState(state.state_dict(), None if flat is None else flat.state_dict())
+
         stopper = EarlyStopping(
             patience=cfg.early_stopping_patience,
             delta=cfg.early_stopping_delta,
@@ -226,9 +238,10 @@ class Trainer:
             history.append({"epoch": epoch, "steps": steps, "score": score})
             # the best artifact stores the flat layout whatever the
             # parallelism (a pipeline's best state too, as the JAX trainer's)
+            best = saved(flat) if self.pp_stages == 1 else TrainState(
+                step=state.step, model=flat, optimizer=state.optimizer)
             if saver is not None:
-                saver.update_best(state if self.pp_stages == 1 else TrainState(
-                    step=state.step, model=flat, optimizer=state.optimizer), score)
+                saver.update_best(best, score)
             return score
 
         # pre-training evaluation (reference training/main.py:126)
@@ -301,8 +314,10 @@ class Trainer:
                         prefetch.close()
                         break
                 cs = cfg.checkpoint_save_steps
-                if cs > 0 and (step_before // cs) != (global_step // cs) and saver is not None:
-                    saver.save_now(state, global_step)
+                if cs > 0 and (step_before // cs) != (global_step // cs):
+                    shot = saved()
+                    if saver is not None:
+                        saver.save_now(shot, global_step)
             if not stop:
                 score = run_eval(epoch, global_step)
                 if score is not None and stopper.update(score, epoch, global_step):
@@ -311,8 +326,9 @@ class Trainer:
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
         elapsed = time.perf_counter() - t_start
+        shot = saved()
         if saver is not None:
-            saver.save_now(state, global_step)
+            saver.save_now(shot, global_step)
             saver.close()
         barrier()
         return TrainResult(

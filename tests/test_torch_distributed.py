@@ -483,11 +483,10 @@ def test_train_main_two_processes_train_one_model(tmp_path, monkeypatch):
     assert any(not torch.equal(alone[k], want[k]) for k in want)
 
 
-def _spanning(shape, ranks, pipe=False):
-    from qst_tpu_torch.core.meshes import make_mesh, make_pipe_mesh
+def _spanning(shape, ranks):
+    from qst_tpu_torch.core.meshes import make_mesh
 
-    make = make_pipe_mesh if pipe else make_mesh
-    return make(*shape, devices=["cpu"] * len(ranks), ranks=ranks)
+    return make_mesh(*shape, devices=["cpu"] * len(ranks), ranks=ranks)
 
 
 def test_a_mesh_knows_which_process_owns_each_position():
@@ -512,44 +511,3 @@ def test_a_mesh_knows_which_process_owns_each_position():
     assert _spanning((4, 1), [0, 0, 0, 0]) == _spanning((4, 1), [0, 0, 0, 0])
     with pytest.raises(ValueError, match="ascending"):
         _spanning((2, 1), [1, 0])
-
-
-@pytest.mark.parametrize("what", ["pipeline_trainer", "pp_embed", "context", "ring",
-                                  "dp_split_row", "tp_split_row"])
-def test_scoped_out_layouts_raise(what):
-    """The pipeline and the context-parallel schemes across processes, and
-    a mesh row (one data shard's tensor-parallel positions) split across
-    processes, raise ``NotImplementedError`` naming the layout."""
-    from qst_tpu_torch.core import config as tc
-
-    cfg = tc.EncoderConfig.tiny()
-    if what == "pipeline_trainer":
-        from qst_tpu_torch.train.trainer import Trainer
-
-        with pytest.raises(NotImplementedError, match="pipeline training"):
-            Trainer(cfg, tc.LossConfig(), tc.TrainConfig(), [None] * 64, None,
-                    mesh=_spanning((2, 1), [0, 1], pipe=True), pp_stages=2)
-    elif what == "pp_embed":
-        from qst_tpu_torch.parallel.pipeline import make_pp_embed_fn
-
-        with pytest.raises(NotImplementedError, match="pipeline parallelism"):
-            make_pp_embed_fn(cfg, _spanning((2, 1), [0, 1], pipe=True), 2, 2)
-    elif what in ("context", "ring"):
-        from qst_tpu_torch.parallel import context
-
-        fn = context.context_parallel_attention if what == "context" else context.ring_attention
-        q = torch.zeros(1, 1, 4, 8)
-        with pytest.raises(NotImplementedError, match="context-parallel"):
-            fn(q, q, q, _spanning((2, 1), [0, 1]))
-    elif what == "dp_split_row":
-        from qst_tpu_torch.parallel.sharding import data_parallel
-
-        with pytest.raises(NotImplementedError, match=r"rows \[0\] are split"):
-            data_parallel(lambda *a: None, _spanning((2, 2), [0, 1, 1, 1]))
-    else:
-        from qst_tpu_torch.models.sentence_encoder import init_params
-        from qst_tpu_torch.parallel.sharding import tensor_parallel_model
-
-        with pytest.raises(NotImplementedError, match="tensor-parallel model"):
-            tensor_parallel_model(cfg, init_params(cfg, torch.Generator(), device="cpu"),
-                                  _spanning((2, 2), [0, 1, 1, 1]))
