@@ -93,8 +93,14 @@ Phases (any failure exits non-zero and prints no result):
    the 11,200 (cos and dot, k up to 128) for baseline and trained through
    the exact index (one K4 and one K5 a dot search), for the baseline
    through the IVF index (K6), and the trained model's evaluation through
-   the plain versions; one evaluation timed by part; the miner's table
-   refresh, steps/s with and without the miner, the device's busy share.
+   the plain versions; the trained experiment reloaded from its config
+   (load_config of its experiment_config.json equal to the configs
+   train_main built, the default MeshConfig's shape through make_mesh, the
+   best weights' SentenceEncoder encoding the 66,200 docs and 1,000 queries
+   through K1 and searching them through K4 + K5: top-10 equal to
+   ir_eval_main's trained run up to ties, launches by wrapper and by name);
+   one evaluation timed by part; the miner's table refresh, steps/s with
+   and without the miner, the device's busy share.
 9. dataset — qst_tpu_torch.cli.dataset_main as a user calls it: 2,000
    synthetic images (10,000 captions, the ablation's recipe), positives
    mined by MiniLM-L6 on the card, adaptive-crop partial positives, chunks
@@ -258,8 +264,13 @@ Phases (any failure exits non-zero and prints no result):
    beside its unsharded one (the shard structure's cost on one card).
 
 19. pq    — the compressed and streamed indexes, last (run before the
-   profiled phases, it makes their torch.profiler traces lose kernels,
-   although it tears down what it opened; the cause is not known):
+   profiled phases, it made their torch.profiler traces lose kernels,
+   although it tears down what it opened: kineto drops the records it
+   timestamps before a window's start, and late in a run a window's first
+   records, or all of them, come back timestamped early; a probe of ten K4
+   launches before pq and after each part counts the records beside
+   kineto's own accounting, with its buffer limit raised and behind
+   lead_in):
    index_main build |
    serve | query for --index_dtype pq (m 48, refine rows), ivfpq at 8 and 4 bits
    and streaming over the ivf phase's 65,536 docs, 256 queries a batch (pq
@@ -1872,10 +1883,22 @@ def train_main_run(report: dict, small: str, exp: str, mode: str) -> dict:
             "--learning_rate", "5e-5", "--early_stopping_patience", "100", "--seed", "14"]
     for c in counters.values():
         c.launches = 0
+    built, build_trainer = {}, train_main.build_trainer
+
+    def recording(args):        # the configs train_main builds from its flags, kept
+        trainer = build_trainer(args)
+        built.update(encoder=trainer.encoder_cfg, loss=trainer.loss_cfg,
+                     train=trainer.train_cfg)
+        return trainer
+
+    train_main.build_trainer = recording
     t0 = time.perf_counter()
-    with logged("qst_tpu_torch.cli.train") as records:
-        if train_main.main(argv) != 0:
-            fail(f"train_main --hard_contrastive_mode {mode} failed")
+    try:
+        with logged("qst_tpu_torch.cli.train") as records:
+            if train_main.main(argv) != 0:
+                fail(f"train_main --hard_contrastive_mode {mode} failed")
+    finally:
+        train_main.build_trainer = build_trainer
     import torch
 
     torch.cuda.synchronize()
@@ -1933,7 +1956,8 @@ def train_main_run(report: dict, small: str, exp: str, mode: str) -> dict:
     report["K3"]["launches"] = (report["K3"].get("launches", 0) + launches["K3 forward"]
                                 + launches["K3 backward"])
     return {"wall_s": wall, "steps_per_s": steps_per_s, "evaluations": len(evals),
-            "miner_k1": miner, "steps_k1": 6 * steps, "evaluators_k1": len(evals) * per_eval}
+            "miner_k1": miner, "steps_k1": 6 * steps, "evaluators_k1": len(evals) * per_eval,
+            "configs": built}
 
 
 def compare_evaluators(exp: str, small: str, tmp: str) -> dict:
@@ -2018,9 +2042,22 @@ def ir_eval_run(report: dict, big: str, exp, out_root: str, index: str,
             *extra]
     if exp:
         argv += ["--model_path", exp]
+    from qst_tpu_torch.retrieval.index import ExactIndex
+
+    answers, search = [], ExactIndex.search
+
+    def recording(self, queries, k=10, score="cos_sim", *a, **kw):    # the answers, kept
+        s, i = search(self, queries, k, score, *a, **kw)
+        answers.append((score, np.asarray(s)[:, :10].copy(), np.asarray(i)[:, :10].copy()))
+        return s, i
+
+    ExactIndex.search = recording
     t0 = time.perf_counter()
-    if ir_eval_main.main(argv) != 0:
-        fail(f"ir_eval_main --eval_index {index} failed")
+    try:
+        if ir_eval_main.main(argv) != 0:
+            fail(f"ir_eval_main --eval_index {index} failed")
+    finally:
+        ExactIndex.search = search
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = {n: c.launches for n, c in counters.items()}
@@ -2043,7 +2080,8 @@ def ir_eval_run(report: dict, big: str, exp, out_root: str, index: str,
         fail(f"ir_eval_main {index}: launches {launches}, want {want}; results {set(results)}")
     for n in ("K4", "K5", "K6"):
         report[n]["launches"] = report[n].get("launches", 0) + launches[n]
-    return {"results": results, "wall_s": wall, "eval_set": f"{out_root}/{out}/ir_eval_set.json"}
+    return {"results": results, "wall_s": wall, "eval_set": f"{out_root}/{out}/ir_eval_set.json",
+            "answers": answers}
 
 
 def plain_ir_trained(big_eval_set: str, exp: str) -> dict:
@@ -2232,6 +2270,98 @@ def mining_times(small: str, big: str, tmp: str) -> dict:
     return out
 
 
+def config_reload(report: dict, exp: str, built: dict, exact: dict) -> dict:
+    """The trained experiment reloaded from its config, as a user reloads
+    it: ``load_config`` of the run's ``experiment_config.json`` (its encoder,
+    loss and train configs equal to those train_main built from its flags,
+    every other section the default; the same hash twice), the default
+    ``MeshConfig``'s shape for the cards given to ``make_mesh``, and a
+    ``SentenceEncoder`` of the loaded encoder config and the best weights
+    (``load_best_params``) on that mesh encoding ir_eval_main's 1,000 queries
+    and 66,200 docs into an ``ExactIndex`` (K1 6 a batch; K4 + K5 once each
+    a dot search, the corpus above ``PALLAS_MIN_DOCS``): its top-10 equal to
+    ir_eval_main's trained dot search up to ties. The launches by wrapper
+    over the whole path, and by kernel name in a profiled encode batch and
+    search."""
+    import torch
+
+    from qst_tpu_torch.cli.common import load_best_params
+    from qst_tpu_torch.core import (DataConfig, IREvalConfig, MeshConfig, config_hash,
+                                    load_config, make_mesh)
+    from qst_tpu_torch.core.config import DEFAULT_GAMMA
+    from qst_tpu_torch.evals import IREvaluationSet
+    from qst_tpu_torch.models import HashTokenizer, SentenceEncoder
+    from qst_tpu_torch.retrieval import ExactIndex
+
+    t0 = time.perf_counter()
+    path = f"{exp}/experiment_config.json"
+    cfg = load_config(path)
+    flags = (cfg.encoder.use_fused_layer, cfg.loss.use_fused_kernel, cfg.loss.gamma,
+             cfg.loss.margin_pos_neg, cfg.loss.margin_pos_part, cfg.loss.margin_part_neg,
+             cfg.train.scheduler, cfg.train.warmup_steps, cfg.train.learning_rate,
+             cfg.train.evaluation_steps)
+    equal = {"encoder": cfg.encoder == built["encoder"], "loss": cfg.loss == built["loss"],
+             "train": cfg.train == built["train"],
+             "defaults": (cfg.data, cfg.ir_eval, cfg.mesh) == (DataConfig(), IREvalConfig(),
+                                                               MeshConfig()),
+             "flags": flags == (True, True, DEFAULT_GAMMA, 1.0, 0.5, 0.5, "warmuplinear", 5,
+                                5e-5, EVAL_STEPS),
+             "hash": config_hash(cfg) == config_hash(load_config(path))}
+    shape = cfg.mesh.shape(torch.cuda.device_count())
+    mesh = make_mesh(*shape)
+    with open(exact["eval_set"]) as f:
+        ir_set = IREvaluationSet.from_json(json.load(f))
+    queries = [ir_set.queries[q] for q in ir_set.queries if ir_set.relevant.get(q)]
+    cids = list(ir_set.corpus)
+    corpus = [ir_set.corpus[c] for c in cids]
+    enc = SentenceEncoder(cfg.encoder, load_best_params(exp),
+                          HashTokenizer(cfg.encoder.vocab_size), mesh=mesh)
+    reset_counts()
+    q_emb = enc.encode(queries, convert_to_numpy=False)
+    c_emb = enc.encode(corpus, convert_to_numpy=False)
+    index = ExactIndex(c_emb, ids=cids, mesh=mesh)
+    s, i = index.search(q_emb, k=10, score="dot_score")
+    torch.cuda.synchronize()
+    launches = {n: c for n, c in read_counts().items() if n in ("K1", "K4", "K5", "K6")}
+    # one card: a 1 x 1 mesh, which runs the unsharded paths; on more, K1
+    # runs once a layer and data shard, K4 and K5 once a shard
+    n_data, n_shards = shape[0], shape[0] * shape[1]
+    want = {"K1": 6 * n_data * (batches_of(len(queries)) + batches_of(len(corpus))),
+            "K4": n_shards, "K5": n_shards, "K6": 0}
+    wall = time.perf_counter() - t0
+    [(_, s_ref, i_ref)] = [r for r in exact["answers"] if r[0] == "dot_score"][-1:]
+    rows = np.unique(np.concatenate([i.ravel(), i_ref.ravel()]))
+    true = np.full((len(queries), len(corpus)), -np.inf, np.float32)
+    true[:, rows] = (q_emb.float() @ c_emb[torch.from_numpy(rows).cuda()].float().T).cpu().numpy()
+    ids_equal = ids_match_up_to_ties(s, i, s_ref, i_ref, true, 1e-4)
+
+    ids, mask = enc.tokenizer.batch_encode(corpus[:256], max_length=cfg.encoder.max_seq_length)
+    ids = torch.from_numpy(ids.astype(np.int64)).cuda()
+    mask = torch.from_numpy(mask.astype(np.int64)).cuda()
+    k1_names = kernel_counts(lambda: enc.encode_ids(ids, mask),
+                             done=lambda c: by_mark(c, "::attention_mma_kernel") >= 6 * n_data)
+    search_names = kernel_counts(lambda: index.search(q_emb, k=10, score="dot_score"),
+                                 done=lambda c: by_mark(c, "bucket_max") >= n_shards
+                                 and by_mark(c, "rescore_") >= n_shards)
+    by_name = {"K1 (::attention_mma_kernel) a batch": by_mark(k1_names, "::attention_mma_kernel"),
+               "K4 (bucket_max) a search": by_mark(search_names, "bucket_max"),
+               "K5 (rescore_) a search": by_mark(search_names, "rescore_")}
+    out = {"equal": equal, "ids_equal_up_to_ties": ids_equal, "mesh": list(shape),
+           "launches": launches, "launches_want": want, "by_name": by_name,
+           "queries": len(queries), "docs": len(corpus), "wall_s": wall,
+           "with_profiles_s": time.perf_counter() - t0}
+    log("config_reload: " + json.dumps(out))
+    if not all(equal.values()):
+        fail(f"the reloaded experiment config differs from train_main's: {equal}")
+    if not ids_equal:
+        fail("the reloaded encoder's top-10 differ from ir_eval_main's trained run")
+    if launches != want or list(by_name.values()) != [6 * n_data, n_shards, n_shards]:
+        fail(f"config reload: launches {launches}, want {want}; by name {by_name}")
+    for n in ("K1", "K4", "K5"):
+        report[n]["launches"] = report[n].get("launches", 0) + launches[n]
+    return out
+
+
 def evaluate(report: dict) -> None:
     """Training with validation and negative mining, and IR evaluation, from
     the command line: a synthetic dataset of 11,200 instances (66,200 IR
@@ -2252,6 +2382,8 @@ def evaluate(report: dict) -> None:
         parity = compare_evaluators(f"{tmp}/exp1", small, tmp)
         exact = ir_eval_run(report, big, f"{tmp}/exp1", f"{tmp}/ir_exact", "exact")
         ivf_run = ir_eval_run(report, big, None, f"{tmp}/ir_ivf", "ivf")
+        reload = config_reload(report, f"{tmp}/exp1", runs["1"].pop("configs"), exact)
+        runs["-1"].pop("configs")
         t0 = time.perf_counter()
         plain = plain_ir_trained(exact["eval_set"], f"{tmp}/exp1")
         plain_s = time.perf_counter() - t0
@@ -2269,6 +2401,7 @@ def evaluate(report: dict) -> None:
             "train_main": runs, "evaluators_vs_plain": dict(parity, ir_eval_main_max_err=err),
             "ir_eval_main_s": {"exact": exact["wall_s"], "ivf_baseline": ivf_run["wall_s"],
                                "plain_trained": plain_s},
+            "config_reload": reload,
             "evaluation_times": evaluation_times(big, f"{tmp}/exp1"),
             "mining": mining_times(small, big, tmp)}
 
@@ -2379,9 +2512,7 @@ def window(run, steps: int) -> dict:
     from torch.profiler import profile
 
     with profile(activities=device_activity()) as prof:
-        for _ in range(3):
-            torch.cuda._sleep(1000)
-        torch.cuda.synchronize()
+        lead_in()
         t0 = time.perf_counter()
         run()
         torch.cuda.synchronize()
@@ -3010,6 +3141,22 @@ def device_us(event) -> float:
 
 
 MARKER = "spin_kernel"          # torch.cuda._sleep's kernel
+LEAD_IN_MARKERS = 32            # marker kernels a profiled window starts with
+
+
+def lead_in() -> None:
+    """What a profiled window runs before the calls it measures: 32 short
+    marker kernels. Kineto drops the GPU records it timestamps before the
+    window's start, and late in a run it timestamps a window's first records
+    early (up to ~0.5 s before their launches): in a 3-minute run it dropped
+    the first 3 to 9 records of a window, however long they ran, which the
+    markers take; late in a whole run it dropped whole windows, which no
+    lead-in saves (ROADMAP C2; an NVIDIA H100 80GB HBM3 at 700 W)."""
+    import torch
+
+    for _ in range(LEAD_IN_MARKERS):
+        torch.cuda._sleep(1000)
+    torch.cuda.synchronize()
 
 
 def device_activity() -> list:
@@ -3022,16 +3169,14 @@ def device_activity() -> list:
 
 
 def profiled(fn, reps: int):
-    """torch.profiler over ``reps`` calls of ``fn``, after three marker
-    kernels (``torch.cuda._sleep``): the trace can miss the first kernels
-    after it starts, and the markers take that loss. → the profile."""
+    """torch.profiler over ``reps`` calls of ``fn``, after the window's
+    ``lead_in``: the trace can miss the first kernels after it starts, and
+    the markers take that loss. → the profile."""
     import torch
     from torch.profiler import profile
 
     with profile(activities=device_activity()) as prof:
-        for _ in range(3):
-            torch.cuda._sleep(1000)
-        torch.cuda.synchronize()
+        lead_in()
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
@@ -4722,19 +4867,105 @@ def tear_down() -> dict:
             "host_cache_emptied": host_empty is not None}
 
 
+C2_ROWS = 65536               # the probe's index: the ivf phase's corpus size
+C2_LAUNCHES = 10             # K4 launches in each probe window
+C2_BUFFER_MB = 1024          # kineto's ACTIVITIES_MAX_GPU_BUFFER_SIZE_MB, raised (default 128)
+
+
+KINETO_STATS = {"gpu_records": r"Processed (\d+) GPU records",
+                "out_of_range": r"Out-of-range = (\d+)",
+                "cupti_stopped_early": r"CUPTI stopped early\? = (\d+)",
+                "max_gpu_buffer_mb": r"Max GPU buffer size: (\d+)MB"}
+
+
+def c2_probe(report: dict, after: str) -> None:
+    """ROADMAP C2: whether whole runs lose profiler records after pq's parts.
+    Ten K4 launches on a seeded 65,536 x 384 bf16 index under torch.profiler
+    (the card alone) in three windows: behind three 1,000-cycle markers, the
+    windows' form before ``lead_in``, with kineto's default GPU buffer limit
+    (128 MB) and with it raised, and behind ``lead_in``. The records are
+    counted by name, not rounded, beside kineto's own accounting of each
+    window, read from what it writes to stderr at ``KINETO_LOG_LEVEL`` 1
+    (``main`` sets it for runs with ``pq``): the GPU records it processed,
+    those it dropped as out of the window's range, whether CUPTI stopped
+    early, the buffer limit it ran with. The probe's K4 launches leave the
+    launch counts as they were."""
+    import tempfile
+
+    import torch
+    from torch._C._profiler import _ExperimentalConfig
+    from torch.profiler import profile
+
+    from qst_tpu_torch.ops import topk
+
+    def short_markers():
+        for _ in range(3):
+            torch.cuda._sleep(1000)
+        torch.cuda.synchronize()
+
+    # torch hands kineto "CUSTOM_CONFIG=<this>"; the newline ends that line so
+    # kineto reads the setting as its own (without it kineto rejects the line,
+    # does not start tracing, and the process dies with SIGSEGV, torch 2.11)
+    raised = f"ACTIVITIES_MAX_GPU_BUFFER_SIZE_MB={C2_BUFFER_MB}"
+    windows = {"short markers": (short_markers, {}),
+               f"short markers, {raised}": (short_markers, {"experimental_config":
+                                            _ExperimentalConfig(custom_profiler_config="\n"
+                                                                + raised)}),
+               "lead_in": (lead_in, {})}
+    gen = torch.Generator(device="cuda").manual_seed(19)
+    corpus = torch.randn((C2_ROWS, 384), device="cuda", generator=gen).to(torch.bfloat16)
+    queries = torch.randn((256, 384), device="cuda", generator=gen).to(torch.bfloat16)
+    topk.bucket_maxima(queries, corpus)
+    torch.cuda.synchronize()
+    held = topk.bucket_maxima.launches
+    out = {}
+    for name, (start, kw) in windows.items():
+        saved = os.dup(2)
+        with tempfile.TemporaryFile(mode="w+b") as err:
+            os.dup2(err.fileno(), 2)
+            try:
+                with profile(activities=device_activity(), **kw) as prof:
+                    start()
+                    for _ in range(C2_LAUNCHES):
+                        topk.bucket_maxima(queries, corpus)
+                    torch.cuda.synchronize()
+                events = prof.events()
+            finally:
+                os.dup2(saved, 2)
+                os.close(saved)
+            err.seek(0)
+            text = err.read().decode(errors="replace")
+        found = {k: re.findall(rx, text) for k, rx in KINETO_STATS.items()}
+        skews = [int(x) for x in re.findall(r"< runtime timestamp \(\d+\) by (\d+)us", text)]
+        out[name] = {"k4_records": sum(1 for e in events if is_kernel(e)
+                                       and "bucket_max" in e.name),
+                     "markers": sum(1 for e in events if e.device_type.name == "CUDA"
+                                    and MARKER in e.name),
+                     **{k: int(v[-1]) if v else None for k, v in found.items()},
+                     "gpu_before_launch_us_max": max(skews, default=0)}
+    topk.bucket_maxima.launches = held
+    report["pq"].setdefault("c2_probe", {})[after] = out
+    log(f"C2 probe after {after}: {C2_LAUNCHES} K4 launches on {C2_ROWS} x 384 bf16 under "
+        f"torch.profiler: " + "; ".join(f"{n} {v}" for n, v in out.items()))
+    del corpus, queries
+
+
 def pq(report: dict) -> None:
     report["pq"] = {}
     parts = {}
+    c2_probe(report, "the phases before pq")
     t0 = time.perf_counter()
     proc, want = pq_cli(report)
     parts["cli"] = time.perf_counter() - t0
     tear_down()
+    c2_probe(report, "pq's cli part")
     try:
         for name, fn in (("scale", pq_scale), ("streaming", stream_scale)):
             t0 = time.perf_counter()
             fn(report)
             parts[name] = time.perf_counter() - t0
             released = tear_down()
+            c2_probe(report, f"pq's {name} part")
         t0 = time.perf_counter()
         check_reload(report, proc, want)
         parts["reload (waited for)"] = time.perf_counter() - t0
@@ -8234,6 +8465,10 @@ def main() -> None:
     phases = args.phases.split(",")
     if any(p not in PHASES for p in phases):
         fail(f"unknown phase in {phases}; choices {PHASES}")
+    if "pq" in phases:
+        # kineto's accounting of each window on stderr, read by pq's C2 probe
+        # (kineto reads the level once, before torch loads it)
+        os.environ.setdefault("KINETO_LOG_LEVEL", "1")
     try:
         import torch
 

@@ -11,13 +11,19 @@ Hopper (``sm_90a``) under ``kernels/csrc/``, built with ``nvcc`` at first use
 beside it: CPU tensors take the plain version, CUDA tensors launch the kernel
 or raise.
 
-Ported so far: serving (``SentenceEncoder`` encode through the fused layer,
-K1; exact search through bucket maxima, K4, and the winning-bucket rescore,
-K5; ``Retriever`` and ``RetrievalServer``), training (``Trainer`` through K1
-with dropout, the layer backward K2 and the fused loss K3) and IVF retrieval
-(``IVFIndex`` through the probed-cell scorer K6, ``UpdatableIndex``, and the
-``cli.index_main`` entry point). Entry points run on the GPU unless given
-another ``device`` (``core/device.py``).
+Every module and public name of ``qst_tpu`` has its counterpart here, but
+for the differences ``tests/test_torch_surface.py`` lists with their
+reasons: serving (``SentenceEncoder`` through the fused layer K1, exact
+search through K4 and K5, ``Retriever``, ``RetrievalServer``), training
+(``Trainer`` through K1 with dropout, the layer backward K2 and the fused
+loss K3, the captured multi-step), the IVF, PQ, IVF-PQ, streamed and
+updatable indexes (K6 scores IVF's probed cells), evaluation and mining,
+dataset construction and augmentation, BERT / MPNet / RoBERTa trunks, the
+cross-encoder, MLM and Marian, checkpoint directories, long documents
+through flash attention (K7, K8), meshes of devices within and across
+processes, the configs (``load_config`` reads a run's
+``experiment_config.json``) and the CLIs. Entry points run on the GPU unless
+given another ``device`` (``core/device.py``).
 """
 
 __version__ = "0.1.0"

@@ -1,11 +1,14 @@
-"""Typed configuration — copies of ``EncoderConfig`` (with its presets),
-``LossConfig``, ``DataConfig``, ``TrainConfig`` and ``IREvalConfig``, of the
-constants they, the data modules and the evaluators use, and of
-``save_config`` and ``config_hash``, from ``qst_tpu/core/config.py``.
+"""Typed configuration — a copy of ``qst_tpu/core/config.py``: ``EncoderConfig``
+(with its presets), ``LossConfig``, ``DataConfig``, ``TrainConfig``,
+``IREvalConfig``, ``MeshConfig`` and ``ExperimentConfig``, the constants
+they, the data modules and the evaluators use, and ``save_config``,
+``config_hash`` and ``load_config``, which reads back the
+``experiment_config.json`` that a training run writes.
 
 The port cannot import the original: importing ``qst_tpu.core`` pulls in JAX.
 ``tests/test_torch_ops.py`` holds these copies to their source field for
-field, preset for preset, check for check.
+field, preset for preset, check for check; ``tests/test_torch_config.py``
+loads each package's files in the other.
 """
 
 from __future__ import annotations
@@ -14,8 +17,8 @@ import dataclasses
 import hashlib
 import json
 import os
-from dataclasses import dataclass
-from typing import Any, Dict, Tuple
+from dataclasses import dataclass, field
+from typing import Any, Dict, Tuple, Type, TypeVar
 
 # Defaults mirroring the reference's semantics (qst_tpu/core/config.py:24-47)
 RANDOM_SEED = 14
@@ -42,6 +45,8 @@ QUADRUPLET_KEYS: Tuple[str, str, str, str] = (
     KEY_PART_POSITIVE,
     KEY_NEGATIVE,
 )
+
+_T = TypeVar("_T")
 
 REDUCTIONS = frozenset({"mean", "sum", "none"})
 
@@ -271,6 +276,33 @@ class IREvalConfig:
     seed: int = RANDOM_SEED
 
 
+@dataclass(frozen=True)
+class MeshConfig:
+    """Device mesh layout. axes: data (dp), model (tp); the retrieval index
+    shards its corpus over the flattened mesh."""
+
+    data: int = -1  # -1 → all devices
+    model: int = 1
+
+    def shape(self, n_devices: int) -> Tuple[int, int]:
+        data = self.data if self.data > 0 else max(1, n_devices // self.model)
+        if data * self.model != n_devices:
+            raise ValueError(
+                f"mesh {data}x{self.model} != device count {n_devices}"
+            )
+        return data, self.model
+
+
+@dataclass(frozen=True)
+class ExperimentConfig:
+    loss: LossConfig = field(default_factory=LossConfig)
+    encoder: EncoderConfig = field(default_factory=EncoderConfig)
+    data: DataConfig = field(default_factory=DataConfig)
+    train: TrainConfig = field(default_factory=TrainConfig)
+    ir_eval: IREvalConfig = field(default_factory=IREvalConfig)
+    mesh: MeshConfig = field(default_factory=MeshConfig)
+
+
 def _to_jsonable(obj: Any) -> Any:
     if dataclasses.is_dataclass(obj) and not isinstance(obj, type):
         return {k: _to_jsonable(v) for k, v in dataclasses.asdict(obj).items()}
@@ -296,3 +328,43 @@ def save_config(cfg: Any, path: str) -> None:
     os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
     with open(path, "w") as f:
         json.dump(config_to_dict(cfg), f, indent=2, sort_keys=True)
+
+
+def _from_dict(cls: Type[_T], data: Dict[str, Any]) -> _T:
+    # with ``from __future__ import annotations`` every f.type is a string,
+    # so nested dataclasses are built by load_config's _FIELD_TYPES alone
+    # (as in the source)
+    kwargs: Dict[str, Any] = {}
+    for f in dataclasses.fields(cls):
+        if f.name not in data:
+            continue
+        value = data[f.name]
+        if dataclasses.is_dataclass(f.type) and isinstance(value, dict):
+            value = _from_dict(f.type, value)  # type: ignore[arg-type]
+        elif isinstance(value, list):
+            value = tuple(value)
+        kwargs[f.name] = value
+    return cls(**kwargs)  # type: ignore[call-arg]
+
+
+_FIELD_TYPES = {
+    "loss": LossConfig,
+    "encoder": EncoderConfig,
+    "data": DataConfig,
+    "train": TrainConfig,
+    "ir_eval": IREvalConfig,
+    "mesh": MeshConfig,
+}
+
+
+def load_config(path: str) -> ExperimentConfig:
+    """An ``ExperimentConfig`` from a JSON file written by ``save_config``
+    or a ``Trainer`` (either package): lists become tuples, unknown keys and
+    missing sections are ignored (a missing section keeps its default)."""
+    with open(path) as f:
+        data = json.load(f)
+    kwargs = {}
+    for name, cls in _FIELD_TYPES.items():
+        if name in data:
+            kwargs[name] = _from_dict(cls, data[name])
+    return ExperimentConfig(**kwargs)

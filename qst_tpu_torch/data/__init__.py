@@ -1,8 +1,15 @@
 """Quadruplet data pipeline (counterpart of ``qst_tpu/data``): chunked JSON
 storage, negative mining, the dataset, collation and prefetch."""
 
-from qst_tpu_torch.data.chunks import ChunkStore, write_chunk, write_meta
-from qst_tpu_torch.data.collate import QuadrupletBatch, QuadrupletCollator
+from qst_tpu_torch.data.chunks import (
+    ChunkStore,
+    chunk_path,
+    discover_chunks,
+    read_meta,
+    write_chunk,
+    write_meta,
+)
+from qst_tpu_torch.data.collate import QuadrupletBatch, QuadrupletCollator, select_single_example
 from qst_tpu_torch.data.mining import (
     HARD_CONTRASTIVE_TEST,
     HARD_CONTRASTIVE_TRAIN,
@@ -12,8 +19,9 @@ from qst_tpu_torch.data.mining import (
     mine_negatives,
 )
 from qst_tpu_torch.data.prefetch import PrefetchIterator
-from qst_tpu_torch.data.quadruplet_dataset import QuadrupletDataset
+from qst_tpu_torch.data.quadruplet_dataset import QuadrupletDataset, choose_examples
 
 __all__ = ["ChunkStore", "EmbeddingTable", "HARD_CONTRASTIVE_TEST", "HARD_CONTRASTIVE_TRAIN",
            "NegativeMiner", "PrefetchIterator", "QuadrupletBatch", "QuadrupletCollator",
-           "QuadrupletDataset", "RANDOM", "mine_negatives", "write_chunk", "write_meta"]
+           "QuadrupletDataset", "RANDOM", "choose_examples", "chunk_path", "discover_chunks",
+           "mine_negatives", "read_meta", "select_single_example", "write_chunk", "write_meta"]

@@ -14,7 +14,9 @@ read; ``save_cross_encoder_dir`` writes a ``CrossEncoderModule``'s as an HF
 ``*ForSequenceClassification`` directory (num_labels 1) for
 ``load_cross_encoder_dir``; ``save_marian_dir`` writes a ``MarianModule``'s
 (``models/seq2seq.py``) as an HF ``MarianMTModel`` directory for
-``load_marian_dir``.
+``load_marian_dir``. ``export_bert_state_dict`` and
+``export_mpnet_state_dict`` are the JAX package's names (``:23``, ``:69``):
+the trunk alone, checked against cfg (``hf_import.select_trunk``).
 """
 
 from __future__ import annotations
@@ -27,7 +29,11 @@ import numpy as np
 import torch
 
 from qst_tpu_torch.core.config import EncoderConfig
-from qst_tpu_torch.models.hf_import import write_safetensors
+from qst_tpu_torch.models.hf_import import select_trunk, write_safetensors
+
+
+def _numpy(sd: Mapping[str, torch.Tensor]) -> Dict[str, np.ndarray]:
+    return {k: v.detach().float().cpu().numpy().copy() for k, v in sd.items()}
 
 
 def export_state_dict(state_dict: Mapping[str, torch.Tensor],
@@ -36,7 +42,24 @@ def export_state_dict(state_dict: Mapping[str, torch.Tensor],
     dict of float32 numpy arrays (no pooler); RoBERTa has BERT's layout."""
     if cfg.arch not in ("bert", "roberta", "mpnet"):
         raise ValueError(f"unknown arch {cfg.arch!r}")
-    return {k: v.detach().float().cpu().numpy().copy() for k, v in state_dict.items()}
+    return _numpy(state_dict)
+
+
+def export_bert_state_dict(state_dict: Mapping[str, torch.Tensor],
+                           cfg: EncoderConfig) -> Dict[str, np.ndarray]:
+    """A ``BertEncoder`` / ``SentenceEncoderModule`` state dict → an HF
+    ``BertModel`` state dict of float32 numpy arrays (no pooler, no heads);
+    raises where a tensor of cfg's BERT trunk is missing or has another
+    shape."""
+    return _numpy(select_trunk(state_dict, cfg, "roberta" if cfg.arch == "roberta" else "bert"))
+
+
+def export_mpnet_state_dict(state_dict: Mapping[str, torch.Tensor],
+                            cfg: EncoderConfig) -> Dict[str, np.ndarray]:
+    """An ``MPNetEncoder`` / ``SentenceEncoderModule`` state dict → an HF
+    ``MPNetModel`` state dict of float32 numpy arrays (no pooler); raises
+    where a tensor of cfg's MPNet trunk is missing or has another shape."""
+    return _numpy(select_trunk(state_dict, cfg, "mpnet"))
 
 
 def save_torch_state_dict(state_dict: Mapping[str, torch.Tensor], cfg: EncoderConfig,
@@ -186,6 +209,5 @@ def save_marian_dir(state_dict: Mapping[str, torch.Tensor], cfg, ckpt_dir: str,
     if generation is not None:
         with open(os.path.join(ckpt_dir, "generation_config.json"), "w") as f:
             json.dump(generation, f, indent=2)
-    sd = {k: v.detach().float().cpu().numpy().copy() for k, v in state_dict.items()}
-    _write_weights(sd, os.path.join(ckpt_dir, weights))
+    _write_weights(_numpy(state_dict), os.path.join(ckpt_dir, weights))
     return ckpt_dir

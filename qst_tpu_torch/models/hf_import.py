@@ -17,6 +17,12 @@ files and directories).
   ``qst_tpu/models/hf_import.py:422`` does; ``load_cross_encoder_dir(dir)``
   loads an HF ``*ForSequenceClassification`` directory (num_labels 1) into
   a ``CrossEncoderModule``'s (``:205``).
+- ``import_bert_params(state_dict, cfg)`` and
+  ``import_sentence_encoder_params(state_dict, cfg)`` are the JAX package's
+  names (``qst_tpu/models/hf_import.py:43, :126``): an HF state dict → the
+  state dict of the trunk that ``cfg`` builds, raising where a key of that
+  trunk is missing or has another shape (``models/mpnet.py:import_mpnet_params``
+  is MPNet's).
 - ``load_marian_dir(dir)`` loads a local HF MarianMT directory into
   (Seq2SeqConfig, ``MarianModule`` state dict, generation defaults), as
   ``qst_tpu/models/hf_import.py:272`` does;
@@ -26,6 +32,7 @@ files and directories).
 
 from __future__ import annotations
 
+import dataclasses
 import glob
 import json
 import os
@@ -291,6 +298,55 @@ def import_state_dict(sd: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
             continue
         out[key] = torch.as_tensor(value).float()
     return out
+
+
+def select_trunk(state_dict: Mapping[str, Any], cfg: EncoderConfig,
+                 arch: str) -> Dict[str, torch.Tensor]:
+    """The tensors of ``state_dict`` (HF or the port's names;
+    ``import_state_dict``'s rules) that the ``arch`` trunk (``bert``,
+    ``roberta`` or ``mpnet``) at cfg's widths holds, float32. Raises
+    KeyError when the trunk lacks one of them — an MPNet state dict given
+    for BERT, or fewer layers than ``cfg.num_layers`` — and ValueError when
+    one has another shape than cfg gives it. Keys beyond the trunk (the
+    pooler, heads, layers past ``cfg.num_layers``) are left out, as the
+    source's importers leave them."""
+    from qst_tpu_torch.models.sentence_encoder import TRUNKS
+
+    sd = import_state_dict(state_dict)
+    if "embeddings.word_embeddings.weight" not in sd:
+        raise KeyError("state dict does not look like a BERT trunk: no "
+                       "embeddings.word_embeddings.weight under known prefixes")
+    with torch.device("meta"):        # names and shapes, no memory
+        trunk = TRUNKS[arch](dataclasses.replace(cfg, arch=arch))
+    want = {k: tuple(v.shape) for k, v in trunk.state_dict().items()}
+    missing = [k for k in want if k not in sd]
+    if missing:
+        raise KeyError(f"{len(missing)} tensors of a {arch} trunk of {cfg.num_layers} layers "
+                       f"are not in the state dict: {missing[:4]}")
+    wrong = [(k, tuple(sd[k].shape), s) for k, s in want.items() if tuple(sd[k].shape) != s]
+    if wrong:
+        raise ValueError(f"shapes differ from the config's (name, given, wanted): {wrong[:4]}")
+    return {k: sd[k] for k in want}
+
+
+def import_bert_params(state_dict: Mapping[str, Any],
+                       cfg: EncoderConfig) -> Dict[str, torch.Tensor]:
+    """An HF ``BertModel`` / ``RobertaModel`` state dict (tensors or arrays,
+    with or without a ``bert.`` / ``roberta.`` / sentence-transformers
+    prefix) → the state dict of ``BertEncoder(cfg)``, which is also
+    ``SentenceEncoderModule(cfg)``'s (``qst_tpu/models/hf_import.py:43``)."""
+    return select_trunk(state_dict, cfg, "roberta" if cfg.arch == "roberta" else "bert")
+
+
+def import_sentence_encoder_params(state_dict: Mapping[str, Any],
+                                   cfg: EncoderConfig) -> Dict[str, torch.Tensor]:
+    """An HF state dict → the state dict of ``SentenceEncoderModule(cfg)``,
+    dispatching on ``cfg.arch`` (``qst_tpu/models/hf_import.py:126``)."""
+    if cfg.arch == "mpnet":
+        from qst_tpu_torch.models.mpnet import import_mpnet_params
+
+        return import_mpnet_params(state_dict, cfg)
+    return import_bert_params(state_dict, cfg)
 
 
 # ---------------------------------------------------------------------------

@@ -22,7 +22,7 @@ from __future__ import annotations
 
 import functools
 import math
-from typing import Optional
+from typing import Dict, Optional
 
 import torch
 from torch import nn
@@ -301,3 +301,15 @@ class MPNetEncoder(nn.Module):
             else:
                 hidden = layer(hidden, bias, gen)
         return hidden
+
+
+def import_mpnet_params(state_dict, cfg: EncoderConfig) -> Dict[str, torch.Tensor]:
+    """An HF ``MPNetModel`` state dict (tensors or arrays, with or without an
+    ``mpnet.`` / sentence-transformers prefix) → the state dict of
+    ``MPNetEncoder(cfg)``, which is also ``SentenceEncoderModule(cfg)``'s
+    (``qst_tpu/models/mpnet.py:145``); ``models/hf_import.py:select_trunk``
+    says what raises."""
+    from qst_tpu_torch.models.hf_import import select_trunk
+
+    return select_trunk(state_dict, cfg, "mpnet")
+

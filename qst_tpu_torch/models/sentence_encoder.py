@@ -37,6 +37,7 @@ from qst_tpu_torch.core.meshes import (
     DATA_AXIS,
     Mesh,
     Sharding,
+    as_mesh,
     gather_rows,
     shard_loop,
     sharded,
@@ -181,8 +182,8 @@ class SentenceEncoder:
         if out_sharding is not None and not isinstance(out_sharding, Sharding):
             raise TypeError(f"out_sharding must be a core.meshes.Sharding, "
                             f"got {type(out_sharding).__name__}")
-        if device is None:
-            device = (self.mesh.home if self.mesh is not None
+        if device is None:      # a one-position mesh too: its device, as ExactIndex's
+            device = (as_mesh(mesh).home if mesh is not None
                       else next(iter(params.values())).device)
         self.device = torch.device(device)
         self._out_device = (out_sharding.mesh.home if out_sharding is not None

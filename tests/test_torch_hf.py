@@ -10,6 +10,11 @@
 - a directory written by ``transformers``' ``save_pretrained`` (BERT and
   MPNet, random weights) loads into the port and gives the HF model's
   hidden states (skipped without ``transformers``);
+- the JAX package's names for the state-dict import and export
+  (``import_bert_params``, ``import_mpnet_params``,
+  ``import_sentence_encoder_params``, ``export_bert_state_dict``,
+  ``export_mpnet_state_dict``) between qst_tpu's param trees and the port's
+  modules: the same embeddings (1e-5), and the same refusals;
 - RoBERTa directories: tests/test_torch_roberta.py.
 
 BERT and MPNet at tiny widths, f32, on the CPU.
@@ -28,10 +33,11 @@ import torch
 from qst_tpu.core import config as jc
 from qst_tpu.models import hf_export as jexport
 from qst_tpu.models import hf_import as jimport
+from qst_tpu.models import mpnet as jmpnet
 from qst_tpu.models.sentence_encoder import SentenceEncoderModule as JaxModule
 from qst_tpu.models.sentence_encoder import init_params as jax_init_params
 from qst_tpu_torch.core import config as tc
-from qst_tpu_torch.models import hf_export, hf_import
+from qst_tpu_torch.models import hf_export, hf_import, mpnet
 from qst_tpu_torch.models.sentence_encoder import SentenceEncoder, SentenceEncoderModule
 from qst_tpu_torch.models.sentence_encoder import init_params
 from qst_tpu_torch.models.tokenizer import load_tokenizer
@@ -110,6 +116,104 @@ def test_port_export_loads_in_jax(tmp_path, arch, weights):
     assert all(torch.equal(got_sd[k], sd[k]) for k in sd) and got_sd.keys() == sd.keys()
     got = _port_embed(dataclasses.replace(got_cfg, dtype="float32"), got_sd, vocab_path)
     np.testing.assert_allclose(got, want, rtol=0, atol=1e-5)
+
+
+def _named_cfgs(arch):
+    """``EncoderConfig.tiny()`` for BERT, MPNet at the same tiny width."""
+    jcfg = jc.EncoderConfig.tiny(**({"arch": "mpnet", "pad_token_id": 1} if arch == "mpnet"
+                                    else {}))
+    return jcfg, tc.EncoderConfig(**dataclasses.asdict(jcfg))
+
+
+def _ids(cfg, seed):
+    """Four seeded rows of token ids, the last two padded."""
+    rng = np.random.default_rng(seed)
+    ids = rng.integers(3, cfg.vocab_size, (4, cfg.max_seq_length))
+    mask = np.ones_like(ids)
+    for row, n in ((2, 9), (3, 20)):
+        ids[row, n:], mask[row, n:] = cfg.pad_token_id, 0
+    return ids.astype(np.int32), mask.astype(np.int32)
+
+
+def _both_forwards(jcfg, cfg, params, sd):
+    ids, mask = _ids(cfg, 11)
+    want = JaxModule(jcfg).apply({"params": params}, jnp.asarray(ids), jnp.asarray(mask))
+    model = SentenceEncoderModule(cfg)
+    model.load_state_dict(sd)
+    with torch.no_grad():
+        got = model.eval()(torch.from_numpy(ids).long(), torch.from_numpy(mask).long())
+    return got["sentence_embedding"].numpy(), np.asarray(want["sentence_embedding"])
+
+
+@pytest.mark.parametrize("arch", ["bert", "mpnet"])
+def test_jax_named_import_gives_the_jax_forward(arch):
+    """qst_tpu's ``init_params`` tree → its ``export_*_state_dict`` → the
+    port's ``import_*`` under the JAX names → the port's module: the JAX
+    forward's embeddings within 1e-5 at f32. A pooler and a
+    sentence-transformers prefix are dropped as the source drops them."""
+    jcfg, cfg = _named_cfgs(arch)
+    params = jax.tree.map(np.asarray, jax_init_params(jcfg, jax.random.key(7)))
+    hf = (jexport.export_bert_state_dict if arch == "bert"
+          else jexport.export_mpnet_state_dict)(params, jcfg)
+    hf["pooler.dense.weight"] = np.zeros((cfg.hidden_size, cfg.hidden_size), np.float32)
+    named = (hf_import.import_bert_params if arch == "bert" else mpnet.import_mpnet_params)
+    sd = named(hf, cfg)
+    assert list(sd) == list(SentenceEncoderModule(cfg).state_dict())
+    dispatched = hf_import.import_sentence_encoder_params(
+        {"0.auto_model." + k: torch.from_numpy(v) for k, v in hf.items()}, cfg)
+    assert dispatched.keys() == sd.keys() and all(torch.equal(sd[k], dispatched[k]) for k in sd)
+    got, want = _both_forwards(jcfg, cfg, params, sd)
+    np.testing.assert_allclose(got, want, rtol=0, atol=1e-5)
+
+
+@pytest.mark.parametrize("arch", ["bert", "mpnet"])
+def test_jax_named_export_loads_in_jax(arch):
+    """The port's weights → its ``export_*_state_dict`` under the JAX names →
+    qst_tpu's ``import_sentence_encoder_params``: the same embeddings, and the
+    same arrays as qst_tpu's own export of that tree."""
+    jcfg, cfg = _named_cfgs(arch)
+    sd = init_params(cfg, torch.Generator().manual_seed(5), device="cpu")
+    export = hf_export.export_bert_state_dict if arch == "bert" else hf_export.export_mpnet_state_dict
+    hf = export({**sd, "classifier.weight": torch.zeros(1, cfg.hidden_size)}, cfg)
+    assert list(hf) == list(sd) and all(v.dtype == np.float32 for v in hf.values())
+    params = jax.tree.map(np.asarray, jimport.import_sentence_encoder_params(hf, jcfg))
+    again = (jexport.export_bert_state_dict if arch == "bert"
+             else jexport.export_mpnet_state_dict)(params, jcfg)
+    assert again.keys() == hf.keys() and all(np.array_equal(again[k], hf[k]) for k in hf)
+    got, want = _both_forwards(jcfg, cfg, params, sd)
+    np.testing.assert_allclose(got, want, rtol=0, atol=1e-5)
+
+
+def test_jax_named_import_and_export_refuse_what_the_source_refuses():
+    """An MPNet state dict for BERT and the reverse, fewer layers than the
+    config's, and no trunk at all: KeyError from the port's function where
+    the JAX function raises KeyError; a width other than the config's:
+    ValueError (the JAX reshape raises too)."""
+    (jb, tb), (jm, tm) = _named_cfgs("bert"), _named_cfgs("mpnet")
+    hb = jexport.export_bert_state_dict(
+        jax.tree.map(np.asarray, jax_init_params(jb, jax.random.key(1))), jb)
+    hm = jexport.export_mpnet_state_dict(
+        jax.tree.map(np.asarray, jax_init_params(jm, jax.random.key(2))), jm)
+    one_layer = {k: v for k, v in hb.items() if ".layer.1." not in k}
+    cases = [(hm, jimport.import_bert_params, hf_import.import_bert_params, jb, tb),
+             (hb, jmpnet.import_mpnet_params, mpnet.import_mpnet_params, jm, tm),
+             (one_layer, jimport.import_bert_params, hf_import.import_bert_params, jb, tb),
+             ({"x.weight": hb["embeddings.LayerNorm.weight"]}, jimport.import_bert_params,
+              hf_import.import_bert_params, jb, tb)]
+    for sd, jfn, tfn, jcfg, cfg in cases:
+        with pytest.raises(KeyError):
+            jfn(sd, jcfg)
+        with pytest.raises(KeyError):
+            tfn(sd, cfg)
+    with pytest.raises(KeyError):
+        jexport.export_bert_state_dict(jimport.import_sentence_encoder_params(hm, jm), jb)
+    with pytest.raises(KeyError):
+        hf_export.export_bert_state_dict(mpnet.import_mpnet_params(hm, tm), tb)
+    wide = dataclasses.replace(tb, hidden_size=128, intermediate_size=256)
+    with pytest.raises(ValueError):
+        jimport.import_bert_params(hb, dataclasses.replace(jb, hidden_size=128))
+    with pytest.raises(ValueError, match="shapes differ"):
+        hf_import.import_bert_params(hb, wide)
 
 
 def test_weights_may_sit_under_a_module_directory(tmp_path):

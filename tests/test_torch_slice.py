@@ -227,6 +227,30 @@ def test_sharded_retriever_journey(stacks, tmesh, mesh8, tmp_path, kind):
                                      rtol=0, atol=1e-5)
 
 
+def test_an_encoder_on_a_mesh_runs_on_the_mesh_device_even_with_one_position():
+    """``SentenceEncoder(mesh=)`` without ``device`` takes the mesh's first
+    device, a one-position mesh's too (which runs the unsharded path), as
+    ``ExactIndex(mesh=)`` does; without a mesh, the params' device. (A
+    1 x 1 mesh of the card with a checkpoint loaded on the CPU encoded on
+    the CPU.) The meta device stands in for a card here."""
+    import warnings
+
+    from qst_tpu_torch.models.sentence_encoder import init_params
+
+    cfg = EncoderConfig.tiny()
+    params = init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
+    tok = HashTokenizer(cfg.vocab_size)
+    assert SentenceEncoder(cfg, params, tok).device == torch.device("cpu")
+    with warnings.catch_warnings():      # loading CPU tensors into meta ones copies nothing
+        warnings.simplefilter("ignore")
+        for mesh in (make_mesh(1, 1, devices=["meta"]), single_device_mesh("meta")):
+            enc = SentenceEncoder(cfg, params, tok, mesh=mesh)
+            assert enc.mesh is None and enc.device == torch.device("meta")
+            assert next(enc.model.parameters()).device == torch.device("meta")
+    index = ExactIndex(torch.randn(4, 8), mesh=make_mesh(1, 1, devices=["meta"]))
+    assert index.mesh is None and index.device == torch.device("meta")
+
+
 def test_sharded_sentence_encoder_matches_jax(stacks, tmesh, mesh8):
     """``SentenceEncoder(mesh=, out_sharding=)``, after
     tests/test_parallel.py:123-160: batches rounded up to the data axis and
